@@ -1,0 +1,151 @@
+"""Throughput benchmark: batched env+planner steps/sec on one GPU.
+
+Closed-loop MPC control: every env step runs a full iLQR plan (expert
+goal generation, linearization, quadratization, Riccati, line search)
+and then a physics step, batched over many parallel envs on the card.
+The configuration is the JAX package's flagship row (``bench.py`` and
+``__graft_entry__._flagship`` there): cheetah_run, 512 envs, H=5, iLQR
+<= 5 iterations, identity normalizer, history 1; cost net 17->128->128->10,
+residual dynamics 23->200->200->200->17, LSTM expert with 128 features
+and two 128->128 heads, MPC weights (-2, 3, -3). Weights are random,
+drawn with flax's default initializers from ``--seed``.
+
+    python -m gan_mpc_tpu_torch.bench [--seed 0] [--profile 3]
+
+Prints one JSON line: {"metric", "value", "unit", "vs_baseline"}, with
+the card's name and power limit in the metric. The port has no GPU
+baseline yet, so ``vs_baseline`` is null. Exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+from gan_mpc_tpu_torch import pin_fp32
+from gan_mpc_tpu_torch.data.normalizer import Normalizer
+from gan_mpc_tpu_torch.envs import make_env
+from gan_mpc_tpu_torch.envs.rollout import policy_rollout
+from gan_mpc_tpu_torch.models.cost import CostFeatureNet, MPCCost
+from gan_mpc_tpu_torch.models.dynamics import LearnedDynamics, ResidualMLPDynamicsNet
+from gan_mpc_tpu_torch.models.expert import ExpertPredictor
+from gan_mpc_tpu_torch.params import init_flax_like
+from gan_mpc_tpu_torch.planner.ilqr import SolverSettings
+from gan_mpc_tpu_torch.policies.mpc import MPCPolicy
+
+# the flagship row's sizes; chip_smoke.py drives the same ones
+NUM_ENVS = 512
+STEPS = 20
+WARMUP_STEPS = 2
+HORIZON = 5
+ILQR_ITERS = 5
+HISTORY = 1
+
+
+def flagship(horizon: int = HORIZON, max_iterations: int = ILQR_ITERS,
+             x_size: int = 17, u_size: int = 6, device="cpu", seed=None) -> MPCPolicy:
+    """The flagship policy at full width. With ``seed`` its weights are
+    drawn flax-style from a torch.Generator; without, they are zero and
+    the caller loads them (``params.from_jax_params``)."""
+    policy = MPCPolicy(
+        cost_model=MPCCost(
+            CostFeatureNet(x_size, hidden=(128, 128), features_out=10),
+            horizon,
+            mpc_weights=(-2.0, 3.0, -3.0),
+        ),
+        dynamics_model=LearnedDynamics(
+            ResidualMLPDynamicsNet(x_size, u_size, hidden=(200, 200, 200))
+        ),
+        expert_model=ExpertPredictor(
+            x_size, u_size, arch="lstm", features=128, hidden=(128, 128)
+        ),
+        horizon=horizon,
+        settings=SolverSettings(max_iterations=max_iterations),
+    )
+    if seed is not None:
+        init_flax_like(policy, torch.Generator().manual_seed(seed))
+    return policy.requires_grad_(False).to(device)
+
+
+def card() -> str:
+    """``name, power.limit`` of the card, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def run_steps(policy, env, norm, num_steps, generator):
+    """One closed-loop rollout of NUM_ENVS envs on the card; returns
+    (episode, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ep = policy_rollout(
+        env, env.default_params(), policy, norm, num_steps=num_steps,
+        history=HISTORY, num_envs=NUM_ENVS, generator=generator,
+    )
+    torch.cuda.synchronize()
+    return ep, time.perf_counter() - t0
+
+
+def profile_steps(policy, env, norm, num_steps, generator, top=25):
+    """Trace ``num_steps`` control steps with torch.profiler; print the
+    device's busy share of the wall time and the ops with the most device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, dt = run_steps(policy, env, norm, num_steps, generator)
+    events = prof.key_averages()
+    # kernel events only: an op's row repeats the time of the kernels it launched
+    busy_s = sum(
+        e.self_device_time_total for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+    ) / 1e6
+    print(f"profile: {num_steps} steps in {dt:.4f} s wall (traced), device busy "
+          f"{busy_s:.4f} s = {100 * busy_s / dt:.1f}%")
+    print(events.table(sort_by="self_device_time_total", row_limit=top))
+
+
+def bench_row(steps_per_sec, card_name):
+    return {
+        "metric": f"batched env+planner steps/sec (one GPU: {card_name}; "
+        f"cheetah_run, {NUM_ENVS} envs, iLQR<= {ILQR_ITERS} iters, "
+        f"H={HORIZON}, torch port)",
+        "value": steps_per_sec,
+        "unit": "steps/sec",
+        "vs_baseline": None,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
+                    help="also trace this many steps and print where device time goes")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("no CUDA device: the benchmark runs only on a GPU", file=sys.stderr)
+        return 1
+    pin_fp32()
+    dev = torch.device("cuda")
+    policy = flagship(device=dev, seed=args.seed)
+    env = make_env("cheetah_run", dev)
+    norm = Normalizer.identity(env.obs_size, env.act_size, dev)
+    gen = torch.Generator().manual_seed(args.seed)
+    run_steps(policy, env, norm, WARMUP_STEPS, gen)
+    _, dt = run_steps(policy, env, norm, STEPS, gen)
+    print(json.dumps(bench_row(NUM_ENVS * STEPS / dt, card())))
+    if args.profile:
+        profile_steps(policy, env, norm, args.profile, gen)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,87 @@
+"""Closed-loop rollouts of a batch of envs under a batch policy.
+
+Counterpart of ``batch_policy_rollout`` / ``policy_rollout`` in
+``gan_mpc_tpu/envs/rollout.py``: per control step
+
+    observe -> normalize -> plan (one solver for all envs) -> env.step
+
+with fixed-shape rolling history windows, zero-initialized. The time
+``scan`` is a Python loop. Resets come from an explicit initial
+``EnvState`` or from a ``torch.Generator``; ``jax.random`` cannot be
+reproduced in torch, so parity tests pass the JAX package's resets in.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from gan_mpc_tpu_torch.data.normalizer import Normalizer
+from gan_mpc_tpu_torch.envs.base import EnvState
+
+
+class EpisodeData(NamedTuple):
+    states: torch.Tensor  # (B, T, obs) raw observations
+    actions: torch.Tensor  # (B, T, act)
+    rewards: torch.Tensor  # (B, T)
+    qpos: torch.Tensor  # (B, T, nq)
+    qvel: torch.Tensor  # (B, T, nq)
+
+
+def batch_policy_rollout(
+    env,
+    env_params,
+    batch_policy_fn: Callable,
+    normalizer: Normalizer,
+    num_steps: int,
+    history: int,
+    num_envs: int,
+    init_state: Optional[EnvState] = None,
+    generator: Optional[torch.Generator] = None,
+) -> EpisodeData:
+    """Roll ``num_envs`` envs for ``num_steps`` control steps, calling
+    ``batch_policy_fn(hist_X (B,h+1,x), hist_U (B,h,u)) -> (B, act)`` once
+    per step. Starts from ``init_state`` if given, else resets from
+    ``generator``."""
+    if init_state is None:
+        if generator is None:
+            raise ValueError("pass init_state or a torch.Generator")
+        init_state = env.reset(env_params, num_envs, generator)
+    state = init_state
+    dev = state.qpos.device
+    hist_x = torch.zeros((num_envs, history + 1, env.obs_size), device=dev)
+    hist_u = torch.zeros((num_envs, history, env.act_size), device=dev)
+    outs = []
+    for _ in range(num_steps):
+        obs = env.observe(env_params, state)
+        hist_x = torch.cat([hist_x[:, 1:], normalizer.normalize_state(obs)[:, None]], 1)
+        u = batch_policy_fn(hist_x, hist_u).to(torch.float32)
+        hist_u = torch.cat([hist_u[:, 1:], normalizer.normalize_action(u)[:, None]], 1)
+        qpos, qvel = state.qpos, state.qvel
+        state, reward = env.step(env_params, state, u)
+        outs.append((obs, u, reward, qpos, qvel))
+    return EpisodeData(*(torch.stack(f, dim=1) for f in zip(*outs)))
+
+
+def policy_rollout(
+    env,
+    env_params,
+    policy,
+    normalizer: Normalizer,
+    num_steps: int,
+    history: int,
+    num_envs: int,
+    init_state: Optional[EnvState] = None,
+    generator: Optional[torch.Generator] = None,
+) -> EpisodeData:
+    """Rollout through the batch-native planner (``MPCPolicy.act_batch``).
+    The vmapped per-env planning path is not ported."""
+    if not getattr(policy, "batch_native", False):
+        raise NotImplementedError(
+            "only batch-native policies (residual-MLP dynamics) are ported"
+        )
+    return batch_policy_rollout(
+        env, env_params, policy.act_batch, normalizer, num_steps, history,
+        num_envs, init_state=init_state, generator=generator,
+    )

@@ -1,0 +1,197 @@
+"""Fused relu-MLP forward and the planner's value-and-Jacobian.
+
+Counterpart of ``gan_mpc_tpu/ops/fused_mlp.py``. Layer lists are ordered
+``(W, b)`` pairs with ``W`` stored (in, out), the JAX package's kernel
+layout, so the two packages' tests compare like with like.
+
+``mlp_apply`` dispatches by device: a CPU tensor runs
+``reference_forward`` (plain torch, the tests' path); a CUDA tensor
+always launches the hand-written kernel ``csrc/fused_mlp_fwd.cu`` (at any
+row count) or raises. There is no fallback from the kernel to the plain
+version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Iterable, List, Sequence, Tuple
+
+import torch
+from torch import nn
+
+Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+
+MAX_LAYERS = 8
+MAX_WIDTH = 512
+
+
+class Dense(nn.Module):
+    """``y = x @ kernel + bias`` with ``kernel`` (in, out), as flax's Dense."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(in_features, out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+
+def dense_stack(layers: Iterable[Dense]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The ordered ``(W, b)`` list of a stack of Dense layers."""
+    return [(d.kernel, d.bias) for d in layers]
+
+
+def reference_forward(x: torch.Tensor, layers: Layers) -> torch.Tensor:
+    """Plain torch relu-MLP forward: the kernel's reference."""
+    h = x
+    for i, (w, b) in enumerate(layers):
+        h = h @ w + b
+        if i < len(layers) - 1:
+            h = torch.relu(h)
+    return h
+
+
+class FusedMlpKernel:
+    """The CUDA forward kernel: built on first use, counted per launch."""
+
+    source = "gan_mpc_tpu_torch/csrc/fused_mlp_fwd.cu"
+    replaces = "gan_mpc_tpu/ops/fused_mlp.py:91"
+
+    def __init__(self):
+        self.launches = 0
+        self._lib = None
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            from gan_mpc_tpu_torch.ops._build import load_library
+
+            lib = load_library("fused_mlp_fwd")
+            lib.fused_mlp_fwd.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.c_void_p,
+            ]
+            lib.fused_mlp_fwd.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+    def __call__(self, x: torch.Tensor, layers: Layers) -> torch.Tensor:
+        _check_kernel_args(x, layers)
+        lib = self.load()
+        n = len(layers)
+        dims = [x.shape[1]] + [w.shape[1] for w, _ in layers]
+        y = torch.empty((x.shape[0], dims[-1]), device=x.device, dtype=x.dtype)
+        c_dims = (ctypes.c_int * (n + 1))(*dims)
+        c_w = (ctypes.c_void_p * n)(*[w.data_ptr() for w, _ in layers])
+        c_b = (ctypes.c_void_p * n)(*[b.data_ptr() for _, b in layers])
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fused_mlp_fwd(
+            x.data_ptr(), y.data_ptr(), x.shape[0], n, c_dims, c_w, c_b, stream
+        )
+        if err != 0:
+            raise RuntimeError(
+                f"fused_mlp_fwd launch failed with code {err} "
+                f"(rows={x.shape[0]}, dims={dims})"
+            )
+        self.launches += 1
+        return y
+
+
+def _check_kernel_args(x: torch.Tensor, layers: Layers) -> None:
+    if not x.is_cuda:
+        raise ValueError("the fused MLP kernel takes CUDA tensors only")
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(
+            f"x must be a contiguous 2-D float32 tensor, got {x.dtype} "
+            f"{tuple(x.shape)} contiguous={x.is_contiguous()}"
+        )
+    if not 1 <= len(layers) <= MAX_LAYERS:
+        raise ValueError(f"1 to {MAX_LAYERS} layers, got {len(layers)}")
+    width = x.shape[1]
+    for i, (w, b) in enumerate(layers):
+        for t in (w, b):
+            if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+                raise ValueError(
+                    f"layer {i}: weights must be contiguous float32 on {x.device}"
+                )
+        if w.dim() != 2 or w.shape[0] != width or b.shape != (w.shape[1],):
+            raise ValueError(
+                f"layer {i}: W {tuple(w.shape)} / b {tuple(b.shape)} do not "
+                f"chain from width {width}"
+            )
+        width = w.shape[1]
+    widths = [x.shape[1]] + [w.shape[1] for w, _ in layers]
+    if max(widths) > MAX_WIDTH:
+        raise ValueError(f"layer widths {widths} exceed {MAX_WIDTH}")
+    if torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for wb in layers for t in wb)
+    ):
+        raise NotImplementedError(
+            "the fused MLP backward kernel is not ported; run the CUDA "
+            "forward under torch.no_grad()"
+        )
+
+
+fused_mlp_forward = FusedMlpKernel()
+
+
+def mlp_apply(x: torch.Tensor, layers: Layers, compute_dtype=None) -> torch.Tensor:
+    """relu-MLP forward on (N, fin) rows.
+
+    CPU tensors run ``reference_forward``; CUDA tensors run the fused
+    kernel at every row count (the JAX package's 8192-row threshold was a
+    TPU crossover). ``compute_dtype`` other than float32 is not ported.
+    """
+    if compute_dtype not in (None, "float32", torch.float32):
+        raise NotImplementedError(f"compute_dtype={compute_dtype!r} is not ported")
+    if x.is_cuda:
+        return fused_mlp_forward(x.contiguous(), layers)
+    return reference_forward(x, layers)
+
+
+def mlp_value_and_jac(x: torch.Tensor, layers: Layers, compute_dtype=None):
+    """Forward value and exact input-Jacobian of a relu MLP, batch-major.
+
+    x (N, fin) -> (y (N, fout), J (N, fout, fin)). The Jacobian chain of
+    masked weight products runs from the cheaper side: output-side when
+    fout < fin (the dynamics linearization), input-side otherwise. Plain
+    ``torch.matmul``, as the JAX package leaves it to XLA.
+    """
+    if compute_dtype not in (None, "float32", torch.float32):
+        raise NotImplementedError(f"compute_dtype={compute_dtype!r} is not ported")
+    n_layers = len(layers)
+    N, fin = x.shape
+    h = x
+    masks = []
+    for i, (w, b) in enumerate(layers):
+        h = h @ w + b
+        if i < n_layers - 1:
+            mask = (h > 0.0).to(h.dtype)
+            h = h * mask
+            masks.append(mask)
+    fout = layers[-1][0].shape[1]
+
+    if fout < fin:
+        # R_L = W_{L-1};  R_i = W_i diag(m_{i+1}) R_{i+1}; J^T = R_0
+        wl = layers[-1][0]
+        R = wl.expand((N,) + tuple(wl.shape))
+        if masks:
+            R = R * masks[-1][..., None]
+        for i in range(n_layers - 2, -1, -1):
+            wi = layers[i][0]
+            Rt = R.transpose(1, 2).reshape(N * fout, -1)
+            R = (Rt @ wi.T).reshape(N, fout, -1).transpose(1, 2)
+            if i > 0:
+                R = R * masks[i - 1][..., None]
+        return h, R.transpose(1, 2)
+
+    w0 = layers[0][0]
+    J = w0.expand((N,) + tuple(w0.shape))
+    if masks:
+        J = J * masks[0][:, None, :]
+    for i in range(1, n_layers):
+        wi = layers[i][0]
+        J = (J.reshape(N * fin, -1) @ wi).reshape(N, fin, -1)
+        if i < n_layers - 1:
+            J = J * masks[i][:, None, :]
+    return h, J.transpose(1, 2)

@@ -1,0 +1,268 @@
+"""Batch-native iLQR: one solver instance for a whole (B,)-batch of
+planning problems.
+
+Counterpart of ``gan_mpc_tpu/planner/batch_ilqr.py``. Every callback
+receives the whole batch, so the fused MLP kernel sees real batches
+(B rows in the rollouts, B * num_alphas rows in the line search).
+Horizon-indexed arrays are time-major inside the solver: X (T+1, B, n),
+U (T, B, m), A (T, B, n, n). ``lax.scan`` becomes a Python loop.
+
+Per-lane line-search acceptance, Levenberg-Marquardt schedule and
+convergence are (B,) tensors with masked updates. A lane that is no
+longer active changes no state, so the iteration loop runs a fixed
+``max_iterations`` trips instead of the JAX package's
+``while any(active)``: the outputs are the same, and the loop never waits
+on the device to decide whether to go on.
+
+Ported: ``riccati="sequential"``, the recompute line search, f32 and
+``fused_ls`` off. The other settings raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from gan_mpc_tpu_torch.planner.ilqr import ILQRSolution, SolverSettings
+from gan_mpc_tpu_torch.planner.linalg import solve_spd
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchProblem:
+    """Batch-major planner callbacks.
+
+    dynamics_step: (X (B,K,n), U (B,K,m), t) -> (B,K,n), K parallel
+      rollouts per lane (K=1 plain rollout, K=num_alphas line search);
+    dynamics_jac: (X (T,B,n), U (T,B,m)) -> (A (T,B,n,n), Bm (T,B,n,m));
+    stage_cost: (X (B,K,n), U (B,K,m), t) -> (B,K);
+    terminal_cost: (X (B,K,n)) -> (B,K);
+    quad: (X (T+1,B,n), U (T,B,m)) -> (cx (T+1,B,n), cu (T,B,m),
+      cxx (T+1,B,n,n), cuu (T,B,m,m), cux (T,B,m,n)).
+
+    The JAX problem's optional fused step ``ls_step`` is not ported.
+    """
+
+    dynamics_step: Callable
+    dynamics_jac: Callable
+    stage_cost: Callable
+    terminal_cost: Callable
+    quad: Callable
+
+
+def _check_settings(settings: SolverSettings, T: int, B: int, n: int, m: int) -> None:
+    """Raise for the settings that select paths not ported."""
+    if settings.riccati != "sequential":
+        raise NotImplementedError(f"riccati={settings.riccati!r} is not ported")
+    if settings.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={settings.compute_dtype!r} is not ported"
+        )
+    if settings.fused_ls == "on":
+        raise NotImplementedError("fused_ls='on' is not ported")
+    cand_bytes = 4 * T * B * settings.num_alphas * (n + m)
+    materialize = settings.ls_materialize == "materialize" or (
+        settings.ls_materialize == "auto"
+        and T >= 16
+        and cand_bytes <= 32 * 1024 * 1024
+    )
+    if materialize:
+        raise NotImplementedError(
+            "the materializing line search (ls_materialize resolving to "
+            "'materialize') is not ported"
+        )
+
+
+def batch_rollout(problem: BatchProblem, U, x0):
+    """U (T,B,m), x0 (B,n) -> X (T+1,B,n), obj (B,)."""
+    x = x0
+    acc = torch.zeros(x0.shape[0], dtype=x0.dtype, device=x0.device)
+    xs = [x0]
+    for t in range(U.shape[0]):
+        u = U[t]
+        acc = acc + problem.stage_cost(x[:, None], u[:, None], t)[:, 0]
+        x = problem.dynamics_step(x[:, None], u[:, None], t)[:, 0]
+        xs.append(x)
+    obj = acc + problem.terminal_cost(x[:, None])[:, 0]
+    return torch.stack(xs), obj
+
+
+def _backward(A, Bm, cx, cu, cxx, cuu, cux, reg):
+    """Batched Riccati recursion, time-major inputs; reg (B,).
+
+    Fused-block form: with C = [A | B] (B, n, n+m) the Q-model is
+    [Qx; Qu] = [cx; cu] + C^T Vx and Q = Cblock + C^T Vxx C, and the value
+    recursion goes through S = [I; K]: Vx' = S^T ([Qx; Qu] + Q [0; k]),
+    Vxx' = S^T Q S. The open-loop costate recursion rides in the same
+    reverse loop (one C^T [Vx, lam] product). Returns (k, K, adjoints, G)
+    with G (T, B, m) = dJ/dU. The JAX version also returns the expected
+    cost reductions dv1, dv2, which its caller never reads; they are not
+    computed here.
+    """
+    T, B, n, _ = A.shape
+    m = Bm.shape[-1]
+
+    C = torch.cat([A, Bm], dim=-1)  # (T, B, n, n+m)
+    qc = torch.cat([cx[:-1], cu], dim=-1)  # (T, B, n+m)
+    top = torch.cat([cxx[:-1], cux.transpose(-1, -2)], dim=-1)
+    bot = torch.cat([cux, cuu], dim=-1)
+    cblock = torch.cat([top, bot], dim=-2)  # (T, B, n+m, n+m)
+    eye_b = torch.eye(n, dtype=A.dtype, device=A.device).expand(B, n, n)
+    reg_eye = reg[:, None, None] * torch.eye(m, dtype=A.dtype, device=A.device)
+
+    Vx, Vxx, lam = cx[-1], cxx[-1], cx[-1]
+    ks, Ks, Vxs, Gs = [None] * T, [None] * T, [None] * T, [None] * T
+    for t in range(T - 1, -1, -1):
+        Ct, qct, cbt = C[t], qc[t], cblock[t]
+        P = torch.stack([Vx, lam], dim=-1)  # (B, n, 2)
+        R = torch.einsum("bnp,bnk->bpk", Ct, P)  # (B, n+m, 2)
+        q = qct + R[..., 0]
+        lamg = qct + R[..., 1]
+        M = torch.einsum("bnp,bnq->bpq", Ct, Vxx)  # C^T Vxx
+        Q = cbt + M @ Ct
+        Qu = q[:, n:]
+        Quu_reg = Q[:, n:, n:] + reg_eye
+        kK = solve_spd(Quu_reg, torch.cat([Qu[..., None], Q[:, n:, :n]], dim=-1))
+        k, K = -kK[..., 0], -kK[..., 1:]
+        S = torch.cat([eye_b, K], dim=1)  # (B, n+m, n)
+        Qd = torch.einsum("bpj,bj->bp", Q[:, :, n:], k)
+        Vx = torch.einsum("bpn,bp->bn", S, q + Qd)
+        T1 = Q @ S
+        Vxx = torch.einsum("bpn,bpm->bnm", S, T1)
+        Vxx = (Vxx + Vxx.transpose(-1, -2)) / 2.0
+        lam = lamg[:, :n]
+        ks[t], Ks[t], Vxs[t], Gs[t] = k, K, Vx, lamg[:, n:]
+    adjoints = torch.cat([torch.stack(Vxs), cx[-1:]], dim=0)
+    return torch.stack(ks), torch.stack(Ks), adjoints, torch.stack(Gs)
+
+
+def _line_search_objs(problem, X, U, k, K, alphas):
+    """Objective of every (lane, alpha) closed-loop rollout: (B, A).
+
+    Only the running objective is carried; the winner is recomputed once
+    afterwards (``_forward_best``).
+    """
+    B = X.shape[1]
+    A_ = alphas.shape[0]
+    x = X[0][:, None].expand(B, A_, X.shape[-1])
+    acc = torch.zeros((B, A_), dtype=X.dtype, device=X.device)
+    for t in range(U.shape[0]):
+        du = torch.einsum("bmn,ban->bam", K[t], x - X[t][:, None])
+        u = U[t][:, None] + alphas[None, :, None] * k[t][:, None] + du
+        acc = acc + problem.stage_cost(x, u, t)
+        x = problem.dynamics_step(x, u, t)
+    return acc + problem.terminal_cost(x)
+
+
+def _forward_best(problem, X, U, k, K, alpha_b):
+    """Closed-loop rollout at each lane's own step size alpha_b (B,).
+
+    Returns Xn (T+1,B,n), Un (T,B,m). The JAX version also returns the
+    rollout's objective, which its only caller discards; it is not
+    computed here, which saves one terminal-cost MLP call per iteration.
+    """
+    x = X[0]
+    xs, us = [x], []
+    for t in range(U.shape[0]):
+        u = (
+            U[t]
+            + alpha_b[:, None] * k[t]
+            + torch.einsum("bmn,bn->bm", K[t], x - X[t])
+        )
+        x = problem.dynamics_step(x[:, None], u[:, None], t)[:, 0]
+        xs.append(x)
+        us.append(u)
+    return torch.stack(xs), torch.stack(us)
+
+
+def mlp_calls_per_solve(horizon: int, max_iterations: int) -> int:
+    """Dynamics and terminal-cost MLP forwards one ``batch_ilqr`` makes:
+    the initial rollout (H dynamics + 1 terminal), then per iteration the
+    line search (H + 1) and the winner recompute (H)."""
+    return (horizon + 1) + max_iterations * (2 * horizon + 1)
+
+
+def batch_ilqr(
+    problem: BatchProblem,
+    x0: torch.Tensor,
+    U0: torch.Tensor,
+    settings: SolverSettings = SolverSettings(),
+) -> ILQRSolution:
+    """Solve B planning problems jointly. x0 (B,n), U0 (B,T,m).
+
+    Returns an ILQRSolution whose fields carry a leading batch axis
+    (X (B,T+1,n), U (B,T,m), ...).
+    """
+    x0 = x0.to(torch.float32)
+    U0 = U0.to(torch.float32).transpose(0, 1)  # -> (T, B, m)
+    T, B, m = U0.shape
+    n = x0.shape[-1]
+    _check_settings(settings, T, B, n, m)
+    dev = x0.device
+    alphas = settings.alpha_0 * settings.alpha_decay ** torch.arange(
+        settings.num_alphas, dtype=torch.float32, device=dev
+    )
+
+    X, obj = batch_rollout(problem, U0, x0)
+    U = U0
+    grad = torch.full((T, B, m), float("inf"), device=dev)
+    adj = torch.zeros((T + 1, B, n), device=dev)
+    reg = torch.full((B,), settings.reg_init, device=dev)
+    it = torch.zeros((B,), dtype=torch.int32, device=dev)
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    converged = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+    # A fixed trip count in place of JAX's ``while any(active)``: inactive
+    # lanes change no state, so the outputs agree and the host never syncs.
+    # Where every lane converges early, the remaining trips still run.
+    for _ in range(settings.max_iterations):
+        A, Bm = problem.dynamics_jac(X[:-1], U)
+        cx, cu, cxx, cuu, cux = problem.quad(X, U)
+        k, K, adjoints, g = _backward(A, Bm, cx, cu, cxx, cuu, cux, reg)
+        gnorm = torch.sqrt(torch.sum(g * g, dim=(0, 2)))
+        grad_small = gnorm < settings.grad_norm_tol
+
+        objs = _line_search_objs(problem, X, U, k, K, alphas)
+        objs = torch.where(torch.isfinite(objs), objs, float("inf"))
+        best = torch.argmin(objs, dim=1)
+        best_obj = torch.gather(objs, 1, best[:, None])[:, 0]
+        improved = best_obj < obj
+        take = active & ~grad_small & improved
+        alpha_b = torch.where(take, alphas[best], 0.0)
+        Xb, Ub = _forward_best(problem, X, U, k, K, alpha_b)
+
+        mask_tb = take[None, :, None]
+        objn = torch.where(take, best_obj, obj)
+        X = torch.where(mask_tb, Xb, X)
+        U = torch.where(mask_tb, Ub, U)
+        adj = torch.where((active & ~grad_small)[None, :, None], adjoints, adj)
+        grad = torch.where(active[None, :, None], g, grad)
+        stalled = ~improved & (reg >= settings.reg_max)
+        reg = torch.where(
+            active,
+            torch.where(
+                improved,
+                torch.clamp(reg * settings.reg_down, min=settings.reg_min),
+                torch.clamp(reg * settings.reg_up, max=settings.reg_max),
+            ),
+            reg,
+        )
+        done_now = active & (grad_small | stalled)
+        if settings.obj_step_tol > 0.0:
+            step_small = improved & ((obj - objn) <= settings.obj_step_tol)
+            done_now = done_now | (active & step_small)
+        obj = objn
+        it = it + active.to(torch.int32)
+        converged = converged | done_now
+        active = active & ~done_now & (it < settings.max_iterations)
+
+    return ILQRSolution(
+        X=X.transpose(0, 1),
+        U=U.transpose(0, 1),
+        obj=obj,
+        grad=grad.transpose(0, 1),
+        adjoints=adj.transpose(0, 1),
+        iterations=it,
+        converged=converged,
+    )

@@ -1,0 +1,168 @@
+"""Port parity: ``gan_mpc_tpu_torch.ops.fused_mlp`` against the JAX op.
+
+Inputs and weights come from a numpy seed and go through both packages
+as float32 on the CPU. The fused forward is held against the JAX plain
+forward and against the Pallas kernel itself, run in interpret mode as
+``tests/test_ops.py`` runs it. Tolerance: atol 1e-5 (float32, summation
+order differs between XLA and torch).
+"""
+
+import functools
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gan_mpc_tpu_torch import pin_fp32
+from gan_mpc_tpu_torch.ops import _build
+from gan_mpc_tpu_torch.ops.fused_mlp import (
+    fused_mlp_forward,
+    mlp_apply,
+    mlp_value_and_jac,
+    reference_forward,
+)
+
+# importlib: the JAX ops package re-exports a function under the module name
+jfm = importlib.import_module("gan_mpc_tpu.ops.fused_mlp")
+
+torch.set_num_threads(1)
+pin_fp32()
+
+ATOL = 1e-5
+DYNAMICS = [23, 200, 200, 200, 17]  # flagship residual dynamics (fin > fout)
+COST = [17, 128, 128, 10]  # flagship cost feature net (fin > fout)
+WIDE = [23, 256, 256, 256, 17]  # the gan/4 checkpoint's dynamics widths
+INPUT_SIDE = [6, 32, 32, 12]  # fout >= fin: input-side Jacobian chain
+SINGLE = [3, 8]
+
+
+def _layers(widths, seed):
+    rng = np.random.default_rng(seed)
+    return [
+        (
+            (rng.standard_normal((a, b)) / np.sqrt(a)).astype(np.float32),
+            (0.1 * rng.standard_normal(b)).astype(np.float32),
+        )
+        for a, b in zip(widths[:-1], widths[1:])
+    ]
+
+
+def _inputs(rows, fin, seed):
+    return np.random.default_rng(seed).standard_normal((rows, fin)).astype(np.float32)
+
+
+def _torch(layers):
+    return [(torch.from_numpy(w), torch.from_numpy(b)) for w, b in layers]
+
+
+def _jax(layers):
+    return tuple((jnp.asarray(w), jnp.asarray(b)) for w, b in layers)
+
+
+@pytest.mark.parametrize("widths", [DYNAMICS, COST, WIDE, SINGLE],
+                         ids=["dynamics", "cost", "wide", "single"])
+def test_forward_matches_jax_reference(widths):
+    layers = _layers(widths, 0)
+    x = _inputs(300, widths[0], 1)  # ragged: not a multiple of any tile
+    ref = np.asarray(jfm._reference_forward(jnp.asarray(x), _jax(layers)))
+    got = mlp_apply(torch.from_numpy(x), _torch(layers))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(
+        got.numpy(), reference_forward(torch.from_numpy(x), _torch(layers)).numpy()
+    )
+
+
+@pytest.mark.parametrize("widths", [DYNAMICS, COST], ids=["dynamics", "cost"])
+def test_forward_matches_pallas_kernel_interpreted(widths):
+    """The TPU kernel ``_fwd_kernel`` itself, interpreted, on 300 rows
+    padded to three 128-row tiles."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    layers = _layers(widths, 2)
+    x = _inputs(300, widths[0], 3)
+    wb_flat = [a for w, b in _jax(layers) for a in (w, b)]
+    tile, padded, fout = 128, 384, widths[-1]
+    xp = jfm._pad_rows(jnp.asarray(x), padded)
+    out = pl.pallas_call(
+        functools.partial(jfm._fwd_kernel, len(layers)),
+        grid=(padded // tile,),
+        in_specs=[
+            pl.BlockSpec((tile, widths[0]), lambda i: (i, 0), memory_space=pltpu.VMEM)
+        ]
+        + [
+            pl.BlockSpec(a.shape, lambda i, nd=a.ndim: (0,) * nd,
+                         memory_space=pltpu.VMEM)
+            for a in wb_flat
+        ],
+        out_specs=pl.BlockSpec((tile, fout), lambda i: (i, 0), memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((padded, fout), jnp.float32),
+        interpret=True,
+    )(xp, *wb_flat)
+    got = mlp_apply(torch.from_numpy(x), _torch(layers))
+    np.testing.assert_allclose(got.numpy(), np.asarray(out[:300]), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("widths", [DYNAMICS, COST, INPUT_SIDE, SINGLE],
+                         ids=["dynamics", "cost", "input_side", "single"])
+def test_value_and_jac_matches_jax(widths):
+    """Both chain directions: output-side (fout < fin) and input-side."""
+    layers = _layers(widths, 4)
+    x = _inputs(300, widths[0], 5)
+    y_ref, J_ref = jfm.mlp_value_and_jac(jnp.asarray(x), _jax(layers))
+    y, J = mlp_value_and_jac(torch.from_numpy(x), _torch(layers))
+    assert J.shape == (300, widths[-1], widths[0])
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(J.numpy(), np.asarray(J_ref), rtol=0, atol=ATOL)
+
+
+def test_kernel_entry_refuses_cpu_tensors():
+    layers = _torch(_layers(COST, 6))
+    before = fused_mlp_forward.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp_forward(torch.from_numpy(_inputs(8, 17, 7)), layers)
+    assert fused_mlp_forward.launches == before
+
+
+def test_bfloat16_compute_is_not_ported():
+    layers = _torch(_layers(COST, 8))
+    x = torch.from_numpy(_inputs(4, 17, 9))
+    with pytest.raises(NotImplementedError):
+        mlp_apply(x, layers, torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        mlp_value_and_jac(x, layers, "bfloat16")
+
+
+def test_build_is_keyed_by_source_and_raises_when_nvcc_fails(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    src = csrc / "k.cu"
+    src.write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "false")  # exits 1
+    first = _build.library_path("k")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.build_library("k")
+    assert not first.exists()
+    assert [p.suffix for p in (tmp_path / "_build").iterdir()] == [".log"]
+    src.write_text("still not CUDA\n")
+    assert _build.library_path("k") != first
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("widths,rows", [(DYNAMICS, 8192), (DYNAMICS, 1000),
+                                         (WIDE, 8192), (COST, 512)])
+def test_kernel_matches_reference_on_gpu(widths, rows):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    layers = [(w.to(dev), b.to(dev)) for w, b in _torch(_layers(widths, 10))]
+    x = torch.from_numpy(_inputs(rows, widths[0], 11)).to(dev)
+    ref = reference_forward(x, layers)
+    got = mlp_apply(x, layers)
+    bound = 1e-4 * max(1.0, ref.abs().max().item())
+    assert (got - ref).abs().max().item() <= bound

@@ -1,0 +1,187 @@
+"""Port parity: the batch planner against the JAX package.
+
+``solve_spd`` on SPD systems from a numpy seed (atol 1e-5); the batch
+iLQR on a batched LQR problem where every lane converges before the
+iteration cap (the port's fixed-trip loop against JAX's
+``while any(active)``); and one full flagship ``plan_batch`` solve on 8
+envs with weights carried across by ``from_jax_params`` (U atol 1e-4,
+``iterations`` and ``converged`` equal). Float32 on the CPU.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__ as graft
+from gan_mpc_tpu.planner import SolverSettings as JaxSettings
+from gan_mpc_tpu.planner.batch_ilqr import BatchProblem as JaxProblem
+from gan_mpc_tpu.planner.batch_ilqr import batch_ilqr as jax_batch_ilqr
+from gan_mpc_tpu.planner.linalg import solve_spd as jax_solve_spd
+from gan_mpc_tpu_torch import pin_fp32
+from gan_mpc_tpu_torch.bench import flagship
+from gan_mpc_tpu_torch.params import from_jax_params
+from gan_mpc_tpu_torch.planner.batch_ilqr import (
+    BatchProblem,
+    batch_ilqr,
+    mlp_calls_per_solve,
+)
+from gan_mpc_tpu_torch.planner.ilqr import SolverSettings
+from gan_mpc_tpu_torch.planner.linalg import solve_spd
+
+torch.set_num_threads(1)
+pin_fp32()
+
+
+@pytest.mark.parametrize("m,k", [(6, 7), (12, 1), (20, 3)],
+                         ids=["cheetah", "humanoid", "rolled"])
+def test_solve_spd_matches_jax(m, k):
+    rng = np.random.default_rng(m)
+    G = rng.standard_normal((10, m, m)).astype(np.float32)
+    A = G @ G.transpose(0, 2, 1) + m * np.eye(m, dtype=np.float32)
+    Bv = rng.standard_normal((10, m, k)).astype(np.float32)
+    ref = np.asarray(jax_solve_spd(jnp.asarray(A), jnp.asarray(Bv)))
+    got = solve_spd(torch.from_numpy(A), torch.from_numpy(Bv)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(A @ got, Bv, rtol=0, atol=1e-4)
+
+
+def _lqr(B=6, n=4, m=2, seed=0):
+    rng = np.random.default_rng(seed)
+    A = (np.eye(n) + 0.05 * rng.standard_normal((B, n, n))).astype(np.float32)
+    Bm = (0.5 * rng.standard_normal((B, n, m))).astype(np.float32)
+    Q, R = np.eye(n, dtype=np.float32), 0.1 * np.eye(m, dtype=np.float32)
+    x0 = rng.standard_normal((B, n)).astype(np.float32)
+    return A, Bm, Q, R, x0
+
+
+JAX_OPS = (jnp.einsum, lambda M, lead: jnp.broadcast_to(M, lead + M.shape), jnp.zeros)
+TORCH_OPS = (torch.einsum, lambda M, lead: M.expand(*lead, *M.shape), torch.zeros)
+
+
+def _lqr_problem(ops, A, Bm, Q, R):
+    """The same batched LQR callbacks in either framework; ``ops`` is
+    (einsum, broadcast to leading dims, zeros)."""
+    e, bcast, zeros = ops
+
+    def quad(X, U):
+        T1, Bn, n = X.shape
+        T, m = T1 - 1, U.shape[-1]
+        return (e("ij,tbj->tbi", Q, X), e("ij,tbj->tbi", R, U),
+                bcast(Q, (T1, Bn)), bcast(R, (T, Bn)), zeros((T, Bn, m, n)))
+
+    return dict(
+        dynamics_step=lambda X, U, t: e("bij,bkj->bki", A, X) + e("bij,bkj->bki", Bm, U),
+        dynamics_jac=lambda X, U: (bcast(A, X.shape[:1]), bcast(Bm, X.shape[:1])),
+        stage_cost=lambda X, U, t: 0.5 * (e("bki,ij,bkj->bk", X, Q, X)
+                                          + e("bki,ij,bkj->bk", U, R, U)),
+        terminal_cost=lambda X: 0.5 * e("bki,ij,bkj->bk", X, Q, X),
+        quad=quad,
+    )
+
+
+def test_batch_ilqr_matches_jax_when_lanes_converge_early():
+    A, Bm, Q, R, x0 = _lqr()
+    T = 6
+    U0 = np.zeros((x0.shape[0], T, Bm.shape[-1]), np.float32)
+    jprob = JaxProblem(**_lqr_problem(JAX_OPS, *map(jnp.asarray, (A, Bm, Q, R))))
+    ref = jax_batch_ilqr(jprob, jnp.asarray(x0), jnp.asarray(U0),
+                         JaxSettings(max_iterations=8))
+    prob = BatchProblem(**_lqr_problem(TORCH_OPS, *map(torch.from_numpy, (A, Bm, Q, R))))
+    got = batch_ilqr(prob, torch.from_numpy(x0), torch.from_numpy(U0),
+                     SolverSettings(max_iterations=8))
+    # the exact Newton step converges every lane well before the cap
+    assert np.all(np.asarray(ref.converged)) and np.all(np.asarray(ref.iterations) < 8)
+    np.testing.assert_array_equal(got.iterations.numpy(), np.asarray(ref.iterations))
+    np.testing.assert_array_equal(got.converged.numpy(), np.asarray(ref.converged))
+    for name in ("X", "U", "obj", "grad", "adjoints"):
+        np.testing.assert_allclose(
+            getattr(got, name).numpy(), np.asarray(getattr(ref, name)),
+            rtol=1e-5, atol=1e-5, err_msg=name,
+        )
+
+
+def test_plan_batch_matches_jax_at_flagship_width():
+    """One solve at the first control step's input: zero history and
+    reset-like observations (rest pose + 0.01 noise).
+
+    With random weights the solve is discontinuous in its input: the
+    line-search argmin and the acceptance test can flip on f32 rounding,
+    and some inputs sit on such a boundary (JAX against itself with the
+    input scaled by 1 + 1e-7 then moves U by up to 2e-2). The test first
+    checks that this input is not one of them, then holds the port to
+    U atol 1e-4 with equal ``iterations`` and ``converged``.
+    """
+    H, iters, B = 5, 5, 8
+    jpolicy, jparams, x, u = graft._flagship(
+        horizon=H, max_iterations=iters, x_size=17, u_size=6
+    )
+    policy = from_jax_params(jax.device_get(jparams), flagship(H, iters, x, u))
+    rest = np.concatenate([[0.64, 0.0, 0.9, -0.75, 0.35, 0.0, 0.0, 0.0], np.zeros(9)])
+    hX = np.zeros((B, 2, x), np.float32)
+    hX[:, 1] = rest + 0.01 * np.random.default_rng(0).standard_normal((B, x))
+    hU = np.zeros((B, 1, u), np.float32)
+    ref = jpolicy.plan_batch(jparams, jnp.asarray(hX), jnp.asarray(hU))
+    ref_nudged = jpolicy.plan_batch(jparams, jnp.asarray(hX * (1 + 1e-7)), jnp.asarray(hU))
+    assert np.abs(np.asarray(ref_nudged.U) - np.asarray(ref.U)).max() < 1e-4
+    got = policy.plan_batch(torch.from_numpy(hX), torch.from_numpy(hU))
+    np.testing.assert_allclose(got.U.numpy(), np.asarray(ref.U), rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got.iterations.numpy(), np.asarray(ref.iterations))
+    np.testing.assert_array_equal(got.converged.numpy(), np.asarray(ref.converged))
+    np.testing.assert_allclose(got.obj.numpy(), np.asarray(ref.obj), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "change,T",
+    [
+        (dict(riccati="associative"), 5),
+        (dict(ls_materialize="materialize"), 5),
+        (dict(ls_materialize="auto"), 16),  # resolves to materialize
+        (dict(fused_ls="on"), 5),
+        (dict(compute_dtype="bfloat16"), 5),
+    ],
+    ids=["associative", "materialize", "auto_long", "fused_ls", "bf16"],
+)
+def test_settings_outside_the_slice_raise(change, T):
+    A, Bm, Q, R, x0 = _lqr(B=2)
+    prob = BatchProblem(**_lqr_problem(TORCH_OPS, *map(torch.from_numpy, (A, Bm, Q, R))))
+    settings = dataclasses.replace(SolverSettings(max_iterations=2), **change)
+    with pytest.raises(NotImplementedError):
+        batch_ilqr(prob, torch.from_numpy(x0), torch.zeros(2, T, 2), settings)
+
+
+def test_defaults_stay_on_the_ported_path():
+    A, Bm, Q, R, x0 = _lqr(B=2)
+    prob = BatchProblem(**_lqr_problem(TORCH_OPS, *map(torch.from_numpy, (A, Bm, Q, R))))
+    for fused in ("off", "auto"):
+        sol = batch_ilqr(prob, torch.from_numpy(x0), torch.zeros(2, 5, 2),
+                         SolverSettings(max_iterations=2, fused_ls=fused))
+        assert sol.U.shape == (2, 5, 2)
+    assert mlp_calls_per_solve(5, 5) == 61
+
+
+def test_policy_paths_outside_the_slice_raise():
+    from torch import nn
+
+    from gan_mpc_tpu_torch.models.dynamics import LearnedDynamics
+    from gan_mpc_tpu_torch.models.expert import ExpertPredictor
+    from gan_mpc_tpu_torch.policies.mpc import MPCPolicy
+
+    policy = flagship(5, 2)
+    with pytest.raises(NotImplementedError, match="goal projection"):
+        MPCPolicy(policy.cost_model, policy.dynamics_model, policy.expert_model,
+                  goal_projection=2)
+    with pytest.raises(NotImplementedError, match="arch"):
+        ExpertPredictor(17, 6, arch="mlp")
+
+    class Recurrent(nn.Module):  # stands in for the LSTM dynamics net
+        x_size, carry_size = 17, 256
+
+    recurrent = MPCPolicy(policy.cost_model, LearnedDynamics(Recurrent()),
+                          policy.expert_model)
+    assert not recurrent.batch_native
+    with pytest.raises(NotImplementedError, match="vmapped"):
+        recurrent.plan_batch(torch.zeros(2, 2, 17), torch.zeros(2, 1, 6))

@@ -1,0 +1,162 @@
+"""The ported slice end to end: closed-loop batched MPC on cheetah_run.
+
+JAX ``policy_rollout`` (the path ``bench.py`` times) against the port's
+``policy_rollout`` over 3 control steps of 8 envs at full flagship width
+(H=5, iLQR <= 5, weights carried across by ``from_jax_params``), both
+starting from the JAX package's resets (``jax.random`` cannot be
+reproduced in torch). Float32 on the CPU. Tolerances: actions and states
+atol 1e-3 per step, rewards atol 1e-4.
+
+With random weights the plan is discontinuous in its input (line-search
+argmin, acceptance test), and the closed loop carries a flipped decision
+into every later step. On many reset draws some lane sits within f32
+rounding of such a flip, where JAX against itself with the input scaled
+by 1 + 1e-7 moves an action by up to 0.2. The test uses a reset key
+(42) whose 8 lanes stay clear of flips for the 3 steps, and checks that
+itself: JAX against itself from resets scaled by 1 +- 1e-7 moves no action
+by 5e-3. (A flip moves one by 1e-2 or more; rounding carried through the
+stiff ground contact moves them by about 1e-3 at the third step.) On that
+key the port agrees to about 1e-4 in actions and states.
+
+Also: the port runs with JAX, flax and the JAX package made unimportable.
+"""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import numpy as np
+import torch
+
+import __graft_entry__ as graft
+from gan_mpc_tpu.data.normalizer import Normalizer as JaxNormalizer
+from gan_mpc_tpu.envs import make_env as jax_make_env
+from gan_mpc_tpu.envs.rollout import policy_rollout as jax_policy_rollout
+from gan_mpc_tpu_torch import pin_fp32
+from gan_mpc_tpu_torch.bench import flagship
+from gan_mpc_tpu_torch.data.normalizer import Normalizer
+from gan_mpc_tpu_torch.envs import EnvState, make_env
+from gan_mpc_tpu_torch.envs.rollout import policy_rollout
+from gan_mpc_tpu_torch.params import from_jax_params
+
+torch.set_num_threads(1)
+pin_fp32()
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+class _NudgedResets:
+    """The env with every reset state scaled by ``scale``."""
+
+    def __init__(self, env, scale):
+        self._env, self._scale = env, scale
+
+    def __getattr__(self, name):
+        return getattr(self._env, name)
+
+    def reset(self, params, key):
+        s = self._env.reset(params, key)
+        return s.replace(qpos=s.qpos * self._scale, qvel=s.qvel * self._scale)
+
+
+def test_closed_loop_rollout_matches_jax():
+    H, iters, B, steps = 5, 5, 8, 3
+    jpolicy, jparams, x, u = graft._flagship(
+        horizon=H, max_iterations=iters, x_size=17, u_size=6
+    )
+    jenv = jax_make_env("cheetah_run")
+    key = jax.random.PRNGKey(42)
+
+    def jax_rollout(env):
+        return jax.jit(
+            lambda p, k: jax_policy_rollout(
+                env, env.default_params(), jpolicy, p, JaxNormalizer.identity(x, u),
+                k, num_steps=steps, history=1, num_envs=B,
+            )
+        )(jparams, key)
+
+    ref = jax_rollout(jenv)
+    # the key's lanes stay clear of line-search flips: rounding-sized
+    # changes to the resets move JAX's own actions by less than a flip would
+    for scale in (1 + 1e-7, 1 - 1e-7):
+        nudged = jax_rollout(_NudgedResets(jenv, scale))
+        assert np.abs(np.asarray(nudged.actions) - np.asarray(ref.actions)).max() < 5e-3
+    # the JAX rollout's own resets: split(split(key)[0], num_envs)
+    resets = jax.vmap(lambda k: jenv.reset(jenv.default_params(), k))(
+        jax.random.split(jax.random.split(key)[0], B)
+    )
+    init = EnvState(
+        qpos=torch.tensor(np.asarray(resets.qpos)),
+        qvel=torch.tensor(np.asarray(resets.qvel)),
+        t=torch.zeros(B, dtype=torch.int32),
+    )
+    policy = from_jax_params(jax.device_get(jparams), flagship(H, iters, x, u))
+    env = make_env("cheetah_run")
+    got = policy_rollout(
+        env, env.default_params(), policy, Normalizer.identity(x, u),
+        num_steps=steps, history=1, num_envs=B, init_state=init,
+    )
+    for t in range(steps):
+        for name, atol in [("states", 1e-3), ("actions", 1e-3), ("qpos", 1e-3),
+                           ("qvel", 1e-3), ("rewards", 1e-4)]:
+            np.testing.assert_allclose(
+                getattr(got, name)[:, t].numpy(),
+                np.asarray(getattr(ref, name))[:, t],
+                rtol=0, atol=atol, err_msg=f"{name} at step {t}",
+            )
+    assert np.all(np.isfinite(got.states.numpy()))
+
+
+BLOCKED_RUN = textwrap.dedent(
+    """
+    import importlib, pkgutil, sys
+
+    BLOCKED = ("jax", "flax", "gan_mpc_tpu")
+
+    def blocked(name):
+        return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if blocked(name):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    for name in [m for m in sys.modules if blocked(m)]:
+        del sys.modules[name]
+    sys.meta_path.insert(0, Block())
+
+    import torch
+    import gan_mpc_tpu_torch
+    from gan_mpc_tpu_torch.bench import flagship
+    from gan_mpc_tpu_torch.data.normalizer import Normalizer
+    from gan_mpc_tpu_torch.envs import make_env
+    from gan_mpc_tpu_torch.envs.rollout import policy_rollout
+
+    mods = [m.name for m in pkgutil.walk_packages(
+        gan_mpc_tpu_torch.__path__, "gan_mpc_tpu_torch.")]
+    for m in mods:
+        importlib.import_module(m)
+    torch.set_num_threads(1)
+    env = make_env("cheetah_run")
+    ep = policy_rollout(
+        env, env.default_params(), flagship(seed=0), Normalizer.identity(17, 6),
+        num_steps=2, history=1, num_envs=2, generator=torch.Generator().manual_seed(0),
+    )
+    assert ep.actions.shape == (2, 2, 6) and bool(torch.isfinite(ep.states).all())
+    assert not [m for m in sys.modules if blocked(m)]
+    print("imported", len(mods), "modules")
+    """
+)
+
+
+def test_port_runs_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_RUN], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    n = int(proc.stdout.split("imported ")[1].split()[0])
+    assert n >= 15, proc.stdout
