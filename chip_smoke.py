@@ -5,21 +5,35 @@
 
 Phases, in order; any failure raises and exits non-zero:
   1. print the card (nvidia-smi name and power limit) and the toolchain,
-     then build the fused-MLP kernel from ``gan_mpc_tpu_torch/csrc``;
-  2. hold the kernel against its plain torch version on the card (TF32
-     off) at the shapes the main path gives it, plus a ragged row count
-     and the 256-wide stack: max|d| <= 1e-4 * max(1, max|ref|), since f32
-     sums run in another order than cuBLAS's;
-  3. time kernel and plain version with CUDA events (median of 21 runs of
-     20 back-to-back launches, queued behind a device sleep so that host
-     overhead is not timed);
+     then build both kernels from ``gan_mpc_tpu_torch/csrc`` (one nvcc
+     each, started together);
+  2. hold each kernel against its plain torch version on the card (TF32
+     off), max|d| <= 1e-4 * max(1, max|ref|) on every output, since f32
+     sums run in another order than cuBLAS's:
+     - fused_mlp_fwd at the shapes the main path gives it, plus a ragged
+       row count and the 256-wide stack;
+     - fused_ls_step at 512 lanes x 16 step sizes (the line search), 512
+       x 1 (rollout, recompute), a ragged 1000 x 16 with a 12-wide goal,
+       and the humanoid-class widths (29 states, 12 actions, 128 x 16),
+       each with 3, 4 and 5 raw MPC weights and both action-goal forms;
+  3. time kernels and plain versions with CUDA events (median of 21 runs
+     of 20 back-to-back launches, queued behind a device sleep so that
+     host overhead is not timed), and compute each call's bound: the
+     larger of its operations over the f32 peak and its bytes over the
+     memory rate;
   4. check the main path's pieces on a small input against the same code
      on the CPU (plain versions): one flagship plan_batch at 8 envs and 2
-     iLQR iterations (U atol 1e-3), one cheetah step (atol 1e-4);
-  5. drive the main path: the flagship closed loop (cheetah_run, 512
-     envs, H=5, iLQR <= 5, random flax-style weights from seed 0) for 2
-     warmup and 20 timed control steps; every MLP call of the planner
-     must have launched the kernel, and every output must be finite.
+     iLQR iterations with fused_ls off and on (U atol 1e-3), one cheetah
+     step (atol 1e-4);
+  5. drive the main path, the flagship closed loop (cheetah_run, 512
+     envs, H=5, iLQR <= 5, random flax-style weights from seed 0), for 2
+     warmup and 20 timed control steps, once per solver setting:
+     - fused_ls="off": every MLP call of the planner must have launched
+       fused_mlp_fwd (20 x 61) and nothing fused_ls_step;
+     - fused_ls="on": every forward-scan step must have launched
+       fused_ls_step (20 x 55) and every terminal cost fused_mlp_fwd
+       (20 x 6);
+     every output must be finite. Each prints its steps/s row.
 The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Exits 1 without a CUDA device.
 """
@@ -35,7 +49,7 @@ SEED = 0
 DYNAMICS = [23, 200, 200, 200, 17]
 WIDE = [23, 256, 256, 256, 17]
 COST = [17, 128, 128, 10]
-# (name, widths, rows): the main path calls the kernel at 512 rows
+# (name, widths, rows): the main path calls the MLP kernel at 512 rows
 # (rollout, winner recompute) and 512 * 16 alphas = 8192 (line search)
 CHECKS = [
     ("dynamics", DYNAMICS, 8192), ("dynamics", DYNAMICS, 512),
@@ -44,6 +58,24 @@ CHECKS = [
 ]
 TIMED = [("dynamics", DYNAMICS, 8192), ("dynamics", DYNAMICS, 512),
          ("cost", COST, 8192), ("cost", COST, 512)]
+# (name, lanes, step sizes, state n, actions m, goal width gs) of the
+# line-search step; dynamics (n + m) -> 200 -> 200 -> 200 -> n
+LS_CHECKS = [
+    ("line search", 512, 16, 17, 6, 17), ("rollout", 512, 1, 17, 6, 17),
+    ("ragged", 1000, 16, 17, 6, 12), ("humanoid-class", 128, 16, 29, 12, 29),
+]
+LS_TIMED = [("line search", 512, 16, 17, 6, 17), ("rollout", 512, 1, 17, 6, 17)]
+# (raw MPC weights, action_goal_scale, action_goal_squared)
+LS_WEIGHTS = [
+    ((-2.0, 3.0, -3.0), 1.0, False),
+    ((-2.0, 3.0, -3.0, 0.5), 1.0, False),
+    ((-2.0, 3.0, -3.0, 0.5), 5.0, True),
+    ((-2.0, 3.0, -3.0, 0.5, 1.3), 2.0, True),
+    ((-2.0, 3.0, -3.0, 0.5, 1.3), 2.0, False),
+]
+# one H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
+F32_PEAK = 67e12
+MEM_RATE = 3.35e12
 
 
 def device_ms(fn, launches=20, reps=21):
@@ -70,6 +102,38 @@ def mlp_flops(rows, widths):
     return 2 * rows * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
 
 
+def mlp_weight_floats(widths):
+    return sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the least time for ``ops`` f32 operations
+    and ``nbytes`` of device-memory traffic."""
+    t_ops, t_bytes = ops / F32_PEAK * 1e3, nbytes / MEM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def mlp_bound(rows, widths):
+    """Input rows read and output rows written once, weights read once."""
+    nbytes = 4 * (rows * (widths[0] + widths[-1]) + mlp_weight_floats(widths))
+    return bound(mlp_flops(rows, widths), nbytes)
+
+
+def ls_bound(lanes, alphas, n, m, gs):
+    """The step's operations: the dynamics MLP, the control law
+    (dx, K dx, u) and the stage cost (three pseudo-Huber norms, the
+    action-goal difference, the weighted sum) and the residual add, per
+    row. Bytes: every input read once (per-lane rows once per lane, the
+    weights once), every output written once."""
+    rows = lanes * alphas
+    widths = [n + m, 200, 200, 200, n]
+    per_row = n + 2 * m * n + 3 * m + (2 * m + 4 * m + 3 * gs + 12) + n
+    ops = mlp_flops(rows, widths) + rows * per_row
+    in_floats = rows * n + rows + lanes * (n + m + m + m * n + gs + m) + 4
+    out_floats = rows * (n + m + 1)
+    return bound(ops, 4 * (in_floats + out_floats + mlp_weight_floats(widths)))
+
+
 def random_layers(widths, seed, device):
     rng = np.random.default_rng(seed)
     return [
@@ -80,19 +144,46 @@ def random_layers(widths, seed, device):
     ]
 
 
+def ls_args(lanes, alphas, n, m, gs, weights, seed, device):
+    """Inputs of one line-search step, drawn from ``seed``, with the stage
+    weights from ``MPCCost.stage_weights`` and W0 split once."""
+    from gan_mpc_tpu_torch.models.cost import CostFeatureNet, MPCCost
+    from gan_mpc_tpu_torch.ops.fused_ls import split_w0
+
+    raw, scale, squared = weights
+    rng = np.random.default_rng(seed)
+    f = lambda shape, s=1.0: torch.tensor(s * rng.standard_normal(shape),
+                                          dtype=torch.float32, device=device)
+    grid = 0.5 ** np.arange(16)
+    alpha = grid[:alphas] if alphas > 1 else rng.choice(grid, (lanes, 1))
+    cost = MPCCost(CostFeatureNet(n), 5, mpc_weights=raw, action_goal_scale=scale,
+                   action_goal_squared=squared).to(device)
+    wvec, ag_scale = cost.stage_weights()
+    return dict(
+        x3=f((lanes, alphas, n)), Xref=f((lanes, n)), Uref=f((lanes, m), 0.3),
+        alphaBA=torch.tensor(np.broadcast_to(alpha, (lanes, alphas)).copy(),
+                             dtype=torch.float32, device=device),
+        k=f((lanes, m), 0.3), K=f((lanes, m, n), 0.2), goal=f((lanes, gs)),
+        goal_u=f((lanes, m), 0.3), wvec=wvec.detach(),
+        layers=split_w0(random_layers([n + m, 200, 200, 200, n], seed, device), n),
+        gs=gs, action_goal_squared=squared, ag_scale=ag_scale,
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from gan_mpc_tpu_torch import pin_fp32
     from gan_mpc_tpu_torch.bench import (
-        HORIZON, ILQR_ITERS, NUM_ENVS, STEPS, WARMUP_STEPS,
+        FUSED_LS, HORIZON, ILQR_ITERS, NUM_ENVS, STEPS, WARMUP_STEPS,
         bench_row, card, flagship, run_steps,
     )
     from gan_mpc_tpu_torch.data.normalizer import Normalizer
     from gan_mpc_tpu_torch.envs import make_env
     from gan_mpc_tpu_torch.envs.base import EnvState
     from gan_mpc_tpu_torch.ops import _build
+    from gan_mpc_tpu_torch.ops.fused_ls import fused_ls_kernel, reference_ls_step
     from gan_mpc_tpu_torch.ops.fused_mlp import (
         fused_mlp_forward, mlp_apply, reference_forward,
     )
@@ -101,21 +192,25 @@ def main() -> int:
     pin_fp32()
     dev = torch.device("cuda")
     card_line = card()
+    kernels = {"fused_mlp_fwd": fused_mlp_forward, "fused_ls_step": fused_ls_kernel}
 
     # 1. card, toolchain, build
     print(card_line)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    lib = _build.build_library("fused_mlp_fwd")
-    fused_mlp_forward.load()
-    print(f"build fused_mlp_fwd: {time.perf_counter() - t0:.2f} s -> {lib.name}")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    libs = _build.build_libraries(list(kernels))
+    for k in kernels.values():
+        k.load()
+    print(f"build {', '.join(kernels)} (in parallel): {time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        print(f"  {lib.name}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print("    ptxas:", line.strip())
 
-    # 2. kernel against plain version on the card
-    max_err = 0.0
+    # 2. kernels against plain versions on the card
+    max_err = dict.fromkeys(kernels, 0.0)
     rng = np.random.default_rng(SEED)
     with torch.no_grad():
         for i, (name, widths, rows) in enumerate(CHECKS):
@@ -126,40 +221,75 @@ def main() -> int:
             ref = reference_forward(x, layers)
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
-            bound = 1e-4 * max(1.0, ref.abs().max().item())
-            print(f"check {name} {widths} rows={rows}: max|d|={err:.3e} bound={bound:.3e}")
-            if not err <= bound:
-                raise SystemExit(f"kernel disagrees with plain version: {name} rows={rows}")
-            max_err = max(max_err, err)
+            tol = 1e-4 * max(1.0, ref.abs().max().item())
+            print(f"check fused_mlp_fwd {name} {widths} rows={rows}: "
+                  f"max|d|={err:.3e} bound={tol:.3e}")
+            if not err <= tol:
+                raise SystemExit(f"fused_mlp_fwd disagrees with plain version: {name} rows={rows}")
+            max_err["fused_mlp_fwd"] = max(max_err["fused_mlp_fwd"], err)
 
-        # 3. times
-        times = {}
+        for i, (name, lanes, alphas, n, m, gs) in enumerate(LS_CHECKS):
+            for j, weights in enumerate(LS_WEIGHTS):
+                args = ls_args(lanes, alphas, n, m, gs, weights, 100 * i + j, dev)
+                got = fused_ls_kernel(**args)
+                ref = reference_ls_step(**args)
+                torch.cuda.synchronize()
+                errs = []
+                for out, g, r in zip(("nx", "u", "cost"), got, ref):
+                    err = (g - r).abs().max().item()
+                    tol = 1e-4 * max(1.0, r.abs().max().item())
+                    if not (err <= tol and tuple(g.shape) == tuple(r.shape)):
+                        raise SystemExit(
+                            f"fused_ls_step disagrees with plain version: {name} "
+                            f"{lanes}x{alphas} weights {weights} output {out}: "
+                            f"max|d|={err:.3e} > {tol:.3e}")
+                    errs.append(err)
+                    max_err["fused_ls_step"] = max(max_err["fused_ls_step"], err)
+                print(f"check fused_ls_step {name} {lanes}x{alphas} n={n} m={m} gs={gs} "
+                      f"raw={len(weights[0])} squared={weights[2]}: max|d| nx/u/cost "
+                      f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}")
+
+        # 3. times and bounds
+        timed = {}
         for i, (name, widths, rows) in enumerate(TIMED):
             layers = random_layers(widths, 100 + i, dev)
             x = torch.tensor(rng.standard_normal((rows, widths[0])),
                              dtype=torch.float32, device=dev)
             k = device_ms(lambda: fused_mlp_forward(x, layers))
             p = device_ms(lambda: reference_forward(x, layers))
-            times[(name, rows)] = (k, p)
+            b_ms, b_by = mlp_bound(rows, widths)
+            timed[("fused_mlp_fwd", name, rows)] = (k, p, b_ms, b_by)
             gf = mlp_flops(rows, widths) / 1e9
-            print(f"time {name} {widths} rows={rows}: kernel {k:.4f} ms "
-                  f"({gf / k * 1e3:.0f} GFLOP/s), plain {p:.4f} ms "
-                  f"({gf / p * 1e3:.0f} GFLOP/s)")
+            print(f"time fused_mlp_fwd {name} {widths} rows={rows}: kernel {k:.4f} ms "
+                  f"({gf / k * 1e3:.0f} GFLOP/s), plain {p:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}), kernel at {100 * b_ms / k:.1f}% of bound")
+        for i, (name, lanes, alphas, n, m, gs) in enumerate(LS_TIMED):
+            args = ls_args(lanes, alphas, n, m, gs, LS_WEIGHTS[0], 900 + i, dev)
+            k = device_ms(lambda: fused_ls_kernel(**args))
+            p = device_ms(lambda: reference_ls_step(**args))
+            b_ms, b_by = ls_bound(lanes, alphas, n, m, gs)
+            timed[("fused_ls_step", name, lanes * alphas)] = (k, p, b_ms, b_by)
+            print(f"time fused_ls_step {name} {lanes}x{alphas} rows={lanes * alphas}: "
+                  f"kernel {k:.4f} ms, plain {p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"kernel at {100 * b_ms / k:.1f}% of bound")
 
     # 4. the path's pieces on a small input against the CPU plain path
-    small_gpu = flagship(HORIZON, 2, device=dev, seed=SEED)
-    small_cpu = flagship(HORIZON, 2, device="cpu", seed=SEED)
     env_gpu, env_cpu = make_env("cheetah_run", dev), make_env("cheetah_run", "cpu")
     state = env_cpu.reset(env_cpu.default_params(), 8, torch.Generator().manual_seed(SEED))
     hX = torch.zeros((8, 2, 17))
     hX[:, 1] = env_cpu.observe(env_cpu.default_params(), state)
     hU = torch.zeros((8, 1, 6))
-    U_cpu = small_cpu.plan_batch(hX, hU).U
-    U_gpu = small_gpu.plan_batch(hX.to(dev), hU.to(dev)).U.cpu()
-    d_plan = (U_gpu - U_cpu).abs().max().item()
-    print(f"small plan_batch (8 envs, 2 iters) GPU vs CPU: max|dU|={d_plan:.3e} (atol 1e-3)")
-    if not d_plan <= 1e-3:
-        raise SystemExit("plan_batch on the card disagrees with the CPU path")
+    for fused_ls in FUSED_LS:
+        small_gpu = flagship(HORIZON, 2, device=dev, seed=SEED, fused_ls=fused_ls)
+        small_cpu = flagship(HORIZON, 2, device="cpu", seed=SEED, fused_ls=fused_ls)
+        U_cpu = small_cpu.plan_batch(hX, hU).U
+        U_gpu = small_gpu.plan_batch(hX.to(dev), hU.to(dev)).U.cpu()
+        d_plan = (U_gpu - U_cpu).abs().max().item()
+        print(f"small plan_batch (8 envs, 2 iters, fused_ls={fused_ls}) GPU vs CPU: "
+              f"max|dU|={d_plan:.3e} (atol 1e-3)")
+        if not d_plan <= 1e-3:
+            raise SystemExit(f"plan_batch (fused_ls={fused_ls}) on the card disagrees "
+                             "with the CPU path")
     u = U_cpu[:, 0]
     s_cpu, r_cpu = env_cpu.step(env_cpu.default_params(), state, u)
     s_gpu, r_gpu = env_gpu.step(
@@ -173,43 +303,62 @@ def main() -> int:
     if not d_step <= 1e-4:
         raise SystemExit("the physics step on the card disagrees with the CPU path")
 
-    # 5. main path
-    policy = flagship(device=dev, seed=SEED)
+    # 5. the main path, once per solver setting
     env = make_env("cheetah_run", dev)
     norm = Normalizer.identity(env.obs_size, env.act_size, dev)
-    gen = torch.Generator().manual_seed(SEED)
-    _, t_warm = run_steps(policy, env, norm, WARMUP_STEPS, gen)
-    fused_mlp_forward.launches = 0
-    ep, dt = run_steps(policy, env, norm, STEPS, gen)
-    launches = fused_mlp_forward.launches
-    expected = STEPS * mlp_calls_per_solve(HORIZON, ILQR_ITERS)
-    print(f"main path: {STEPS} steps x {NUM_ENVS} envs in {dt:.3f} s "
-          f"(warmup {WARMUP_STEPS} steps {t_warm:.3f} s); kernel launches "
-          f"{launches} (expected {expected} = {STEPS} x "
-          f"{mlp_calls_per_solve(HORIZON, ILQR_ITERS)})")
-    if launches != expected:
-        raise SystemExit("the main path did not launch the kernel on every MLP call")
-    shapes = {"states": (NUM_ENVS, STEPS, 17), "actions": (NUM_ENVS, STEPS, 6),
-              "rewards": (NUM_ENVS, STEPS)}
-    for name, shape in shapes.items():
-        t = getattr(ep, name)
-        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
-            raise SystemExit(f"main path output {name} is malformed or not finite")
-    print(f"actions in [{ep.actions.min().item():.3f}, {ep.actions.max().item():.3f}], "
-          f"mean reward {ep.rewards.mean().item():.4f}")
-    print(json.dumps(bench_row(NUM_ENVS * STEPS / dt, card_line)))
+    launches = {}
+    for fused_ls in FUSED_LS:
+        policy = flagship(device=dev, seed=SEED, fused_ls=fused_ls)
+        gen = torch.Generator().manual_seed(SEED)
+        _, t_warm = run_steps(policy, env, norm, WARMUP_STEPS, gen)
+        for k in kernels.values():
+            k.launches = 0
+        ep, dt = run_steps(policy, env, norm, STEPS, gen)
+        counts = {name: k.launches for name, k in kernels.items()}
+        per_step = mlp_calls_per_solve(HORIZON, ILQR_ITERS, fused=fused_ls == "on")
+        expected = {name: STEPS * c for name, c in per_step.items()}
+        launches[fused_ls] = counts
+        print(f"main path fused_ls={fused_ls}: {STEPS} steps x {NUM_ENVS} envs in "
+              f"{dt:.3f} s (warmup {WARMUP_STEPS} steps {t_warm:.3f} s); kernel launches "
+              f"{counts} (expected {expected} = {STEPS} x {per_step})")
+        if counts != expected:
+            raise SystemExit(f"the main path (fused_ls={fused_ls}) did not launch the "
+                             "kernels on every call")
+        shapes = {"states": (NUM_ENVS, STEPS, 17), "actions": (NUM_ENVS, STEPS, 6),
+                  "rewards": (NUM_ENVS, STEPS)}
+        for name, shape in shapes.items():
+            t = getattr(ep, name)
+            if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+                raise SystemExit(f"main path output {name} is malformed or not finite")
+        print(f"actions in [{ep.actions.min().item():.3f}, {ep.actions.max().item():.3f}], "
+              f"mean reward {ep.rewards.mean().item():.4f}")
+        print(json.dumps(bench_row(NUM_ENVS * STEPS / dt, card_line, fused_ls)))
 
-    k_ms, p_ms = times[("dynamics", 8192)]
-    print(json.dumps({"kernels": [{
-        "name": "fused_mlp_fwd",
-        "route": "cuda",
-        "source": fused_mlp_forward.source,
-        "replaces": fused_mlp_forward.replaces,
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+    # the line-search call of each kernel (8192 rows) leads its entry
+    lead = {"fused_mlp_fwd": ("dynamics", 8192), "fused_ls_step": ("line search", 8192)}
+    summary = []
+    for name, k in kernels.items():
+        k_ms, p_ms, b_ms, b_by = timed[(name, *lead[name])]
+        summary.append({
+            "name": name,
+            "route": "cuda",
+            "source": k.source,
+            "replaces": k.replaces,
+            "launches": sum(launches[f][name] for f in launches),
+            "launches_by_path": {f"fused_ls={f}": launches[f][name] for f in launches},
+            "max_abs_err": max_err[name],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,  # no single PyTorch call computes this function
+            "by_shape": [
+                {"shape": shape, "rows": rows, "ms": t[0], "plain_ms": t[1],
+                 "bound_ms": t[2], "bound_by": t[3]}
+                for (kname, shape, rows), t in timed.items() if kname == name
+            ],
+        })
+    print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

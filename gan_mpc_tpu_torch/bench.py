@@ -12,9 +12,13 @@ drawn with flax's default initializers from ``--seed``.
 
     python -m gan_mpc_tpu_torch.bench [--seed 0] [--profile 3]
 
-Prints one JSON line: {"metric", "value", "unit", "vs_baseline"}, with
-the card's name and power limit in the metric. The port has no GPU
-baseline yet, so ``vs_baseline`` is null. Exits non-zero without a card.
+Prints one JSON line per solver setting, {"metric", "value", "unit",
+"vs_baseline"}, with the card's name and power limit and the setting in
+the metric: first the forward scans through the separate dynamics and
+stage-cost callbacks (``fused_ls="off"``), then through the fused
+line-search step (``fused_ls="on"``, the JAX bench's ``BENCH_FUSED=on``
+row). The port has no GPU baseline yet, so ``vs_baseline`` is null.
+Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import time
 
 import torch
 
-from gan_mpc_tpu_torch import pin_fp32
+from gan_mpc_tpu_torch import pin_fp32, resolve_device
 from gan_mpc_tpu_torch.data.normalizer import Normalizer
 from gan_mpc_tpu_torch.envs import make_env
 from gan_mpc_tpu_torch.envs.rollout import policy_rollout
@@ -45,13 +49,17 @@ WARMUP_STEPS = 2
 HORIZON = 5
 ILQR_ITERS = 5
 HISTORY = 1
+FUSED_LS = ("off", "on")  # the rows, in print order
 
 
 def flagship(horizon: int = HORIZON, max_iterations: int = ILQR_ITERS,
-             x_size: int = 17, u_size: int = 6, device="cpu", seed=None) -> MPCPolicy:
-    """The flagship policy at full width. With ``seed`` its weights are
-    drawn flax-style from a torch.Generator; without, they are zero and
-    the caller loads them (``params.from_jax_params``)."""
+             x_size: int = 17, u_size: int = 6, device="cuda", seed=None,
+             fused_ls: str = "off") -> MPCPolicy:
+    """The flagship policy at full width, on the card unless ``device``
+    says otherwise. With ``seed`` its weights are drawn flax-style from a
+    torch.Generator; without, they are zero and the caller loads them
+    (``params.from_jax_params``). ``fused_ls`` as in ``SolverSettings``."""
+    device = resolve_device(device)
     policy = MPCPolicy(
         cost_model=MPCCost(
             CostFeatureNet(x_size, hidden=(128, 128), features_out=10),
@@ -65,7 +73,7 @@ def flagship(horizon: int = HORIZON, max_iterations: int = ILQR_ITERS,
             x_size, u_size, arch="lstm", features=128, hidden=(128, 128)
         ),
         horizon=horizon,
-        settings=SolverSettings(max_iterations=max_iterations),
+        settings=SolverSettings(max_iterations=max_iterations, fused_ls=fused_ls),
     )
     if seed is not None:
         init_flax_like(policy, torch.Generator().manual_seed(seed))
@@ -113,11 +121,11 @@ def profile_steps(policy, env, norm, num_steps, generator, top=25):
     print(events.table(sort_by="self_device_time_total", row_limit=top))
 
 
-def bench_row(steps_per_sec, card_name):
+def bench_row(steps_per_sec, card_name, fused_ls):
     return {
         "metric": f"batched env+planner steps/sec (one GPU: {card_name}; "
         f"cheetah_run, {NUM_ENVS} envs, iLQR<= {ILQR_ITERS} iters, "
-        f"H={HORIZON}, torch port)",
+        f"H={HORIZON}, fused_ls={fused_ls}, torch port)",
         "value": steps_per_sec,
         "unit": "steps/sec",
         "vs_baseline": None,
@@ -135,15 +143,17 @@ def main(argv=None) -> int:
         return 1
     pin_fp32()
     dev = torch.device("cuda")
-    policy = flagship(device=dev, seed=args.seed)
     env = make_env("cheetah_run", dev)
     norm = Normalizer.identity(env.obs_size, env.act_size, dev)
-    gen = torch.Generator().manual_seed(args.seed)
-    run_steps(policy, env, norm, WARMUP_STEPS, gen)
-    _, dt = run_steps(policy, env, norm, STEPS, gen)
-    print(json.dumps(bench_row(NUM_ENVS * STEPS / dt, card())))
-    if args.profile:
-        profile_steps(policy, env, norm, args.profile, gen)
+    card_name = card()
+    for fused_ls in FUSED_LS:
+        policy = flagship(device=dev, seed=args.seed, fused_ls=fused_ls)
+        gen = torch.Generator().manual_seed(args.seed)
+        run_steps(policy, env, norm, WARMUP_STEPS, gen)
+        _, dt = run_steps(policy, env, norm, STEPS, gen)
+        print(json.dumps(bench_row(NUM_ENVS * STEPS / dt, card_name, fused_ls)), flush=True)
+        if args.profile:
+            profile_steps(policy, env, norm, args.profile, gen)
     return 0
 
 

@@ -10,6 +10,8 @@ import dataclasses
 
 import torch
 
+from gan_mpc_tpu_torch import resolve_device
+
 
 @dataclasses.dataclass
 class Normalizer:
@@ -19,7 +21,8 @@ class Normalizer:
     action_std: torch.Tensor
 
     @classmethod
-    def identity(cls, state_size: int, action_size: int, device="cpu") -> "Normalizer":
+    def identity(cls, state_size: int, action_size: int, device="cuda") -> "Normalizer":
+        device = resolve_device(device)
         z = lambda n: torch.zeros(n, device=device)
         o = lambda n: torch.ones(n, device=device)
         return cls(z(state_size), o(state_size), z(action_size), o(action_size))

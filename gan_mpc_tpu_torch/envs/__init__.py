@@ -5,9 +5,10 @@ from gan_mpc_tpu_torch.envs.base import (  # noqa: F401
 )
 
 
-def make_env(name: str, device="cpu"):
-    """Environment factory by dm_control-style '{domain}_{task}' name.
-    Only ``cheetah_run`` is ported."""
+def make_env(name: str, device="cuda"):
+    """Environment factory by dm_control-style '{domain}_{task}' name, on
+    the card unless ``device`` says otherwise. Only ``cheetah_run`` is
+    ported."""
     if name == "cheetah_run":
         from gan_mpc_tpu_torch.envs.cheetah import CheetahRun
 

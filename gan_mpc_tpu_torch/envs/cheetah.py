@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from gan_mpc_tpu_torch import resolve_device
 from gan_mpc_tpu_torch.envs import base
 from gan_mpc_tpu_torch.envs.planar import PlanarModel, step as planar_step
 
@@ -69,8 +70,8 @@ class CheetahRun:
     name = "cheetah_run"
     _substeps = 4
 
-    def __init__(self, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
         self._models = {}
 
     def default_params(self) -> CheetahParams:

@@ -40,7 +40,8 @@ class CostFeatureNet(nn.Module):
         return dense_stack(self.layers)
 
 
-def _sn(v: torch.Tensor) -> torch.Tensor:
+def pseudo_huber(v: torch.Tensor) -> torch.Tensor:
+    """sqrt(|v|^2 + a^2) - a over the last axis, a = 1e-2."""
     a = _HUBER_ALPHA
     return torch.sqrt(torch.sum(v * v, -1) + a * a) - a
 
@@ -68,21 +69,39 @@ class MPCCost(nn.Module):
         self.action_goal_scale = float(action_goal_scale)
         self.action_goal_squared = bool(action_goal_squared)
 
-    def stage_cost_batch(self, X, U, t, goal_tm, goal_u_tm=None):
-        """X (B,K,n), U (B,K,m), goal_tm (T+1,B,gs) time-major -> (B,K)."""
+    def stage_weights(self):
+        """The running cost's weights, as every stage-cost path reads them:
+        (wvec (1, 4) = [w_u, w_x, w_ag, gain], ag_scale).
+
+        w_u, w_x are the sigmoids of raw weights 0 and 1; w_ag the sigmoid
+        of raw weight 3, or 0 without one; gain raw weight 4, or 1 without
+        one; ag_scale ``action_goal_scale``, or 0 without an action-goal
+        weight. ``stage_cost_batch``, ``quad_batch`` and the fused
+        line-search step (``ops/fused_ls.py``) all take them from here.
+        """
         raw = self.weights
         w = torch.sigmoid(raw)
+        has_ag = raw.shape[-1] > 3
+        w_ag = w[3] if has_ag else torch.zeros((), dtype=raw.dtype, device=raw.device)
+        gain = raw[4] if raw.shape[-1] > 4 else torch.ones((), dtype=raw.dtype,
+                                                           device=raw.device)
+        wvec = torch.stack([w[0], w[1], w_ag, gain]).reshape(1, 4)
+        return wvec, (self.action_goal_scale if has_ag else 0.0)
+
+    def stage_cost_batch(self, X, U, t, goal_tm, goal_u_tm=None):
+        """X (B,K,n), U (B,K,m), goal_tm (T+1,B,gs) time-major -> (B,K)."""
+        wvec, ag_scale = self.stage_weights()
+        w_u, w_x, w_ag, gain = wvec[0]
         gs = goal_tm.shape[-1]
         d = X[..., :gs] - goal_tm[t][:, None]
-        cost = w[0] * _sn(U) + w[1] * _sn(d)
-        if raw.shape[-1] > 3 and goal_u_tm is not None:
-            gain = raw[4] if raw.shape[-1] > 4 else 1.0
+        cost = w_u * pseudo_huber(U) + w_x * pseudo_huber(d)
+        if ag_scale != 0.0 and goal_u_tm is not None:
             du = U - gain * goal_u_tm[t][:, None]
             if self.action_goal_squared:
-                ag = self.action_goal_scale * torch.sum(du * du, -1)
+                ag = ag_scale * torch.sum(du * du, -1)
             else:
-                ag = self.action_goal_scale * _sn(du)
-            cost = cost + w[3] * ag
+                ag = ag_scale * pseudo_huber(du)
+            cost = cost + w_ag * ag
         return cost
 
     def terminal_cost_batch(self, X):
@@ -98,8 +117,9 @@ class MPCCost(nn.Module):
         cuu (T,B,m,m), cux (T,B,m,n). Stage rows are closed-form; the
         terminal row is 2 w2 J^T f and 2 w2 J^T J from the feature net's
         value and Jacobian (exact for a relu net)."""
-        raw = self.weights
-        w = torch.sigmoid(raw)
+        wvec, ag_scale = self.stage_weights()
+        w_u, w_x, w_ag, gain = wvec[0]
+        w_T = torch.sigmoid(self.weights[2])
         T1, B, n = X.shape
         T = T1 - 1
         m = U.shape[-1]
@@ -119,28 +139,26 @@ class MPCCost(nn.Module):
         d = X[:T, :, :gs] - goal_tm[:T]
         gx, Hx = huber(d, eye_g)
         cx_s = torch.zeros((T, B, n), dtype=X.dtype, device=X.device)
-        cx_s[..., :gs] = w[1] * gx
+        cx_s[..., :gs] = w_x * gx
         cxx_s = torch.zeros((T, B, n, n), dtype=X.dtype, device=X.device)
-        cxx_s[..., :gs, :gs] = w[1] * Hx
+        cxx_s[..., :gs, :gs] = w_x * Hx
         gu, Hu = huber(U, eye_m)
-        cu = w[0] * gu
-        cuu = w[0] * Hu
-        if raw.shape[-1] > 3 and goal_u_tm is not None:
-            gain = raw[4] if raw.shape[-1] > 4 else 1.0
+        cu = w_u * gu
+        cuu = w_u * Hu
+        if ag_scale != 0.0 and goal_u_tm is not None:
             du = U - gain * goal_u_tm[:T]
             if self.action_goal_squared:
                 gu2 = 2.0 * du
                 Hu2 = (2.0 * eye_m).expand(du.shape[:-1] + (m, m))
             else:
                 gu2, Hu2 = huber(du, eye_m)
-            s = self.action_goal_scale
-            cu = cu + (w[3] * s) * gu2
-            cuu = cuu + (w[3] * s) * Hu2
+            cu = cu + (w_ag * ag_scale) * gu2
+            cuu = cuu + (w_ag * ag_scale) * Hu2
         cux = torch.zeros((T, B, m, n), dtype=X.dtype, device=X.device)
 
         f, J = mlp_value_and_jac(X[-1], self.net.stack())
-        cx_T = 2.0 * w[2] * torch.einsum("bo,boi->bi", f, J)
-        cxx_T = 2.0 * w[2] * torch.einsum("boi,boj->bij", J, J)
+        cx_T = 2.0 * w_T * torch.einsum("bo,boi->bi", f, J)
+        cxx_T = 2.0 * w_T * torch.einsum("boi,boj->bij", J, J)
 
         cx = torch.cat([cx_s, cx_T[None]], dim=0)
         cxx = torch.cat([cxx_s, cxx_T[None]], dim=0)

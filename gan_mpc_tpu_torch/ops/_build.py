@@ -3,10 +3,10 @@
 Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled
 by ``nvcc`` into a shared library and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). The library lands in
-``gan_mpc_tpu_torch/_build/`` under a name keyed by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one loads
-the library already built. Nothing here runs at import time: the first
-CUDA call builds.
+``gan_mpc_tpu_torch/_build/`` under a name keyed by a hash of the source,
+the shared device headers (``csrc/*.cuh``) and the flags, so an edited
+source rebuilds and an unchanged one loads the library already built.
+Nothing here runs at import time: the first CUDA call builds.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -48,9 +49,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
+    """Where ``csrc/<name>.cu`` builds to: keyed by source, headers and flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -78,6 +80,14 @@ def build_library(name: str) -> Path:
         )
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
+
+
+def build_libraries(names) -> list:
+    """Build several kernels at once, one nvcc process each; the paths in
+    the order of ``names``. Raises as ``build_library`` does."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = [pool.submit(build_library, n) for n in names]
+        return [f.result() for f in futures]
 
 
 def load_library(name: str) -> ctypes.CDLL:

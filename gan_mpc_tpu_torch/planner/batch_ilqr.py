@@ -14,14 +14,16 @@ longer active changes no state, so the iteration loop runs a fixed
 ``while any(active)``: the outputs are the same, and the loop never waits
 on the device to decide whether to go on.
 
-Ported: ``riccati="sequential"``, the recompute line search, f32 and
-``fused_ls`` off. The other settings raise ``NotImplementedError``.
+Ported: ``riccati="sequential"``, the recompute line search, f32, and
+the forward scans either through the separate callbacks or through the
+fused step ``ls_step`` (``fused_ls``). The other settings raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -39,9 +41,13 @@ class BatchProblem:
     stage_cost: (X (B,K,n), U (B,K,m), t) -> (B,K);
     terminal_cost: (X (B,K,n)) -> (B,K);
     quad: (X (T+1,B,n), U (T,B,m)) -> (cx (T+1,B,n), cu (T,B,m),
-      cxx (T+1,B,n,n), cuu (T,B,m,m), cux (T,B,m,n)).
-
-    The JAX problem's optional fused step ``ls_step`` is not ported.
+      cxx (T+1,B,n,n), cuu (T,B,m,m), cux (T,B,m,n));
+    ls_step (optional): the fused forward-scan step (``ops/fused_ls.py``),
+      control law + dynamics + stage cost in one call,
+      (x (B,A,n), Xref (B,n), Uref (B,m), alphaBA (B,A), k (B,m),
+       K (B,m,n), t) -> (nx (B,A,n), u (B,A,m), cost (B,A)), every
+      argument contiguous. When set, ``batch_rollout``,
+      ``_line_search_objs`` and ``_forward_best`` route through it.
     """
 
     dynamics_step: Callable
@@ -49,18 +55,24 @@ class BatchProblem:
     stage_cost: Callable
     terminal_cost: Callable
     quad: Callable
+    ls_step: Optional[Callable] = None
 
 
-def _check_settings(settings: SolverSettings, T: int, B: int, n: int, m: int) -> None:
-    """Raise for the settings that select paths not ported."""
+def _check_settings(settings: SolverSettings, problem: BatchProblem,
+                    T: int, B: int, n: int, m: int) -> None:
+    """Raise for the settings that select paths not ported, and for
+    ``fused_ls="on"`` on a problem without the fused step."""
     if settings.riccati != "sequential":
         raise NotImplementedError(f"riccati={settings.riccati!r} is not ported")
     if settings.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={settings.compute_dtype!r} is not ported"
         )
-    if settings.fused_ls == "on":
-        raise NotImplementedError("fused_ls='on' is not ported")
+    if settings.fused_ls == "on" and problem.ls_step is None:
+        raise ValueError(
+            "fused_ls='on' needs a problem with the fused step (ls_step); "
+            "MPCPolicy.plan_batch builds one"
+        )
     cand_bytes = 4 * T * B * settings.num_alphas * (n + m)
     materialize = settings.ls_materialize == "materialize" or (
         settings.ls_materialize == "auto"
@@ -76,13 +88,25 @@ def _check_settings(settings: SolverSettings, T: int, B: int, n: int, m: int) ->
 
 def batch_rollout(problem: BatchProblem, U, x0):
     """U (T,B,m), x0 (B,n) -> X (T+1,B,n), obj (B,)."""
+    B, n = x0.shape
     x = x0
-    acc = torch.zeros(x0.shape[0], dtype=x0.dtype, device=x0.device)
+    acc = torch.zeros(B, dtype=x0.dtype, device=x0.device)
     xs = [x0]
+    if problem.ls_step is not None:
+        # fused path: alpha = 0, k = 0, K = 0, Xref = x -> u = U[t] exactly
+        m = U.shape[-1]
+        zk = torch.zeros((B, m), dtype=x0.dtype, device=x0.device)
+        zK = torch.zeros((B, m, n), dtype=x0.dtype, device=x0.device)
+        za = torch.zeros((B, 1), dtype=x0.dtype, device=x0.device)
     for t in range(U.shape[0]):
         u = U[t]
-        acc = acc + problem.stage_cost(x[:, None], u[:, None], t)[:, 0]
-        x = problem.dynamics_step(x[:, None], u[:, None], t)[:, 0]
+        if problem.ls_step is not None:
+            nx, _, cost = problem.ls_step(x[:, None], x, u, za, zk, zK, t)
+            acc = acc + cost[:, 0]
+            x = nx[:, 0]
+        else:
+            acc = acc + problem.stage_cost(x[:, None], u[:, None], t)[:, 0]
+            x = problem.dynamics_step(x[:, None], u[:, None], t)[:, 0]
         xs.append(x)
     obj = acc + problem.terminal_cost(x[:, None])[:, 0]
     return torch.stack(xs), obj
@@ -147,7 +171,14 @@ def _line_search_objs(problem, X, U, k, K, alphas):
     A_ = alphas.shape[0]
     x = X[0][:, None].expand(B, A_, X.shape[-1])
     acc = torch.zeros((B, A_), dtype=X.dtype, device=X.device)
+    if problem.ls_step is not None:
+        x = x.contiguous()
+        alphaBA = alphas[None].expand(B, A_).contiguous()
     for t in range(U.shape[0]):
+        if problem.ls_step is not None:
+            x, _, cost = problem.ls_step(x, X[t], U[t], alphaBA, k[t], K[t], t)
+            acc = acc + cost
+            continue
         du = torch.einsum("bmn,ban->bam", K[t], x - X[t][:, None])
         u = U[t][:, None] + alphas[None, :, None] * k[t][:, None] + du
         acc = acc + problem.stage_cost(x, u, t)
@@ -164,23 +195,35 @@ def _forward_best(problem, X, U, k, K, alpha_b):
     """
     x = X[0]
     xs, us = [x], []
+    alphaB1 = alpha_b[:, None]  # (B, 1): the fused step's candidate axis
     for t in range(U.shape[0]):
-        u = (
-            U[t]
-            + alpha_b[:, None] * k[t]
-            + torch.einsum("bmn,bn->bm", K[t], x - X[t])
-        )
-        x = problem.dynamics_step(x[:, None], u[:, None], t)[:, 0]
+        if problem.ls_step is not None:
+            nx, u, _ = problem.ls_step(x[:, None], X[t], U[t], alphaB1, k[t], K[t], t)
+            x, u = nx[:, 0], u[:, 0]
+        else:
+            u = U[t] + alpha_b[:, None] * k[t] + torch.einsum("bmn,bn->bm", K[t], x - X[t])
+            x = problem.dynamics_step(x[:, None], u[:, None], t)[:, 0]
         xs.append(x)
         us.append(u)
     return torch.stack(xs), torch.stack(us)
 
 
-def mlp_calls_per_solve(horizon: int, max_iterations: int) -> int:
-    """Dynamics and terminal-cost MLP forwards one ``batch_ilqr`` makes:
-    the initial rollout (H dynamics + 1 terminal), then per iteration the
-    line search (H + 1) and the winner recompute (H)."""
-    return (horizon + 1) + max_iterations * (2 * horizon + 1)
+def mlp_calls_per_solve(horizon: int, max_iterations: int,
+                        fused: bool = False) -> Dict[str, int]:
+    """Kernel launches one ``batch_ilqr`` makes on the card, by kernel.
+
+    Three forward scans run: the initial rollout, then per iteration the
+    line search and the winner recompute, H steps each. Every step is one
+    dynamics MLP forward (``fused_mlp_fwd``), or with the fused step one
+    ``fused_ls_step`` launch. The rollout and the line search end in one
+    terminal-cost MLP forward each; the recompute reads no objective.
+    (The linearization and quadratization run plain torch.)
+    """
+    steps = horizon * (1 + 2 * max_iterations)
+    terminal = 1 + max_iterations
+    if fused:
+        return {"fused_mlp_fwd": terminal, "fused_ls_step": steps}
+    return {"fused_mlp_fwd": steps + terminal, "fused_ls_step": 0}
 
 
 def batch_ilqr(
@@ -194,11 +237,11 @@ def batch_ilqr(
     Returns an ILQRSolution whose fields carry a leading batch axis
     (X (B,T+1,n), U (B,T,m), ...).
     """
-    x0 = x0.to(torch.float32)
-    U0 = U0.to(torch.float32).transpose(0, 1)  # -> (T, B, m)
+    x0 = x0.to(torch.float32).contiguous()
+    U0 = U0.to(torch.float32).transpose(0, 1).contiguous()  # -> (T, B, m)
     T, B, m = U0.shape
     n = x0.shape[-1]
-    _check_settings(settings, T, B, n, m)
+    _check_settings(settings, problem, T, B, n, m)
     dev = x0.device
     alphas = settings.alpha_0 * settings.alpha_decay ** torch.arange(
         settings.num_alphas, dtype=torch.float32, device=dev

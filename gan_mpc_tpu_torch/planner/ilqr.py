@@ -41,8 +41,8 @@ class SolverSettings:
     ls_materialize: str = "auto"
     # "float32" (ported) or "bfloat16" (not ported).
     compute_dtype: str = "float32"
-    # Fused forward-scan step: "off" (ported), "on" (not ported), "auto"
-    # (on only on a TPU, so off here).
+    # Fused forward-scan step (``ops/fused_ls.py``): "off", "on", or
+    # "auto", on for CUDA inputs (the JAX package's "on the accelerator").
     fused_ls: str = "off"
 
 

@@ -16,6 +16,7 @@ from torch import nn
 from gan_mpc_tpu_torch.models.cost import MPCCost
 from gan_mpc_tpu_torch.models.dynamics import LearnedDynamics
 from gan_mpc_tpu_torch.models.expert import ExpertPredictor
+from gan_mpc_tpu_torch.ops.fused_ls import fused_ls_step, split_w0
 from gan_mpc_tpu_torch.planner.batch_ilqr import BatchProblem, batch_ilqr
 from gan_mpc_tpu_torch.planner.ilqr import ILQRSolution, SolverSettings
 
@@ -55,7 +56,12 @@ class MPCPolicy(nn.Module):
     def plan_batch(self, history_X: torch.Tensor, history_U: torch.Tensor) -> ILQRSolution:
         """Solve a (B,)-batch of MPC problems in one batch-major solver.
         history_X (B, h+1, x); history_U (B, h, u). Carry-free dynamics
-        have no carry to warm, so history_U is not read."""
+        have no carry to warm, so history_U is not read.
+
+        ``settings.fused_ls`` picks the forward scans' step: "on" the fused
+        step (``ops/fused_ls.py``: the CUDA kernel on the card, its plain
+        version on the CPU), "off" the separate dynamics and stage-cost
+        callbacks, "auto" the fused step for CUDA inputs only."""
         del history_U
         if not self.batch_native:
             raise NotImplementedError(
@@ -79,6 +85,22 @@ class MPCPolicy(nn.Module):
             )
             return A.reshape(T, B, n, n), Bm.reshape(T, B, n, -1)
 
+        fused = self.settings.fused_ls
+        ls_step = None
+        if fused == "on" or (fused == "auto" and history_X.is_cuda):
+            # everything the step reads but x and the iterate, once per plan
+            wvec, ag_scale = cost.stage_weights()
+            layers = split_w0(dyn.net.stack(), self.x_size)
+            goal_c, goal_u_c = goal_tm.contiguous(), goal_u_tm.contiguous()
+            gs = goal_tm.shape[-1]
+
+            def ls_step(x, Xref, Uref, alphaBA, kt, Kt, t):
+                return fused_ls_step(
+                    x, Xref, Uref, alphaBA, kt, Kt, goal_c[t], goal_u_c[t], wvec,
+                    layers, gs=gs, action_goal_squared=cost.action_goal_squared,
+                    ag_scale=ag_scale, bf16=cdt == "bfloat16",
+                )
+
         problem = BatchProblem(
             dynamics_step=dynamics_step,
             dynamics_jac=dynamics_jac,
@@ -87,6 +109,7 @@ class MPCPolicy(nn.Module):
             ),
             terminal_cost=cost.terminal_cost_batch,
             quad=lambda X, U: cost.quad_batch(X, U, goal_tm, goal_u_tm),
+            ls_step=ls_step,
         )
         return batch_ilqr(problem, history_X[:, -1], init_U, self.settings)
 

@@ -38,7 +38,7 @@ def _state(seed):
 
 
 def _envs(shift):
-    jenv, env = JaxCheetah(), make_env("cheetah_run")
+    jenv, env = JaxCheetah(), make_env("cheetah_run", "cpu")
     jp = jax_shift(jenv.default_params(), SHIFTS[shift])
     p = apply_physics_shift(env.default_params(), SHIFTS[shift])
     return jenv, jp, env, p
@@ -116,7 +116,7 @@ def test_tolerance_matches_jax(sigmoid, kw):
 
 
 def test_reset_is_seeded_and_near_rest():
-    env = make_env("cheetah_run")
+    env = make_env("cheetah_run", "cpu")
     a = env.reset(env.default_params(), 32, torch.Generator().manual_seed(3))
     b = env.reset(env.default_params(), 32, torch.Generator().manual_seed(3))
     assert a.qpos.shape == a.qvel.shape == (32, 9) and a.t.dtype == torch.int32
@@ -128,7 +128,7 @@ def test_reset_is_seeded_and_near_rest():
 
 def test_only_cheetah_is_ported():
     with pytest.raises(ValueError, match="not ported"):
-        make_env("walker_walk")
+        make_env("walker_walk", "cpu")
     with pytest.raises(ValueError, match="no physics field"):
-        apply_physics_shift(make_env("cheetah_run").default_params(),
+        apply_physics_shift(make_env("cheetah_run", "cpu").default_params(),
                             [{"key": "body_mass_pole", "value": 2.0}])

@@ -33,7 +33,7 @@ def pair():
         horizon=H, max_iterations=5, x_size=X, u_size=U
     )
     tree = jax.device_get(jparams)
-    return jpolicy, jparams, from_jax_params(tree, flagship(H, 5, X, U))
+    return jpolicy, jparams, from_jax_params(tree, flagship(H, 5, X, U, device="cpu"))
 
 
 def _rand(shape, seed, scale=1.0):

@@ -119,7 +119,7 @@ def test_plan_batch_matches_jax_at_flagship_width():
     jpolicy, jparams, x, u = graft._flagship(
         horizon=H, max_iterations=iters, x_size=17, u_size=6
     )
-    policy = from_jax_params(jax.device_get(jparams), flagship(H, iters, x, u))
+    policy = from_jax_params(jax.device_get(jparams), flagship(H, iters, x, u, device="cpu"))
     rest = np.concatenate([[0.64, 0.0, 0.9, -0.75, 0.35, 0.0, 0.0, 0.0], np.zeros(9)])
     hX = np.zeros((B, 2, x), np.float32)
     hX[:, 1] = rest + 0.01 * np.random.default_rng(0).standard_normal((B, x))
@@ -135,21 +135,22 @@ def test_plan_batch_matches_jax_at_flagship_width():
 
 
 @pytest.mark.parametrize(
-    "change,T",
+    "change,T,error",
     [
-        (dict(riccati="associative"), 5),
-        (dict(ls_materialize="materialize"), 5),
-        (dict(ls_materialize="auto"), 16),  # resolves to materialize
-        (dict(fused_ls="on"), 5),
-        (dict(compute_dtype="bfloat16"), 5),
+        (dict(riccati="associative"), 5, NotImplementedError),
+        (dict(ls_materialize="materialize"), 5, NotImplementedError),
+        (dict(ls_materialize="auto"), 16, NotImplementedError),  # resolves to materialize
+        # "on" is ported, but forces the fused step: a problem without one raises
+        (dict(fused_ls="on"), 5, ValueError),
+        (dict(compute_dtype="bfloat16"), 5, NotImplementedError),
     ],
     ids=["associative", "materialize", "auto_long", "fused_ls", "bf16"],
 )
-def test_settings_outside_the_slice_raise(change, T):
+def test_settings_outside_the_slice_raise(change, T, error):
     A, Bm, Q, R, x0 = _lqr(B=2)
     prob = BatchProblem(**_lqr_problem(TORCH_OPS, *map(torch.from_numpy, (A, Bm, Q, R))))
     settings = dataclasses.replace(SolverSettings(max_iterations=2), **change)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         batch_ilqr(prob, torch.from_numpy(x0), torch.zeros(2, T, 2), settings)
 
 
@@ -160,7 +161,8 @@ def test_defaults_stay_on_the_ported_path():
         sol = batch_ilqr(prob, torch.from_numpy(x0), torch.zeros(2, 5, 2),
                          SolverSettings(max_iterations=2, fused_ls=fused))
         assert sol.U.shape == (2, 5, 2)
-    assert mlp_calls_per_solve(5, 5) == 61
+    assert mlp_calls_per_solve(5, 5) == {"fused_mlp_fwd": 61, "fused_ls_step": 0}
+    assert mlp_calls_per_solve(5, 5, fused=True) == {"fused_mlp_fwd": 6, "fused_ls_step": 55}
 
 
 def test_policy_paths_outside_the_slice_raise():
@@ -170,7 +172,7 @@ def test_policy_paths_outside_the_slice_raise():
     from gan_mpc_tpu_torch.models.expert import ExpertPredictor
     from gan_mpc_tpu_torch.policies.mpc import MPCPolicy
 
-    policy = flagship(5, 2)
+    policy = flagship(5, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="goal projection"):
         MPCPolicy(policy.cost_model, policy.dynamics_model, policy.expert_model,
                   goal_projection=2)

@@ -18,7 +18,8 @@ by 5e-3. (A flip moves one by 1e-2 or more; rounding carried through the
 stiff ground contact moves them by about 1e-3 at the third step.) On that
 key the port agrees to about 1e-4 in actions and states.
 
-Also: the port runs with JAX, flax and the JAX package made unimportable.
+Also: the port runs with JAX, flax and the JAX package made unimportable,
+and its entry points run on the card unless asked for the CPU.
 """
 
 import subprocess
@@ -28,6 +29,7 @@ from pathlib import Path
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import __graft_entry__ as graft
@@ -38,6 +40,7 @@ from gan_mpc_tpu_torch import pin_fp32
 from gan_mpc_tpu_torch.bench import flagship
 from gan_mpc_tpu_torch.data.normalizer import Normalizer
 from gan_mpc_tpu_torch.envs import EnvState, make_env
+from gan_mpc_tpu_torch.envs.cheetah import CheetahRun
 from gan_mpc_tpu_torch.envs.rollout import policy_rollout
 from gan_mpc_tpu_torch.params import from_jax_params
 
@@ -92,10 +95,10 @@ def test_closed_loop_rollout_matches_jax():
         qvel=torch.tensor(np.asarray(resets.qvel)),
         t=torch.zeros(B, dtype=torch.int32),
     )
-    policy = from_jax_params(jax.device_get(jparams), flagship(H, iters, x, u))
-    env = make_env("cheetah_run")
+    policy = from_jax_params(jax.device_get(jparams), flagship(H, iters, x, u, device="cpu"))
+    env = make_env("cheetah_run", "cpu")
     got = policy_rollout(
-        env, env.default_params(), policy, Normalizer.identity(x, u),
+        env, env.default_params(), policy, Normalizer.identity(x, u, "cpu"),
         num_steps=steps, history=1, num_envs=B, init_state=init,
     )
     for t in range(steps):
@@ -134,18 +137,21 @@ BLOCKED_RUN = textwrap.dedent(
     from gan_mpc_tpu_torch.data.normalizer import Normalizer
     from gan_mpc_tpu_torch.envs import make_env
     from gan_mpc_tpu_torch.envs.rollout import policy_rollout
+    from gan_mpc_tpu_torch.ops.fused_ls import fused_ls_step
 
     mods = [m.name for m in pkgutil.walk_packages(
         gan_mpc_tpu_torch.__path__, "gan_mpc_tpu_torch.")]
     for m in mods:
         importlib.import_module(m)
     torch.set_num_threads(1)
-    env = make_env("cheetah_run")
-    ep = policy_rollout(
-        env, env.default_params(), flagship(seed=0), Normalizer.identity(17, 6),
-        num_steps=2, history=1, num_envs=2, generator=torch.Generator().manual_seed(0),
-    )
-    assert ep.actions.shape == (2, 2, 6) and bool(torch.isfinite(ep.states).all())
+    env = make_env("cheetah_run", "cpu")
+    for fused_ls in ("off", "on"):
+        ep = policy_rollout(
+            env, env.default_params(), flagship(device="cpu", seed=0, fused_ls=fused_ls),
+            Normalizer.identity(17, 6, "cpu"), num_steps=2, history=1, num_envs=2,
+            generator=torch.Generator().manual_seed(0),
+        )
+        assert ep.actions.shape == (2, 2, 6) and bool(torch.isfinite(ep.states).all())
     assert not [m for m in sys.modules if blocked(m)]
     print("imported", len(mods), "modules")
     """
@@ -160,3 +166,27 @@ def test_port_runs_without_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("imported ")[1].split()[0])
     assert n >= 15, proc.stdout
+
+
+ENTRY_POINTS = {
+    "flagship": lambda: flagship(2, 1, seed=0),
+    "make_env": lambda: make_env("cheetah_run"),
+    "CheetahRun": lambda: CheetahRun(),
+    "Normalizer.identity": lambda: Normalizer.identity(17, 6),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(name):
+    """Called without a device, an entry point runs on the card; on a host
+    without one it raises rather than running quietly on the CPU."""
+    if torch.cuda.is_available():
+        made = ENTRY_POINTS[name]()
+        tensor = {"flagship": lambda p: next(p.parameters()),
+                  "make_env": lambda e: e.model(e.default_params()).mass,
+                  "CheetahRun": lambda e: e.model(e.default_params()).mass,
+                  "Normalizer.identity": lambda nrm: nrm.state_mean}[name](made)
+        assert tensor.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ENTRY_POINTS[name]()
