@@ -5,8 +5,8 @@
 
 Phases, in order; any failure raises and exits non-zero:
   1. print the card (nvidia-smi name and power limit) and the toolchain,
-     then build both kernels from ``gan_mpc_tpu_torch/csrc`` (one nvcc
-     each, started together);
+     then build the three kernels from ``gan_mpc_tpu_torch/csrc`` (one
+     nvcc each, started together);
   2. hold each kernel against its plain torch version on the card (TF32
      off), max|d| <= 1e-4 * max(1, max|ref|) on every output, since f32
      sums run in another order than cuBLAS's:
@@ -16,6 +16,10 @@ Phases, in order; any failure raises and exits non-zero:
        x 1 (rollout, recompute), a ragged 1000 x 16 with a 12-wide goal,
        and the humanoid-class widths (29 states, 12 actions, 128 x 16),
        each with 3, 4 and 5 raw MPC weights and both action-goal forms;
+     - fused_mlp_bwd (dx and every dW, db) on the dynamics stack at 128
+       rows (the trainer), 1000 (ragged) and 8192, the 256-wide stack at
+       128 and the cost stack at 512, and a second call on the same
+       inputs must give the same bits;
   3. time kernels and plain versions with CUDA events (median of 21 runs
      of 20 back-to-back launches, queued behind a device sleep so that
      host overhead is not timed), and compute each call's bound: the
@@ -24,7 +28,9 @@ Phases, in order; any failure raises and exits non-zero:
   4. check the main path's pieces on a small input against the same code
      on the CPU (plain versions): one flagship plan_batch at 8 envs and 2
      iLQR iterations with fused_ls off and on (U atol 1e-3), one cheetah
-     step (atol 1e-4);
+     step (atol 1e-4), and one trainer update pass of 3 minibatches of
+     128 windows on the same windows, indices and weights (losses rtol
+     1e-4, parameters atol 2 k lr after k Adam steps);
   5. drive the main path, the flagship closed loop (cheetah_run, 512
      envs, H=5, iLQR <= 5, random flax-style weights from seed 0), for 2
      warmup and 20 timed control steps, once per solver setting:
@@ -33,7 +39,20 @@ Phases, in order; any failure raises and exits non-zero:
      - fused_ls="on": every forward-scan step must have launched
        fused_ls_step (20 x 55) and every terminal cost fused_mlp_fwd
        (20 x 6);
-     every output must be finite. Each prints its steps/s row.
+     every output must be finite. Each prints its steps/s row;
+  6. drive the training path: one epoch of ``train_dynamics`` on the
+     flagship's dynamics with the dynamics phase of
+     configs/gan_cheetah.yaml (window 5, batch 128, replay 10000, lr
+     1e-5, discount 0.9, teacher forcing 0.7, 3 warm-start updates and 1
+     update, 1 episode). The expert data is phase 5's fused_ls="off"
+     episode (512 envs x 20 steps: 6,144 train windows after an 80%
+     split, 48 minibatches per update); the normalizer is fitted on it.
+     The episode is collected on-policy with 1 env, cut to 50 steps (of
+     300) and the flagship's 5 iLQR iterations (of 50). Every MLP call of
+     the loss must have launched fused_mlp_fwd and its gradient
+     fused_mlp_bwd ((3 x 48 + 1) x 5 = 725 each), every planner MLP call
+     fused_mlp_fwd (50 x 61); every loss must be finite. Prints the
+     trainer's windows/s and minibatch steps/s.
 The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Exits 1 without a CUDA device.
 """
@@ -57,7 +76,20 @@ CHECKS = [
     ("cost", COST, 8192), ("cost", COST, 512),
 ]
 TIMED = [("dynamics", DYNAMICS, 8192), ("dynamics", DYNAMICS, 512),
-         ("cost", COST, 8192), ("cost", COST, 512)]
+         ("dynamics", DYNAMICS, 128), ("cost", COST, 8192), ("cost", COST, 512)]
+# the trainer calls the backward kernel at 128 rows (one time step of a
+# minibatch); 8192 is the JAX package's fused-VJP threshold
+BWD_CHECKS = [("dynamics", DYNAMICS, 128), ("dynamics", DYNAMICS, 1000),
+              ("dynamics", DYNAMICS, 8192), ("wide", WIDE, 128), ("cost", COST, 512)]
+BWD_TIMED = [("dynamics", DYNAMICS, 128), ("dynamics", DYNAMICS, 8192)]
+# the dynamics phase of configs/gan_cheetah.yaml (mpc.train.dynamics) and
+# runners/gan.py's warm-start default
+DYN = dict(num_episodes=1, num_updates=1, batch_size=128, discount_factor=0.9,
+           teacher_forcing_factor=0.7, warm_start_updates=3, expert_updates=0)
+DYN_LR = 1e-5
+DYN_NO_GRADS = ("mpc_weights", "cost_params", "expert_params")
+REPLAY_SIZE = 10000
+COLLECT_STEPS = 50  # cut from the configuration's 300 interactions per episode
 # (name, lanes, step sizes, state n, actions m, goal width gs) of the
 # line-search step; dynamics (n + m) -> 200 -> 200 -> 200 -> n
 LS_CHECKS = [
@@ -74,6 +106,7 @@ LS_WEIGHTS = [
     ((-2.0, 3.0, -3.0, 0.5, 1.3), 2.0, False),
 ]
 # one H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
+HORIZON_DYN = 5  # the trainer's window length: the configuration's horizon
 F32_PEAK = 67e12
 MEM_RATE = 3.35e12
 
@@ -134,6 +167,14 @@ def ls_bound(lanes, alphas, n, m, gs):
     return bound(ops, 4 * (in_floats + out_floats + mlp_weight_floats(widths)))
 
 
+def bwd_bound(rows, widths):
+    """Forward recompute, dx chain and dW: three times the forward's
+    operations. Bytes: x, g and dx once, the weights read once and dW, db
+    written once."""
+    nbytes = 4 * (rows * (2 * widths[0] + widths[-1]) + 2 * mlp_weight_floats(widths))
+    return bound(3 * mlp_flops(rows, widths), nbytes)
+
+
 def random_layers(widths, seed, device):
     rng = np.random.default_rng(seed)
     return [
@@ -170,6 +211,107 @@ def ls_args(lanes, alphas, n, m, gs, weights, seed, device):
     )
 
 
+def update_pass_inputs(device):
+    """The flagship's dynamics (seed weights) with its phase optimizer,
+    384 windows and a (3, 128) index matrix, from SEED."""
+    from gan_mpc_tpu_torch.bench import flagship
+    from gan_mpc_tpu_torch.training.masking import masked_adam, policy_components
+
+    policy = flagship(device=device, seed=SEED)
+    opt = masked_adam(policy_components(policy), DYN_NO_GRADS, DYN_LR)
+    rng = np.random.default_rng(SEED)
+    f = lambda *shape: torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                                    device=device)
+    windows = (f(384, HORIZON_DYN, 17), f(384, HORIZON_DYN, 6), f(384, HORIZON_DYN, 17))
+    idx = torch.tensor(rng.integers(0, 384, (3, DYN["batch_size"])), device=device)
+    return policy.dynamics_model, opt, windows, idx
+
+
+def check_update_pass(dev):
+    """One update pass of 3 minibatches (open loop, so dx flows) on the
+    card and on the CPU, on the same windows, indices and weights."""
+    from gan_mpc_tpu_torch.training.dynamics import update_pass
+
+    results = []
+    for device in (dev, torch.device("cpu")):
+        model, opt, windows, idx = update_pass_inputs(device)
+        losses = []
+        for row in idx:
+            losses.append(update_pass(model, opt, windows, row[None], DYN["discount_factor"],
+                                      teacher_forcing=False).item())
+        results.append((losses, [p.detach().cpu() for p in model.parameters()]))
+    (l_gpu, p_gpu), (l_cpu, p_cpu) = results
+    d_loss = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    d_par = max((a - b).abs().max().item() for a, b in zip(p_gpu, p_cpu))
+    print(f"update pass (3 x 128 windows, open loop) GPU vs CPU: losses {l_gpu} vs {l_cpu}, "
+          f"max rel d loss {d_loss:.3e} (rtol 1e-4), max|d| params {d_par:.3e} "
+          f"(atol {2 * 3 * DYN_LR:.0e})")
+    if not (d_loss <= 1e-4 and d_par <= 2 * 3 * DYN_LR):
+        raise SystemExit("the trainer's update pass on the card disagrees with the CPU path")
+
+
+def train_phase(expert_episode, env, kernels, card_line, dev):
+    """Phase 6: one epoch of the dynamics trainer; returns its launches."""
+    from gan_mpc_tpu_torch.bench import ILQR_ITERS, flagship
+    from gan_mpc_tpu_torch.data.buffers import ReplayBuffer
+    from gan_mpc_tpu_torch.data.normalizer import Normalizer
+    from gan_mpc_tpu_torch.data.windows import sequence_windows, shuffle_and_split
+    from gan_mpc_tpu_torch.envs.rollout import policy_rollout
+    from gan_mpc_tpu_torch.planner.batch_ilqr import mlp_calls_per_solve
+    from gan_mpc_tpu_torch.training.dynamics import train_dynamics
+    from gan_mpc_tpu_torch.training.masking import masked_adam, policy_components
+
+    gen = torch.Generator().manual_seed(SEED)
+    norm = Normalizer.fit(expert_episode.states, expert_episode.actions)
+    windows = sequence_windows(norm.normalize_state(expert_episode.states),
+                               norm.normalize_action(expert_episode.actions), HORIZON_DYN)
+    train, _ = shuffle_and_split(windows, gen)
+    policy = flagship(device=dev, seed=SEED)
+    opt = masked_adam(policy_components(policy), DYN_NO_GRADS, DYN_LR)
+    replay = ReplayBuffer.create(REPLAY_SIZE, HORIZON_DYN, env.obs_size, env.act_size, dev)
+    collect_s = []
+
+    def collect_fn(generator):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ep = policy_rollout(env, env.default_params(), policy, norm, num_steps=COLLECT_STEPS,
+                            history=1, num_envs=1, generator=generator)
+        torch.cuda.synchronize()
+        collect_s.append(time.perf_counter() - t0)
+        return ep
+
+    batch = DYN["batch_size"]
+    steps = (DYN["warm_start_updates"] * max(train[0].shape[0] // batch, 1)
+             + DYN["num_updates"] * max(min(COLLECT_STEPS - HORIZON_DYN, REPLAY_SIZE) // batch, 1))
+    expected = {"fused_mlp_bwd": steps * HORIZON_DYN, "fused_ls_step": 0,
+                "fused_mlp_fwd": steps * HORIZON_DYN + COLLECT_STEPS
+                * mlp_calls_per_solve(policy.horizon, ILQR_ITERS)["fused_mlp_fwd"]}
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replay, returns, losses = train_dynamics(
+        policy.dynamics_model, opt, train, replay, collect_fn, norm, generator=gen, epoch=1,
+        **DYN)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in kernels.items()}
+    train_s = total_s - sum(collect_s)
+    print(f"training path: {train[0].shape[0]} expert train windows, {steps} minibatch steps "
+          f"of {batch} windows, replay {replay.size} windows; cuts: on-policy episode "
+          f"{COLLECT_STEPS} of 300 steps, iLQR {ILQR_ITERS} of 50 iterations; losses {losses}, "
+          f"episode return {returns}; kernel launches {counts} (expected {expected})")
+    if counts != expected:
+        raise SystemExit("the training path did not launch the kernels on every MLP call")
+    if not (len(losses) == 4 and np.all(np.isfinite(losses + returns))):
+        raise SystemExit("the training path's losses are malformed or not finite")
+    print(f"trainer (one GPU: {card_line}; flagship dynamics 23->200->200->200->17, "
+          f"batch {batch}, window {HORIZON_DYN}): {steps * batch / train_s:.1f} windows/s, "
+          f"{steps / train_s:.2f} minibatch steps/s over {train_s:.3f} s of updates; "
+          f"collection {sum(collect_s):.3f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -185,14 +327,16 @@ def main() -> int:
     from gan_mpc_tpu_torch.ops import _build
     from gan_mpc_tpu_torch.ops.fused_ls import fused_ls_kernel, reference_ls_step
     from gan_mpc_tpu_torch.ops.fused_mlp import (
-        fused_mlp_forward, mlp_apply, reference_forward,
+        fused_mlp_backward, fused_mlp_forward, mlp_apply, reference_backward,
+        reference_forward,
     )
     from gan_mpc_tpu_torch.planner.batch_ilqr import mlp_calls_per_solve
 
     pin_fp32()
     dev = torch.device("cuda")
     card_line = card()
-    kernels = {"fused_mlp_fwd": fused_mlp_forward, "fused_ls_step": fused_ls_kernel}
+    kernels = {"fused_mlp_fwd": fused_mlp_forward, "fused_ls_step": fused_ls_kernel,
+               "fused_mlp_bwd": fused_mlp_backward}
 
     # 1. card, toolchain, build
     print(card_line)
@@ -249,6 +393,38 @@ def main() -> int:
                       f"raw={len(weights[0])} squared={weights[2]}: max|d| nx/u/cost "
                       f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}")
 
+        for i, (name, widths, rows) in enumerate(BWD_CHECKS):
+            layers = random_layers(widths, 200 + i, dev)
+            x = torch.tensor(rng.standard_normal((rows, widths[0])),
+                             dtype=torch.float32, device=dev)
+            g = torch.tensor(rng.standard_normal((rows, widths[-1])),
+                             dtype=torch.float32, device=dev)
+            dx, grads = fused_mlp_backward(x, layers, g)
+            rdx, rgrads = reference_backward(x, layers, g)
+            torch.cuda.synchronize()
+            outs = [("dx", dx, rdx)] + [
+                (f"{kind}{l}", t, r) for l, (got_l, ref_l) in enumerate(zip(grads, rgrads))
+                for kind, t, r in zip(("dW", "db"), got_l, ref_l)
+            ]
+            worst, worst_share = 0.0, 0.0
+            for out, t, r in outs:
+                err = (t - r).abs().max().item()
+                tol = 1e-4 * max(1.0, r.abs().max().item())
+                if not (err <= tol and tuple(t.shape) == tuple(r.shape)):
+                    raise SystemExit(f"fused_mlp_bwd disagrees with plain version: {name} "
+                                     f"rows={rows} output {out}: max|d|={err:.3e} > {tol:.3e}")
+                worst, worst_share = max(worst, err), max(worst_share, err / tol)
+            max_err["fused_mlp_bwd"] = max(max_err["fused_mlp_bwd"], worst)
+            # the cross-tile sums run in a fixed order: a second call gives the same bits
+            again = fused_mlp_backward(x, layers, g)
+            same = torch.equal(again[0], dx) and all(
+                torch.equal(a, b) for p, q in zip(again[1], grads) for a, b in zip(p, q))
+            print(f"check fused_mlp_bwd {name} {widths} rows={rows}: max|d| over dx, "
+                  f"{len(layers)} dW and db {worst:.3e}, at most {100 * worst_share:.1f}% of "
+                  f"its output's bound; second call bitwise equal: {same}")
+            if not same:
+                raise SystemExit(f"fused_mlp_bwd is not deterministic: {name} rows={rows}")
+
         # 3. times and bounds
         timed = {}
         for i, (name, widths, rows) in enumerate(TIMED):
@@ -263,6 +439,19 @@ def main() -> int:
             print(f"time fused_mlp_fwd {name} {widths} rows={rows}: kernel {k:.4f} ms "
                   f"({gf / k * 1e3:.0f} GFLOP/s), plain {p:.4f} ms, bound {b_ms:.4f} ms "
                   f"({b_by}), kernel at {100 * b_ms / k:.1f}% of bound")
+        for i, (name, widths, rows) in enumerate(BWD_TIMED):
+            layers = random_layers(widths, 300 + i, dev)
+            x = torch.tensor(rng.standard_normal((rows, widths[0])),
+                             dtype=torch.float32, device=dev)
+            g = torch.tensor(rng.standard_normal((rows, widths[-1])),
+                             dtype=torch.float32, device=dev)
+            k = device_ms(lambda: fused_mlp_backward(x, layers, g))
+            p = device_ms(lambda: reference_backward(x, layers, g))
+            b_ms, b_by = bwd_bound(rows, widths)
+            timed[("fused_mlp_bwd", name, rows)] = (k, p, b_ms, b_by)
+            print(f"time fused_mlp_bwd {name} {widths} rows={rows}: kernel {k:.4f} ms, "
+                  f"plain {p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"kernel at {100 * b_ms / k:.1f}% of bound")
         for i, (name, lanes, alphas, n, m, gs) in enumerate(LS_TIMED):
             args = ls_args(lanes, alphas, n, m, gs, LS_WEIGHTS[0], 900 + i, dev)
             k = device_ms(lambda: fused_ls_kernel(**args))
@@ -302,11 +491,12 @@ def main() -> int:
     print(f"cheetah step GPU vs CPU: max|d|={d_step:.3e} (atol 1e-4)")
     if not d_step <= 1e-4:
         raise SystemExit("the physics step on the card disagrees with the CPU path")
+    check_update_pass(dev)
 
     # 5. the main path, once per solver setting
     env = make_env("cheetah_run", dev)
     norm = Normalizer.identity(env.obs_size, env.act_size, dev)
-    launches = {}
+    launches, episodes = {}, {}
     for fused_ls in FUSED_LS:
         policy = flagship(device=dev, seed=SEED, fused_ls=fused_ls)
         gen = torch.Generator().manual_seed(SEED)
@@ -317,7 +507,9 @@ def main() -> int:
         counts = {name: k.launches for name, k in kernels.items()}
         per_step = mlp_calls_per_solve(HORIZON, ILQR_ITERS, fused=fused_ls == "on")
         expected = {name: STEPS * c for name, c in per_step.items()}
-        launches[fused_ls] = counts
+        expected["fused_mlp_bwd"] = 0
+        launches[f"fused_ls={fused_ls}"] = counts
+        episodes[fused_ls] = ep
         print(f"main path fused_ls={fused_ls}: {STEPS} steps x {NUM_ENVS} envs in "
               f"{dt:.3f} s (warmup {WARMUP_STEPS} steps {t_warm:.3f} s); kernel launches "
               f"{counts} (expected {expected} = {STEPS} x {per_step})")
@@ -334,8 +526,13 @@ def main() -> int:
               f"mean reward {ep.rewards.mean().item():.4f}")
         print(json.dumps(bench_row(NUM_ENVS * STEPS / dt, card_line, fused_ls)))
 
-    # the line-search call of each kernel (8192 rows) leads its entry
-    lead = {"fused_mlp_fwd": ("dynamics", 8192), "fused_ls_step": ("line search", 8192)}
+    # 6. the training path
+    launches["trainer"] = train_phase(episodes["off"], env, kernels, card_line, dev)
+
+    # the planner's line-search call (8192 rows) leads the forward kernels'
+    # entries, the trainer's call (128 rows) the backward kernel's
+    lead = {"fused_mlp_fwd": ("dynamics", 8192), "fused_ls_step": ("line search", 8192),
+            "fused_mlp_bwd": ("dynamics", 128)}
     summary = []
     for name, k in kernels.items():
         k_ms, p_ms, b_ms, b_by = timed[(name, *lead[name])]
@@ -344,8 +541,8 @@ def main() -> int:
             "route": "cuda",
             "source": k.source,
             "replaces": k.replaces,
-            "launches": sum(launches[f][name] for f in launches),
-            "launches_by_path": {f"fused_ls={f}": launches[f][name] for f in launches},
+            "launches": sum(launches[path][name] for path in launches),
+            "launches_by_path": {path: launches[path][name] for path in launches},
             "max_abs_err": max_err[name],
             "ms": k_ms,
             "plain_ms": p_ms,

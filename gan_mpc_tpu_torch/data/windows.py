@@ -1,0 +1,72 @@
+"""Sliding-window datasets of the dynamics trainer.
+
+Counterpart of ``sequence_windows``, ``shuffle_and_split`` and
+``minibatch_indices`` in ``gan_mpc_tpu/data/windows.py``: one gather per
+trajectory set, on the trajectories' device. Random draws come from a
+``torch.Generator`` (``jax.random`` cannot be reproduced in torch); the
+split also takes an explicit permutation, so that tests can feed JAX's.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def _window_indices(num_windows: int, width: int, device) -> torch.Tensor:
+    return (torch.arange(num_windows, device=device)[:, None]
+            + torch.arange(width, device=device)[None, :])
+
+
+def sequence_windows(
+    states: torch.Tensor,
+    actions: torch.Tensor,
+    seqlen: int,
+    start_oversample: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(xseq, useq, next_xseq) windows from (N, L, ·) trajectories, each
+    (N * (L - seqlen), seqlen, ·), trajectory-major. ``start_oversample >
+    0`` repeats each trajectory's first ``seqlen`` windows that many extra
+    times, as the JAX version does."""
+    n, length, x_size = states.shape
+    u_size = actions.shape[-1]
+    num = length - seqlen
+    idx = _window_indices(num, seqlen, states.device)
+    if start_oversample > 0:
+        early = idx[: min(seqlen, num)]
+        idx = torch.cat([idx] + [early] * start_oversample, dim=0)
+        num = idx.shape[0]
+    X = states[:, idx].reshape(n * num, seqlen, x_size)
+    U = actions[:, idx].reshape(n * num, seqlen, u_size)
+    Y = states[:, idx + 1].reshape(n * num, seqlen, x_size)
+    return X, U, Y
+
+
+def shuffle_and_split(
+    dataset: tuple,
+    generator: Optional[torch.Generator] = None,
+    train_frac: float = 0.8,
+    perm: Optional[torch.Tensor] = None,
+):
+    """Random shuffle and train/test split: ``perm`` if given, else a
+    permutation drawn from ``generator``. Returns (train, test) tuples."""
+    size = dataset[0].shape[0]
+    if perm is None:
+        if generator is None:
+            raise ValueError("pass a torch.Generator or a permutation")
+        perm = torch.randperm(size, generator=generator, device=generator.device)
+    perm = perm.to(dataset[0].device)
+    cut = int(size * train_frac)
+    train = tuple(d[perm[:cut]] for d in dataset)
+    test = tuple(d[perm[cut:]] for d in dataset)
+    return train, test
+
+
+def minibatch_indices(
+    generator: torch.Generator, datasize: int, steps: int, batch_size: int
+) -> torch.Tensor:
+    """(steps, batch) random index matrix, sampled with replacement, on
+    the generator's device: one update pass's minibatches."""
+    return torch.randint(datasize, (steps, batch_size), generator=generator,
+                         device=generator.device)

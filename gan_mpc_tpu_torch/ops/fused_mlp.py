@@ -1,14 +1,17 @@
-"""Fused relu-MLP forward and the planner's value-and-Jacobian.
+"""Fused relu-MLP forward and backward, and the planner's value-and-Jacobian.
 
 Counterpart of ``gan_mpc_tpu/ops/fused_mlp.py``. Layer lists are ordered
 ``(W, b)`` pairs with ``W`` stored (in, out), the JAX package's kernel
 layout, so the two packages' tests compare like with like.
 
 ``mlp_apply`` dispatches by device: a CPU tensor runs
-``reference_forward`` (plain torch, the tests' path); a CUDA tensor
-always launches the hand-written kernel ``csrc/fused_mlp_fwd.cu`` (at any
-row count) or raises. There is no fallback from the kernel to the plain
-version.
+``reference_forward`` (plain torch, the tests' path; autograd
+differentiates it); a CUDA tensor always launches the hand-written
+kernels or raises. Without gradients that is ``csrc/fused_mlp_fwd.cu``;
+with gradients ``FusedMlpFunction``, whose forward launches the same
+kernel and whose backward launches ``csrc/fused_mlp_bwd.cu`` (the JAX
+package's ``fused_mlp`` custom VJP). There is no fallback from a kernel to
+the plain version.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Iterable, List, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -49,6 +53,23 @@ def reference_forward(x: torch.Tensor, layers: Layers) -> torch.Tensor:
     return h
 
 
+def reference_backward(x: torch.Tensor, layers: Layers, g: torch.Tensor):
+    """Plain torch relu-MLP backward, the backward kernel's reference:
+    recompute the forward, then backprop ``g`` (N, fout) through the relu
+    masks, as ``_bwd_kernel`` does. Returns (dx, [(dW, db), ...])."""
+    acts, h = [x], x
+    for w, b in layers[:-1]:
+        h = torch.relu(h @ w + b)
+        acts.append(h)
+    grads = [None] * len(layers)
+    for i in reversed(range(len(layers))):
+        grads[i] = (acts[i].T @ g, g.sum(0))
+        g = g @ layers[i][0].T
+        if i > 0:
+            g = torch.where(acts[i] > 0, g, 0.0)
+    return g, grads
+
+
 class FusedMlpKernel:
     """The CUDA forward kernel: built on first use, counted per launch."""
 
@@ -77,6 +98,11 @@ class FusedMlpKernel:
 
     def __call__(self, x: torch.Tensor, layers: Layers) -> torch.Tensor:
         _check_kernel_args(x, layers)
+        if _records_grad(x, layers):
+            raise RuntimeError(
+                "fused_mlp_fwd records no autograd graph; call mlp_apply, "
+                "which differentiates through FusedMlpFunction"
+            )
         lib = self.load()
         n = len(layers)
         dims = [x.shape[1]] + [w.shape[1] for w, _ in layers]
@@ -95,6 +121,13 @@ class FusedMlpKernel:
             )
         self.launches += 1
         return y
+
+
+def _records_grad(x: torch.Tensor, layers: Layers) -> bool:
+    """Whether autograd would record a graph through this call."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for wb in layers for t in wb)
+    )
 
 
 def _check_kernel_args(x: torch.Tensor, layers: Layers) -> None:
@@ -123,30 +156,121 @@ def _check_kernel_args(x: torch.Tensor, layers: Layers) -> None:
     widths = [x.shape[1]] + [w.shape[1] for w, _ in layers]
     if max(widths) > MAX_WIDTH:
         raise ValueError(f"layer widths {widths} exceed {MAX_WIDTH}")
-    if torch.is_grad_enabled() and (
-        x.requires_grad or any(t.requires_grad for wb in layers for t in wb)
-    ):
-        raise NotImplementedError(
-            "the fused MLP backward kernel is not ported; run the CUDA "
-            "forward under torch.no_grad()"
-        )
 
 
 fused_mlp_forward = FusedMlpKernel()
 
 
+class FusedMlpBwdKernel:
+    """The CUDA backward kernel: built on first use, counted per launch."""
+
+    source = "gan_mpc_tpu_torch/csrc/fused_mlp_bwd.cu"
+    replaces = "gan_mpc_tpu/ops/fused_mlp.py:108"
+
+    def __init__(self):
+        self.launches = 0
+        self._lib = None
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            from gan_mpc_tpu_torch.ops._build import load_library
+
+            lib = load_library("fused_mlp_bwd")
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.fused_mlp_bwd_parts.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+            lib.fused_mlp_bwd_parts.restype = i
+            lib.fused_mlp_bwd.argtypes = [p] * 5 + [i, i, ctypes.POINTER(i),
+                                                    ctypes.POINTER(p), ctypes.POINTER(p), p]
+            lib.fused_mlp_bwd.restype = i
+            self._lib = lib
+        return self._lib
+
+    def __call__(self, x: torch.Tensor, layers: Layers, g: torch.Tensor):
+        """(dx, [(dW, db), ...]) for x (N, fin) and the output cotangent g
+        (N, fout). The gradients are views of one flat tensor."""
+        _check_kernel_args(x, layers)
+        rows, fout = x.shape[0], layers[-1][0].shape[1]
+        if g.device != x.device or g.dtype != torch.float32 or not g.is_contiguous() \
+                or tuple(g.shape) != (rows, fout):
+            raise ValueError(
+                f"g must be a contiguous float32 ({rows}, {fout}) tensor on {x.device}, "
+                f"got {g.dtype} {tuple(g.shape)} on {g.device}"
+            )
+        lib = self.load()
+        n = len(layers)
+        dims = [x.shape[1]] + [w.shape[1] for w, _ in layers]
+        c_dims = (ctypes.c_int * (n + 1))(*dims)
+        parts = ctypes.c_int(0)
+        err = lib.fused_mlp_bwd_parts(rows, n, c_dims, ctypes.byref(parts))
+        if err != 0:
+            raise RuntimeError(f"fused_mlp_bwd refused rows={rows}, dims={dims} (code {err})")
+        sizes = [a * b + b for a, b in zip(dims[:-1], dims[1:])]
+        grads = torch.empty(sum(sizes), device=x.device, dtype=x.dtype)
+        # one partial gradient set per block when the rows span several blocks
+        work = (torch.empty((parts.value, sum(sizes)), device=x.device, dtype=x.dtype)
+                if parts.value > 1 else None)
+        dx = torch.empty_like(x)
+        c_w = (ctypes.c_void_p * n)(*[w.data_ptr() for w, _ in layers])
+        c_b = (ctypes.c_void_p * n)(*[b.data_ptr() for _, b in layers])
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fused_mlp_bwd(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+            None if work is None else work.data_ptr(), rows, n, c_dims, c_w, c_b, stream,
+        )
+        if err != 0:
+            raise RuntimeError(
+                f"fused_mlp_bwd launch failed with code {err} (rows={rows}, dims={dims})"
+            )
+        self.launches += 1
+        out = []
+        for (a, b), chunk in zip(zip(dims[:-1], dims[1:]), torch.split(grads, sizes)):
+            out.append((chunk[: a * b].view(a, b), chunk[a * b:]))
+        return dx, out
+
+
+fused_mlp_backward = FusedMlpBwdKernel()
+
+
+class FusedMlpFunction(torch.autograd.Function):
+    """The fused MLP under autograd on CUDA tensors: the forward kernel
+    forward, the backward kernel backward (the JAX ``fused_mlp`` custom
+    VJP). Arguments: x, then W0, b0, W1, b1, ..."""
+
+    @staticmethod
+    def forward(ctx, x, *flat):
+        ctx.save_for_backward(x, *flat)
+        return fused_mlp_forward(x, _pairs(flat))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        x, *flat = ctx.saved_tensors
+        dx, grads = fused_mlp_backward(x, _pairs(flat), gy.contiguous())
+        out = [dx] + [t for wb in grads for t in wb]
+        return tuple(t if need else None for t, need in zip(out, ctx.needs_input_grad))
+
+
+def _pairs(flat):
+    return list(zip(flat[0::2], flat[1::2]))
+
+
 def mlp_apply(x: torch.Tensor, layers: Layers, compute_dtype=None) -> torch.Tensor:
     """relu-MLP forward on (N, fin) rows.
 
-    CPU tensors run ``reference_forward``; CUDA tensors run the fused
-    kernel at every row count (the JAX package's 8192-row threshold was a
-    TPU crossover). ``compute_dtype`` other than float32 is not ported.
+    CPU tensors run ``reference_forward`` (under autograd when it is on);
+    CUDA tensors run the fused kernel at every row count (the JAX
+    package's 8192-row threshold was a TPU crossover), through
+    ``FusedMlpFunction`` when a gradient is to be taken. ``compute_dtype``
+    other than float32 is not ported.
     """
     if compute_dtype not in (None, "float32", torch.float32):
         raise NotImplementedError(f"compute_dtype={compute_dtype!r} is not ported")
-    if x.is_cuda:
-        return fused_mlp_forward(x.contiguous(), layers)
-    return reference_forward(x, layers)
+    if not x.is_cuda:
+        return reference_forward(x, layers)
+    x = x.contiguous()
+    if _records_grad(x, layers):
+        return FusedMlpFunction.apply(x, *[t for wb in layers for t in wb])
+    return fused_mlp_forward(x, layers)
 
 
 def mlp_value_and_jac(x: torch.Tensor, layers: Layers, compute_dtype=None):

@@ -4,7 +4,8 @@
 of numpy arrays, as ``jax.device_get`` returns them) into an
 ``MPCPolicy``: Dense stacks in ``Dense_i`` index order with (in, out)
 kernels, the expert's ``OptimizedLSTMCell`` gate kernels and biases, and
-its prediction heads.
+its prediction heads. ``dynamics_from_jax_params`` loads the dynamics
+part alone into a ``LearnedDynamics``.
 
 ``init_flax_like`` draws fresh weights from a ``torch.Generator`` with
 flax's default initializers: lecun_normal (truncated normal, std
@@ -58,9 +59,7 @@ def from_jax_params(tree: Mapping, policy: nn.Module) -> nn.Module:
         requires_grad=cost.weights.requires_grad,
     )
     _load_dense_stack(cost.net.layers, tree["cost_params"]["params"])
-    _load_dense_stack(
-        policy.dynamics_model.net.layers, tree["dynamics_params"]["params"]
-    )
+    dynamics_from_jax_params(tree["dynamics_params"], policy.dynamics_model)
     cell = tree["expert_params"]["params"]["_LSTMCell_0"]
     lstm = policy.expert_model.cell.lstm
     for g in GATES:
@@ -69,6 +68,14 @@ def from_jax_params(tree: Mapping, policy: nn.Module) -> nn.Module:
         _copy(getattr(lstm, f"h{g}_bias"), cell["OptimizedLSTMCell_0"][f"h{g}"]["bias"])
     _load_dense_stack(policy.expert_model.cell.heads.layers, cell["_PredictionHeads_0"])
     return policy
+
+
+def dynamics_from_jax_params(tree: Mapping, dynamics: nn.Module) -> nn.Module:
+    """Load a JAX ``dynamics_params`` tree (``{"params": {"Dense_i": ...}}``)
+    into a ``LearnedDynamics`` with a residual MLP net (in place; also
+    returned)."""
+    _load_dense_stack(dynamics.net.layers, tree["params"])
+    return dynamics
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

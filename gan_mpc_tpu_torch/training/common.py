@@ -1,0 +1,12 @@
+"""Shared training utilities (``gan_mpc_tpu/training/common.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def discounted_sum(seq: torch.Tensor, gamma: float) -> torch.Tensor:
+    """sum_t gamma^t * seq[t] along axis 0."""
+    t = torch.arange(seq.shape[0], dtype=seq.dtype, device=seq.device)
+    discounts = torch.pow(torch.as_tensor(gamma, dtype=seq.dtype, device=seq.device), t)
+    return torch.tensordot(discounts, seq, dims=([0], [0]))

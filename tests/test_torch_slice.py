@@ -18,8 +18,9 @@ by 5e-3. (A flip moves one by 1e-2 or more; rounding carried through the
 stiff ground contact moves them by about 1e-3 at the third step.) On that
 key the port agrees to about 1e-4 in actions and states.
 
-Also: the port runs with JAX, flax and the JAX package made unimportable,
-and its entry points run on the card unless asked for the CPU.
+Also: the port (the control path and the dynamics trainer) runs with
+JAX, flax and the JAX package made unimportable, and its entry points run
+on the card unless asked for the CPU.
 """
 
 import subprocess
@@ -38,6 +39,7 @@ from gan_mpc_tpu.envs import make_env as jax_make_env
 from gan_mpc_tpu.envs.rollout import policy_rollout as jax_policy_rollout
 from gan_mpc_tpu_torch import pin_fp32
 from gan_mpc_tpu_torch.bench import flagship
+from gan_mpc_tpu_torch.data.buffers import ReplayBuffer
 from gan_mpc_tpu_torch.data.normalizer import Normalizer
 from gan_mpc_tpu_torch.envs import EnvState, make_env
 from gan_mpc_tpu_torch.envs.cheetah import CheetahRun
@@ -152,6 +154,27 @@ BLOCKED_RUN = textwrap.dedent(
             generator=torch.Generator().manual_seed(0),
         )
         assert ep.actions.shape == (2, 2, 6) and bool(torch.isfinite(ep.states).all())
+
+    # the dynamics trainer, collecting with the policy it trains
+    from gan_mpc_tpu_torch.data.buffers import ReplayBuffer
+    from gan_mpc_tpu_torch.data.windows import sequence_windows
+    from gan_mpc_tpu_torch.training.dynamics import train_dynamics
+    from gan_mpc_tpu_torch.training.masking import masked_adam, policy_components
+
+    policy = flagship(5, 1, device="cpu", seed=0)
+    opt = masked_adam(policy_components(policy),
+                      ["mpc_weights", "cost_params", "expert_params"], 1e-5)
+    norm = Normalizer.fit(ep.states, ep.actions)
+    _, returns, losses = train_dynamics(
+        policy.dynamics_model, opt, sequence_windows(ep.states, ep.actions, 1),
+        ReplayBuffer.create(20, 1, 17, 6, "cpu"),
+        lambda gen: policy_rollout(env, env.default_params(), policy, norm, num_steps=3,
+                                   history=1, num_envs=1, generator=gen),
+        norm, num_episodes=1, num_updates=1, batch_size=2, discount_factor=0.9,
+        teacher_forcing_factor=0.7, generator=torch.Generator().manual_seed(0), epoch=1,
+        warm_start_updates=1,
+    )
+    assert len(losses) == 2 and all(l == l for l in losses + returns)
     assert not [m for m in sys.modules if blocked(m)]
     print("imported", len(mods), "modules")
     """
@@ -173,6 +196,7 @@ ENTRY_POINTS = {
     "make_env": lambda: make_env("cheetah_run"),
     "CheetahRun": lambda: CheetahRun(),
     "Normalizer.identity": lambda: Normalizer.identity(17, 6),
+    "ReplayBuffer.create": lambda: ReplayBuffer.create(10, 5, 17, 6),
 }
 
 
@@ -185,7 +209,8 @@ def test_entry_points_default_to_the_card(name):
         tensor = {"flagship": lambda p: next(p.parameters()),
                   "make_env": lambda e: e.model(e.default_params()).mass,
                   "CheetahRun": lambda e: e.model(e.default_params()).mass,
-                  "Normalizer.identity": lambda nrm: nrm.state_mean}[name](made)
+                  "Normalizer.identity": lambda nrm: nrm.state_mean,
+                  "ReplayBuffer.create": lambda buf: buf.states}[name](made)
         assert tensor.is_cuda
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
