@@ -10,16 +10,20 @@ Phases, in order; any failure raises and exits non-zero:
   2. hold each kernel against its plain torch version on the card (TF32
      off), max|d| <= 1e-4 * max(1, max|ref|) on every output, since f32
      sums run in another order than cuBLAS's:
-     - fused_mlp_fwd at the shapes the main path gives it, plus a ragged
-       row count and the 256-wide stack;
+     - fused_mlp_fwd at the shapes the main paths give it (serving 8192
+       and 512 rows; the trainer's loss 128; its 1-env collection 16 and
+       1, on the dynamics and the cost stack), plus a ragged row count
+       and the 256-wide stack;
      - fused_ls_step at 512 lanes x 16 step sizes (the line search), 512
        x 1 (rollout, recompute), a ragged 1000 x 16 with a 12-wide goal,
        and the humanoid-class widths (29 states, 12 actions, 128 x 16),
        each with 3, 4 and 5 raw MPC weights and both action-goal forms;
      - fused_mlp_bwd (dx and every dW, db) on the dynamics stack at 128
        rows (the trainer), 1000 (ragged) and 8192, the 256-wide stack at
-       128 and the cost stack at 512, and a second call on the same
-       inputs must give the same bits;
+       128 and the cost stack at 512, on input rows whose hidden
+       pre-activations all sit 1e-4 or more from a relu kink (where the
+       derivative jumps), and a second call on the same inputs must give
+       the same bits;
   3. time kernels and plain versions with CUDA events (median of 21 runs
      of 20 back-to-back launches, queued behind a device sleep so that
      host overhead is not timed), and compute each call's bound: the
@@ -29,8 +33,9 @@ Phases, in order; any failure raises and exits non-zero:
      on the CPU (plain versions): one flagship plan_batch at 8 envs and 2
      iLQR iterations with fused_ls off and on (U atol 1e-3), one cheetah
      step (atol 1e-4), and one trainer update pass of 3 minibatches of
-     128 windows on the same windows, indices and weights (losses rtol
-     1e-4, parameters atol 2 k lr after k Adam steps);
+     128 windows on the same windows, indices and weights (the first
+     minibatch's parameter gradients max|d| <= 1e-4 max(1, max|ref|),
+     losses rtol 1e-4, parameters atol 2 k lr after k Adam steps);
   5. drive the main path, the flagship closed loop (cheetah_run, 512
      envs, H=5, iLQR <= 5, random flax-style weights from seed 0), for 2
      warmup and 20 timed control steps, once per solver setting:
@@ -68,12 +73,16 @@ SEED = 0
 DYNAMICS = [23, 200, 200, 200, 17]
 WIDE = [23, 256, 256, 256, 17]
 COST = [17, 128, 128, 10]
-# (name, widths, rows): the main path calls the MLP kernel at 512 rows
-# (rollout, winner recompute) and 512 * 16 alphas = 8192 (line search)
+# (name, widths, rows): the serving path calls the MLP kernel at 512 rows
+# (rollout, winner recompute) and 512 * 16 alphas = 8192 (line search);
+# the trainer's loss at 128 rows, and its 1-env collection at 16 (1 x 16
+# alphas) and 1 row, on both stacks
 CHECKS = [
     ("dynamics", DYNAMICS, 8192), ("dynamics", DYNAMICS, 512),
     ("dynamics", DYNAMICS, 1000), ("wide", WIDE, 8192),
     ("cost", COST, 8192), ("cost", COST, 512),
+    ("dynamics", DYNAMICS, 128), ("dynamics", DYNAMICS, 16), ("dynamics", DYNAMICS, 1),
+    ("cost", COST, 16), ("cost", COST, 1),
 ]
 TIMED = [("dynamics", DYNAMICS, 8192), ("dynamics", DYNAMICS, 512),
          ("dynamics", DYNAMICS, 128), ("cost", COST, 8192), ("cost", COST, 512)]
@@ -84,6 +93,7 @@ BWD_CHECKS = [("dynamics", DYNAMICS, 128), ("dynamics", DYNAMICS, 1000),
 BWD_TIMED = [("dynamics", DYNAMICS, 128), ("dynamics", DYNAMICS, 8192)]
 # the dynamics phase of configs/gan_cheetah.yaml (mpc.train.dynamics) and
 # runners/gan.py's warm-start default
+HORIZON_DYN = 5  # the trainer's window length: the configuration's horizon
 DYN = dict(num_episodes=1, num_updates=1, batch_size=128, discount_factor=0.9,
            teacher_forcing_factor=0.7, warm_start_updates=3, expert_updates=0)
 DYN_LR = 1e-5
@@ -106,7 +116,6 @@ LS_WEIGHTS = [
     ((-2.0, 3.0, -3.0, 0.5, 1.3), 2.0, False),
 ]
 # one H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
-HORIZON_DYN = 5  # the trainer's window length: the configuration's horizon
 F32_PEAK = 67e12
 MEM_RATE = 3.35e12
 
@@ -168,11 +177,35 @@ def ls_bound(lanes, alphas, n, m, gs):
 
 
 def bwd_bound(rows, widths):
-    """Forward recompute, dx chain and dW: three times the forward's
-    operations. Bytes: x, g and dx once, the weights read once and dW, db
-    written once."""
+    """The dx chain and dW, each the forward's operations, and the
+    recompute of every layer but the last (dW of the last layer takes its
+    input, not its output). Bytes: x, g and dx once, the weights read once
+    and dW, db written once."""
     nbytes = 4 * (rows * (2 * widths[0] + widths[-1]) + 2 * mlp_weight_floats(widths))
-    return bound(3 * mlp_flops(rows, widths), nbytes)
+    return bound(2 * mlp_flops(rows, widths) + mlp_flops(rows, widths[:-1]), nbytes)
+
+
+def clear_of_kinks(rng, rows, layers, device, margin=1e-4):
+    """(rows, fin) inputs drawn from ``rng``, each row redrawn until none
+    of its hidden pre-activations lies within ``margin`` of 0, and the
+    number of redraws. At a relu kink the derivative jumps, so there two
+    f32 forwards that round differently disagree on the mask, and dx and
+    dW move by a whole term; rounding moves a pre-activation by ~1e-6."""
+    fin = layers[0][0].shape[0]
+    draw = lambda n: torch.tensor(rng.standard_normal((n, fin)), dtype=torch.float32,
+                                  device=device)
+    x, redrawn = draw(rows), 0
+    while True:
+        h, near = x, torch.zeros(rows, dtype=torch.bool, device=device)
+        for w, b in layers[:-1]:
+            z = h @ w + b
+            near |= (z.abs() < margin).any(1)
+            h = torch.relu(z)
+        bad = near.nonzero().flatten()
+        if bad.numel() == 0:
+            return x, redrawn
+        redrawn += bad.numel()
+        x[bad] = draw(bad.numel())
 
 
 def random_layers(widths, seed, device):
@@ -229,24 +262,36 @@ def update_pass_inputs(device):
 
 def check_update_pass(dev):
     """One update pass of 3 minibatches (open loop, so dx flows) on the
-    card and on the CPU, on the same windows, indices and weights."""
-    from gan_mpc_tpu_torch.training.dynamics import update_pass
+    card and on the CPU, on the same windows, indices and weights: the
+    gradient of every parameter from the first minibatch's loss, then the
+    three losses and the parameters after three Adam steps."""
+    from gan_mpc_tpu_torch.training.dynamics import multistep_prediction_loss, update_pass
 
     results = []
     for device in (dev, torch.device("cpu")):
         model, opt, windows, idx = update_pass_inputs(device)
+        X, U, Y = windows
+        first = idx[0]
+        multistep_prediction_loss(model, X[first], U[first], Y[first], DYN["discount_factor"],
+                                  teacher_forcing=False).mean().backward()
+        grads = {name: p.grad.detach().cpu().clone() for name, p in model.named_parameters()}
+        opt.zero_grad()
         losses = []
         for row in idx:
             losses.append(update_pass(model, opt, windows, row[None], DYN["discount_factor"],
                                       teacher_forcing=False).item())
-        results.append((losses, [p.detach().cpu() for p in model.parameters()]))
-    (l_gpu, p_gpu), (l_cpu, p_cpu) = results
+        results.append((grads, losses, [p.detach().cpu() for p in model.parameters()]))
+    (g_gpu, l_gpu, p_gpu), (g_cpu, l_cpu, p_cpu) = results
+    # each gradient's max|d| as a share of its bound 1e-4 * max(1, max|ref|)
+    d_grad = {name: (g_gpu[name] - ref).abs().max().item()
+              / (1e-4 * max(1.0, ref.abs().max().item())) for name, ref in g_cpu.items()}
     d_loss = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
     d_par = max((a - b).abs().max().item() for a, b in zip(p_gpu, p_cpu))
-    print(f"update pass (3 x 128 windows, open loop) GPU vs CPU: losses {l_gpu} vs {l_cpu}, "
-          f"max rel d loss {d_loss:.3e} (rtol 1e-4), max|d| params {d_par:.3e} "
-          f"(atol {2 * 3 * DYN_LR:.0e})")
-    if not (d_loss <= 1e-4 and d_par <= 2 * 3 * DYN_LR):
+    print(f"update pass (3 x 128 windows, open loop) GPU vs CPU: first-minibatch gradients of "
+          f"{len(d_grad)} parameters, max|d| at most {100 * max(d_grad.values()):.1f}% of "
+          f"1e-4 max(1, max|ref|); losses {l_gpu} vs {l_cpu}, max rel d loss {d_loss:.3e} "
+          f"(rtol 1e-4), max|d| params {d_par:.3e} (atol {2 * 3 * DYN_LR:.0e})")
+    if not (max(d_grad.values()) <= 1.0 and d_loss <= 1e-4 and d_par <= 2 * 3 * DYN_LR):
         raise SystemExit("the trainer's update pass on the card disagrees with the CPU path")
 
 
@@ -395,8 +440,7 @@ def main() -> int:
 
         for i, (name, widths, rows) in enumerate(BWD_CHECKS):
             layers = random_layers(widths, 200 + i, dev)
-            x = torch.tensor(rng.standard_normal((rows, widths[0])),
-                             dtype=torch.float32, device=dev)
+            x, redrawn = clear_of_kinks(rng, rows, layers, dev)
             g = torch.tensor(rng.standard_normal((rows, widths[-1])),
                              dtype=torch.float32, device=dev)
             dx, grads = fused_mlp_backward(x, layers, g)
@@ -419,9 +463,10 @@ def main() -> int:
             again = fused_mlp_backward(x, layers, g)
             same = torch.equal(again[0], dx) and all(
                 torch.equal(a, b) for p, q in zip(again[1], grads) for a, b in zip(p, q))
-            print(f"check fused_mlp_bwd {name} {widths} rows={rows}: max|d| over dx, "
-                  f"{len(layers)} dW and db {worst:.3e}, at most {100 * worst_share:.1f}% of "
-                  f"its output's bound; second call bitwise equal: {same}")
+            print(f"check fused_mlp_bwd {name} {widths} rows={rows} ({redrawn} rows redrawn "
+                  f"clear of relu kinks): max|d| over dx, {len(layers)} dW and db {worst:.3e}, "
+                  f"at most {100 * worst_share:.1f}% of its output's bound; second call "
+                  f"bitwise equal: {same}")
             if not same:
                 raise SystemExit(f"fused_mlp_bwd is not deterministic: {name} rows={rows}")
 

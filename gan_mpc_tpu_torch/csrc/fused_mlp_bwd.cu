@@ -8,12 +8,14 @@
 // where a_0 = x and a_l = relu(layer l-1) are the layer inputs. Weights
 // are (in, out) row-major, the JAX package's kernel layout.
 //
-// What bounds it on an H100: three products per layer (recompute, dx
-// chain, dW), 3 x 2 x rows x sum(d_l d_{l+1}) f32 FMA operations; at the
-// trainer's call (128 rows of the 23->200->200->200->17 dynamics stack)
-// that is 68 MFLOP against under 1 MB of inputs, outputs, weights and
-// gradients, about 1 us of f32 throughput. At that size the call is
-// bound by latency: each block walks ~1,000 dependent weight rows.
+// What bounds it on an H100: the dx chain and dW take a product per
+// layer, the recompute one per layer but the last (dW_{L-1} needs only the
+// last layer's input): 2 x rows x (2 sum_l d_l d_{l+1} + sum_{l<L-1}
+// d_l d_{l+1}) f32 FMA operations; at the trainer's call (128 rows of the
+// 23->200->200->200->17 dynamics stack) that is 67 MFLOP against under
+// 1 MB of inputs, outputs, weights and gradients, about 1 us of f32
+// throughput. At that size the call is bound by latency: each block
+// walks ~1,000 dependent weight rows.
 //
 // Design (the forward tile loop is mlp_tile.cuh's, shared with the other
 // two kernels):
@@ -337,51 +339,26 @@ cudaError_t launch(const BwdArgs& a, const MlpArgs& mlp, int stride, int n_tiles
   return cudaGetLastError();
 }
 
-// Checks shared by both entry points; returns the row stride or -1.
-int check_args(MlpArgs* mlp, int rows, int n_layers, const int* dims,
-               const float* const* weights, const float* const* biases) {
-  if (rows < 0) return -1;
-  const int stride = fill_mlp_args(mlp, n_layers, dims, weights, biases);
-  if (stride < 0 || rows > INT_MAX / stride) return -1;
-  return stride;
-}
-
 }  // namespace
 
 extern "C" {
 
-// How many partial gradient sets a launch over `rows` rows of this stack
-// writes: fused_mlp_bwd needs a workspace of parts x total floats when
-// parts > 1. Writes *parts; returns 0, a cudaError_t value, or -1.
-int fused_mlp_bwd_parts(int rows, int n_layers, const int* dims, int* parts) {
-  MlpArgs mlp;
-  const float* none[kMaxLayers] = {};
-  const int stride = check_args(&mlp, rows, n_layers, dims, none, none);
-  if (stride < 0) return -1;
-  if (rows == 0) {
-    *parts = 0;
-    return 0;
-  }
-  Plan p;
-  const int e = make_plan(rows, n_layers, stride, &p);
-  if (e != 0) return e;
-  *parts = p.blocks;
-  return 0;
-}
-
 // x (rows, dims[0]), g (rows, dims[n_layers]) -> dx (rows, dims[0]) and
 // grads, one flat set dW_0 (dims[0], dims[1]), db_0 (dims[1]), dW_1, ...
 // Weights[l] (dims[l], dims[l+1]) and biases[l] (dims[l+1]) as in the
-// forward. `work` holds parts x total floats when fused_mlp_bwd_parts
-// gave parts > 1 (else it is not read). All pointers are device pointers
-// to contiguous f32. Returns 0 on a successful launch, a cudaError_t
-// value if a launch failed, or -1 for arguments the kernel does not take.
-int fused_mlp_bwd(const float* x, const float* g, float* dx, float* grads, float* work, int rows,
-                  int n_layers, const int* dims, const float* const* weights,
-                  const float* const* biases, void* stream) {
+// forward. `work` holds work_parts gradient sets, one per block of a
+// launch over several tiles; the grid has at most one block per SM, so
+// work_parts = the device's SM count always suffices. All pointers are
+// device pointers to contiguous f32. Returns 0 on a successful launch, a
+// cudaError_t value if a launch failed, or -1 for arguments the kernel
+// does not take (a workspace too small for the launch among them).
+int fused_mlp_bwd(const float* x, const float* g, float* dx, float* grads, float* work,
+                  int work_parts, int rows, int n_layers, const int* dims,
+                  const float* const* weights, const float* const* biases, void* stream) {
   MlpArgs mlp;
-  const int stride = check_args(&mlp, rows, n_layers, dims, weights, biases);
-  if (stride < 0) return -1;
+  if (rows < 0) return -1;
+  const int stride = fill_mlp_args(&mlp, n_layers, dims, weights, biases);
+  if (stride < 0 || rows > INT_MAX / stride) return -1;
   BwdArgs a;
   a.x = x;
   a.g = g;
@@ -398,7 +375,7 @@ int fused_mlp_bwd(const float* x, const float* g, float* dx, float* grads, float
   Plan p;
   const int e = make_plan(rows, n_layers, stride, &p);
   if (e != 0) return e;
-  if (p.blocks > 1 && work == nullptr) return -1;
+  if (p.blocks > 1 && (work == nullptr || work_parts < p.blocks)) return -1;
   a.part = p.blocks > 1 ? work : grads;
   cudaError_t err = p.rm == 4 ? launch<4>(a, mlp, stride, p.tiles, p.blocks, s)
                               : launch<1>(a, mlp, stride, p.tiles, p.blocks, s);

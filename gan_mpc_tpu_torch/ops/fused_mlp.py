@@ -177,9 +177,7 @@ class FusedMlpBwdKernel:
 
             lib = load_library("fused_mlp_bwd")
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.fused_mlp_bwd_parts.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
-            lib.fused_mlp_bwd_parts.restype = i
-            lib.fused_mlp_bwd.argtypes = [p] * 5 + [i, i, ctypes.POINTER(i),
+            lib.fused_mlp_bwd.argtypes = [p] * 5 + [i, i, i, ctypes.POINTER(i),
                                                     ctypes.POINTER(p), ctypes.POINTER(p), p]
             lib.fused_mlp_bwd.restype = i
             self._lib = lib
@@ -200,26 +198,24 @@ class FusedMlpBwdKernel:
         n = len(layers)
         dims = [x.shape[1]] + [w.shape[1] for w, _ in layers]
         c_dims = (ctypes.c_int * (n + 1))(*dims)
-        parts = ctypes.c_int(0)
-        err = lib.fused_mlp_bwd_parts(rows, n, c_dims, ctypes.byref(parts))
-        if err != 0:
-            raise RuntimeError(f"fused_mlp_bwd refused rows={rows}, dims={dims} (code {err})")
         sizes = [a * b + b for a, b in zip(dims[:-1], dims[1:])]
         grads = torch.empty(sum(sizes), device=x.device, dtype=x.dtype)
-        # one partial gradient set per block when the rows span several blocks
-        work = (torch.empty((parts.value, sum(sizes)), device=x.device, dtype=x.dtype)
-                if parts.value > 1 else None)
+        # one partial gradient set per block, at most one block per SM; the
+        # caching allocator hands the same block back on later calls
+        parts = torch.cuda.get_device_properties(x.device).multi_processor_count
+        work = torch.empty((parts, sum(sizes)), device=x.device, dtype=x.dtype)
         dx = torch.empty_like(x)
         c_w = (ctypes.c_void_p * n)(*[w.data_ptr() for w, _ in layers])
         c_b = (ctypes.c_void_p * n)(*[b.data_ptr() for _, b in layers])
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_mlp_bwd(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr(), grads.data_ptr(),
-            None if work is None else work.data_ptr(), rows, n, c_dims, c_w, c_b, stream,
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), grads.data_ptr(), work.data_ptr(),
+            parts, rows, n, c_dims, c_w, c_b, stream,
         )
         if err != 0:
             raise RuntimeError(
-                f"fused_mlp_bwd launch failed with code {err} (rows={rows}, dims={dims})"
+                f"fused_mlp_bwd launch failed with code {err} (-1: arguments refused; "
+                f"rows={rows}, dims={dims})"
             )
         self.launches += 1
         out = []
