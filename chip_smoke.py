@@ -8,16 +8,21 @@ Phases, in order; any failure raises and exits non-zero:
      then build the three kernels from ``gan_mpc_tpu_torch/csrc`` (one
      nvcc each, started together);
   2. hold each kernel against its plain torch version on the card (TF32
-     off), max|d| <= 1e-4 * max(1, max|ref|) on every output, since f32
-     sums run in another order than cuBLAS's:
+     off), max|d| <= 1e-4 * max(1, max|ref|) on every output: the plain
+     version is cuBLAS in f32, the two forward kernels multiply on the
+     tensor cores with each operand split into two TF32 parts (three
+     products a term, a few 1e-6 off), and f32 sums run in another order:
      - fused_mlp_fwd at the shapes the main paths give it (serving 8192
        and 512 rows; the trainer's loss 128; its 1-env collection 16 and
-       1, on the dynamics and the cost stack), plus a ragged row count
-       and the 256-wide stack;
+       1, on the dynamics and the cost stack), plus a ragged row count,
+       the 256-wide stack at 8192 and 512 rows, and a 23->41->17 stack
+       (no width a multiple of 8) at 9, 17 and 65 rows (ragged against
+       16- and 64-row tiles);
      - fused_ls_step at 512 lanes x 16 step sizes (the line search), 512
        x 1 (rollout, recompute), a ragged 1000 x 16 with a 12-wide goal,
-       and the humanoid-class widths (29 states, 12 actions, 128 x 16),
-       each with 3, 4 and 5 raw MPC weights and both action-goal forms;
+       and the humanoid-class widths (29 states, 12 actions) at 128 x 16
+       and 128 x 1, each with 3, 4 and 5 raw MPC weights and both
+       action-goal forms;
      - fused_mlp_bwd (dx and every dW, db) on the dynamics stack at 128
        rows (the trainer), 1000 (ragged) and 8192, the 256-wide stack at
        128 and the cost stack at 512, on input rows whose hidden
@@ -27,8 +32,11 @@ Phases, in order; any failure raises and exits non-zero:
   3. time kernels and plain versions with CUDA events (median of 21 runs
      of 20 back-to-back launches, queued behind a device sleep so that
      host overhead is not timed), and compute each call's bound: the
-     larger of its operations over the f32 peak and its bytes over the
-     memory rate;
+     larger of its bytes over the memory rate and its operations over the
+     best rate the card has for an f32-accurate product, three TF32
+     tensor-core passes (495 / 3 = 165 TFLOP/s), whatever the kernel
+     multiplies with; each line gives kernel, plain version, bound and the
+     kernel's share of it;
   4. check the main path's pieces on a small input against the same code
      on the CPU (plain versions): one flagship plan_batch at 8 envs and 2
      iLQR iterations with fused_ls off and on (U atol 1e-3), one cheetah
@@ -63,6 +71,7 @@ The last two lines are the kernels' JSON summary and
 """
 
 import json
+import re
 import sys
 import time
 
@@ -77,12 +86,15 @@ COST = [17, 128, 128, 10]
 # (rollout, winner recompute) and 512 * 16 alphas = 8192 (line search);
 # the trainer's loss at 128 rows, and its 1-env collection at 16 (1 x 16
 # alphas) and 1 row, on both stacks
+ODD = [23, 41, 17]  # no width a multiple of 8: padded in shared memory at every position
 CHECKS = [
     ("dynamics", DYNAMICS, 8192), ("dynamics", DYNAMICS, 512),
     ("dynamics", DYNAMICS, 1000), ("wide", WIDE, 8192),
     ("cost", COST, 8192), ("cost", COST, 512),
     ("dynamics", DYNAMICS, 128), ("dynamics", DYNAMICS, 16), ("dynamics", DYNAMICS, 1),
     ("cost", COST, 16), ("cost", COST, 1),
+    # ragged against the 16- and 64-row tiles; the wide stack on the 16-row tile
+    ("odd", ODD, 9), ("odd", ODD, 17), ("odd", ODD, 65), ("wide", WIDE, 512),
 ]
 TIMED = [("dynamics", DYNAMICS, 8192), ("dynamics", DYNAMICS, 512),
          ("dynamics", DYNAMICS, 128), ("cost", COST, 8192), ("cost", COST, 512)]
@@ -105,6 +117,7 @@ COLLECT_STEPS = 50  # cut from the configuration's 300 interactions per episode
 LS_CHECKS = [
     ("line search", 512, 16, 17, 6, 17), ("rollout", 512, 1, 17, 6, 17),
     ("ragged", 1000, 16, 17, 6, 12), ("humanoid-class", 128, 16, 29, 12, 29),
+    ("humanoid-class rollout", 128, 1, 29, 12, 29),
 ]
 LS_TIMED = [("line search", 512, 16, 17, 6, 17), ("rollout", 512, 1, 17, 6, 17)]
 # (raw MPC weights, action_goal_scale, action_goal_squared)
@@ -115,8 +128,12 @@ LS_WEIGHTS = [
     ((-2.0, 3.0, -3.0, 0.5, 1.3), 2.0, True),
     ((-2.0, 3.0, -3.0, 0.5, 1.3), 2.0, False),
 ]
-# one H100 SXM (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
-F32_PEAK = 67e12
+# one H100 SXM (NVIDIA's data sheet): dense TF32 on the tensor cores, HBM3.
+# An f32-accurate product takes three TF32 passes (hi x hi, hi x lo, lo x
+# hi), so the least time for f32 products is their operations over a third
+# of the TF32 rate; the f32 FMA pipes (67 TFLOP/s) are slower than that.
+TF32_PEAK = 495e12
+F32_PRODUCT_RATE = TF32_PEAK / 3
 MEM_RATE = 3.35e12
 
 
@@ -149,9 +166,9 @@ def mlp_weight_floats(widths):
 
 
 def bound(ops, nbytes):
-    """(bound_ms, bound_by): the least time for ``ops`` f32 operations
-    and ``nbytes`` of device-memory traffic."""
-    t_ops, t_bytes = ops / F32_PEAK * 1e3, nbytes / MEM_RATE * 1e3
+    """(bound_ms, bound_by): the least time for ``ops`` f32-accurate
+    operations and ``nbytes`` of device-memory traffic."""
+    t_ops, t_bytes = ops / F32_PRODUCT_RATE * 1e3, nbytes / MEM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -373,7 +390,7 @@ def main() -> int:
     from gan_mpc_tpu_torch.ops.fused_ls import fused_ls_kernel, reference_ls_step
     from gan_mpc_tpu_torch.ops.fused_mlp import (
         fused_mlp_backward, fused_mlp_forward, mlp_apply, reference_backward,
-        reference_forward,
+        reference_forward, tile_plan,
     )
     from gan_mpc_tpu_torch.planner.batch_ilqr import mlp_calls_per_solve
 
@@ -395,8 +412,22 @@ def main() -> int:
     for lib in libs:
         print(f"  {lib.name}")
         for line in lib.with_suffix(".log").read_text().splitlines():
+            entry = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
+                              r"(?:I((?:L[ib]\d+E)+)E)?", line)
+            if entry:  # the instance, e.g. fused_mlp_fwd_kernel<2, 2>
+                args = re.findall(r"L[ib](\d+)E", entry.group(2) or "")
+                print(f"    {entry.group(1)}" + (f"<{', '.join(args)}>" if args else ""))
             if "registers" in line or "spill" in line:
                 print("    ptxas:", line.strip())
+    # the forward kernels' dynamic shared memory (the backward's is in its source)
+    for name, widths, extra in (("fused_mlp_fwd dynamics", DYNAMICS, 0),
+                                ("fused_mlp_fwd cost", COST, 0),
+                                ("fused_ls_step dynamics", DYNAMICS, DYNAMICS[0])):
+        for tile_rows in (64, 16):
+            plan = tile_plan(widths, tile_rows, tile_rows * extra)
+            print(f"  {name}, {tile_rows}-row tile: {plan['smem']} B of shared memory, "
+                  f"ring of {plan['stages']} stages x {plan['stage_floats'] * 4} B, "
+                  f"weight rows per chunk {plan['step']}")
 
     # 2. kernels against plain versions on the card
     max_err = dict.fromkeys(kernels, 0.0)
@@ -471,6 +502,9 @@ def main() -> int:
                 raise SystemExit(f"fused_mlp_bwd is not deterministic: {name} rows={rows}")
 
         # 3. times and bounds
+        print(f"bounds: operations over {F32_PRODUCT_RATE / 1e12:.0f} TFLOP/s (three TF32 "
+              f"tensor-core passes per f32-accurate product, {TF32_PEAK / 1e12:.0f} / 3), "
+              f"bytes over {MEM_RATE / 1e12:.2f} TB/s")
         timed = {}
         for i, (name, widths, rows) in enumerate(TIMED):
             layers = random_layers(widths, 100 + i, dev)
@@ -482,7 +516,7 @@ def main() -> int:
             timed[("fused_mlp_fwd", name, rows)] = (k, p, b_ms, b_by)
             gf = mlp_flops(rows, widths) / 1e9
             print(f"time fused_mlp_fwd {name} {widths} rows={rows}: kernel {k:.4f} ms "
-                  f"({gf / k * 1e3:.0f} GFLOP/s), plain {p:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({gf / k * 1e3:.0f} GFLOP/s), plain {p:.4f} ms, bound {b_ms:.5f} ms "
                   f"({b_by}), kernel at {100 * b_ms / k:.1f}% of bound")
         for i, (name, widths, rows) in enumerate(BWD_TIMED):
             layers = random_layers(widths, 300 + i, dev)
@@ -495,7 +529,7 @@ def main() -> int:
             b_ms, b_by = bwd_bound(rows, widths)
             timed[("fused_mlp_bwd", name, rows)] = (k, p, b_ms, b_by)
             print(f"time fused_mlp_bwd {name} {widths} rows={rows}: kernel {k:.4f} ms, "
-                  f"plain {p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"plain {p:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
                   f"kernel at {100 * b_ms / k:.1f}% of bound")
         for i, (name, lanes, alphas, n, m, gs) in enumerate(LS_TIMED):
             args = ls_args(lanes, alphas, n, m, gs, LS_WEIGHTS[0], 900 + i, dev)
@@ -504,7 +538,7 @@ def main() -> int:
             b_ms, b_by = ls_bound(lanes, alphas, n, m, gs)
             timed[("fused_ls_step", name, lanes * alphas)] = (k, p, b_ms, b_by)
             print(f"time fused_ls_step {name} {lanes}x{alphas} rows={lanes * alphas}: "
-                  f"kernel {k:.4f} ms, plain {p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"kernel {k:.4f} ms, plain {p:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
                   f"kernel at {100 * b_ms / k:.1f}% of bound")
 
     # 4. the path's pieces on a small input against the CPU plain path

@@ -1,5 +1,5 @@
 // Fused line-search / rollout step of the batch iLQR solver for Hopper
-// (sm_90a), f32 throughout.
+// (sm_90a): the dynamics MLP on the tensor cores at f32 accuracy.
 //
 // Replaces gan_mpc_tpu/ops/fused_ls.py::_kernel. For every row
 // g = b * A + a of B lanes x A step sizes:
@@ -14,37 +14,45 @@
 //
 // What bounds it on an H100: at the line search's call (512 lanes x 16
 // step sizes = 8192 rows, 23->200->200->200->17 dynamics) the MLP is
-// 2 x 8192 x 88,000 = 1.44 GFLOP of f32 FMA against about 2 MB of inputs,
-// outputs and weights, so the call is bound by f32 FMA throughput (and the
-// shared-memory reads that feed it), not by device memory. The control
-// law and the cost add under 1% of the operations. At 512 rows (the
-// rollout and the winner recompute, A = 1) it is bound by latency.
+// 2 x 8192 x 88,000 = 1.44 GFLOP of products against about 2 MB of
+// inputs, outputs and weights, so the tensor-core rate bounds it (three
+// TF32 passes per f32-accurate product: 165 TFLOP/s at best), not device
+// memory. The control law and the cost add under 1% of the operations
+// and stay on the f32 pipes. At 512 rows (the rollout and the winner
+// recompute, A = 1) each of the 32 blocks of 16 rows walks all the weights
+// alone, and one SM's product loop over a 16-row tile bounds the call (its
+// weight stream from L2 is five times faster).
 //
 // Design:
-//  * One block owns a tile of TM = 8 * RM rows. It loads the tile's
-//    states once into shared memory, forms u there (one thread per row
-//    and action; the lane's Xref, Uref, k and K rows are read through the
-//    read-only cache, shared by the A rows of a lane), writes u and the
-//    stage cost, and runs the dynamics MLP on [x, u] with the tile loop
-//    of mlp_tile.cuh: activations in shared memory, weights streamed in
-//    double-buffered cp.async chunks. The last layer adds the kept input
-//    state, so nx = x + MLP([x, u]) leaves the block in one store.
+//  * One block owns a tile of rows. Its seventeenth warp starts streaming
+//    the dynamics weights into the shared-memory ring at once (bulk
+//    copies, mbarriers; W0's two tensors are two spans of the first
+//    chunk), while the 16 consumer warps load the tile's states into
+//    shared memory and form u there (one thread per row and action; the
+//    lane's Xref, Uref, k and K rows are read through the read-only
+//    cache, shared by the A rows of a lane). Then the consumers run the
+//    dynamics MLP on [x, u] with the tile loop of mlp_tile_mma.cuh
+//    (error-compensated TF32 on mma.sync m16n8k8, activations in shared
+//    memory as a hi and a lo plane), the last warps after they have
+//    written the stage cost from the f32 rows. The last layer's epilogue
+//    adds the kept input state, so nx = x + MLP([x, u]) leaves the block
+//    in one store.
 //  * The state term of the cost uses the INPUT x, not nx.
-//  * RM = 4 (32-row tiles) when there are enough rows for one such block
-//    per SM and the block's shared memory fits, else RM = 1, so that the
-//    512-row calls still spread over 64 SMs.
+//  * 64-row tiles once 16-row tiles would take more than two waves of
+//    blocks, the tile fits and no layer is wider than 256 (8192 rows: 128
+//    blocks, one wave), else 16-row tiles, so that the 512-row calls
+//    spread over 32 SMs.
 //  * The ragged last tile is masked: rows past B * A load zeros and are
 //    never stored.
 //
 // The launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() (or -1 for arguments it refuses).
 
-#include "mlp_tile.cuh"
+#include "mlp_tile_mma.cuh"
 
 namespace {
 
 constexpr float kHuberAlpha = 1e-2f;  // models/cost.py _HUBER_ALPHA
-constexpr size_t kMaxSmem = 232448;   // a Hopper block's dynamic shared memory
 
 struct LsArgs {
   const float* x3;      // (B, A, n)
@@ -68,31 +76,33 @@ __device__ __forceinline__ float pseudo_huber(float sq) {
   return sqrtf(sq + kHuberAlpha * kHuberAlpha) - kHuberAlpha;
 }
 
-template <int RM>
-__global__ void __launch_bounds__(kThreads)
-fused_ls_step_kernel(LsArgs a, MlpArgs mlp, int stride) {
-  constexpr int TM = kGroups * RM;
-  extern __shared__ __align__(16) float smem[];
-  float* in = smem;                        // TM x stride: [x, u], then activations
-  float* out = smem + TM * stride;         // TM x stride
-  float* wbuf = smem + 2 * TM * stride;    // 2 x kChunk x stride
-  float* xs = wbuf + 2 * kChunk * stride;  // TM x n: the input states
+template <int MT, int WM>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+fused_ls_step_kernel(LsArgs a, MlpArgs mlp, TilePlan plan) {
+  constexpr int TM = 16 * MT * WM;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Tile tile = carve_tile(smem, plan, TM);
+  if (threadIdx.x >= kConsumers) {
+    producer_start(tile.ring);
+    mlp_produce<true>(tile.ring, mlp, plan);
+    return;
+  }
+
+  float* xu = tile.extra;  // TM x (n + m): the MLP's input rows [x, u] in f32
   const int rows = a.B * a.A;
   const int row0 = blockIdx.x * TM;
-  const int n = a.n, m = a.m;
+  const int n = a.n, m = a.m, nm = n + m;
 
   // 1. the tile's states
-  for (int idx = threadIdx.x; idx < TM * n; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < TM * n; idx += kConsumers) {
     const int r = idx / n, c = idx - r * n;
     const int g = row0 + r;
-    const float v = g < rows ? a.x3[(size_t)g * n + c] : 0.f;
-    in[r * stride + c] = v;
-    xs[r * n + c] = v;
+    xu[r * nm + c] = g < rows ? a.x3[(size_t)g * n + c] : 0.f;
   }
-  __syncthreads();
+  consumer_sync();
 
   // 2. control law, one thread per (row, action)
-  for (int idx = threadIdx.x; idx < TM * m; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < TM * m; idx += kConsumers) {
     const int r = idx / m, j = idx - r * m;
     const int g = row0 + r;
     float uj = 0.f;
@@ -101,34 +111,49 @@ fused_ls_step_kernel(LsArgs a, MlpArgs mlp, int stride) {
       const float* Kj = a.K + ((size_t)b * m + j) * n;
       const float* xr = a.xref + (size_t)b * n;
       float du = 0.f;
-      for (int i = 0; i < n; ++i) du = fmaf(__ldg(Kj + i), xs[r * n + i] - __ldg(xr + i), du);
+      // unrolled so that a batch of the loop's loads is in flight at once
+#pragma unroll 8
+      for (int i = 0; i < n; ++i) du = fmaf(__ldg(Kj + i), xu[r * nm + i] - __ldg(xr + i), du);
       uj = __ldg(a.uref + (size_t)b * m + j) + __ldg(a.alpha + g) * __ldg(a.k + (size_t)b * m + j)
            + du;
       a.u[(size_t)g * m + j] = uj;
     }
-    in[r * stride + n + j] = uj;
+    xu[r * nm + n + j] = uj;
   }
-  __syncthreads();
+  consumer_sync();
 
-  // 3. stage cost, one thread per row. It only reads `in` and `xs`; the
-  // MLP below first writes `in` after its first layer's barrier.
-  if (threadIdx.x < TM) {
-    const int r = threadIdx.x;
+  // 3. the MLP's input tile: [x, u], split, padded with zeros to a
+  // multiple of 8 columns
+  const int nm8 = (nm + 7) & ~7;
+  for (int idx = threadIdx.x; idx < TM * nm8; idx += kConsumers) {
+    const int r = idx / nm8, c = idx - r * nm8;
+    store_split(tile, act_index(r, c, plan.sa), c < nm ? xu[r * nm + c] : 0.f);
+  }
+
+  consumers_start();
+
+  // 4. stage cost, one thread per row, from the f32 rows. The last warps
+  // take it: theirs are the column groups a layer leaves without tiles
+  // first, and the others start on the products meanwhile.
+  if (threadIdx.x >= kConsumers - TM) {
+    const int r = threadIdx.x - (kConsumers - TM);
     const int g = row0 + r;
     if (g < rows) {
       const int b = g / a.A;
-      const float* ur = in + r * stride + n;
+      const float* ur = xu + r * nm + n;
       const float w_u = __ldg(a.wvec), w_x = __ldg(a.wvec + 1);
       const float w_ag = __ldg(a.wvec + 2), gain = __ldg(a.wvec + 3);
       float su = 0.f, sg = 0.f;
+#pragma unroll 8
       for (int j = 0; j < m; ++j) {
         const float dg = ur[j] - gain * __ldg(a.goal_u + (size_t)b * m + j);
         su = fmaf(ur[j], ur[j], su);
         sg = fmaf(dg, dg, sg);
       }
       float sd = 0.f;
+#pragma unroll 8
       for (int i = 0; i < a.gs; ++i) {
-        const float d = xs[r * n + i] - __ldg(a.goal + (size_t)b * a.gs + i);
+        const float d = xu[r * nm + i] - __ldg(a.goal + (size_t)b * a.gs + i);
         sd = fmaf(d, d, sd);
       }
       const float ag = a.ag_squared ? a.ag_scale * sg : a.ag_scale * pseudo_huber(sg);
@@ -136,42 +161,31 @@ fused_ls_step_kernel(LsArgs a, MlpArgs mlp, int stride) {
     }
   }
 
-  // 4. nx = x + MLP([x, u])
-  mlp_forward_tile<RM, true>(in, out, wbuf, mlp, stride, a.nx, row0, rows, xs, n);
-}
-
-// Dynamic shared memory of one block: two activation tiles and two weight
-// chunks of row stride `stride`, and the tile's n-wide states.
-template <int RM>
-constexpr size_t smem_bytes(int stride, int n) {
-  return (2ull * kGroups * RM * stride + 2ull * kChunk * stride + 1ull * kGroups * RM * n) *
-         sizeof(float);
+  // 5. nx = x + MLP([x, u])
+  mlp_consume<MT, WM, true>(tile, mlp, plan, a.nx, row0, rows, xu, nm);
 }
 
 // Raise the instance's dynamic shared-memory limit to the block's
 // maximum, once per device (the attribute call costs host time).
-template <int RM>
+template <int MT, int WM>
 cudaError_t allow_max_smem(int device) {
   static bool done[kMaxDevices];
   if (device < kMaxDevices && done[device]) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_ls_step_kernel<RM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  cudaError_t e = cudaFuncSetAttribute(fused_ls_step_kernel<MT, WM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   if (e == cudaSuccess && device < kMaxDevices) done[device] = true;
   return e;
 }
 
-template <int RM>
-cudaError_t launch(const LsArgs& a, const MlpArgs& mlp, int stride, int device,
+template <int MT, int WM>
+cudaError_t launch(const LsArgs& a, const MlpArgs& mlp, const TilePlan& plan, int device,
                    cudaStream_t stream) {
-  constexpr int TM = kGroups * RM;
-  const size_t smem = smem_bytes<RM>(stride, a.n);
-  if (smem > 48 * 1024) {
-    cudaError_t e = allow_max_smem<RM>(device);
-    if (e != cudaSuccess) return e;
-  }
+  constexpr int TM = 16 * MT * WM;
+  cudaError_t e = allow_max_smem<MT, WM>(device);
+  if (e != cudaSuccess) return e;
   const int rows = a.B * a.A;
   const int blocks = (rows + TM - 1) / TM;
-  fused_ls_step_kernel<RM><<<blocks, kThreads, smem, stream>>>(a, mlp, stride);
+  fused_ls_step_kernel<MT, WM><<<blocks, kBlockThreads, plan.smem, stream>>>(a, mlp, plan);
   return cudaGetLastError();
 }
 
@@ -194,8 +208,8 @@ int fused_ls_step(const float* x3, const float* xref, const float* uref, const f
                   const float* const* biases, void* stream) {
   if (B < 0 || A < 0 || n < 1 || m < 1 || gs < 0 || gs > n) return -1;
   MlpArgs mlp;
-  const int stride = fill_mlp_args(&mlp, n_layers, dims, weights, biases);
-  if (stride < 0 || dims[0] != n + m || dims[n_layers] != n) return -1;
+  if (fill_mlp_args(&mlp, n_layers, dims, weights, biases) < 0) return -1;
+  if (dims[0] != n + m || dims[n_layers] != n) return -1;
   mlp.w0_tail = w0_tail;
   mlp.split = n;
   if ((long long)B * A > 0x7fffffff / (n + m)) return -1;
@@ -208,13 +222,15 @@ int fused_ls_step(const float* x3, const float* xref, const float* uref, const f
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess) e = sm_count(device, &sms);
   if (e != cudaSuccess) return (int)e;
-  // 32-row tiles once there are enough rows for one such block per SM
-  // (and their shared memory fits), else 8-row tiles
-  if (rows >= sms * kGroups * 4 && smem_bytes<4>(stride, n) <= kMaxSmem) {
-    return (int)launch<4>(a, mlp, stride, device, s);
+  TilePlan plan;
+  // 64-row tiles once 16-row tiles would take more than two waves of
+  // blocks (where the tile with its f32 input rows fits and no layer is
+  // wider than its warps' 256 columns), else 16-row tiles
+  if (rows > 2 * sms * 16 && plan_tile(mlp, 64, 256, 64 * (n + m), &plan)) {
+    return (int)launch<2, 2>(a, mlp, plan, device, s);
   }
-  if (smem_bytes<1>(stride, n) > kMaxSmem) return -1;
-  return (int)launch<1>(a, mlp, stride, device, s);
+  if (!plan_tile(mlp, 16, 512, 16 * (n + m), &plan)) return -1;
+  return (int)launch<1, 1>(a, mlp, plan, device, s);
 }
 
 }  // extern "C"

@@ -1,28 +1,28 @@
-// Device code shared by the fused-MLP kernels (fused_mlp_fwd.cu and
-// fused_ls_step.cu): a relu-MLP forward over one tile of rows, f32
-// throughout.
+// Device code shared by the fused-MLP kernels: the description of a stack
+// (MlpArgs, fill_mlp_args), the SM count, and the f32 FMA layer loop that
+// the backward kernel (fused_mlp_bwd.cu) recomputes its forward with. The
+// two forward kernels (fused_mlp_fwd.cu, fused_ls_step.cu) multiply on the
+// tensor cores with the loop of mlp_tile_mma.cuh and take only the stack
+// description from here.
 //
-//  * One block owns a tile of TM = 8 * RM rows for the WHOLE stack. The
-//    tile's activations ping-pong between two shared-memory buffers (TM x
-//    stride floats each), so no hidden activation touches device memory.
-//  * Each layer's weights stream through shared memory in chunks of
-//    kChunk rows, double-buffered with cp.async: the copy of chunk c+1 is
-//    in flight while chunk c is multiplied. (A 23->200->200->200->17
-//    stack is 354 KB, more than the 227 KB a Hopper block can have.)
-//    Every block reads the same weights, so after the first blocks they
-//    come from L2.
+// layer_tile, one layer over one tile of TM = 8 * RM rows, f32 throughout:
+//  * The tile's input and output activations are shared-memory buffers
+//    (TM x stride floats each), so no hidden activation touches device
+//    memory.
+//  * The layer's weights stream through shared memory in chunks of kChunk
+//    rows, double-buffered with cp.async: the copy of chunk c+1 is in
+//    flight while chunk c is multiplied. Every block reads the same
+//    weights, so after the first blocks they come from L2.
 //  * 256 threads = 8 row groups x 32 column lanes. A thread accumulates RM
 //    rows x CS columns in registers (columns lane + 32 j); per k it reads
 //    CS weights (consecutive lanes, conflict-free) and RM activations (a
 //    broadcast: all lanes of a warp read the same row). CS is picked per
-//    layer from its width (1, 2, 4 or 8 columns per lane), so a 17-wide
-//    last layer does not pay for 256 columns; a layer wider than 256 runs
-//    as two column slabs.
-//  * Plain FMA in f32 (no TF32, no tensor cores): parity with the f32
-//    reference is the point of this version.
-//  * The line-search step's extras (W0 in two tensors, a residual added
-//    to the output) are compiled in only where the template flag kLs
-//    asks for them, so the plain MLP kernel's code does not carry them.
+//    layer from its width (1, 2, 4 or 8 columns per lane); a layer wider
+//    than 256 runs as two column slabs.
+//  * Plain FMA in f32 (no tensor cores), so the backward's relu masks come
+//    from the same arithmetic as its own products.
+//  * The template flag kLs (W0 in two tensors, a residual added to the
+//    output) is false in the backward kernel.
 //
 // Everything here sits in an anonymous namespace: each kernel source
 // builds into a library of its own.
@@ -178,42 +178,6 @@ __device__ __forceinline__ void layer_tile(
         }
       }
     }
-  }
-}
-
-// The whole stack over one row tile whose input rows are in `in` (row
-// stride `stride`); `in` and `out` are both overwritten. The output rows
-// go to y (rows past `rows` are not stored), with kLs plus resid and with
-// W0 read from args.w[0] and args.w0_tail.
-template <int RM, bool kLs>
-__device__ __forceinline__ void mlp_forward_tile(
-    float* in, float* out, float* wbuf, const MlpArgs& args, int stride,
-    float* __restrict__ y, int row0, int rows,
-    const float* __restrict__ resid, int resid_stride) {
-  for (int l = 0; l < args.n_layers; ++l) {
-    const int K = args.dims[l], N = args.dims[l + 1];
-    const bool last = l == args.n_layers - 1;
-    const float* W = args.w[l];
-    const float* Wtail = kLs && l == 0 ? args.w0_tail : nullptr;
-    const int split = kLs && l == 0 ? args.split : K;
-    const float* b = args.b[l];
-    if (N <= kLanes) {
-      layer_tile<RM, 1, kLs>(in, out, wbuf, W, Wtail, split, b, K, N, stride, last, y, row0,
-                             rows, resid, resid_stride);
-    } else if (N <= 2 * kLanes) {
-      layer_tile<RM, 2, kLs>(in, out, wbuf, W, Wtail, split, b, K, N, stride, last, y, row0,
-                             rows, resid, resid_stride);
-    } else if (N <= 4 * kLanes) {
-      layer_tile<RM, 4, kLs>(in, out, wbuf, W, Wtail, split, b, K, N, stride, last, y, row0,
-                             rows, resid, resid_stride);
-    } else {
-      layer_tile<RM, 8, kLs>(in, out, wbuf, W, Wtail, split, b, K, N, stride, last, y, row0,
-                             rows, resid, resid_stride);
-    }
-    __syncthreads();
-    float* t = in;
-    in = out;
-    out = t;
   }
 }
 

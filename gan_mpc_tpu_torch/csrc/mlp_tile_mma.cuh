@@ -1,0 +1,612 @@
+// The tile loop of the two forward kernels (fused_mlp_fwd.cu and
+// fused_ls_step.cu): a relu-MLP forward over one tile of rows on Hopper's
+// tensor cores, at f32 accuracy. It stands where the TPU kernels
+// (gan_mpc_tpu/ops/fused_mlp.py::_fwd_kernel and the MLP part of
+// gan_mpc_tpu/ops/fused_ls.py::_kernel) run jnp.dot(...,
+// preferred_element_type=f32) on the matrix unit.
+//
+// What bounds the loop on an H100. At the planner's large call (8192 rows
+// of 23->200->200->200->17) the products are 1.44 GFLOP against 1.7 MB of
+// rows and weights, so the tensor-core rate bounds it: an f32-accurate
+// product costs three TF32 passes, 495 / 3 = 165 TFLOP/s at best (mma.sync
+// issues one m16n8k8 per 6 clocks and SM sub-partition, 63% of that). At
+// 512 rows and fewer the call is a few blocks (16 rows is the least an
+// m16 product takes: 32 blocks at 512 rows), and each walks the whole
+// stack alone: 75 k-steps of 8 weight rows in which a warp has two output
+// tiles, so three dependent products per tile and k-step, and one SM's
+// product loop at that depth (about 250 clocks a k-step) bounds the call.
+// The weight stream does not: one SM pulls the stack's 354 KB from L2 at
+// 80-odd bytes a clock, a fifth of the loop's time, so the ring only has
+// to stay ahead (both rates: scripts/hopper_rates.cu, mlp_loop_rate.cu).
+//
+// Design.
+//  * Products: mma.sync.aligned.m16n8k8 (TF32 in, f32 accumulate), three
+//    per output tile and k-step. Each f32 operand v is split into hi =
+//    tf32(v) and lo = tf32(v - hi), both rounded to nearest, and the
+//    accumulator takes a_lo w_hi + a_hi w_lo + a_hi w_hi; the dropped
+//    a_lo w_lo term is 2^-22 of the product. A single TF32 pass would keep
+//    three decimal digits and flip line-search argmins. The rounding is
+//    two integer instructions (add half an ulp, mask 13 bits: ties away
+//    from zero, what cvt.rna.tf32.f32 gives, without the conversion
+//    unit). Activations are split once, when they are written: the tile
+//    is a hi plane and a lo plane, so an A fragment costs loads and no
+//    arithmetic. Weights are split in registers as they are read from the
+//    ring, once per warp row group.
+//    mma.sync and not wgmma: its fragments are plain shared-memory loads,
+//    so the (in, out) row-major weights are used as they lie (B[k][n] at
+//    k * N + n) and rows tile by 16; wgmma's TF32 form takes both
+//    operands K-major, so W would have to be transposed on its way into
+//    shared memory.
+//  * Tile: 16 consumer warps own TM = 16 * MT * WM rows for the WHOLE
+//    stack, as WM row groups x WN = 16 / WM column groups: four warps a
+//    sub-partition, so one warp's loads and splits run under another's
+//    products. A warp keeps MT 16-row blocks x up to 4 8-column tiles of
+//    accumulators in registers. A layer's tiles are dealt to the column
+//    groups in runs of ceil(tiles / WN): 200 columns are runs of 4 on 7 of
+//    the 8 groups of the 64-row tile, and the 17-column last layer one
+//    tile each on 3 groups, not 3 tiles on one. So a layer is at most
+//    32 * WN columns wide: 256 for the 64-row tile (2 x 8 warps), 512 for
+//    the 16-row tile (1 x 16).
+//  * Fragment layout, chosen so that loads are wide and land in the
+//    registers the product reads them from. A warp's tiles lie side by
+//    side and share their columns out by lane (column n of tile j is
+//    column base + n * T + j), so a lane's T weights of one row are
+//    neighbours: one 16-byte load for 4 tiles, and no bank conflict at a
+//    row length = 8 (mod 32) floats, which 200 is (128 and 256 take a
+//    4-way conflict; copying them row by row at a padded stride cost more
+//    than it saved). In the activation planes rows r and r + 8 are
+//    interleaved element by element (act_index), so a fragment's two rows
+//    of a column are one 8-byte load; the row-pair stride 2 * sa = 8 (mod
+//    16) floats keeps those loads off each other's banks. The plane is
+//    overwritten in place, between two barriers of the consumer warps, by
+//    each layer's output, 4 T neighbouring floats a lane; no hidden
+//    activation touches device memory. The bias is fetched when a layer
+//    starts and added in the epilogue, so its load latency hides behind
+//    the products; relu, the split and the store (for the last layer to
+//    device memory, masked for the ragged tile, plus the residual for the
+//    step kernel) come from registers.
+//  * Weights: a seventeenth warp streams them through a ring of 3-4
+//    stages of shared memory with cp.async.bulk (no tensor map). A chunk
+//    of weight rows of a row-major matrix is one contiguous span, so one
+//    lane issues it as one copy; a full/empty mbarrier pair per stage
+//    replaces block-wide barriers, and the ring runs across layer
+//    boundaries: the next layer's first chunks are in flight during this
+//    layer's epilogue. Chunks start at multiples of 8 rows, so every span
+//    starts 16-byte aligned whenever the matrix does; the under-16-byte
+//    end of a span, a matrix that is not 16-byte aligned, and the zero
+//    rows that pad K to a multiple of 8 are written by the warp's plain
+//    stores, after the copy is on its way. The block's first chunk lands
+//    before the others are issued, so that it does not share the SM's copy
+//    rate with them. Weights are read from device memory anew at every
+//    launch (the optimizer updates them in place).
+//  * Widths that are no multiple of 8 are padded in shared memory only:
+//    input columns and weight rows with zeros; columns past a layer's
+//    width compute on whatever the stage holds and are written as zeros.
+//
+// Everything here sits in an anonymous namespace: each kernel source
+// builds into a library of its own.
+
+#pragma once
+
+#include "mlp_tile.cuh"
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kConsumerWarps = 16;
+constexpr int kConsumers = kConsumerWarps * kWarp;  // the threads that multiply
+constexpr int kBlockThreads = kConsumers + kWarp;   // ... and the producer warp
+constexpr int kWarpTiles = 4;                       // 8-column tiles per warp, at most
+constexpr int kMaxStages = 4;
+constexpr int kMinStages = 3;
+constexpr size_t kMaxSmem = 232448;                 // a Hopper block's dynamic shared memory
+constexpr size_t kBarrierBytes = 128;               // 2 * kMaxStages mbarriers, padded
+
+// A block's shared memory: [mbarriers][hi plane][lo plane][extra][ring + 8].
+struct TilePlan {
+  int sa;                // activation row stride, floats: = 4 (mod 8)
+  int extra_floats;      // the caller's own buffer
+  int stage_floats;      // floats per ring stage
+  int stages;
+  int step[kMaxLayers];  // weight rows per chunk of layer l: what a stage holds, in whole
+                         // k-steps of 8
+  size_t smem;           // bytes
+};
+
+// Size the ring for `tile_rows` rows whose warps take layers of up to
+// `max_cols` columns: the deepest of 64-, 32-, 16- or 8-row stages (at
+// the stack's widest layer) of which at least kMinStages fit.
+inline bool plan_tile(const MlpArgs& a, int tile_rows, int max_cols, int extra_floats,
+                      TilePlan* p) {
+  int widest = 0, widest_out = 0;
+  for (int l = 0; l <= a.n_layers; ++l) widest = max(widest, a.dims[l]);
+  for (int l = 1; l <= a.n_layers; ++l) widest_out = max(widest_out, a.dims[l]);
+  if (widest_out > max_cols) return false;
+  p->sa = ((widest + 7) & ~7) + 4;
+  p->extra_floats = (extra_floats + 3) & ~3;
+  const size_t fixed =
+      kBarrierBytes + (2ull * tile_rows * p->sa + p->extra_floats + 8) * sizeof(float);
+  for (int rows = 64; rows >= 8; rows /= 2) {
+    p->stage_floats = rows * ((widest_out + 3) & ~3);
+    const size_t stage = p->stage_floats * sizeof(float);
+    if (fixed + kMinStages * stage > kMaxSmem) continue;
+    p->stages = (int)min((size_t)kMaxStages, (kMaxSmem - fixed) / stage);
+    p->smem = fixed + p->stages * stage;
+    for (int l = 0; l < a.n_layers; ++l) p->step[l] = (p->stage_floats / a.dims[l + 1]) & ~7;
+    return true;
+  }
+  return false;
+}
+
+struct Ring {
+  float* buf;        // stages x stage_floats (+ 8 floats a fragment may read past the end)
+  uint64_t* full;    // [stages]: the stage's rows have landed
+  uint64_t* empty;   // [stages]: every consumer warp has read the stage
+  int stage_floats;
+  int stages;
+};
+
+struct Tile {
+  float* hi;  // tile_rows x sa: the activations' TF32 parts, laid out by act_index
+  float* lo;  // tile_rows x sa: what the TF32 parts leave, in TF32
+  float* extra;
+  Ring ring;
+};
+
+// Where row r, column c of the tile lies in a plane: rows r and r + 8 of a
+// 16-row block are interleaved element by element, so that an A
+// fragment's two rows of one column come with one 8-byte load, into the
+// neighbouring registers the product reads them from.
+__device__ __forceinline__ int act_index(int r, int c, int sa) {
+  return ((r >> 4) * 8 + (r & 7)) * 2 * sa + 2 * c + ((r >> 3) & 1);
+}
+
+__device__ __forceinline__ Tile carve_tile(unsigned char* smem, const TilePlan& p, int tile_rows) {
+  Tile t;
+  t.ring.full = reinterpret_cast<uint64_t*>(smem);
+  t.ring.empty = t.ring.full + kMaxStages;
+  t.hi = reinterpret_cast<float*>(smem + kBarrierBytes);
+  t.lo = t.hi + tile_rows * p.sa;
+  t.extra = t.lo + tile_rows * p.sa;
+  t.ring.buf = t.extra + p.extra_floats;
+  t.ring.stage_floats = p.stage_floats;
+  t.ring.stages = p.stages;
+  return t;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(arrivals)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier has left the phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory; its completion counts `bytes` on `bar`.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A barrier of the consumer warps alone: the producer warp never joins.
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+}
+
+// The block's start. The producer warp sets up the ring's barriers (a
+// stage is full after the producer's two arrivals, one with the byte
+// count of its bulk copies and one after its plain stores, and empty
+// after one arrival per consumer warp), tells the consumers without
+// waiting for them, and goes on to stream weights; the consumers meet it
+// here once their input tile is in shared memory.
+__device__ __forceinline__ void producer_start(const Ring& ring) {
+  if (threadIdx.x % kWarp == 0) {
+    for (int s = 0; s < ring.stages; ++s) {
+      mbar_init(ring.full + s, 2);
+      mbar_init(ring.empty + s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncwarp();
+  asm volatile("bar.arrive 2, %0;" ::"n"(kBlockThreads) : "memory");
+}
+
+__device__ __forceinline__ void consumers_start() {
+  asm volatile("bar.sync 2, %0;" ::"n"(kBlockThreads) : "memory");
+}
+
+// `count` consecutive floats from device memory into a stage, by the
+// producer warp. Where both ends are 16-byte aligned the whole 16-byte
+// units go as one bulk copy issued by lane 0 (kBulk) and only the last
+// count % 4 floats by plain stores (!kBulk); else the whole span goes by
+// plain stores. Returns the bytes the bulk copy counts on `bar`.
+template <bool kBulk>
+__device__ __forceinline__ uint32_t copy_span(float* dst, const float* __restrict__ src, int count,
+                                              uint64_t* bar, int lane) {
+  if (count <= 0) return 0;
+  const int bulk = aligned16(src) && aligned16(dst) ? count & ~3 : 0;
+  if constexpr (kBulk) {
+    if (bulk > 0 && lane == 0) bulk_copy(dst, src, bulk * 4u, bar);
+  } else {
+    for (int i = bulk + lane; i < count; i += kWarp) dst[i] = __ldg(src + i);
+  }
+  return bulk * 4u;
+}
+
+// Weight rows [k0, k0 + n) of a row-major (K, N) matrix into a stage: one
+// span. With kLs the first layer's rows below `split` come from W and the
+// others from Wtail: two spans.
+template <bool kLs, bool kBulk>
+__device__ __forceinline__ uint32_t copy_chunk_rows(float* dst, const float* __restrict__ W,
+                                                    const float* __restrict__ Wtail, int split,
+                                                    int k0, int n, int N, uint64_t* bar,
+                                                    int lane) {
+  if constexpr (kLs) {
+    const int head = max(0, min(n, split - k0));
+    return copy_span<kBulk>(dst, W + (size_t)k0 * N, head * N, bar, lane) +
+           copy_span<kBulk>(dst + (size_t)head * N, Wtail + (size_t)(k0 + head - split) * N,
+                            (n - head) * N, bar, lane);
+  } else {
+    return copy_span<kBulk>(dst, W + (size_t)k0 * N, n * N, bar, lane);
+  }
+}
+
+// The producer warp: every layer's weights, chunk by chunk, into the
+// ring, in the order mlp_consume reads them.
+template <bool kLs>
+__device__ __forceinline__ void mlp_produce(const Ring& ring, const MlpArgs& args,
+                                            const TilePlan& plan) {
+  const int lane = threadIdx.x % kWarp;
+  int s = 0;
+  uint32_t phase = 0;
+  for (int l = 0; l < args.n_layers; ++l) {
+    const int K = args.dims[l], N = args.dims[l + 1];
+    const int step = plan.step[l];
+    const float* W = args.w[l];
+    const float* Wtail = kLs && l == 0 ? args.w0_tail : nullptr;
+    const int split = kLs && l == 0 ? args.split : K;
+    for (int k0 = 0; k0 < K; k0 += step) {
+      const int n = min(step, K - k0);
+      float* dst = ring.buf + (size_t)s * ring.stage_floats;
+      uint64_t* full = ring.full + s;
+      mbar_wait(ring.empty + s, phase ^ 1);  // passes at once on the first round
+      // the bulk copies first, so that they fly while the plain stores run
+      const uint32_t bytes = copy_chunk_rows<kLs, true>(dst, W, Wtail, split, k0, n, N, full, lane);
+      if (lane == 0) mbar_arrive_expect_tx(full, bytes);
+      copy_chunk_rows<kLs, false>(dst, W, Wtail, split, k0, n, N, full, lane);
+      // zero rows up to the k-step: the activations' pad columns are
+      // zeros too, and 0 x (whatever the stage held) could be a NaN
+      for (int e = n * N + lane; e < ((n + 7) & ~7) * N; e += kWarp) dst[e] = 0.f;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full);
+      // the first chunk lands alone: with the ring's other stages in flight
+      // beside it, it would share the SM's copy rate with them, and the
+      // consumers would start that much later
+      if (l == 0 && k0 == 0) mbar_wait(full, 0);
+      if (++s == ring.stages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// v rounded to TF32's 10 mantissa bits, to nearest with ties away from
+// zero (cvt.rna.tf32.f32's result, on the integer pipe).
+__device__ __forceinline__ uint32_t round_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// hi = tf32(v) and lo = tf32(v - hi).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = round_tf32(v);
+  lo = round_tf32(v - __uint_as_float(hi));
+}
+
+// v into the tile's two planes at `at` (an act_index).
+__device__ __forceinline__ void store_split(const Tile& tile, int at, float v) {
+  uint32_t hi, lo;
+  split_tf32(v, hi, lo);
+  tile.hi[at] = __uint_as_float(hi);
+  tile.lo[at] = __uint_as_float(lo);
+}
+
+// d (16 x 8, f32) += a (16 x 8, tf32, row) b (8 x 8, tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// B fragments of one k-step for a warp that owns T 8-column tiles, which
+// lie side by side from column `base` on: column n of tile j is the
+// layer's column base + n * T + j, so that a lane's T values of one
+// weight row are neighbours and come with one load where the row length
+// keeps them aligned (kVec: N % 4 == 0). w points at row t, column
+// base + g * T of the k-step.
+template <int T, bool kVec>
+__device__ __forceinline__ void load_b(float (&b)[T][2], const float* __restrict__ w, int N) {
+  if constexpr (kVec && T == 4) {
+    const float4 r0 = *reinterpret_cast<const float4*>(w);
+    const float4 r1 = *reinterpret_cast<const float4*>(w + 4 * N);
+    b[0][0] = r0.x, b[1][0] = r0.y, b[2][0] = r0.z, b[3][0] = r0.w;
+    b[0][1] = r1.x, b[1][1] = r1.y, b[2][1] = r1.z, b[3][1] = r1.w;
+  } else if constexpr (kVec && T == 2) {
+    const float2 r0 = *reinterpret_cast<const float2*>(w);
+    const float2 r1 = *reinterpret_cast<const float2*>(w + 4 * N);
+    b[0][0] = r0.x, b[1][0] = r0.y;
+    b[0][1] = r1.x, b[1][1] = r1.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      b[j][0] = w[j];
+      b[j][1] = w[4 * N + j];
+    }
+  }
+}
+
+// One chunk's products for a warp that owns T 8-column tiles: acc[i][j] +=
+// a (MT 16-row blocks; the fragment's first pair at a_hi / a_lo, 2 * sa
+// floats per row pair) times B (load_b's layout, `rows` weight rows of
+// length N). T is a template argument so that the loop has no branch: the
+// loads of a k-step then issue together and ahead of the products that
+// need them, where a test per tile would make each tile wait for its own
+// loads in turn.
+template <int MT, int T, bool kVec>
+__device__ __forceinline__ void chunk_products(float (&acc)[MT][T][4],
+                                               const float* __restrict__ a_hi,
+                                               const float* __restrict__ a_lo, int sa,
+                                               const float* __restrict__ w, int N, int rows) {
+#pragma unroll 2
+  for (int k = 0; k < rows; k += 8) {
+    uint32_t ah[MT][4], al[MT][4], bh[T][2], bl[T][2];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      // rows g and g + 8 of column k + t, then of column k + t + 4
+      const float2 h0 = *reinterpret_cast<const float2*>(a_hi + i * 16 * sa);
+      const float2 h1 = *reinterpret_cast<const float2*>(a_hi + i * 16 * sa + 8);
+      const float2 l0 = *reinterpret_cast<const float2*>(a_lo + i * 16 * sa);
+      const float2 l1 = *reinterpret_cast<const float2*>(a_lo + i * 16 * sa + 8);
+      ah[i][0] = __float_as_uint(h0.x), ah[i][1] = __float_as_uint(h0.y);
+      ah[i][2] = __float_as_uint(h1.x), ah[i][3] = __float_as_uint(h1.y);
+      al[i][0] = __float_as_uint(l0.x), al[i][1] = __float_as_uint(l0.y);
+      al[i][2] = __float_as_uint(l1.x), al[i][3] = __float_as_uint(l1.y);
+    }
+    float b[T][2];
+    load_b<T, kVec>(b, w, N);
+    a_hi += 16;
+    a_lo += 16;
+    w += 8 * N;
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      split_tf32(b[j][0], bh[j][0], bl[j][0]);
+      split_tf32(b[j][1], bh[j][1], bl[j][1]);
+    }
+    // small terms first; consecutive products go to different
+    // accumulators, so none waits for the one before it
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], al[i], bh[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], ah[i], bl[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], ah[i], bh[j]);
+    }
+  }
+}
+
+// Where a consumer warp stands in the ring.
+struct RingPos {
+  int s = 0;
+  uint32_t phase = 0;
+};
+
+// What mlp_consume hands a layer: the output and the residual.
+struct TileIo {
+  int sa;
+  float* __restrict__ y;
+  int row0, rows;
+  const float* __restrict__ resid;
+  int resid_stride;
+};
+
+// One layer for a warp that owns T 8-column tiles from column `base` on
+// (T == 0: the warp only keeps the ring's pace): the chunks' products as
+// they land, then the epilogue. Accumulator j holds rows r, r + 8 and the
+// columns base + (2 t + e) * T + j, e = 0, 1: over j a lane's columns are
+// the 2 T from base + 2 t T on. The bias is fetched first and added last,
+// so its latency hides behind the products. A hidden layer's output
+// overwrites the tile once every warp has read its inputs, and is whole
+// before any warp reads it.
+template <int MT, int WM, int T, bool kVec, bool kLs>
+__device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, const TileIo& io,
+                                            int K, int N, int step, int base,
+                                            const float* __restrict__ bias, bool last) {
+  constexpr int TT = T > 0 ? T : 1;
+  const Ring& ring = tile.ring;
+  const int lane = threadIdx.x % kWarp;
+  const int wm = threadIdx.x / kWarp % WM;
+  const int g = lane / 4, t = lane % 4;  // the fragment's row (column of B) and k pair
+  const int col = base + 2 * t * T;      // the lane's first output column
+  float acc[MT][TT][4], b[TT][2];
+#pragma unroll
+  for (int j = 0; j < TT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = col + e * T + j;
+      b[j][e] = T > 0 && c < N ? __ldg(bias + c) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+  }
+
+  const int a_at = act_index(wm * MT * 16 + g, t, io.sa);
+  for (int k0 = 0; k0 < K; k0 += step) {
+    const int n = min(step, K - k0);
+    mbar_wait(ring.full + pos.s, pos.phase);
+    if constexpr (T > 0) {
+      const float* w = ring.buf + (size_t)pos.s * ring.stage_floats + t * N + base + g * T;
+      chunk_products<MT, T, kVec>(acc, tile.hi + a_at + 2 * k0, tile.lo + a_at + 2 * k0, io.sa,
+                                  w, N, (n + 7) & ~7);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ring.empty + pos.s);
+    if (++pos.s == ring.stages) {
+      pos.s = 0;
+      pos.phase ^= 1;
+    }
+  }
+
+  if (last) {
+    if constexpr (T > 0) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = (wm * MT + i) * 16 + g + 8 * h;
+          if (io.row0 + r >= io.rows) continue;
+          float* yr = io.y + (size_t)(io.row0 + r) * N;
+#pragma unroll
+          for (int j = 0; j < T; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = col + e * T + j;
+              if (c >= N) continue;
+              float v = acc[i][j][2 * h + e] + b[j][e];
+              if constexpr (kLs) v += io.resid[r * io.resid_stride + c];
+              yr[c] = v;
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+  consumer_sync();
+  if constexpr (T > 0) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      // the lane's 2 T columns x rows (g, g + 8) are 4 T neighbouring
+      // floats of each plane: position p is column p / 2, row g + 8 (p % 2)
+      float hi[4 * T], lo[4 * T];
+#pragma unroll
+      for (int p = 0; p < 4 * T; ++p) {
+        const int co = p / 2, e = co / T, j = co % T;
+        // columns past N pad the next layer's K: zeros
+        const float v = col + co < N ? fmaxf(acc[i][j][2 * (p % 2) + e] + b[j][e], 0.f) : 0.f;
+        uint32_t vh, vl;
+        split_tf32(v, vh, vl);
+        hi[p] = __uint_as_float(vh);
+        lo[p] = __uint_as_float(vl);
+      }
+      const int at = act_index((wm * MT + i) * 16 + g, col, io.sa);
+#pragma unroll
+      for (int p = 0; p < 4 * T; p += 4) {
+        *reinterpret_cast<float4*>(tile.hi + at + p) =
+            make_float4(hi[p], hi[p + 1], hi[p + 2], hi[p + 3]);
+        *reinterpret_cast<float4*>(tile.lo + at + p) =
+            make_float4(lo[p], lo[p + 1], lo[p + 2], lo[p + 3]);
+      }
+    }
+  }
+  consumer_sync();
+}
+
+// The consumer warps: the whole stack over one row tile of 16 * MT * WM
+// rows whose input rows are split into tile.hi and tile.lo (act_index's
+// layout, columns up to the next multiple of 8 zeroed); both planes are
+// overwritten. The warps are WM row groups x WN = kConsumerWarps / WM
+// column groups. A layer's 8-column tiles are dealt to the column groups
+// in runs of tb = ceil(tiles / WN), so a narrow layer (17 columns: 3
+// tiles) spreads over as many warps as it has tiles; layers are at most
+// WN * 8 * kWarpTiles wide. The output rows go to y (rows past `rows` are
+// not stored), with kLs plus resid[r * resid_stride + c]. Called by all
+// kConsumers consumer threads.
+template <int MT, int WM, bool kLs>
+__device__ __forceinline__ void mlp_consume(const Tile& tile, const MlpArgs& args,
+                                            const TilePlan& plan, float* __restrict__ y,
+                                            int row0, int rows, const float* __restrict__ resid,
+                                            int resid_stride) {
+  constexpr int WN = kConsumerWarps / WM;
+  // neighbouring warps, which share an SM sub-partition four warps apart,
+  // take different column groups, so a layer's last, narrower groups
+  // spread over the sub-partitions
+  const int wn = threadIdx.x / kWarp / WM;
+  const TileIo io{plan.sa, y, row0, rows, resid, resid_stride};
+  RingPos pos;
+  for (int l = 0; l < args.n_layers; ++l) {
+    const int K = args.dims[l], N = args.dims[l + 1];
+    const bool last = l == args.n_layers - 1;
+    const int tiles = (N + 7) / 8;
+    const int tb = (tiles + WN - 1) / WN;
+    const int base = wn * tb * 8;
+    const int mine = max(0, min(tb, tiles - wn * tb));
+#define MLP_LAYER(T, V) \
+  layer_tiles<MT, WM, T, V, kLs>(tile, pos, io, K, N, plan.step[l], base, args.b[l], last)
+    if (N % 4 == 0) {
+      switch (mine) {
+        case 0: MLP_LAYER(0, true); break;
+        case 1: MLP_LAYER(1, true); break;
+        case 2: MLP_LAYER(2, true); break;
+        case 3: MLP_LAYER(3, true); break;
+        default: MLP_LAYER(kWarpTiles, true); break;
+      }
+    } else {
+      switch (mine) {
+        case 0: MLP_LAYER(0, false); break;
+        case 1: MLP_LAYER(1, false); break;
+        case 2: MLP_LAYER(2, false); break;
+        case 3: MLP_LAYER(3, false); break;
+        default: MLP_LAYER(kWarpTiles, false); break;
+      }
+    }
+#undef MLP_LAYER
+  }
+}
+
+}  // namespace

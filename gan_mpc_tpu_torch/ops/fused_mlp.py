@@ -12,6 +12,15 @@ with gradients ``FusedMlpFunction``, whose forward launches the same
 kernel and whose backward launches ``csrc/fused_mlp_bwd.cu`` (the JAX
 package's ``fused_mlp`` custom VJP). There is no fallback from a kernel to
 the plain version.
+
+The forward kernel multiplies on the tensor cores with every f32 operand
+split into two TF32 parts and three products per term. ``tf32_round`` and
+``reference_forward_3xtf32`` are that arithmetic in plain torch, and
+``tile_plan``, ``weight_chunks`` and ``column_runs`` mirror how
+``csrc/mlp_tile_mma.cuh`` lays a stack out in shared memory (padded
+widths, ring stages, chunk starts, the two spans of a split W0, the
+columns of each warp), so that the CPU tests can hold both to what the
+kernel relies on. Nothing on the launch path calls them.
 """
 
 from __future__ import annotations
@@ -51,6 +60,105 @@ def reference_forward(x: torch.Tensor, layers: Layers) -> torch.Tensor:
         if i < len(layers) - 1:
             h = torch.relu(h)
     return h
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (float32) rounded to TF32's 10 explicit mantissa bits, to
+    nearest with ties away from zero: add half an ulp to the bit pattern
+    and clear the low 13 bits, as the kernel's ``round_tf32`` does (the
+    result of ``cvt.rna.tf32.f32``)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def reference_forward_3xtf32(x: torch.Tensor, layers: Layers, passes: int = 3) -> torch.Tensor:
+    """The forward kernel's arithmetic in plain torch: per layer, both
+    operands split into ``hi = tf32(v)`` and ``lo = tf32(v - hi)`` and the
+    product taken as ``a_lo w_hi + a_hi w_lo + a_hi w_hi`` in float32, the
+    bias added last. ``passes=1`` keeps only ``a_hi w_hi``: a single TF32
+    pass, what the kernel must not be."""
+    h = x
+    for i, (w, b) in enumerate(layers):
+        h_hi, w_hi = tf32_round(h), tf32_round(w)
+        if passes == 3:
+            h_lo, w_lo = tf32_round(h - h_hi), tf32_round(w - w_hi)
+            h = (h_lo @ w_hi + h_hi @ w_lo) + h_hi @ w_hi + b
+        else:
+            h = h_hi @ w_hi + b
+        if i < len(layers) - 1:
+            h = torch.relu(h)
+    return h
+
+
+# csrc/mlp_tile_mma.cuh's constants
+CONSUMER_WARPS = 16
+WARP_TILES = 4
+MAX_STAGES, MIN_STAGES = 4, 3
+MAX_SMEM = 232448
+BARRIER_BYTES = 128
+
+
+def _up(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def tile_plan(dims: Sequence[int], tile_rows: int, extra_floats: int = 0):
+    """``plan_tile`` of ``csrc/mlp_tile_mma.cuh``: how a block of
+    ``tile_rows`` (64 or 16) rows lays the stack ``dims`` out in shared
+    memory, or None where the kernel does not take it at that tile.
+
+    ``sa``: the activation planes' row stride (the widest layer padded to
+    a multiple of 8, plus 4); ``stage_floats`` and ``stages``: the weight
+    ring; ``step[l]``: weight rows per chunk of layer l (a multiple of 8);
+    ``smem``: bytes."""
+    col_groups = CONSUMER_WARPS // {64: 2, 16: 1}[tile_rows]  # warps: row x column groups
+    widest, widest_out = max(dims), max(dims[1:])
+    if widest_out > col_groups * 8 * WARP_TILES:
+        return None
+    sa = _up(widest, 8) + 4
+    fixed = BARRIER_BYTES + 4 * (2 * tile_rows * sa + _up(extra_floats, 4) + 8)
+    for rows in (64, 32, 16, 8):
+        stage_floats = rows * _up(widest_out, 4)
+        if fixed + MIN_STAGES * 4 * stage_floats > MAX_SMEM:
+            continue
+        stages = min(MAX_STAGES, (MAX_SMEM - fixed) // (4 * stage_floats))
+        return dict(sa=sa, stage_floats=stage_floats, stages=stages,
+                    step=[stage_floats // n // 8 * 8 for n in dims[1:]],
+                    smem=fixed + stages * 4 * stage_floats)
+    return None
+
+
+def weight_chunks(dims: Sequence[int], step: Sequence[int], split: int = None):
+    """The producer warp's schedule: per layer, the chunks ``(k0, rows,
+    spans)`` it copies into ring stages. A chunk of a row-major (K, N)
+    matrix is one span ``(tensor, first_row, rows, stage_row)``; with
+    ``split`` the first layer's rows come from two tensors (0: its first
+    ``split`` rows, 1: the rest), so a chunk across the seam is two. The
+    stage is zero-filled from ``rows`` up to the next multiple of 8."""
+    out = []
+    for l, (K, st) in enumerate(zip(dims[:-1], step)):
+        chunks = []
+        for k0 in range(0, K, st):
+            n = min(st, K - k0)
+            cut = split if (split is not None and l == 0) else K
+            head = max(0, min(n, cut - k0))
+            spans = [(0, k0, head, 0)] if head else []
+            if head < n:
+                spans.append((1, k0 + head - cut, n - head, head))
+            chunks.append((k0, n, spans))
+        out.append(chunks)
+    return out
+
+
+def column_runs(n: int, col_groups: int):
+    """How a layer's ``n`` columns are dealt to the consumer warps' column
+    groups: runs of ``tb = ceil(tiles / col_groups)`` 8-column tiles.
+    Returns ``(base, tiles)`` per group; the tiles of a group lie side by
+    side from ``base`` on and cover ``[base, base + 8 * tiles)``, past
+    ``n`` up to the next multiple of 8 (zeros in shared memory)."""
+    tiles = -(-n // 8)
+    tb = -(-tiles // col_groups)
+    return [(g * tb * 8, max(0, min(tb, tiles - g * tb))) for g in range(col_groups)]
 
 
 def reference_backward(x: torch.Tensor, layers: Layers, g: torch.Tensor):

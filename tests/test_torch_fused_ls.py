@@ -333,7 +333,8 @@ def test_auto_resolves_by_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("lanes,alphas", [(512, 16), (512, 1), (1000, 16)])
+@pytest.mark.parametrize("lanes,alphas", [(512, 16), (512, 1), (1000, 16),
+                                          (1, 16), (1, 1), (9, 1), (65, 1)])
 def test_kernel_matches_reference_on_gpu(lanes, alphas):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

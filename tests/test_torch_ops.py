@@ -235,7 +235,10 @@ def test_build_is_keyed_by_source_and_raises_when_nvcc_fails(tmp_path, monkeypat
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("widths,rows", [(DYNAMICS, 8192), (DYNAMICS, 1000),
-                                         (WIDE, 8192), (COST, 512)])
+                                         (WIDE, 8192), (COST, 512),
+                                         (DYNAMICS, 512), (DYNAMICS, 16), (DYNAMICS, 1),
+                                         (COST, 8192), (WIDE, 512),
+                                         ([23, 41, 17], 65), ([23, 512, 512, 17], 300)])
 def test_kernel_matches_reference_on_gpu(widths, rows):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
