@@ -25,10 +25,17 @@ Phases, in order; any failure raises and exits non-zero:
        action-goal forms;
      - fused_mlp_bwd (dx and every dW, db) on the dynamics stack at 128
        rows (the trainer), 1000 (ragged) and 8192, the 256-wide stack at
-       128 and the cost stack at 512, on input rows whose hidden
-       pre-activations all sit 1e-4 or more from a relu kink (where the
-       derivative jumps), and a second call on the same inputs must give
-       the same bits;
+       128, the cost stack at 512, the 23->41->17 stack at 9, 17 and 65
+       rows, the humanoid-class stack (41->200->200->200->29) at 128 and
+       an empty call, on input rows whose hidden pre-activations all sit
+       1e-4 or more from a relu kink (where the derivative jumps); a second
+       call on the same inputs must give the same bits, and the kernel's
+       distance to the plain-torch model of its own arithmetic (3xTF32
+       products, dW summed per tile of 16 or 32 rows) is printed beside it;
+     - fused_mlp_fwd and fused_mlp_bwd at 128 rows on trained weights: the
+       dynamics (23->256->256->256->17) of the committed checkpoint
+       runs/trained_models/imitator/cheetah_run/gan/4/params.msgpack, read
+       by the port's own msgpack reader;
   3. time kernels and plain versions with CUDA events (median of 21 runs
      of 20 back-to-back launches, queued behind a device sleep so that
      host overhead is not timed), and compute each call's bound: the
@@ -87,6 +94,12 @@ COST = [17, 128, 128, 10]
 # the trainer's loss at 128 rows, and its 1-env collection at 16 (1 x 16
 # alphas) and 1 row, on both stacks
 ODD = [23, 41, 17]  # no width a multiple of 8: padded in shared memory at every position
+HUMANOID = [41, 200, 200, 200, 29]  # 29 states + 12 actions, the humanoid-class dynamics
+# the main path's episode; the port's bench times longer ones
+STEPS = 20
+WARMUP_STEPS = 2
+# a committed checkpoint whose dynamics (23->256->256->256->17) the kernels are held on
+CHECKPOINT = "runs/trained_models/imitator/cheetah_run/gan/4/params.msgpack"
 CHECKS = [
     ("dynamics", DYNAMICS, 8192), ("dynamics", DYNAMICS, 512),
     ("dynamics", DYNAMICS, 1000), ("wide", WIDE, 8192),
@@ -101,8 +114,11 @@ TIMED = [("dynamics", DYNAMICS, 8192), ("dynamics", DYNAMICS, 512),
 # the trainer calls the backward kernel at 128 rows (one time step of a
 # minibatch); 8192 is the JAX package's fused-VJP threshold
 BWD_CHECKS = [("dynamics", DYNAMICS, 128), ("dynamics", DYNAMICS, 1000),
-              ("dynamics", DYNAMICS, 8192), ("wide", WIDE, 128), ("cost", COST, 512)]
-BWD_TIMED = [("dynamics", DYNAMICS, 128), ("dynamics", DYNAMICS, 8192)]
+              ("dynamics", DYNAMICS, 8192), ("wide", WIDE, 128), ("cost", COST, 512),
+              ("odd", ODD, 9), ("odd", ODD, 17), ("odd", ODD, 65),
+              ("humanoid-class", HUMANOID, 128)]
+BWD_TIMED = [("dynamics", DYNAMICS, 128), ("dynamics", DYNAMICS, 512),
+             ("dynamics", DYNAMICS, 8192)]
 # the dynamics phase of configs/gan_cheetah.yaml (mpc.train.dynamics) and
 # runners/gan.py's warm-start default
 HORIZON_DYN = 5  # the trainer's window length: the configuration's horizon
@@ -233,6 +249,57 @@ def random_layers(widths, seed, device):
          torch.tensor(0.1 * rng.standard_normal(b), dtype=torch.float32, device=device))
         for a, b in zip(widths[:-1], widths[1:])
     ]
+
+
+def trained_layers(device):
+    """The dynamics stack of CHECKPOINT, loaded as a user would: the
+    msgpack tree into a LearnedDynamics. A missing file raises."""
+    from gan_mpc_tpu_torch.models.dynamics import LearnedDynamics, ResidualMLPDynamicsNet
+    from gan_mpc_tpu_torch.params import dynamics_from_jax_params, load_msgpack
+
+    tree = load_msgpack(CHECKPOINT)
+    model = LearnedDynamics(ResidualMLPDynamicsNet(17, 6, hidden=tuple(WIDE[1:-1])))
+    dynamics_from_jax_params(tree["dynamics_params"], model)
+    return [(w.detach(), b.detach()) for w, b in model.requires_grad_(False).to(device).net.stack()]
+
+
+def check_backward(name, layers, rows, rng, dev):
+    """fused_mlp_bwd against reference_backward on rows clear of kinks:
+    every output within 1e-4 max(1, max|ref|), a second call bitwise equal.
+    Returns the largest max|d|."""
+    from gan_mpc_tpu_torch.ops.fused_mlp import (
+        bwd_tile_rows, fused_mlp_backward, reference_backward, reference_backward_3xtf32,
+    )
+
+    widths = [layers[0][0].shape[0]] + [w.shape[1] for w, _ in layers]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    x, redrawn = clear_of_kinks(rng, rows, layers, dev)
+    g = torch.tensor(rng.standard_normal((rows, widths[-1])), dtype=torch.float32, device=dev)
+    dx, grads = fused_mlp_backward(x, layers, g)
+    rdx, rgrads = reference_backward(x, layers, g)
+    mdx, mgrads = reference_backward_3xtf32(x, layers, g, bwd_tile_rows(rows, widths, sms))
+    torch.cuda.synchronize()
+    flat = lambda d, gr: [d] + [t for pair in gr for t in pair]
+    names = ["dx"] + [f"{kind}{l}" for l in range(len(layers)) for kind in ("dW", "db")]
+    worst, worst_share, to_model = 0.0, 0.0, 0.0
+    for out, t, r, m in zip(names, flat(dx, grads), flat(rdx, rgrads), flat(mdx, mgrads)):
+        err = (t - r).abs().max().item()
+        tol = 1e-4 * max(1.0, r.abs().max().item())
+        if not (err <= tol and tuple(t.shape) == tuple(r.shape)):
+            raise SystemExit(f"fused_mlp_bwd disagrees with plain version: {name} "
+                             f"rows={rows} output {out}: max|d|={err:.3e} > {tol:.3e}")
+        worst, worst_share = max(worst, err), max(worst_share, err / tol)
+        to_model = max(to_model, (t - m).abs().max().item() / tol)
+    # the cross-tile sums run in a fixed order: a second call gives the same bits
+    again = fused_mlp_backward(x, layers, g)
+    same = all(torch.equal(a, b) for a, b in zip(flat(*again), flat(dx, grads)))
+    print(f"check fused_mlp_bwd {name} {widths} rows={rows} ({redrawn} rows redrawn "
+          f"clear of relu kinks): max|d| over dx, {len(layers)} dW and db {worst:.3e}, "
+          f"at most {100 * worst_share:.1f}% of its output's bound (to the 3xTF32 model "
+          f"{100 * to_model:.1f}%); second call bitwise equal: {same}")
+    if not same:
+        raise SystemExit(f"fused_mlp_bwd is not deterministic: {name} rows={rows}")
+    return worst
 
 
 def ls_args(lanes, alphas, n, m, gs, weights, seed, device):
@@ -380,8 +447,7 @@ def main() -> int:
         return 1
     from gan_mpc_tpu_torch import pin_fp32
     from gan_mpc_tpu_torch.bench import (
-        FUSED_LS, HORIZON, ILQR_ITERS, NUM_ENVS, STEPS, WARMUP_STEPS,
-        bench_row, card, flagship, run_steps,
+        FUSED_LS, HORIZON, ILQR_ITERS, NUM_ENVS, bench_row, card, flagship, run_steps,
     )
     from gan_mpc_tpu_torch.data.normalizer import Normalizer
     from gan_mpc_tpu_torch.envs import make_env
@@ -389,7 +455,7 @@ def main() -> int:
     from gan_mpc_tpu_torch.ops import _build
     from gan_mpc_tpu_torch.ops.fused_ls import fused_ls_kernel, reference_ls_step
     from gan_mpc_tpu_torch.ops.fused_mlp import (
-        fused_mlp_backward, fused_mlp_forward, mlp_apply, reference_backward,
+        bwd_tile_plan, fused_mlp_backward, fused_mlp_forward, mlp_apply, reference_backward,
         reference_forward, tile_plan,
     )
     from gan_mpc_tpu_torch.planner.batch_ilqr import mlp_calls_per_solve
@@ -414,12 +480,12 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             entry = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
                               r"(?:I((?:L[ib]\d+E)+)E)?", line)
-            if entry:  # the instance, e.g. fused_mlp_fwd_kernel<2, 2>
+            if entry:  # the instance, e.g. fused_mlp_fwd_kernel<2, 2> or sum_parts_kernel
                 args = re.findall(r"L[ib](\d+)E", entry.group(2) or "")
                 print(f"    {entry.group(1)}" + (f"<{', '.join(args)}>" if args else ""))
             if "registers" in line or "spill" in line:
                 print("    ptxas:", line.strip())
-    # the forward kernels' dynamic shared memory (the backward's is in its source)
+    # the kernels' dynamic shared memory
     for name, widths, extra in (("fused_mlp_fwd dynamics", DYNAMICS, 0),
                                 ("fused_mlp_fwd cost", COST, 0),
                                 ("fused_ls_step dynamics", DYNAMICS, DYNAMICS[0])):
@@ -428,6 +494,17 @@ def main() -> int:
             print(f"  {name}, {tile_rows}-row tile: {plan['smem']} B of shared memory, "
                   f"ring of {plan['stages']} stages x {plan['stage_floats'] * 4} B, "
                   f"weight rows per chunk {plan['step']}")
+    for name, widths in (("dynamics", DYNAMICS), ("wide", WIDE), ("cost", COST),
+                         ("humanoid-class", HUMANOID), ("odd", ODD)):
+        for tile_rows in (32, 16):
+            plan = bwd_tile_plan(widths, tile_rows)
+            if plan is None:
+                print(f"  fused_mlp_bwd {name}, {tile_rows}-row tile: does not fit")
+                continue
+            print(f"  fused_mlp_bwd {name}, {tile_rows}-row tile: {plan['smem']} B of shared "
+                  f"memory, planes of row strides {plan['sa']} ({plan['ring_at'] * 4} B), "
+                  f"ring of {plan['stages']} stages x {plan['stage_floats'] * 4} B, weight rows "
+                  f"per recompute chunk {plan['step']}")
 
     # 2. kernels against plain versions on the card
     max_err = dict.fromkeys(kernels, 0.0)
@@ -470,36 +547,34 @@ def main() -> int:
                       f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}")
 
         for i, (name, widths, rows) in enumerate(BWD_CHECKS):
-            layers = random_layers(widths, 200 + i, dev)
-            x, redrawn = clear_of_kinks(rng, rows, layers, dev)
-            g = torch.tensor(rng.standard_normal((rows, widths[-1])),
-                             dtype=torch.float32, device=dev)
-            dx, grads = fused_mlp_backward(x, layers, g)
-            rdx, rgrads = reference_backward(x, layers, g)
-            torch.cuda.synchronize()
-            outs = [("dx", dx, rdx)] + [
-                (f"{kind}{l}", t, r) for l, (got_l, ref_l) in enumerate(zip(grads, rgrads))
-                for kind, t, r in zip(("dW", "db"), got_l, ref_l)
-            ]
-            worst, worst_share = 0.0, 0.0
-            for out, t, r in outs:
-                err = (t - r).abs().max().item()
-                tol = 1e-4 * max(1.0, r.abs().max().item())
-                if not (err <= tol and tuple(t.shape) == tuple(r.shape)):
-                    raise SystemExit(f"fused_mlp_bwd disagrees with plain version: {name} "
-                                     f"rows={rows} output {out}: max|d|={err:.3e} > {tol:.3e}")
-                worst, worst_share = max(worst, err), max(worst_share, err / tol)
-            max_err["fused_mlp_bwd"] = max(max_err["fused_mlp_bwd"], worst)
-            # the cross-tile sums run in a fixed order: a second call gives the same bits
-            again = fused_mlp_backward(x, layers, g)
-            same = torch.equal(again[0], dx) and all(
-                torch.equal(a, b) for p, q in zip(again[1], grads) for a, b in zip(p, q))
-            print(f"check fused_mlp_bwd {name} {widths} rows={rows} ({redrawn} rows redrawn "
-                  f"clear of relu kinks): max|d| over dx, {len(layers)} dW and db {worst:.3e}, "
-                  f"at most {100 * worst_share:.1f}% of its output's bound; second call "
-                  f"bitwise equal: {same}")
-            if not same:
-                raise SystemExit(f"fused_mlp_bwd is not deterministic: {name} rows={rows}")
+            err = check_backward(name, random_layers(widths, 200 + i, dev), rows, rng, dev)
+            max_err["fused_mlp_bwd"] = max(max_err["fused_mlp_bwd"], err)
+
+        # an empty call: no rows, zero gradients of the right shapes
+        layers = random_layers(DYNAMICS, 299, dev)
+        dx, grads = fused_mlp_backward(torch.empty((0, DYNAMICS[0]), device=dev), layers,
+                                       torch.empty((0, DYNAMICS[-1]), device=dev))
+        torch.cuda.synchronize()
+        if tuple(dx.shape) != (0, DYNAMICS[0]) or any(
+                t.shape != p.shape or bool(t.any()) for pair, wb in zip(grads, layers)
+                for t, p in zip(pair, wb)):
+            raise SystemExit("fused_mlp_bwd on 0 rows: gradients are not zeros of the "
+                             "weights' shapes")
+        print("check fused_mlp_bwd dynamics rows=0: dx empty, every dW and db zero")
+
+        # both MLP kernels on trained weights
+        layers = trained_layers(dev)
+        x = torch.tensor(rng.standard_normal((128, WIDE[0])), dtype=torch.float32, device=dev)
+        got, ref = mlp_apply(x, layers), reference_forward(x, layers)
+        torch.cuda.synchronize()
+        err, tol = (got - ref).abs().max().item(), 1e-4 * max(1.0, ref.abs().max().item())
+        print(f"check fused_mlp_fwd trained dynamics of {CHECKPOINT} {WIDE} rows=128: "
+              f"max|d|={err:.3e} bound={tol:.3e}")
+        if not err <= tol:
+            raise SystemExit("fused_mlp_fwd disagrees with plain version on trained weights")
+        max_err["fused_mlp_fwd"] = max(max_err["fused_mlp_fwd"], err)
+        err = check_backward("trained dynamics", layers, 128, rng, dev)
+        max_err["fused_mlp_bwd"] = max(max_err["fused_mlp_bwd"], err)
 
         # 3. times and bounds
         print(f"bounds: operations over {F32_PRODUCT_RATE / 1e12:.0f} TFLOP/s (three TF32 "

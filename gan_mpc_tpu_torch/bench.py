@@ -12,6 +12,10 @@ drawn with flax's default initializers from ``--seed``.
 
     python -m gan_mpc_tpu_torch.bench [--seed 0] [--profile 3]
 
+The window is the JAX bench's: one full warmup episode of 50 control
+steps, then 3 timed episodes of 50 steps each (every episode from a fresh
+reset drawn from the run's generator), and the mean of the three.
+
 Prints one JSON line per solver setting, {"metric", "value", "unit",
 "vs_baseline"}, with the card's name and power limit and the setting in
 the metric: first the forward scans through the separate dynamics and
@@ -42,10 +46,12 @@ from gan_mpc_tpu_torch.params import init_flax_like
 from gan_mpc_tpu_torch.planner.ilqr import SolverSettings
 from gan_mpc_tpu_torch.policies.mpc import MPCPolicy
 
-# the flagship row's sizes; chip_smoke.py drives the same ones
+# the flagship row's sizes; chip_smoke.py drives the same widths over a
+# shorter episode of its own
 NUM_ENVS = 512
-STEPS = 20
-WARMUP_STEPS = 2
+STEPS = 50  # control steps per episode
+WARMUP_EPISODES = 1  # full episodes before the timed ones
+REPS = 3  # timed episodes; the row is their mean
 HORIZON = 5
 ILQR_ITERS = 5
 HISTORY = 1
@@ -121,6 +127,14 @@ def profile_steps(policy, env, norm, num_steps, generator, top=25):
     print(events.table(sort_by="self_device_time_total", row_limit=top))
 
 
+def timed_episodes(policy, env, norm, generator):
+    """The bench window: WARMUP_EPISODES full episodes, then REPS timed
+    ones; returns the mean seconds of a timed episode."""
+    for _ in range(WARMUP_EPISODES):
+        run_steps(policy, env, norm, STEPS, generator)
+    return sum(run_steps(policy, env, norm, STEPS, generator)[1] for _ in range(REPS)) / REPS
+
+
 def bench_row(steps_per_sec, card_name, fused_ls):
     return {
         "metric": f"batched env+planner steps/sec (one GPU: {card_name}; "
@@ -149,8 +163,7 @@ def main(argv=None) -> int:
     for fused_ls in FUSED_LS:
         policy = flagship(device=dev, seed=args.seed, fused_ls=fused_ls)
         gen = torch.Generator().manual_seed(args.seed)
-        run_steps(policy, env, norm, WARMUP_STEPS, gen)
-        _, dt = run_steps(policy, env, norm, STEPS, gen)
+        dt = timed_episodes(policy, env, norm, gen)
         print(json.dumps(bench_row(NUM_ENVS * STEPS / dt, card_name, fused_ls)), flush=True)
         if args.profile:
             profile_steps(policy, env, norm, args.profile, gen)

@@ -1,9 +1,11 @@
-// The tile loop of the two forward kernels (fused_mlp_fwd.cu and
-// fused_ls_step.cu): a relu-MLP forward over one tile of rows on Hopper's
-// tensor cores, at f32 accuracy. It stands where the TPU kernels
-// (gan_mpc_tpu/ops/fused_mlp.py::_fwd_kernel and the MLP part of
-// gan_mpc_tpu/ops/fused_ls.py::_kernel) run jnp.dot(...,
-// preferred_element_type=f32) on the matrix unit.
+// The tile loop of the fused-MLP kernels: a relu-MLP forward over one tile
+// of rows on Hopper's tensor cores, at f32 accuracy, for the two forward
+// kernels (fused_mlp_fwd.cu and fused_ls_step.cu) and for the recompute of
+// the backward kernel (fused_mlp_bwd.cu), whose dx chain and dW use the
+// same products, fragments and weight ring (its header says how). It
+// stands where the TPU kernels (gan_mpc_tpu/ops/fused_mlp.py::_fwd_kernel,
+// ::_bwd_kernel and the MLP part of gan_mpc_tpu/ops/fused_ls.py::_kernel)
+// run jnp.dot(..., preferred_element_type=f32) on the matrix unit.
 //
 // What bounds the loop on an H100. At the planner's large call (8192 rows
 // of 23->200->200->200->17) the products are 1.44 GFLOP against 1.7 MB of
@@ -283,43 +285,64 @@ __device__ __forceinline__ uint32_t copy_chunk_rows(float* dst, const float* __r
   }
 }
 
-// The producer warp: every layer's weights, chunk by chunk, into the
-// ring, in the order mlp_consume reads them.
+// Where the producer warp stands in the ring.
+struct ProducerPos {
+  int s = 0;
+  uint32_t phase = 0;
+  bool first = true;  // no chunk of this block has been issued yet
+};
+
+// A stage's copies are on their way and its plain stores done: close it,
+// and go on to the next stage. The block's first chunk lands alone: with
+// the ring's other stages in flight beside it, it would share the SM's
+// copy rate with them, and the consumers would start that much later.
+__device__ __forceinline__ void producer_advance(const Ring& ring, ProducerPos& pp, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(ring.full + pp.s);
+  if (pp.first) {
+    mbar_wait(ring.full + pp.s, 0);
+    pp.first = false;
+  }
+  if (++pp.s == ring.stages) {
+    pp.s = 0;
+    pp.phase ^= 1;
+  }
+}
+
+// One row-major (K, N) matrix into the ring, `step` weight rows a chunk,
+// in the order layer_tiles reads them.
+template <bool kLs>
+__device__ __forceinline__ void produce_rows(const Ring& ring, ProducerPos& pp,
+                                             const float* __restrict__ W,
+                                             const float* __restrict__ Wtail, int split, int K,
+                                             int N, int step) {
+  const int lane = threadIdx.x % kWarp;
+  for (int k0 = 0; k0 < K; k0 += step) {
+    const int n = min(step, K - k0);
+    float* dst = ring.buf + (size_t)pp.s * ring.stage_floats;
+    uint64_t* full = ring.full + pp.s;
+    mbar_wait(ring.empty + pp.s, pp.phase ^ 1);  // passes at once on the first round
+    // the bulk copies first, so that they fly while the plain stores run
+    const uint32_t bytes = copy_chunk_rows<kLs, true>(dst, W, Wtail, split, k0, n, N, full, lane);
+    if (lane == 0) mbar_arrive_expect_tx(full, bytes);
+    copy_chunk_rows<kLs, false>(dst, W, Wtail, split, k0, n, N, full, lane);
+    // zero rows up to the k-step: the activations' pad columns are
+    // zeros too, and 0 x (whatever the stage held) could be a NaN
+    for (int e = n * N + lane; e < ((n + 7) & ~7) * N; e += kWarp) dst[e] = 0.f;
+    producer_advance(ring, pp, lane);
+  }
+}
+
+// The producer warp of a forward kernel: every layer's weights, chunk by
+// chunk, into the ring, in the order mlp_consume reads them.
 template <bool kLs>
 __device__ __forceinline__ void mlp_produce(const Ring& ring, const MlpArgs& args,
                                             const TilePlan& plan) {
-  const int lane = threadIdx.x % kWarp;
-  int s = 0;
-  uint32_t phase = 0;
+  ProducerPos pp;
   for (int l = 0; l < args.n_layers; ++l) {
-    const int K = args.dims[l], N = args.dims[l + 1];
-    const int step = plan.step[l];
-    const float* W = args.w[l];
-    const float* Wtail = kLs && l == 0 ? args.w0_tail : nullptr;
-    const int split = kLs && l == 0 ? args.split : K;
-    for (int k0 = 0; k0 < K; k0 += step) {
-      const int n = min(step, K - k0);
-      float* dst = ring.buf + (size_t)s * ring.stage_floats;
-      uint64_t* full = ring.full + s;
-      mbar_wait(ring.empty + s, phase ^ 1);  // passes at once on the first round
-      // the bulk copies first, so that they fly while the plain stores run
-      const uint32_t bytes = copy_chunk_rows<kLs, true>(dst, W, Wtail, split, k0, n, N, full, lane);
-      if (lane == 0) mbar_arrive_expect_tx(full, bytes);
-      copy_chunk_rows<kLs, false>(dst, W, Wtail, split, k0, n, N, full, lane);
-      // zero rows up to the k-step: the activations' pad columns are
-      // zeros too, and 0 x (whatever the stage held) could be a NaN
-      for (int e = n * N + lane; e < ((n + 7) & ~7) * N; e += kWarp) dst[e] = 0.f;
-      __syncwarp();
-      if (lane == 0) mbar_arrive(full);
-      // the first chunk lands alone: with the ring's other stages in flight
-      // beside it, it would share the SM's copy rate with them, and the
-      // consumers would start that much later
-      if (l == 0 && k0 == 0) mbar_wait(full, 0);
-      if (++s == ring.stages) {
-        s = 0;
-        phase ^= 1;
-      }
-    }
+    const int K = args.dims[l];
+    produce_rows<kLs>(ring, pp, args.w[l], kLs && l == 0 ? args.w0_tail : nullptr,
+                      kLs && l == 0 ? args.split : K, K, args.dims[l + 1], plan.step[l]);
   }
 }
 
@@ -335,12 +358,16 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) 
   lo = round_tf32(v - __uint_as_float(hi));
 }
 
-// v into the tile's two planes at `at` (an act_index).
-__device__ __forceinline__ void store_split(const Tile& tile, int at, float v) {
+// v into a hi and a lo plane at `at` (an act_index).
+__device__ __forceinline__ void store_split(float* hi_plane, float* lo_plane, int at, float v) {
   uint32_t hi, lo;
   split_tf32(v, hi, lo);
-  tile.hi[at] = __uint_as_float(hi);
-  tile.lo[at] = __uint_as_float(lo);
+  hi_plane[at] = __uint_as_float(hi);
+  lo_plane[at] = __uint_as_float(lo);
+}
+
+__device__ __forceinline__ void store_split(const Tile& tile, int at, float v) {
+  store_split(tile.hi, tile.lo, at, v);
 }
 
 // d (16 x 8, f32) += a (16 x 8, tf32, row) b (8 x 8, tf32, col)
@@ -383,8 +410,8 @@ __device__ __forceinline__ void load_b(float (&b)[T][2], const float* __restrict
 // One chunk's products for a warp that owns T 8-column tiles: acc[i][j] +=
 // a (MT 16-row blocks; the fragment's first pair at a_hi / a_lo, 2 * sa
 // floats per row pair) times B (load_b's layout, `rows` weight rows of
-// length N). T is a template argument so that the loop has no branch: the
-// loads of a k-step then issue together and ahead of the products that
+// length N). T is a template argument so that the loop has no branch:
+// the loads of a k-step then issue together and ahead of the products that
 // need them, where a test per tile would make each tile wait for its own
 // loads in turn.
 template <int MT, int T, bool kVec>
@@ -443,13 +470,19 @@ struct RingPos {
   uint32_t phase = 0;
 };
 
-// What mlp_consume hands a layer: the output and the residual.
+// What mlp_consume hands a layer: the output and the residual; and, for a
+// caller that keeps every layer's input (kOut: the backward kernel's
+// recompute), the planes a hidden layer's output goes to and their row
+// stride, where the forward kernels overwrite the input planes.
 struct TileIo {
   int sa;
   float* __restrict__ y;
   int row0, rows;
   const float* __restrict__ resid;
   int resid_stride;
+  float* o_hi;
+  float* o_lo;
+  int so;
 };
 
 // One layer for a warp that owns T 8-column tiles from column `base` on
@@ -458,9 +491,9 @@ struct TileIo {
 // columns base + (2 t + e) * T + j, e = 0, 1: over j a lane's columns are
 // the 2 T from base + 2 t T on. The bias is fetched first and added last,
 // so its latency hides behind the products. A hidden layer's output
-// overwrites the tile once every warp has read its inputs, and is whole
-// before any warp reads it.
-template <int MT, int WM, int T, bool kVec, bool kLs>
+// overwrites the tile once every warp has read its inputs (with kOut it
+// goes to io's planes instead), and is whole before any warp reads it.
+template <int MT, int WM, int T, bool kVec, bool kLs, bool kOut>
 __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, const TileIo& io,
                                             int K, int N, int step, int base,
                                             const float* __restrict__ bias, bool last) {
@@ -544,12 +577,14 @@ __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, cons
         hi[p] = __uint_as_float(vh);
         lo[p] = __uint_as_float(vl);
       }
-      const int at = act_index((wm * MT + i) * 16 + g, col, io.sa);
+      const int at = act_index((wm * MT + i) * 16 + g, col, kOut ? io.so : io.sa);
+      float* o_hi = kOut ? io.o_hi : tile.hi;
+      float* o_lo = kOut ? io.o_lo : tile.lo;
 #pragma unroll
       for (int p = 0; p < 4 * T; p += 4) {
-        *reinterpret_cast<float4*>(tile.hi + at + p) =
+        *reinterpret_cast<float4*>(o_hi + at + p) =
             make_float4(hi[p], hi[p + 1], hi[p + 2], hi[p + 3]);
-        *reinterpret_cast<float4*>(tile.lo + at + p) =
+        *reinterpret_cast<float4*>(o_lo + at + p) =
             make_float4(lo[p], lo[p + 1], lo[p + 2], lo[p + 3]);
       }
     }
@@ -557,55 +592,65 @@ __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, cons
   consumer_sync();
 }
 
-// The consumer warps: the whole stack over one row tile of 16 * MT * WM
-// rows whose input rows are split into tile.hi and tile.lo (act_index's
-// layout, columns up to the next multiple of 8 zeroed); both planes are
-// overwritten. The warps are WM row groups x WN = kConsumerWarps / WM
-// column groups. A layer's 8-column tiles are dealt to the column groups
-// in runs of tb = ceil(tiles / WN), so a narrow layer (17 columns: 3
-// tiles) spreads over as many warps as it has tiles; layers are at most
-// WN * 8 * kWarpTiles wide. The output rows go to y (rows past `rows` are
-// not stored), with kLs plus resid[r * resid_stride + c]. Called by all
-// kConsumers consumer threads.
+// One layer (K, N) for the consumer warps, WM row groups x WN =
+// kConsumerWarps / WM column groups. The layer's 8-column tiles are dealt
+// to the column groups in runs of tb = ceil(tiles / WN), so a narrow layer
+// (17 columns: 3 tiles) spreads over as many warps as it has tiles; a
+// layer is at most WN * 8 * kWarpTiles wide. Expands where tile, pos, io,
+// K, N and last are in scope; STEP (weight rows per chunk) and BIAS are
+// expressions, evaluated where a layer_tiles instance is called. (A macro
+// and not a function: as a function that both callers shared,
+// fused_mlp_fwd's 16-row instance compiled to 92 registers for 90 and its
+// 512-row cost call took 6% longer.)
+#define MLP_CONSUME_LAYER(MT, WM, kLs, kOut, STEP, BIAS)                                          \
+  do {                                                                                            \
+    constexpr int WN = kConsumerWarps / (WM);                                                     \
+    /* neighbouring warps, which share an SM sub-partition four warps apart, take */              \
+    /* different column groups, so a layer's last, narrower groups spread over the */             \
+    /* sub-partitions */                                                                          \
+    const int wn = threadIdx.x / kWarp / (WM);                                                    \
+    const int tiles = (N + 7) / 8;                                                                \
+    const int tb = (tiles + WN - 1) / WN;                                                         \
+    const int base = wn * tb * 8;                                                                 \
+    const int mine = max(0, min(tb, tiles - wn * tb));                                            \
+    if (N % 4 == 0) {                                                                             \
+      switch (mine) {                                                                             \
+        case 0: MLP_LAYER(MT, WM, 0, true, kLs, kOut, STEP, BIAS); break;                         \
+        case 1: MLP_LAYER(MT, WM, 1, true, kLs, kOut, STEP, BIAS); break;                         \
+        case 2: MLP_LAYER(MT, WM, 2, true, kLs, kOut, STEP, BIAS); break;                         \
+        case 3: MLP_LAYER(MT, WM, 3, true, kLs, kOut, STEP, BIAS); break;                         \
+        default: MLP_LAYER(MT, WM, kWarpTiles, true, kLs, kOut, STEP, BIAS); break;               \
+      }                                                                                           \
+    } else {                                                                                      \
+      switch (mine) {                                                                             \
+        case 0: MLP_LAYER(MT, WM, 0, false, kLs, kOut, STEP, BIAS); break;                        \
+        case 1: MLP_LAYER(MT, WM, 1, false, kLs, kOut, STEP, BIAS); break;                        \
+        case 2: MLP_LAYER(MT, WM, 2, false, kLs, kOut, STEP, BIAS); break;                        \
+        case 3: MLP_LAYER(MT, WM, 3, false, kLs, kOut, STEP, BIAS); break;                        \
+        default: MLP_LAYER(MT, WM, kWarpTiles, false, kLs, kOut, STEP, BIAS); break;              \
+      }                                                                                           \
+    }                                                                                             \
+  } while (0)
+#define MLP_LAYER(MT, WM, T, V, kLs, kOut, STEP, BIAS) \
+  layer_tiles<MT, WM, T, V, kLs, kOut>(tile, pos, io, K, N, STEP, base, BIAS, last)
+
+// The consumer warps of a forward kernel: the whole stack over one row
+// tile of 16 * MT * WM rows whose input rows are split into tile.hi and
+// tile.lo (act_index's layout, columns up to the next multiple of 8
+// zeroed); both planes are overwritten by every hidden layer. The output
+// rows go to y (rows past `rows` are not stored), with kLs plus resid[r *
+// resid_stride + c]. Called by all kConsumers consumer threads.
 template <int MT, int WM, bool kLs>
 __device__ __forceinline__ void mlp_consume(const Tile& tile, const MlpArgs& args,
                                             const TilePlan& plan, float* __restrict__ y,
                                             int row0, int rows, const float* __restrict__ resid,
                                             int resid_stride) {
-  constexpr int WN = kConsumerWarps / WM;
-  // neighbouring warps, which share an SM sub-partition four warps apart,
-  // take different column groups, so a layer's last, narrower groups
-  // spread over the sub-partitions
-  const int wn = threadIdx.x / kWarp / WM;
-  const TileIo io{plan.sa, y, row0, rows, resid, resid_stride};
+  const TileIo io{plan.sa, y, row0, rows, resid, resid_stride, nullptr, nullptr, 0};
   RingPos pos;
   for (int l = 0; l < args.n_layers; ++l) {
     const int K = args.dims[l], N = args.dims[l + 1];
     const bool last = l == args.n_layers - 1;
-    const int tiles = (N + 7) / 8;
-    const int tb = (tiles + WN - 1) / WN;
-    const int base = wn * tb * 8;
-    const int mine = max(0, min(tb, tiles - wn * tb));
-#define MLP_LAYER(T, V) \
-  layer_tiles<MT, WM, T, V, kLs>(tile, pos, io, K, N, plan.step[l], base, args.b[l], last)
-    if (N % 4 == 0) {
-      switch (mine) {
-        case 0: MLP_LAYER(0, true); break;
-        case 1: MLP_LAYER(1, true); break;
-        case 2: MLP_LAYER(2, true); break;
-        case 3: MLP_LAYER(3, true); break;
-        default: MLP_LAYER(kWarpTiles, true); break;
-      }
-    } else {
-      switch (mine) {
-        case 0: MLP_LAYER(0, false); break;
-        case 1: MLP_LAYER(1, false); break;
-        case 2: MLP_LAYER(2, false); break;
-        case 3: MLP_LAYER(3, false); break;
-        default: MLP_LAYER(kWarpTiles, false); break;
-      }
-    }
-#undef MLP_LAYER
+    MLP_CONSUME_LAYER(MT, WM, kLs, false, plan.step[l], args.b[l]);
   }
 }
 

@@ -13,14 +13,15 @@ kernel and whose backward launches ``csrc/fused_mlp_bwd.cu`` (the JAX
 package's ``fused_mlp`` custom VJP). There is no fallback from a kernel to
 the plain version.
 
-The forward kernel multiplies on the tensor cores with every f32 operand
-split into two TF32 parts and three products per term. ``tf32_round`` and
-``reference_forward_3xtf32`` are that arithmetic in plain torch, and
-``tile_plan``, ``weight_chunks`` and ``column_runs`` mirror how
-``csrc/mlp_tile_mma.cuh`` lays a stack out in shared memory (padded
-widths, ring stages, chunk starts, the two spans of a split W0, the
-columns of each warp), so that the CPU tests can hold both to what the
-kernel relies on. Nothing on the launch path calls them.
+The kernels multiply on the tensor cores with every f32 operand split
+into two TF32 parts and three products per term. ``tf32_round``,
+``reference_forward_3xtf32`` and ``reference_backward_3xtf32`` are that
+arithmetic in plain torch, and ``tile_plan``, ``weight_chunks`` and
+``column_runs`` mirror how ``csrc/mlp_tile_mma.cuh`` lays a stack out in
+shared memory (padded widths, ring stages, chunk starts, the two spans of
+a split W0, the columns of each warp), ``bwd_tile_plan`` how
+``csrc/fused_mlp_bwd.cu`` does, so that the CPU tests can hold them to
+what the kernels rely on. Nothing on a successful launch calls them.
 """
 
 from __future__ import annotations
@@ -161,6 +162,50 @@ def column_runs(n: int, col_groups: int):
     return [(g * tb * 8, max(0, min(tb, tiles - g * tb))) for g in range(col_groups)]
 
 
+BWD_TILE_ROWS = 16  # csrc/fused_mlp_bwd.cu's tiles: 16 rows, or 32 where the call is large
+BWD_STAGE_ROWS = (64, 48, 32, 24, 16, 8)  # ... and kStageRows
+
+
+def bwd_tile_plan(dims: Sequence[int], tile_rows: int = BWD_TILE_ROWS):
+    """``plan_bwd`` of ``csrc/fused_mlp_bwd.cu``: how a block lays the
+    stack ``dims`` out in shared memory for a tile of ``tile_rows`` (16 or
+    32) rows, or None where it does not fit: at 16 rows the kernel refuses
+    the stack, at 32 it stays on 16-row tiles.
+
+    ``sa[l]``: the row stride of the hi and lo planes that hold layer l's
+    input (``sa[L]``: the output cotangent's), its width padded to a
+    multiple of 16, plus 4; ``at[l]``: where they start, in floats;
+    ``stage_floats`` and ``stages``: the ring that carries the recompute's
+    weights; ``step[l]``: weight rows per chunk of recompute layer l;
+    ``smem``: bytes. Every layer's planes and at least ``MIN_STAGES``
+    stages of 8 rows of the widest hidden layer must fit in ``MAX_SMEM``
+    bytes."""
+    if not 1 <= len(dims) - 1 <= MAX_LAYERS or not 1 <= min(dims) <= max(dims) <= MAX_WIDTH:
+        return None
+    sa = [_up(d, 16) + 4 for d in dims]
+    at = [2 * tile_rows * sum(sa[:l]) for l in range(len(dims))]
+    floats = 2 * tile_rows * sum(sa)
+    fixed = BARRIER_BYTES + 4 * (floats + 8)
+    hidden = dims[1:-1]
+    for rows in BWD_STAGE_ROWS:
+        stage_floats = rows * _up(max([4] + hidden), 4)
+        if fixed + MIN_STAGES * 4 * stage_floats > MAX_SMEM:
+            continue
+        stages = min(MAX_STAGES, (MAX_SMEM - fixed) // (4 * stage_floats))
+        return dict(sa=sa, at=at, ring_at=floats, stage_floats=stage_floats, stages=stages,
+                    step=[stage_floats // n // 8 * 8 for n in hidden],
+                    smem=fixed + stages * 4 * stage_floats)
+    return None
+
+
+def bwd_tile_rows(rows: int, dims: Sequence[int], sms: int) -> int:
+    """The tile height ``fused_mlp_bwd`` picks: 32 rows once 16-row tiles
+    would take more than two waves of blocks on ``sms`` SMs and the stack's
+    planes fit twice, else 16."""
+    big = rows > 2 * sms * BWD_TILE_ROWS and bwd_tile_plan(dims, 2 * BWD_TILE_ROWS) is not None
+    return 2 * BWD_TILE_ROWS if big else BWD_TILE_ROWS
+
+
 def reference_backward(x: torch.Tensor, layers: Layers, g: torch.Tensor):
     """Plain torch relu-MLP backward, the backward kernel's reference:
     recompute the forward, then backprop ``g`` (N, fout) through the relu
@@ -176,6 +221,56 @@ def reference_backward(x: torch.Tensor, layers: Layers, g: torch.Tensor):
         if i > 0:
             g = torch.where(acts[i] > 0, g, 0.0)
     return g, grads
+
+
+def _split(t: torch.Tensor):
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
+def _product_3xtf32(a, b):
+    """``a @ b`` (batched or not) from parts ``(hi, lo)`` of both: the
+    small terms first, as the kernels add them."""
+    return (a[1] @ b[0] + a[0] @ b[1]) + a[0] @ b[0]
+
+
+def reference_backward_3xtf32(x: torch.Tensor, layers: Layers, g: torch.Tensor,
+                              tile_rows: int = BWD_TILE_ROWS):
+    """The backward kernel's arithmetic in plain torch. Every operand is
+    split into ``hi = tf32(v)`` and ``lo = tf32(v - hi)`` and every product
+    taken as ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` in float32: the
+    recompute (``reference_forward_3xtf32``, whose activations are kept as
+    their two parts), the chain ``g W^T`` masked where the activation's hi
+    part is positive, and ``dW = a^T g``, which like ``db`` (a sum of
+    ``g_hi + g_lo``) is taken per tile of ``tile_rows`` rows (rows past the
+    last are zeros) and then summed over the tiles in order. Returns
+    (dx, [(dW, db), ...]) as ``reference_backward``."""
+    rows = x.shape[0]
+    tiles = max(1, -(-rows // tile_rows))
+    pad = lambda t: torch.cat([t, t.new_zeros((tiles * tile_rows - rows, t.shape[1]))])
+    by_tile = lambda t: t.view(tiles, tile_rows, t.shape[1])
+
+    def in_order(parts):  # (tiles, ...) summed from the first tile on
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total
+
+    weights = [_split(w) for w, _ in layers]
+    acts = [_split(pad(x))]
+    for w, (_, b) in zip(weights[:-1], layers):
+        acts.append(_split(torch.relu(_product_3xtf32(acts[-1], w) + b)))
+    gs = _split(pad(g))
+    grads = [None] * len(layers)
+    for i in reversed(range(len(layers))):
+        a_t = tuple(by_tile(p).transpose(1, 2) for p in acts[i])
+        dw = in_order(_product_3xtf32(a_t, tuple(by_tile(p) for p in gs)))
+        db = in_order(by_tile(gs[0] + gs[1]).sum(1))
+        grads[i] = (dw, db)
+        back = _product_3xtf32(gs, tuple(p.T for p in weights[i]))
+        if i > 0:
+            gs = _split(torch.where(acts[i][0] > 0, back, 0.0))
+    return back[:rows], grads
 
 
 class FusedMlpKernel:
@@ -270,7 +365,18 @@ fused_mlp_forward = FusedMlpKernel()
 
 
 class FusedMlpBwdKernel:
-    """The CUDA backward kernel: built on first use, counted per launch."""
+    """The CUDA backward kernel: built on first use, counted per launch.
+
+    It takes any row count (0 and ragged tiles included) and every stack
+    whose 16-row tile fits in a block's shared memory: the hi and lo
+    planes of all layers' inputs and of the output cotangent, plus a
+    weight ring of at least 3 stages of 8 rows of the widest hidden
+    layer, in 232,448 bytes (``bwd_tile_plan``). That covers the dynamics
+    (23->200->200->200->17), 256-wide (23->256->256->256->17), cost
+    (17->128->128->10) and humanoid-class (41->200->200->200->29) stacks,
+    23->512->512->17 and up to seven 200-wide hidden layers; it does not
+    cover, for example, six 256-wide or four 512-wide hidden layers, for
+    which the call raises: there is no other path."""
 
     source = "gan_mpc_tpu_torch/csrc/fused_mlp_bwd.cu"
     replaces = "gan_mpc_tpu/ops/fused_mlp.py:108"
@@ -308,10 +414,11 @@ class FusedMlpBwdKernel:
         c_dims = (ctypes.c_int * (n + 1))(*dims)
         sizes = [a * b + b for a, b in zip(dims[:-1], dims[1:])]
         grads = torch.empty(sum(sizes), device=x.device, dtype=x.dtype)
-        # one partial gradient set per block, at most one block per SM; the
-        # caching allocator hands the same block back on later calls
+        # one partial gradient set (padded to 4 floats) per slice of the
+        # launch, at most one per SM; the caching allocator hands the same
+        # block back on later calls
         parts = torch.cuda.get_device_properties(x.device).multi_processor_count
-        work = torch.empty((parts, sum(sizes)), device=x.device, dtype=x.dtype)
+        work = torch.empty((parts, _up(sum(sizes), 4)), device=x.device, dtype=x.dtype)
         dx = torch.empty_like(x)
         c_w = (ctypes.c_void_p * n)(*[w.data_ptr() for w, _ in layers])
         c_b = (ctypes.c_void_p * n)(*[b.data_ptr() for _, b in layers])
@@ -320,6 +427,12 @@ class FusedMlpBwdKernel:
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), grads.data_ptr(), work.data_ptr(),
             parts, rows, n, c_dims, c_w, c_b, stream,
         )
+        if err == -1 and bwd_tile_plan(dims) is None:
+            raise RuntimeError(
+                f"fused_mlp_bwd does not take the stack {dims}: the planes of every layer's "
+                f"input for a {BWD_TILE_ROWS}-row tile and a weight ring of {MIN_STAGES} "
+                f"stages do not fit in a block's {MAX_SMEM} bytes of shared memory"
+            )
         if err != 0:
             raise RuntimeError(
                 f"fused_mlp_bwd launch failed with code {err} (-1: arguments refused; "

@@ -1,4 +1,4 @@
-"""Weights for the port, two ways.
+"""Weights for the port, three ways.
 
 ``from_jax_params`` loads the JAX policy's parameter tree (nested dicts
 of numpy arrays, as ``jax.device_get`` returns them) into an
@@ -6,6 +6,10 @@ of numpy arrays, as ``jax.device_get`` returns them) into an
 kernels, the expert's ``OptimizedLSTMCell`` gate kernels and biases, and
 its prediction heads. ``dynamics_from_jax_params`` loads the dynamics
 part alone into a ``LearnedDynamics``.
+
+``load_msgpack`` reads a ``params.msgpack`` file as the JAX runners save it
+(``flax.serialization.msgpack_serialize``) into that nested dict, with a
+decoder of its own: neither flax nor a ``msgpack`` package is needed.
 
 ``init_flax_like`` draws fresh weights from a ``torch.Generator`` with
 flax's default initializers: lecun_normal (truncated normal, std
@@ -18,6 +22,7 @@ distribution is the same.
 from __future__ import annotations
 
 import math
+import struct
 from typing import Mapping
 
 import numpy as np
@@ -76,6 +81,91 @@ def dynamics_from_jax_params(tree: Mapping, dynamics: nn.Module) -> nn.Module:
     returned)."""
     _load_dense_stack(dynamics.net.layers, tree["params"])
     return dynamics
+
+
+class _Msgpack:
+    """A reader of the msgpack types flax writes: nil, booleans, ints,
+    floats, strings, bins, arrays, maps, and the ext types 1 (ndarray) and
+    3 (numpy scalar), whose payload is itself msgpack: (shape, dtype name,
+    bytes)."""
+
+    # first byte -> (struct format of the value or of the length that follows)
+    _NUMBERS = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
+                0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
+    _BIN = {0xC4: ">B", 0xC5: ">H", 0xC6: ">I"}
+    _STR = {0xD9: ">B", 0xDA: ">H", 0xDB: ">I"}
+    _ARRAY = {0xDC: ">H", 0xDD: ">I"}
+    _MAP = {0xDE: ">H", 0xDF: ">I"}
+    _EXT = {0xC7: ">B", 0xC8: ">H", 0xC9: ">I"}
+    _FIXEXT = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
+
+    def __init__(self, data: bytes):
+        self.data = memoryview(data)
+        self.pos = 0
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.data):
+            raise ValueError("msgpack data ends inside a value")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def number(self, fmt: str):
+        return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def value(self):
+        b = self.number(">B")
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self.map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return [self.value() for _ in range(b & 0x0F)]
+        if 0xA0 <= b <= 0xBF:
+            return str(self.take(b & 0x1F), "utf-8")
+        if b in (0xC0, 0xC2, 0xC3):
+            return {0xC0: None, 0xC2: False, 0xC3: True}[b]
+        if b in self._NUMBERS:
+            return self.number(self._NUMBERS[b])
+        if b in self._BIN:
+            return bytes(self.take(self.number(self._BIN[b])))
+        if b in self._STR:
+            return str(self.take(self.number(self._STR[b])), "utf-8")
+        if b in self._ARRAY:
+            return [self.value() for _ in range(self.number(self._ARRAY[b]))]
+        if b in self._MAP:
+            return self.map(self.number(self._MAP[b]))
+        if b in self._EXT or b in self._FIXEXT:
+            size = self._FIXEXT[b] if b in self._FIXEXT else self.number(self._EXT[b])
+            return self.ext(self.number(">b"), self.take(size))
+        raise ValueError(f"msgpack type byte 0x{b:02x} is not read here")
+
+    def map(self, n: int) -> dict:
+        return {self.value(): self.value() for _ in range(n)}
+
+    @staticmethod
+    def ext(code: int, payload: memoryview):
+        if code not in (1, 3):
+            raise ValueError(f"msgpack ext type {code} is not read here (1: ndarray, "
+                             "3: numpy scalar)")
+        shape, dtype, buffer = _Msgpack(payload).value()
+        arr = np.frombuffer(buffer, dtype=np.dtype(dtype)).reshape(shape).copy()
+        return arr if code == 1 else arr[()]
+
+
+def load_msgpack(path) -> dict:
+    """The parameter tree of a ``params.msgpack`` file: nested dicts with
+    string keys and numpy arrays at the leaves, as
+    ``flax.serialization.msgpack_restore`` returns them, ready for
+    ``from_jax_params`` and ``dynamics_from_jax_params``."""
+    with open(path, "rb") as f:
+        reader = _Msgpack(f.read())
+    tree = reader.value()
+    if reader.pos != len(reader.data):
+        raise ValueError(f"{path}: {len(reader.data) - reader.pos} bytes after the tree")
+    return tree
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

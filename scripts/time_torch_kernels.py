@@ -75,6 +75,19 @@ def one_tree(check: bool) -> int:
                 ok = all(e <= t for e, t in zip(errs, tols))
                 print(f"check fused_ls_step {name} {lanes}x{alphas} n={n} m={m}: max|d| "
                       f"nx/u/cost {errs} {'ok' if ok else 'DISAGREES'}", flush=True)
+            for i, (name, widths, rows) in enumerate(cs.BWD_CHECKS):
+                layers = cs.random_layers(widths, 200 + i, dev)
+                x, _ = cs.clear_of_kinks(rng, rows, layers, dev)
+                g = draw(rows, widths[-1])
+                got, ref = fused_mlp_backward(x, layers, g), reference_backward(x, layers, g)
+                torch.cuda.synchronize()
+                flat = lambda out: [out[0]] + [t for pair in out[1] for t in pair]
+                shares = [(k - r).abs().max().item() / (1e-4 * max(1.0, r.abs().max().item()))
+                          for k, r in zip(flat(got), flat(ref))]
+                print(f"check fused_mlp_bwd {name} {widths} rows={rows}: max|d| of dx, dW0, "
+                      f"db0, ... as shares of 1e-4 max(1, max|ref|) "
+                      f"{[round(v, 4) for v in shares]} "
+                      f"{'ok' if max(shares) <= 1.0 else 'DISAGREES'}", flush=True)
         for i, (name, widths, rows) in enumerate(cs.TIMED):
             layers = cs.random_layers(widths, 100 + i, dev)
             x = draw(rows, widths[0])

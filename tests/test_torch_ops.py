@@ -253,7 +253,10 @@ def test_kernel_matches_reference_on_gpu(widths, rows):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("widths,rows", [(DYNAMICS, 128), (DYNAMICS, 1000), (DYNAMICS, 8192),
-                                         (WIDE, 128), (COST, 512)])
+                                         (WIDE, 128), (COST, 512),
+                                         # no width a multiple of 8, ragged against 16 rows;
+                                         # the humanoid-class widths, ragged
+                                         ([23, 41, 17], 65), ([41, 200, 200, 200, 29], 130)])
 def test_backward_kernel_matches_reference_on_gpu(widths, rows):
     """The backward kernel against ``reference_backward`` on the card, and
     autograd through ``mlp_apply`` launching it once per backward."""
