@@ -14,18 +14,21 @@ Phases, in order; any failure raises and exits non-zero:
      products a term, a few 1e-6 off), and f32 sums run in another order:
      - fused_mlp_fwd at the shapes the main paths give it (serving 8192
        and 512 rows; the trainer's loss 128; its 1-env collection 16 and
-       1, on the dynamics and the cost stack), plus a ragged row count,
+       1, on the dynamics and the cost stack; the cost trainer's solves
+       2048 and 128 rows, its evaluation 4096 and 256), plus a ragged row count,
        the 256-wide stack at 8192 and 512 rows, and a 23->41->17 stack
        (no width a multiple of 8) at 9, 17 and 65 rows (ragged against
        16- and 64-row tiles);
      - fused_ls_step at 512 lanes x 16 step sizes (the line search), 512
        x 1 (rollout, recompute), a ragged 1000 x 16 with a 12-wide goal,
-       and the humanoid-class widths (29 states, 12 actions) at 128 x 16
-       and 128 x 1, each with 3, 4 and 5 raw MPC weights and both
+       the humanoid-class widths (29 states, 12 actions) at 128 x 16
+       and 128 x 1, and the cost trainer's 128 x 16 and 128 x 1 (n = 17),
+       each with 3, 4 and 5 raw MPC weights and both
        action-goal forms;
      - fused_mlp_bwd (dx and every dW, db) on the dynamics stack at 128
        rows (the trainer), 1000 (ragged) and 8192, the 256-wide stack at
-       128, the cost stack at 512, the 23->41->17 stack at 9, 17 and 65
+       128, the cost stack at 512 and 128 (the cost trainer's envelope
+       term), the 23->41->17 stack at 9, 17 and 65
        rows, the humanoid-class stack (41->200->200->200->29) at 128 and
        an empty call, on input rows whose hidden pre-activations all sit
        1e-4 or more from a relu kink (where the derivative jumps); a second
@@ -43,14 +46,21 @@ Phases, in order; any failure raises and exits non-zero:
      best rate the card has for an f32-accurate product, three TF32
      tensor-core passes (495 / 3 = 165 TFLOP/s), whatever the kernel
      multiplies with; each line gives kernel, plain version, bound and the
-     kernel's share of it;
+     kernel's share of it (new in the cost trainer's slice: fused_mlp_fwd
+     at 2048 rows on both stacks, fused_mlp_bwd on the cost stack at 128,
+     fused_ls_step at 128 x 16 and 128 x 1);
   4. check the main path's pieces on a small input against the same code
      on the CPU (plain versions): one flagship plan_batch at 8 envs and 2
      iLQR iterations with fused_ls off and on (U atol 1e-3), one cheetah
      step (atol 1e-4), and one trainer update pass of 3 minibatches of
      128 windows on the same windows, indices and weights (the first
      minibatch's parameter gradients max|d| <= 1e-4 max(1, max|ref|),
-     losses rtol 1e-4, parameters atol 2 k lr after k Adam steps);
+     losses rtol 1e-4, parameters atol 2 k lr after k Adam steps); and
+     one minibatch of the cost trainer's implicit gradient (16 windows
+     near the rest pose, 2 iLQR iterations, l2 loss, every component but
+     the expert differentiated): loss rel 1e-4, each component's gradient
+     max|d| <= 1e-3 max|ref|, a second call on the card bitwise equal,
+     with the CPU's own spread under rounding-sized nudges printed beside;
   5. drive the main path, the flagship closed loop (cheetah_run, 512
      envs, H=5, iLQR <= 5, random flax-style weights from seed 0), for 2
      warmup and 20 timed control steps, once per solver setting:
@@ -73,6 +83,19 @@ Phases, in order; any failure raises and exits non-zero:
      fused_mlp_bwd ((3 x 48 + 1) x 5 = 725 each), every planner MLP call
      fused_mlp_fwd (50 x 61); every loss must be finite. Prints the
      trainer's windows/s and minibatch steps/s.
+  7. drive the cost-trainer path: one ``train_cost`` call on the flagship
+     with the cost phase of configs/gan_cheetah.yaml (batch 128, lr 1e-5,
+     polyak 0.9, dynamics and expert frozen, bilevel dense, ridge 1e-5),
+     on cost windows (history 1, horizon 5) of phase 5's fused_ls="off"
+     episode, normalized by a normalizer fitted on it (512 x 14 = 7,168
+     windows, 80% train). Cuts: iLQR 5 of 50 iterations, 1 update of 4
+     minibatch steps (of 3 of 44), evaluation on 256 windows. Every MLP
+     call must have launched its kernel in the counts of
+     ``planner.bilevel.mlp_calls_per_step`` per step plus
+     ``mlp_calls_per_solve`` per evaluation; losses finite; the MPC
+     weights and the cost net moved and nothing else. Prints minibatch
+     steps/s, windows/s and the host ms of a step split into solve,
+     backward and optimizer.
 The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Exits 1 without a CUDA device.
 """
@@ -102,6 +125,11 @@ WARMUP_STEPS = 2
 CHECKPOINT = "runs/trained_models/imitator/cheetah_run/gan/4/params.msgpack"
 CHECKS = [
     ("dynamics", DYNAMICS, 8192), ("dynamics", DYNAMICS, 512),
+    # the cost trainer's solves: line search 128 x 16 alphas and 256 x 16
+    # (evaluation), rollout and recompute 128 and 256 rows
+    ("dynamics", DYNAMICS, 2048), ("cost", COST, 2048), ("cost", COST, 128),
+    ("dynamics", DYNAMICS, 4096), ("dynamics", DYNAMICS, 256), ("cost", COST, 4096),
+    ("cost", COST, 256),
     ("dynamics", DYNAMICS, 1000), ("wide", WIDE, 8192),
     ("cost", COST, 8192), ("cost", COST, 512),
     ("dynamics", DYNAMICS, 128), ("dynamics", DYNAMICS, 16), ("dynamics", DYNAMICS, 1),
@@ -110,15 +138,17 @@ CHECKS = [
     ("odd", ODD, 9), ("odd", ODD, 17), ("odd", ODD, 65), ("wide", WIDE, 512),
 ]
 TIMED = [("dynamics", DYNAMICS, 8192), ("dynamics", DYNAMICS, 512),
-         ("dynamics", DYNAMICS, 128), ("cost", COST, 8192), ("cost", COST, 512)]
+         ("dynamics", DYNAMICS, 128), ("cost", COST, 8192), ("cost", COST, 512),
+         ("dynamics", DYNAMICS, 2048), ("cost", COST, 2048)]
 # the trainer calls the backward kernel at 128 rows (one time step of a
 # minibatch); 8192 is the JAX package's fused-VJP threshold
 BWD_CHECKS = [("dynamics", DYNAMICS, 128), ("dynamics", DYNAMICS, 1000),
               ("dynamics", DYNAMICS, 8192), ("wide", WIDE, 128), ("cost", COST, 512),
+              ("cost", COST, 128),
               ("odd", ODD, 9), ("odd", ODD, 17), ("odd", ODD, 65),
               ("humanoid-class", HUMANOID, 128)]
 BWD_TIMED = [("dynamics", DYNAMICS, 128), ("dynamics", DYNAMICS, 512),
-             ("dynamics", DYNAMICS, 8192)]
+             ("dynamics", DYNAMICS, 8192), ("cost", COST, 128)]
 # the dynamics phase of configs/gan_cheetah.yaml (mpc.train.dynamics) and
 # runners/gan.py's warm-start default
 HORIZON_DYN = 5  # the trainer's window length: the configuration's horizon
@@ -134,8 +164,19 @@ LS_CHECKS = [
     ("line search", 512, 16, 17, 6, 17), ("rollout", 512, 1, 17, 6, 17),
     ("ragged", 1000, 16, 17, 6, 12), ("humanoid-class", 128, 16, 29, 12, 29),
     ("humanoid-class rollout", 128, 1, 29, 12, 29),
+    ("cost-trainer line search", 128, 16, 17, 6, 17), ("cost-trainer rollout", 128, 1, 17, 6, 17),
 ]
-LS_TIMED = [("line search", 512, 16, 17, 6, 17), ("rollout", 512, 1, 17, 6, 17)]
+LS_TIMED = [("line search", 512, 16, 17, 6, 17), ("rollout", 512, 1, 17, 6, 17),
+            ("cost-trainer line search", 128, 16, 17, 6, 17),
+            ("cost-trainer rollout", 128, 1, 17, 6, 17)]
+# the cost phase of configs/gan_cheetah.yaml (mpc.train.cost, mpc.bilevel;
+# no_grads without critic_params: the critic is not ported)
+COST_PHASE = dict(batch_size=128, polyak_factor=0.9, num_updates=1, max_steps_per_update=4,
+                  eval_windows=256)
+COST_LR = 1e-5
+COST_NO_GRADS = ("dynamics_params", "expert_params")
+HISTORY_COST = 1  # mpc.history
+GRAD_CHECK = dict(windows=16, iters=2, seed=3)  # the card-against-CPU minibatch
 # (raw MPC weights, action_goal_scale, action_goal_squared)
 LS_WEIGHTS = [
     ((-2.0, 3.0, -3.0), 1.0, False),
@@ -441,6 +482,156 @@ def train_phase(expert_episode, env, kernels, card_line, dev):
     return counts
 
 
+def grad_check_inputs(n, seed):
+    """``n`` cost windows: histories at the rest pose with 0.01 noise
+    (zero past row, as the first control step sees them) and targets at
+    the rest pose with 0.05 noise. The seed is one whose windows sit clear
+    of line-search flips (the CPU's own spread is printed beside)."""
+    rng = np.random.default_rng(seed)
+    rest = np.concatenate([[0.64, 0.0, 0.9, -0.75, 0.35, 0.0, 0.0, 0.0], np.zeros(9)])
+    hX = np.zeros((n, HISTORY_COST + 1, 17), np.float32)
+    hX[:, -1] = rest + 0.01 * rng.standard_normal((n, 17))
+    Y = (rest + 0.05 * rng.standard_normal((n, 6, 17))).astype(np.float32)
+    return torch.from_numpy(hX), torch.from_numpy(Y)
+
+
+def check_implicit_step(dev):
+    """One minibatch of the cost trainer's loss and gradient (every
+    component but the expert differentiated) on the card against the
+    CPU, flagship widths, 2 iLQR iterations: loss rel 1e-4, each gradient
+    max|d| <= 1e-3 max|ref|; a second call on the card bitwise equal. The
+    CPU's own spread under inputs scaled by 1 +- 1e-7 and dynamics weights
+    by 1 +- 1e-6 is printed beside: the implicit gradient of the MPC
+    weights is the most ill-conditioned."""
+    from gan_mpc_tpu_torch.bench import flagship
+    from gan_mpc_tpu_torch.policies.losses import l2_imitation_loss
+    from gan_mpc_tpu_torch.training.masking import policy_components
+
+    hX, Y = grad_check_inputs(GRAD_CHECK["windows"], GRAD_CHECK["seed"])
+
+    def run(device, x_scale=1.0, w_scale=1.0):
+        policy = flagship(HORIZON_DYN, GRAD_CHECK["iters"], device=device, seed=SEED)
+        with torch.no_grad():
+            for p in policy.dynamics_model.parameters():
+                p.mul_(w_scale)
+        for name in ("mpc_weights", "cost_params", "dynamics_params"):
+            for p in policy_components(policy)[name]:
+                p.requires_grad_(True)
+        loss, grads = policy.batched_loss_and_grad((hX * x_scale).to(device), l2_imitation_loss,
+                                                   (Y.to(device),))
+        return loss.item(), {k: [g.cpu() for g in v] for k, v in grads.items()}
+
+    comps = ("mpc_weights", "cost_params", "dynamics_params")
+    share = lambda g, ref: {k: max((a - b).abs().max().item() / b.abs().max().item()
+                                   for a, b in zip(g[k], ref[k])) for k in comps}
+    l_gpu, g_gpu = run(dev)
+    l_again, g_again = run(dev)
+    l_cpu, g_cpu = run("cpu")
+    spread = {k: 0.0 for k in comps}
+    for kw in (dict(x_scale=1 + 1e-7), dict(x_scale=1 - 1e-7), dict(w_scale=1 + 1e-6),
+               dict(w_scale=1 - 1e-6)):
+        spread = {k: max(v, share(run("cpu", **kw)[1], g_cpu)[k]) for k, v in spread.items()}
+    d = share(g_gpu, g_cpu)
+    same = l_again == l_gpu and all(torch.equal(a, b) for k in g_gpu
+                                    for a, b in zip(g_gpu[k], g_again[k]))
+    fmt = lambda m: ", ".join(f"{k} {v:.2e}" for k, v in m.items())
+    print(f"implicit gradient ({GRAD_CHECK['windows']} windows, {GRAD_CHECK['iters']} iLQR "
+          f"iterations, l2 loss) GPU vs CPU: loss {l_gpu:.7g} vs {l_cpu:.7g} (rel "
+          f"{abs(l_gpu - l_cpu) / abs(l_cpu):.2e}, tol 1e-4); max|d| / max|ref| {fmt(d)} (tol "
+          f"1e-3); the CPU's own spread {fmt(spread)}; second call bitwise equal: {same}")
+    if not (abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu) and max(d.values()) <= 1e-3):
+        raise SystemExit("the implicit gradient on the card disagrees with the CPU path")
+    if not same:
+        raise SystemExit("the implicit gradient on the card is not deterministic")
+
+
+def cost_phase(expert_episode, kernels, card_line, dev):
+    """Phase 7: one ``train_cost`` call on the flagship with the cost phase
+    of configs/gan_cheetah.yaml; returns its launches."""
+    from gan_mpc_tpu_torch.bench import ILQR_ITERS, flagship
+    from gan_mpc_tpu_torch.data.normalizer import Normalizer
+    from gan_mpc_tpu_torch.data.windows import cost_windows, shuffle_and_split
+    from gan_mpc_tpu_torch.planner.batch_ilqr import mlp_calls_per_solve
+    from gan_mpc_tpu_torch.planner.bilevel import mlp_calls_per_step
+    from gan_mpc_tpu_torch.policies.losses import l2_imitation_loss
+    from gan_mpc_tpu_torch.training.cost import evaluate_cost_loss, train_cost
+    from gan_mpc_tpu_torch.training.masking import masked_adam, policy_components
+
+    gen = torch.Generator().manual_seed(SEED)
+    norm = Normalizer.fit(expert_episode.states, expert_episode.actions)
+    windows = cost_windows(norm.normalize_state(expert_episode.states), HISTORY_COST,
+                           HORIZON_DYN)
+    train, test = shuffle_and_split(windows, gen)
+    policy = flagship(device=dev, seed=SEED)
+    opt = masked_adam(policy_components(policy), COST_NO_GRADS, COST_LR)
+    before = {k: [p.detach().clone() for p in ps] for k, ps in policy_components(policy).items()}
+    plan = policy._plan
+    batch, steps = COST_PHASE["batch_size"], COST_PHASE["max_steps_per_update"]
+    steps = min(steps, train[0].shape[0] // batch)
+    per_step = mlp_calls_per_step(policy.horizon, ILQR_ITERS)
+    per_eval = mlp_calls_per_solve(policy.horizon, ILQR_ITERS)
+    updates = COST_PHASE["num_updates"]
+    expected = {name: steps * per_step[name] + updates * per_eval.get(name, 0)
+                for name in kernels}
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_losses, test_losses = train_cost(policy, opt, train, test, l2_imitation_loss,
+                                           generator=gen, **COST_PHASE)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in kernels.items()}
+    print(f"cost-trainer path: {windows[0].shape[0]} windows ({train[0].shape[0]} train, "
+          f"{test[0].shape[0]} test), {steps} minibatch steps of {batch} windows, bilevel "
+          f"{plan.solver} ridge {plan.ridge}; cuts: iLQR {ILQR_ITERS} of 50 iterations, {updates} "
+          f"update of {steps} steps (of 3 updates of {train[0].shape[0] // batch}), evaluation on "
+          f"{COST_PHASE['eval_windows']} windows; train losses {train_losses}, test losses "
+          f"{test_losses}; kernel launches {counts} (expected {expected} = {steps} x {per_step} "
+          f"+ {updates} x {per_eval})")
+    if counts != expected:
+        raise SystemExit("the cost-trainer path did not launch the kernels on every MLP call")
+    if not (len(train_losses) == len(test_losses) == updates
+            and np.all(np.isfinite(train_losses + test_losses))):
+        raise SystemExit("the cost-trainer path's losses are malformed or not finite")
+    for name, ps in policy_components(policy).items():
+        moved = any(not torch.equal(p, q) for p, q in zip(ps, before[name]))
+        if moved != (name in ("mpc_weights", "cost_params")):
+            raise SystemExit(f"cost phase: {name} {'moved' if moved else 'did not move'}")
+
+    # the evaluation alone, then the host time of a minibatch step split
+    # into solve (and loss), backward and optimizer
+    t0 = time.perf_counter()
+    evaluate_cost_loss(policy, l2_imitation_loss, test, eval_windows=COST_PHASE["eval_windows"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    update_s = total_s - eval_s
+    split = {"solve": [], "backward": [], "optimizer": []}
+    X, Y = train
+    for row in torch.randint(train[0].shape[0], (3, batch), generator=gen):
+        row = row.to(dev)
+        opt.zero_grad()
+        marks = [time.perf_counter()]
+        loss = policy.batched_loss(X[row], l2_imitation_loss, (Y[row],))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        loss.backward()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        opt.step()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for key, a, b in zip(split, marks, marks[1:]):
+            split[key].append(1e3 * (b - a))
+    print(f"cost trainer (one GPU: {card_line}; flagship, batch {batch}, H={HORIZON_DYN}): "
+          f"{steps / update_s:.3f} minibatch steps/s, {steps * batch / update_s:.1f} windows/s "
+          f"over {update_s:.3f} s of updates (train_cost {total_s:.3f} s less one evaluation "
+          f"of {COST_PHASE['eval_windows']} windows timed again alone, {eval_s:.3f} s); host ms "
+          "per minibatch step, 3 more steps: "
+          + "; ".join(f"{k} {', '.join(f'{v:.1f}' for v in vs)}" for k, vs in split.items()))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -646,6 +837,7 @@ def main() -> int:
     if not d_step <= 1e-4:
         raise SystemExit("the physics step on the card disagrees with the CPU path")
     check_update_pass(dev)
+    check_implicit_step(dev)
 
     # 5. the main path, once per solver setting
     env = make_env("cheetah_run", dev)
@@ -682,6 +874,9 @@ def main() -> int:
 
     # 6. the training path
     launches["trainer"] = train_phase(episodes["off"], env, kernels, card_line, dev)
+
+    # 7. the cost-trainer path
+    launches["cost trainer"] = cost_phase(episodes["off"], kernels, card_line, dev)
 
     # the planner's line-search call (8192 rows) leads the forward kernels'
     # entries, the trainer's call (128 rows) the backward kernel's

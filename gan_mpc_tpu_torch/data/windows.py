@@ -1,7 +1,7 @@
-"""Sliding-window datasets of the dynamics trainer.
+"""Sliding-window datasets of the dynamics and cost trainers.
 
-Counterpart of ``sequence_windows``, ``shuffle_and_split`` and
-``minibatch_indices`` in ``gan_mpc_tpu/data/windows.py``: one gather per
+Counterpart of ``cost_windows``, ``sequence_windows``, ``shuffle_and_split``
+and ``minibatch_indices`` in ``gan_mpc_tpu/data/windows.py``: one gather per
 trajectory set, on the trajectories' device. Random draws come from a
 ``torch.Generator`` (``jax.random`` cannot be reproduced in torch); the
 split also takes an explicit permutation, so that tests can feed JAX's.
@@ -17,6 +17,22 @@ import torch
 def _window_indices(num_windows: int, width: int, device) -> torch.Tensor:
     return (torch.arange(num_windows, device=device)[:, None]
             + torch.arange(width, device=device)[None, :])
+
+
+def cost_windows(states: torch.Tensor, history: int,
+                 horizon: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cost-training windows from (N, L, x) state trajectories: X (num,
+    history + 1, x), the past up to and including "now", and Y (num,
+    horizon + 1, x), "now" and the future, with num = N * (L - horizon -
+    history). Trajectories are zero-padded at the front by ``history``."""
+    n, length, x_size = states.shape
+    padded = torch.cat([states.new_zeros((n, history, x_size)), states], dim=1)
+    num = length - horizon - history
+    starts = torch.arange(num, device=states.device) + history  # "now" in padded frame
+    x_idx = starts[:, None] + torch.arange(history + 1, device=states.device) - history
+    y_idx = starts[:, None] + torch.arange(horizon + 1, device=states.device)
+    return (padded[:, x_idx].reshape(n * num, history + 1, x_size),
+            padded[:, y_idx].reshape(n * num, horizon + 1, x_size))
 
 
 def sequence_windows(

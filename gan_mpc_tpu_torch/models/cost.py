@@ -104,11 +104,13 @@ class MPCCost(nn.Module):
             cost = cost + w_ag * ag
         return cost
 
-    def terminal_cost_batch(self, X):
-        """X (B,K,n) -> (B,K): w2 * |f(x)|^2 through the fused MLP."""
+    def terminal_cost_batch(self, X, twice_differentiable: bool = False):
+        """X (B,K,n) -> (B,K): w2 * |f(x)|^2 through the fused MLP
+        (``twice_differentiable`` as in ``mlp_apply``)."""
         w = torch.sigmoid(self.weights)
         B, K, n = X.shape
-        f = mlp_apply(X.reshape(B * K, n), self.net.stack())
+        f = mlp_apply(X.reshape(B * K, n), self.net.stack(),
+                      twice_differentiable=twice_differentiable)
         return w[2] * torch.sum(f * f, -1).reshape(B, K)
 
     def quad_batch(self, X, U, goal_tm, goal_u_tm=None):

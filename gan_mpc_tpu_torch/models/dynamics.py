@@ -54,10 +54,12 @@ class LearnedDynamics(nn.Module):
         net the fused batch-major planner path supports."""
         return isinstance(self.net, ResidualMLPDynamicsNet) and self.carry_size == 0
 
-    def batch_apply(self, X: torch.Tensor, U: torch.Tensor, compute_dtype=None):
-        """next_x for (N, n) states and (N, m) actions in one fused call."""
+    def batch_apply(self, X: torch.Tensor, U: torch.Tensor, compute_dtype=None,
+                    twice_differentiable: bool = False):
+        """next_x for (N, n) states and (N, m) actions in one fused call
+        (``twice_differentiable`` as in ``mlp_apply``)."""
         z = torch.cat([X, U], dim=-1)
-        return X + mlp_apply(z, self.net.stack(), compute_dtype)
+        return X + mlp_apply(z, self.net.stack(), compute_dtype, twice_differentiable)
 
     def batch_value_and_jac(self, X: torch.Tensor, U: torch.Tensor,
                             compute_dtype=None):

@@ -471,7 +471,8 @@ def _pairs(flat):
     return list(zip(flat[0::2], flat[1::2]))
 
 
-def mlp_apply(x: torch.Tensor, layers: Layers, compute_dtype=None) -> torch.Tensor:
+def mlp_apply(x: torch.Tensor, layers: Layers, compute_dtype=None,
+              twice_differentiable: bool = False) -> torch.Tensor:
     """relu-MLP forward on (N, fin) rows.
 
     CPU tensors run ``reference_forward`` (under autograd when it is on);
@@ -479,10 +480,17 @@ def mlp_apply(x: torch.Tensor, layers: Layers, compute_dtype=None) -> torch.Tens
     package's 8192-row threshold was a TPU crossover), through
     ``FusedMlpFunction`` when a gradient is to be taken. ``compute_dtype``
     other than float32 is not ported.
+
+    ``FusedMlpFunction`` is once differentiable. A caller that will take a
+    second derivative through this call (the implicit planner's mixed
+    term, ``planner/bilevel.py``) asks for ``twice_differentiable``: the
+    plain ``reference_forward`` on every device, which autograd
+    differentiates any number of times. The JAX package takes those
+    derivatives in flax, outside its kernels, too.
     """
     if compute_dtype not in (None, "float32", torch.float32):
         raise NotImplementedError(f"compute_dtype={compute_dtype!r} is not ported")
-    if not x.is_cuda:
+    if not x.is_cuda or twice_differentiable:
         return reference_forward(x, layers)
     x = x.contiguous()
     if _records_grad(x, layers):

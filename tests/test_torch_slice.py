@@ -18,8 +18,8 @@ by 5e-3. (A flip moves one by 1e-2 or more; rounding carried through the
 stiff ground contact moves them by about 1e-3 at the third step.) On that
 key the port agrees to about 1e-4 in actions and states.
 
-Also: the port (the control path and the dynamics trainer) runs with
-JAX, flax and the JAX package made unimportable, and its entry points run
+Also: the port (the control path, the dynamics trainer and a cost-trainer
+step) runs with JAX, flax and the JAX package made unimportable, and its entry points run
 on the card unless asked for the CPU.
 """
 
@@ -175,6 +175,22 @@ BLOCKED_RUN = textwrap.dedent(
         warm_start_updates=1,
     )
     assert len(losses) == 2 and all(l == l for l in losses + returns)
+
+    # the cost trainer: one minibatch step through the implicit gradient
+    from gan_mpc_tpu_torch.data.windows import cost_windows
+    from gan_mpc_tpu_torch.policies.losses import l2_imitation_loss
+    from gan_mpc_tpu_torch.training.cost import train_cost
+
+    policy = flagship(3, 1, device="cpu", seed=0)
+    opt = masked_adam(policy_components(policy), ["dynamics_params", "expert_params"], 1e-5,
+                      weights_learning_rate=1e-3)
+    windows = cost_windows(0.1 * torch.randn(1, 6, 17, generator=torch.Generator().manual_seed(0)),
+                           1, 3)
+    train_losses, test_losses = train_cost(
+        policy, opt, windows, windows, l2_imitation_loss, num_updates=1, batch_size=2,
+        polyak_factor=0.9, generator=torch.Generator().manual_seed(0))
+    assert len(train_losses) == len(test_losses) == 1
+    assert all(l == l for l in train_losses + test_losses)
     assert not [m for m in sys.modules if blocked(m)]
     print("imported", len(mods), "modules")
     """
