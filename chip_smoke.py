@@ -39,6 +39,14 @@ Phases, in order; any failure raises and exits non-zero:
        dynamics (23->256->256->256->17) of the committed checkpoint
        runs/trained_models/imitator/cheetah_run/gan/4/params.msgpack, read
        by the port's own msgpack reader;
+     - fused_mlp_fwd on the trained stacks of the committed GAN run
+       pendulum_swingup gan/9 (dynamics 4->200->200->200->3, cost
+       3->128->128->10, loaded by runners.common as phase 8 loads them)
+       at the rows phase 8 gives them (serving 16 envs x 16 step sizes =
+       256 and 16; the critic's dataset 4096 and 256; a generator step 2048
+       and 128; the 1-env collection 16 and 1), and fused_mlp_bwd on its
+       dynamics at 128 rows (the dynamics trainer, the implicit gradient's
+       rollout pullback);
   3. time kernels and plain versions with CUDA events (median of 21 runs
      of 20 back-to-back launches, queued behind a device sleep so that
      host overhead is not timed), and compute each call's bound: the
@@ -48,7 +56,9 @@ Phases, in order; any failure raises and exits non-zero:
      multiplies with; each line gives kernel, plain version, bound and the
      kernel's share of it (new in the cost trainer's slice: fused_mlp_fwd
      at 2048 rows on both stacks, fused_mlp_bwd on the cost stack at 128,
-     fused_ls_step at 128 x 16 and 128 x 1);
+     fused_ls_step at 128 x 16 and 128 x 1; in the GAN slice's: gan/9's
+     trained stacks at 256, 4096, 2048 and 128 rows forward, 128
+     backward);
   4. check the main path's pieces on a small input against the same code
      on the CPU (plain versions): one flagship plan_batch at 8 envs and 2
      iLQR iterations with fused_ls off and on (U atol 1e-3), one cheetah
@@ -61,6 +71,13 @@ Phases, in order; any failure raises and exits non-zero:
      the expert differentiated): loss rel 1e-4, each component's gradient
      max|d| <= 1e-3 max|ref|, a second call on the card bitwise equal,
      with the CPU's own spread under rounding-sized nudges printed beside;
+     and on gan/9: one plan_batch of 8 expert histories whose plans are
+     stable (U atol 1e-3), and one generator minibatch's implicit gradient
+     (gan_generator_loss, 16 expert histories whose plans converge, every
+     component but the expert differentiated): the loss within 1e-4 of
+     the windows' mean |loss|, each component's gradient max|d| <= 1e-3
+     max|ref|, a second call bitwise equal, the CPU's own spread printed
+     beside;
   5. drive the main path, the flagship closed loop (cheetah_run, 512
      envs, H=5, iLQR <= 5, random flax-style weights from seed 0), for 2
      warmup and 20 timed control steps, once per solver setting:
@@ -96,10 +113,32 @@ Phases, in order; any failure raises and exits non-zero:
      weights and the cost net moved and nothing else. Prints minibatch
      steps/s, windows/s and the host ms of a step split into solve,
      backward and optimizer.
+  8. the GAN slice on a committed run: runs.common.setup loads
+     pendulum_swingup gan/9 from its own config.json and params.msgpack
+     (every component, the critic included; continued from itself) and
+     fits the normalizer on the committed expert store; then
+     - serving: 16 envs closed loop on the imitator's pendulum for 200
+       control steps (2 warmup steps), H=10, iLQR <= 30 with the loop's
+       early exit; prints the mean return, the mean and max trips per
+       solve and steps/s; fused_mlp_fwd must have launched
+       mlp_calls_per_solve(10, trips, solves) times for the trips the
+       solver reported;
+     - one GAN epoch (runners.gan.gan_epoch, epoch 1 of a continuation):
+       the dynamics phase with the config's updates (20 warm-start, 6
+       expert, 12 on-policy) on 1 episode cut to 50 of 300 steps at 1
+       env with the collection noise 0.2; the critic with plan_batch 256
+       and 2 updates of batch 128; the generator cut to 1 update of 4
+       minibatch steps of 128 windows (of 3 updates of 61), evaluation on
+       256 windows. Prints each phase's losses and wall time; every loss
+       must be finite, the critic's within 0.05 of ln 2, each phase must
+       move its own components and leave its no_grads bitwise unchanged,
+       and the launches must equal the counts the solver's reported
+       solves and trips and the trainers' steps give.
 The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Exits 1 without a CUDA device.
 """
 
+import contextlib
 import json
 import re
 import sys
@@ -170,7 +209,7 @@ LS_TIMED = [("line search", 512, 16, 17, 6, 17), ("rollout", 512, 1, 17, 6, 17),
             ("cost-trainer line search", 128, 16, 17, 6, 17),
             ("cost-trainer rollout", 128, 1, 17, 6, 17)]
 # the cost phase of configs/gan_cheetah.yaml (mpc.train.cost, mpc.bilevel;
-# no_grads without critic_params: the critic is not ported)
+# no_grads without critic_params: the flagship policy has no critic)
 COST_PHASE = dict(batch_size=128, polyak_factor=0.9, num_updates=1, max_steps_per_update=4,
                   eval_windows=256)
 COST_LR = 1e-5
@@ -185,6 +224,32 @@ LS_WEIGHTS = [
     ((-2.0, 3.0, -3.0, 0.5, 1.3), 2.0, True),
     ((-2.0, 3.0, -3.0, 0.5, 1.3), 2.0, False),
 ]
+# the committed GAN run of phase 8 and the expert store its normalizer is
+# fitted on (the JAX runner's ensure_trajectories would collect a new one)
+GAN9 = "runs/trained_models/imitator/pendulum_swingup/gan/9"
+GAN9_STORE = "runs/expert_trajectories/pendulum_swingup/trajectories-f690b23776.gmts"
+# gan/9's stacks at the rows phase 8 gives them: the critic's dataset 256
+# histories x 16 step sizes and 256, a generator step 128 x 16 and 128,
+# serving 16 envs x 16 and 16, the 1-env collection 16 and 1
+G9_ROWS = (4096, 2048, 256, 128, 16, 1)
+G9_TIMED = [("dynamics", 256), ("dynamics", 4096), ("dynamics", 2048), ("dynamics", 128),
+            ("cost", 256), ("cost", 4096)]
+SERVE_ENVS, SERVE_STEPS = 16, 200  # swing-up takes about 160 steps
+# phase 8's cuts of gan/9's config (the rest is the run's own)
+G9_CUTS = dict(mpc__train__dynamics__max_interactions_per_episode=50,  # of 300
+               mpc__train__cost__num_updates=1,  # of 3
+               mpc__train__cost__steps_per_update=4,  # of 61
+               mpc__train__cost__eval_windows=256)
+# cost windows (history 1, H=10) of the whole normalized store: 8 whose
+# plans move by less than 5e-5 under rounding-sized nudges, and 16 whose
+# plans converge in at most 12 iterations and whose implicit gradient in
+# the JAX package moves by at most 2e-5 of its max when they are scaled by
+# 1 +- 1e-7 (most of gan/9's solves run all 30 iterations, and their
+# implicit gradients move by a median 3%: scripts/diag_gan9_conditioning.py,
+# with --windows for these)
+G9_STABLE = [1998, 2368, 4699, 4736, 5698, 7696, 9028, 9139]
+G9_CONVERGED = [28, 896, 1029, 2100, 2156, 4018, 5068, 6104, 7028, 8155, 8407, 8806, 8911,
+                8946, 9093, 9170]
 # one H100 SXM (NVIDIA's data sheet): dense TF32 on the tensor cores, HBM3.
 # An f32-accurate product takes three TF32 passes (hi x hi, hi x lo, lo x
 # hi), so the least time for f32 products is their operations over a third
@@ -632,6 +697,256 @@ def cost_phase(expert_episode, kernels, card_line, dev):
     return counts
 
 
+def gan9_config(**cuts):
+    """gan/9's training config from its own config.json, continued from
+    its own params (``mpc.train.init_from_run``), with ``cuts``."""
+    from gan_mpc_tpu_torch.runners import common
+
+    return common.load_run_config(GAN9).replace(mpc__train__init_from_run=GAN9, **cuts)
+
+
+def gan9_policy(device):
+    """gan/9's policy, every component (the critic included) read from its
+    params.msgpack by the port's loader, without gradients."""
+    from gan_mpc_tpu_torch.runners import common
+
+    policy = common.build_policy(gan9_config(), 3, 1, with_critic=True, device=device)
+    return common.load_saved_params(policy, GAN9)
+
+
+def gan9_windows():
+    """Every cost window (history 1, H=10) of the committed store, on the
+    CPU, normalized by the normalizer fitted on the store."""
+    from gan_mpc_tpu_torch.data.trajectories import load_trajectories
+    from gan_mpc_tpu_torch.data.windows import cost_windows
+    from gan_mpc_tpu_torch.runners import common
+
+    cfg = gan9_config()
+    trajs = load_trajectories(GAN9_STORE, cfg.mpc.train.num_trajectories,
+                              cfg.mpc.train.trajectory_len)
+    norm = common.build_normalizer(cfg, trajs, "cpu")
+    return cost_windows(norm.normalize_state(torch.tensor(trajs.states)), 1, cfg.mpc.horizon)
+
+
+def check_gan9_plan(dev):
+    """gan/9's plan_batch of 8 expert histories on the card against the
+    CPU: U atol 1e-3 (phase 4's), iterations printed."""
+    X = gan9_windows()[0][G9_STABLE]
+    hU = torch.zeros((X.shape[0], 1, 1))
+    cpu = gan9_policy("cpu").plan_batch(X, hU)
+    gpu = gan9_policy(dev).plan_batch(X.to(dev), hU.to(dev))
+    d = (gpu.U.cpu() - cpu.U).abs().max().item()
+    print(f"gan/9 plan_batch (8 expert histories, H=10, iLQR <= 30) GPU vs CPU: max|dU|={d:.3e} "
+          f"(atol 1e-3); iterations GPU {gpu.iterations.tolist()} CPU {cpu.iterations.tolist()}; "
+          f"trips {gpu.trips} and {cpu.trips}")
+    if not d <= 1e-3:
+        raise SystemExit("gan/9's plan on the card disagrees with the CPU path")
+
+
+def check_generator_gradient(dev):
+    """One generator minibatch's loss and implicit gradient
+    (gan_generator_loss on 16 expert histories of gan/9, every component
+    but the expert differentiated) on the card against the CPU: the loss
+    within 1e-4 of the windows' mean |loss| (their losses take both signs,
+    so the mean nearly cancels), each gradient max|d| <= 1e-3 max|ref|; a
+    second call on the card bitwise equal; the CPU's own spread under
+    inputs scaled by 1 +- 1e-7 and dynamics weights by 1 +- 1e-6 printed
+    beside."""
+    from gan_mpc_tpu_torch.policies.losses import gan_generator_loss
+    from gan_mpc_tpu_torch.training.masking import policy_components
+
+    comps = ("mpc_weights", "cost_params", "dynamics_params", "critic_params")
+    X = gan9_windows()[0][G9_CONVERGED]
+
+    def run(device, x_scale=1.0, w_scale=1.0):
+        policy = gan9_policy(device)
+        with torch.no_grad():
+            for p in policy.dynamics_model.parameters():
+                p.mul_(w_scale)
+        for name in comps:
+            for p in policy_components(policy)[name]:
+                p.requires_grad_(True)
+        loss, grads = policy.batched_loss_and_grad((X * x_scale).to(device), gan_generator_loss)
+        return loss.item(), {k: [g.cpu() for g in grads[k]] for k in comps}
+
+    share = lambda g, ref: {k: max((a - b).abs().max().item() / b.abs().max().item()
+                                   for a, b in zip(g[k], ref[k])) for k in comps}
+    l_gpu, g_gpu = run(dev)
+    l_again, g_again = run(dev)
+    l_cpu, g_cpu = run("cpu")
+    with torch.no_grad():
+        policy = gan9_policy("cpu")
+        scale = gan_generator_loss(policy, policy.plan(X)).abs().mean().item()
+    spread = {k: 0.0 for k in comps}
+    for kw in (dict(x_scale=1 + 1e-7), dict(x_scale=1 - 1e-7), dict(w_scale=1 + 1e-6),
+               dict(w_scale=1 - 1e-6)):
+        spread = {k: max(v, share(run("cpu", **kw)[1], g_cpu)[k]) for k, v in spread.items()}
+    d = share(g_gpu, g_cpu)
+    same = l_again == l_gpu and all(torch.equal(a, b) for k in comps
+                                    for a, b in zip(g_gpu[k], g_again[k]))
+    fmt = lambda m: ", ".join(f"{k} {v:.2e}" for k, v in m.items())
+    print(f"gan/9 generator implicit gradient ({len(G9_CONVERGED)} histories, gan_generator_loss) "
+          f"GPU vs CPU: loss {l_gpu:.7g} vs {l_cpu:.7g} (|d| {abs(l_gpu - l_cpu):.2e}, "
+          f"tol 1e-4 x mean |loss| {scale:.4g}); max|d| / max|ref| {fmt(d)} (tol 1e-3); the CPU's own spread "
+          f"{fmt(spread)}; second call bitwise equal: {same}")
+    if not (abs(l_gpu - l_cpu) <= 1e-4 * scale and max(d.values()) <= 1e-3):
+        raise SystemExit("gan/9's generator gradient on the card disagrees with the CPU path")
+    if not same:
+        raise SystemExit("gan/9's generator gradient on the card is not deterministic")
+
+
+@contextlib.contextmanager
+def solves_recorded():
+    """Each ``batch_ilqr`` call that the policy or the implicit planner
+    makes inside the block appends the trips it ran to the yielded list."""
+    from gan_mpc_tpu_torch.planner import bilevel
+    from gan_mpc_tpu_torch.policies import mpc
+
+    trips, original = [], mpc.batch_ilqr
+
+    def solve(*args, **kwargs):
+        sol = original(*args, **kwargs)
+        trips.append(sol.trips)
+        return sol
+
+    mpc.batch_ilqr = bilevel.batch_ilqr = solve
+    try:
+        yield trips
+    finally:
+        mpc.batch_ilqr = bilevel.batch_ilqr = original
+
+
+def gan9_phase(kernels, card_line, dev):
+    """Phase 8: gan/9 loaded as the GAN runner loads it, served closed
+    loop, then continued by one GAN epoch. Returns the launches of each."""
+    from gan_mpc_tpu_torch.envs.rollout import batch_policy_rollout
+    from gan_mpc_tpu_torch.planner.batch_ilqr import mlp_calls_per_solve
+    from gan_mpc_tpu_torch.runners import common, gan
+    from gan_mpc_tpu_torch.training.masking import policy_components
+
+    gen = torch.Generator().manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx = common.setup(gan9_config(**G9_CUTS), True, GAN9_STORE, dev, gen)
+    torch.cuda.synchronize()
+    cfg, policy = ctx["config"], ctx["policy"]
+    H, settings = policy.horizon, policy.settings
+    print(f"gan/9 loaded from {GAN9}/config.json and params.msgpack (every component: "
+          f"{', '.join(policy_components(policy))}), normalizer fitted on {GAN9_STORE} "
+          f"({ctx['trajs'].states.shape[0]} trajectories of {ctx['trajs'].states.shape[1]} "
+          f"steps), in {time.perf_counter() - t0:.2f} s; H={H}, iLQR <= "
+          f"{settings.max_iterations}, "
+          f"fused_ls={settings.fused_ls}")
+
+    # serving
+    trips = []
+
+    def act(hist_x, hist_u):
+        sol = policy.plan_batch(hist_x, hist_u)
+        trips.append(sol.trips)
+        return sol.U[:, 0]
+
+    env, env_params, norm = ctx["env_im"], ctx["env_im_params"], ctx["normalizer"]
+    batch_policy_rollout(env, env_params, act, norm, WARMUP_STEPS, cfg.mpc.history, SERVE_ENVS,
+                         generator=gen)
+    trips.clear()
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ep = batch_policy_rollout(env, env_params, act, norm, SERVE_STEPS, cfg.mpc.history,
+                              SERVE_ENVS, generator=gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    serve_counts = {name: k.launches for name, k in kernels.items()}
+    expected = dict(mlp_calls_per_solve(H, sum(trips), solves=len(trips)), fused_mlp_bwd=0)
+    returns = ep.rewards.sum(1)
+    print(f"gan/9 serving: {SERVE_ENVS} envs x {SERVE_STEPS} control steps (of 1000) on the "
+          f"imitator's pendulum in {dt:.3f} s: {SERVE_ENVS * SERVE_STEPS / dt:.2f} env steps/s, "
+          f"{SERVE_STEPS / dt:.3f} control steps/s (one GPU: {card_line}); mean return "
+          f"{returns.mean().item():.2f} (per env {[round(r, 1) for r in returns.tolist()]}); "
+          f"trips per solve mean {np.mean(trips):.2f} max {max(trips)} min {min(trips)}; kernel "
+          f"launches {serve_counts} (expected {expected} from the solver's {len(trips)} solves "
+          f"and {sum(trips)} trips)")
+    if serve_counts != expected:
+        raise SystemExit("gan/9 serving did not launch the kernels on every MLP call")
+    shapes = {"states": (SERVE_ENVS, SERVE_STEPS, 3), "actions": (SERVE_ENVS, SERVE_STEPS, 1),
+              "rewards": (SERVE_ENVS, SERVE_STEPS)}
+    for name, shape in shapes.items():
+        t = getattr(ep, name)
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            raise SystemExit(f"gan/9 serving output {name} is malformed or not finite")
+
+    # one GAN epoch, each phase watched: its wall time and what it moved
+    tcfg = cfg.mpc.train
+    phases = {"train_dynamics": tcfg.dynamics, "train_critic": tcfg.critic,
+              "train_cost": tcfg.cost}
+    watched, originals = {}, {name: getattr(gan, name) for name in phases}
+    for name, pcfg in phases.items():
+        def watch(*args, _name=name, _fn=getattr(gan, name), **kwargs):
+            comps = policy_components(policy)
+            before = {k: [p.detach().clone() for p in ps] for k, ps in comps.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            moved = {k for k, ps in comps.items()
+                     if any(not torch.equal(p, q) for p, q in zip(ps, before[k]))}
+            watched[_name] = (time.perf_counter() - t0, moved)
+            return out
+        setattr(gan, name, watch)
+    opts = gan.phase_optimizers(ctx)
+    for k in kernels.values():
+        k.launches = 0
+    try:
+        with solves_recorded() as trips:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            record = gan.gan_epoch(ctx, opts, 1, gen)
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(gan, name, fn)
+    epoch_counts = {name: k.launches for name, k in kernels.items()}
+    dcfg, ccfg = tcfg.dynamics, tcfg.cost
+    batches = lambda n, b: max(n // b, 1)
+    n_dyn, n_cost = ctx["dyn_train"][0].shape[0], ctx["cost_data"][0][0].shape[0]
+    dyn_steps = ((dcfg.warm_start_updates + dcfg.expert_updates) * batches(n_dyn, dcfg.batch_size)
+                 + dcfg.num_updates * batches(ctx["replay"].size, dcfg.batch_size))
+    gen_steps = ccfg.num_updates * min(batches(n_cost, ccfg.batch_size), ccfg.steps_per_update)
+    solves = dict(mlp_calls_per_solve(H, sum(trips), solves=len(trips)))
+    expected = {"fused_mlp_fwd": solves["fused_mlp_fwd"] + H * dyn_steps + (H + 1) * gen_steps,
+                "fused_ls_step": 0, "fused_mlp_bwd": H * dyn_steps + H * gen_steps}
+    print(f"gan/9 GAN epoch (one GPU: {card_line}) in {epoch_s:.3f} s; cuts: on-policy episode "
+          f"{dcfg.max_interactions_per_episode} of 300 steps at 1 env (noise "
+          f"{dcfg.collection_noise}), generator {ccfg.num_updates} update of "
+          f"{ccfg.steps_per_update} minibatch steps (of 3 of {batches(n_cost, ccfg.batch_size)}), "
+          f"evaluation on {ccfg.eval_windows} windows; the dynamics' updates, the critic "
+          f"(plan_batch {tcfg.critic.get_path('plan_batch', 256)}, {tcfg.critic.num_updates} "
+          f"updates of batch {tcfg.critic.batch_size}) and the rest as the run's config")
+    for name, (secs, moved) in watched.items():
+        print(f"  {name}: {secs:.3f} s, moved {sorted(moved)}")
+    for key, values in record.items():
+        print(f"  {key}: {values}")
+    print(f"  kernel launches {epoch_counts} (expected {expected}: {len(trips)} solves "
+          f"of {sum(trips)} trips, {dyn_steps} dynamics steps and {gen_steps} generator "
+          f"steps of {H} time steps)")
+    if epoch_counts != expected:
+        raise SystemExit("the GAN epoch did not launch the kernels on every MLP call")
+    if not all(v and np.all(np.isfinite(v)) for v in record.values()):
+        raise SystemExit("the GAN epoch's losses are missing or not finite")
+    ln2 = float(np.log(2.0))
+    critic = record["critic_train_losses"] + record["critic_test_losses"]
+    if not all(abs(v - ln2) <= 0.05 for v in critic):
+        raise SystemExit(f"the critic's losses {critic} are not near ln 2")
+    comps = set(policy_components(policy))
+    for name, pcfg in phases.items():
+        if watched[name][1] != comps - set(pcfg.no_grads):
+            raise SystemExit(f"{name} moved {sorted(watched[name][1])}, not its own components")
+    return {"gan/9 serving": serve_counts, "gan/9 epoch": epoch_counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -767,6 +1082,28 @@ def main() -> int:
         err = check_backward("trained dynamics", layers, 128, rng, dev)
         max_err["fused_mlp_bwd"] = max(max_err["fused_mlp_bwd"], err)
 
+        # both MLP kernels on gan/9's trained stacks, at the rows phase 8 gives them
+        g9 = gan9_policy(dev)
+        g9_stacks = {name: [(w.detach(), b.detach()) for w, b in model.net.stack()]
+                     for name, model in (("dynamics", g9.dynamics_model),
+                                         ("cost", g9.cost_model))}
+        for name, layers in g9_stacks.items():
+            widths = [layers[0][0].shape[0]] + [w.shape[1] for w, _ in layers]
+            for rows in G9_ROWS:
+                x = torch.tensor(rng.standard_normal((rows, widths[0])), dtype=torch.float32,
+                                 device=dev)
+                got, ref = mlp_apply(x, layers), reference_forward(x, layers)
+                torch.cuda.synchronize()
+                err, tol = (got - ref).abs().max().item(), 1e-4 * max(1.0, ref.abs().max().item())
+                print(f"check fused_mlp_fwd gan/9 {name} {widths} rows={rows}: "
+                      f"max|d|={err:.3e} bound={tol:.3e}")
+                if not err <= tol:
+                    raise SystemExit(f"fused_mlp_fwd disagrees with plain version on gan/9's "
+                                     f"{name} stack at {rows} rows")
+                max_err["fused_mlp_fwd"] = max(max_err["fused_mlp_fwd"], err)
+        err = check_backward("gan/9 dynamics", g9_stacks["dynamics"], 128, rng, dev)
+        max_err["fused_mlp_bwd"] = max(max_err["fused_mlp_bwd"], err)
+
         # 3. times and bounds
         print(f"bounds: operations over {F32_PRODUCT_RATE / 1e12:.0f} TFLOP/s (three TF32 "
               f"tensor-core passes per f32-accurate product, {TF32_PEAK / 1e12:.0f} / 3), "
@@ -797,6 +1134,28 @@ def main() -> int:
             print(f"time fused_mlp_bwd {name} {widths} rows={rows}: kernel {k:.4f} ms, "
                   f"plain {p:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
                   f"kernel at {100 * b_ms / k:.1f}% of bound")
+        for name, rows in G9_TIMED:
+            layers = g9_stacks[name]
+            widths = [layers[0][0].shape[0]] + [w.shape[1] for w, _ in layers]
+            x = torch.tensor(rng.standard_normal((rows, widths[0])), dtype=torch.float32,
+                             device=dev)
+            k = device_ms(lambda: fused_mlp_forward(x, layers))
+            p = device_ms(lambda: reference_forward(x, layers))
+            b_ms, b_by = mlp_bound(rows, widths)
+            timed[("fused_mlp_fwd", f"gan/9 {name}", rows)] = (k, p, b_ms, b_by)
+            print(f"time fused_mlp_fwd gan/9 {name} {widths} rows={rows}: kernel {k:.4f} ms, "
+                  f"plain {p:.4f} ms, bound {b_ms:.5f} ms ({b_by}), kernel at "
+                  f"{100 * b_ms / k:.1f}% of bound")
+        layers, widths = g9_stacks["dynamics"], [4, 200, 200, 200, 3]
+        x = torch.tensor(rng.standard_normal((128, 4)), dtype=torch.float32, device=dev)
+        g = torch.tensor(rng.standard_normal((128, 3)), dtype=torch.float32, device=dev)
+        k = device_ms(lambda: fused_mlp_backward(x, layers, g))
+        p = device_ms(lambda: reference_backward(x, layers, g))
+        b_ms, b_by = bwd_bound(128, widths)
+        timed[("fused_mlp_bwd", "gan/9 dynamics", 128)] = (k, p, b_ms, b_by)
+        print(f"time fused_mlp_bwd gan/9 dynamics {widths} rows=128: kernel {k:.4f} ms, "
+              f"plain {p:.4f} ms, bound {b_ms:.5f} ms ({b_by}), kernel at "
+              f"{100 * b_ms / k:.1f}% of bound")
         for i, (name, lanes, alphas, n, m, gs) in enumerate(LS_TIMED):
             args = ls_args(lanes, alphas, n, m, gs, LS_WEIGHTS[0], 900 + i, dev)
             k = device_ms(lambda: fused_ls_kernel(**args))
@@ -838,6 +1197,8 @@ def main() -> int:
         raise SystemExit("the physics step on the card disagrees with the CPU path")
     check_update_pass(dev)
     check_implicit_step(dev)
+    check_gan9_plan(dev)
+    check_generator_gradient(dev)
 
     # 5. the main path, once per solver setting
     env = make_env("cheetah_run", dev)
@@ -877,6 +1238,9 @@ def main() -> int:
 
     # 7. the cost-trainer path
     launches["cost trainer"] = cost_phase(episodes["off"], kernels, card_line, dev)
+
+    # 8. the GAN slice on the committed run gan/9
+    launches.update(gan9_phase(kernels, card_line, dev))
 
     # the planner's line-search call (8192 rows) leads the forward kernels'
     # entries, the trainer's call (128 rows) the backward kernel's

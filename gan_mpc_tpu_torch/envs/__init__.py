@@ -7,10 +7,14 @@ from gan_mpc_tpu_torch.envs.base import (  # noqa: F401
 
 def make_env(name: str, device="cuda"):
     """Environment factory by dm_control-style '{domain}_{task}' name, on
-    the card unless ``device`` says otherwise. Only ``cheetah_run`` is
-    ported."""
+    the card unless ``device`` says otherwise."""
     if name == "cheetah_run":
         from gan_mpc_tpu_torch.envs.cheetah import CheetahRun
 
         return CheetahRun(device)
-    raise ValueError(f"environment {name!r} is not ported (only 'cheetah_run')")
+    if name == "pendulum_swingup":
+        from gan_mpc_tpu_torch.envs.pendulum import PendulumSwingup
+
+        return PendulumSwingup(device)
+    raise ValueError(f"environment {name!r} is not ported (ported: cheetah_run, "
+                     "pendulum_swingup)")

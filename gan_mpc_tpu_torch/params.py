@@ -4,8 +4,9 @@
 of numpy arrays, as ``jax.device_get`` returns them) into an
 ``MPCPolicy``: Dense stacks in ``Dense_i`` index order with (in, out)
 kernels, the expert's ``OptimizedLSTMCell`` gate kernels and biases, and
-its prediction heads. ``dynamics_from_jax_params`` loads the dynamics
-part alone into a ``LearnedDynamics``.
+its prediction heads, and the critic's scanned cell and head.
+``dynamics_from_jax_params``, ``expert_from_jax_params`` and
+``critic_from_jax_params`` load one component alone.
 
 ``load_msgpack`` reads a ``params.msgpack`` file as the JAX runners save it
 (``flax.serialization.msgpack_serialize``) into that nested dict, with a
@@ -53,10 +54,18 @@ def _load_dense_stack(layers, tree: Mapping) -> None:
         _copy(d.bias, tree[name]["bias"])
 
 
+def _load_lstm_cell(cell: OptimizedLSTMCell, tree: Mapping) -> None:
+    for g in GATES:
+        _copy(getattr(cell, f"i{g}"), tree[f"i{g}"]["kernel"])
+        _copy(getattr(cell, f"h{g}"), tree[f"h{g}"]["kernel"])
+        _copy(getattr(cell, f"h{g}_bias"), tree[f"h{g}"]["bias"])
+
+
 def from_jax_params(tree: Mapping, policy: nn.Module) -> nn.Module:
     """Load ``{"mpc_weights", "cost_params", "dynamics_params",
     "expert_params"[, "critic_params"]}`` into ``policy`` (in place; also
-    returned). ``critic_params`` is ignored: the critic is not ported."""
+    returned). ``critic_params`` goes into the policy's critic; a policy
+    without one (the serving path's) does not read it."""
     cost = policy.cost_model
     weights = np.asarray(tree["mpc_weights"], np.float32)
     cost.weights = nn.Parameter(
@@ -65,14 +74,29 @@ def from_jax_params(tree: Mapping, policy: nn.Module) -> nn.Module:
     )
     _load_dense_stack(cost.net.layers, tree["cost_params"]["params"])
     dynamics_from_jax_params(tree["dynamics_params"], policy.dynamics_model)
-    cell = tree["expert_params"]["params"]["_LSTMCell_0"]
-    lstm = policy.expert_model.cell.lstm
-    for g in GATES:
-        _copy(getattr(lstm, f"i{g}"), cell["OptimizedLSTMCell_0"][f"i{g}"]["kernel"])
-        _copy(getattr(lstm, f"h{g}"), cell["OptimizedLSTMCell_0"][f"h{g}"]["kernel"])
-        _copy(getattr(lstm, f"h{g}_bias"), cell["OptimizedLSTMCell_0"][f"h{g}"]["bias"])
-    _load_dense_stack(policy.expert_model.cell.heads.layers, cell["_PredictionHeads_0"])
+    expert_from_jax_params(tree["expert_params"], policy.expert_model)
+    if "critic_params" in tree and policy.critic_model is not None:
+        critic_from_jax_params(tree["critic_params"], policy.critic_model)
     return policy
+
+
+def expert_from_jax_params(tree: Mapping, expert: nn.Module) -> nn.Module:
+    """Load a JAX ``expert_params`` tree (``{"params": {"_LSTMCell_0":
+    ...}}``) into an LSTM ``ExpertPredictor`` (in place; also returned)."""
+    cell = tree["params"]["_LSTMCell_0"]
+    _load_lstm_cell(expert.cell.lstm, cell["OptimizedLSTMCell_0"])
+    _load_dense_stack(expert.cell.heads.layers, cell["_PredictionHeads_0"])
+    return expert
+
+
+def critic_from_jax_params(tree: Mapping, critic: nn.Module) -> nn.Module:
+    """Load a JAX ``critic_params`` tree (``{"params":
+    {"ScanOptimizedLSTMCell_0": ..., "Dense_i": ...}}``) into a
+    ``SequenceCritic`` (in place; also returned)."""
+    params = tree["params"]
+    _load_lstm_cell(critic.lstm, params["ScanOptimizedLSTMCell_0"])
+    _load_dense_stack(critic.head, {k: v for k, v in params.items() if k.startswith("Dense_")})
+    return critic
 
 
 def dynamics_from_jax_params(tree: Mapping, dynamics: nn.Module) -> nn.Module:

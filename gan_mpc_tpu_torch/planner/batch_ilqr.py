@@ -9,10 +9,11 @@ U (T, B, m), A (T, B, n, n). ``lax.scan`` becomes a Python loop.
 
 Per-lane line-search acceptance, Levenberg-Marquardt schedule and
 convergence are (B,) tensors with masked updates. A lane that is no
-longer active changes no state, so the iteration loop runs a fixed
-``max_iterations`` trips instead of the JAX package's
-``while any(active)``: the outputs are the same, and the loop never waits
-on the device to decide whether to go on.
+longer active changes no state. The iteration loop stops, as the JAX
+package's ``while any(active)`` does, once no lane is active (one host
+sync a trip). The solution reports the trips that ran
+(``ILQRSolution.trips``), from which ``mlp_calls_per_solve`` gives the
+kernel launches.
 
 Ported: ``riccati="sequential"``, the recompute line search, f32, and
 the forward scans either through the separate callbacks or through the
@@ -208,19 +209,21 @@ def _forward_best(problem, X, U, k, K, alpha_b):
     return torch.stack(xs), torch.stack(us)
 
 
-def mlp_calls_per_solve(horizon: int, max_iterations: int,
-                        fused: bool = False) -> Dict[str, int]:
-    """Kernel launches one ``batch_ilqr`` makes on the card, by kernel.
+def mlp_calls_per_solve(horizon: int, trips: int, fused: bool = False,
+                        solves: int = 1) -> Dict[str, int]:
+    """Kernel launches on the card of ``solves`` ``batch_ilqr`` calls that
+    ran ``trips`` iterations in all (``ILQRSolution.trips``, or
+    ``max_iterations`` each where no lane stops early), by kernel.
 
-    Three forward scans run: the initial rollout, then per iteration the
+    Three forward scans run: the initial rollout, then per trip the
     line search and the winner recompute, H steps each. Every step is one
     dynamics MLP forward (``fused_mlp_fwd``), or with the fused step one
     ``fused_ls_step`` launch. The rollout and the line search end in one
     terminal-cost MLP forward each; the recompute reads no objective.
     (The linearization and quadratization run plain torch.)
     """
-    steps = horizon * (1 + 2 * max_iterations)
-    terminal = 1 + max_iterations
+    steps = horizon * (solves + 2 * trips)
+    terminal = solves + trips
     if fused:
         return {"fused_mlp_fwd": terminal, "fused_ls_step": steps}
     return {"fused_mlp_fwd": steps + terminal, "fused_ls_step": 0}
@@ -235,7 +238,7 @@ def batch_ilqr(
     """Solve B planning problems jointly. x0 (B,n), U0 (B,T,m).
 
     Returns an ILQRSolution whose fields carry a leading batch axis
-    (X (B,T+1,n), U (B,T,m), ...).
+    (X (B,T+1,n), U (B,T,m), ...), and the trips the loop ran.
     """
     x0 = x0.to(torch.float32).contiguous()
     U0 = U0.to(torch.float32).transpose(0, 1).contiguous()  # -> (T, B, m)
@@ -256,10 +259,13 @@ def batch_ilqr(
     active = torch.ones((B,), dtype=torch.bool, device=dev)
     converged = torch.zeros((B,), dtype=torch.bool, device=dev)
 
-    # A fixed trip count in place of JAX's ``while any(active)``: inactive
-    # lanes change no state, so the outputs agree and the host never syncs.
-    # Where every lane converges early, the remaining trips still run.
-    for _ in range(settings.max_iterations):
+    # JAX's ``while any(active)``: inactive lanes change no state, so the
+    # outputs are those of all max_iterations trips.
+    trips = 0
+    while trips < settings.max_iterations:
+        if trips and not bool(active.any()):
+            break
+        trips += 1
         A, Bm = problem.dynamics_jac(X[:-1], U)
         cx, cu, cxx, cuu, cux = problem.quad(X, U)
         k, K, adjoints, g = _backward(A, Bm, cx, cu, cxx, cuu, cux, reg)
@@ -308,4 +314,5 @@ def batch_ilqr(
         adjoints=adj.transpose(0, 1),
         iterations=it,
         converged=converged,
+        trips=trips,
     )

@@ -110,28 +110,29 @@ def batched_cg(matvec: Callable, b: torch.Tensor, iters: int) -> torch.Tensor:
     return x
 
 
-def mlp_calls_per_step(horizon: int, max_iterations: int,
-                       fused: bool = False) -> Dict[str, int]:
-    """Kernel launches of one implicit solve and its backward on the card,
-    for an outer loss that reads X or U and not obj (the imitation loss).
+def mlp_calls_per_step(horizon: int, trips: int, fused: bool = False,
+                       steps: int = 1) -> Dict[str, int]:
+    """Kernel launches of ``steps`` implicit solves that ran ``trips``
+    iterations in all, and their backwards, on the card, for an outer loss
+    that reads X or U and not obj (the imitation and generator losses).
 
-    The solve: ``mlp_calls_per_solve``. The backward's first-order rollout
-    at (U*, theta): ``horizon`` dynamics MLP forwards and one terminal-cost
+    The solves: ``mlp_calls_per_solve``. Each backward's first-order
+    rollout at (U*, theta): ``horizon`` dynamics MLP forwards and one terminal-cost
     forward (``fused_mlp_fwd`` through ``FusedMlpFunction``), then the X
     pullback, ``horizon`` dynamics backwards (``fused_mlp_bwd``). A loss
     that reads obj adds the envelope's ``horizon`` dynamics backwards and
     one of the cost net. The Hessian and the mixed term run plain torch.
     """
-    calls = dict(mlp_calls_per_solve(horizon, max_iterations, fused))
-    calls["fused_mlp_fwd"] += horizon + 1
-    calls["fused_mlp_bwd"] = horizon
+    calls = dict(mlp_calls_per_solve(horizon, trips, fused, solves=steps))
+    calls["fused_mlp_fwd"] += steps * (horizon + 1)
+    calls["fused_mlp_bwd"] = steps * horizon
     return calls
 
 
 class _ImplicitSolve(torch.autograd.Function):
     """Arguments: the planner, ``build_problem``, x0 (B, n), U0 (B, T, m),
     then the theta tensors. Outputs: X, U, obj (differentiable), grad,
-    adjoints, iterations, converged (not)."""
+    adjoints, iterations, converged (not), and the trips (an int)."""
 
     @staticmethod
     def forward(ctx, planner, build_problem, x0, U0, *theta):
@@ -140,7 +141,8 @@ class _ImplicitSolve(torch.autograd.Function):
         ctx.save_for_backward(x0, sol.U)
         ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(sol.grad, sol.adjoints, sol.iterations, sol.converged)
-        return sol.X, sol.U, sol.obj, sol.grad, sol.adjoints, sol.iterations, sol.converged
+        return (sol.X, sol.U, sol.obj, sol.grad, sol.adjoints, sol.iterations, sol.converged,
+                sol.trips)
 
     @staticmethod
     def backward(ctx, X_bar, U_bar, obj_bar, *unused):

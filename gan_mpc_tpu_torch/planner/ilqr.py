@@ -55,3 +55,4 @@ class ILQRSolution:
     adjoints: torch.Tensor  # (..., T+1, n) costate trajectory
     iterations: torch.Tensor  # int32 outer iterations used
     converged: torch.Tensor  # bool
+    trips: int = None  # iterations the batch loop ran (host int)

@@ -12,7 +12,9 @@ Counterpart of ``gan_mpc_tpu/policies/mpc.py``, batch-major throughout:
   * ``batched_loss`` / ``batched_loss_and_grad``, the outer loss of a batch
     of histories (the cost trainer's step).
 
-Goal projection, recurrent (LSTM) dynamics and the critic are not ported.
+``critic_model`` (a ``models.critic.SequenceCritic``, or None) is the GAN
+discriminator the generator loss reads; the planner never calls it.
+Goal projection and recurrent (LSTM) dynamics are not ported.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ class MPCPolicy(nn.Module):
         cost_model: MPCCost,
         dynamics_model: LearnedDynamics,
         expert_model: ExpertPredictor,
+        critic_model: nn.Module = None,
         horizon: int = 5,
         settings: SolverSettings = SolverSettings(),
         bilevel_solver: str = "dense",
@@ -50,6 +53,7 @@ class MPCPolicy(nn.Module):
         self.cost_model = cost_model
         self.dynamics_model = dynamics_model
         self.expert_model = expert_model
+        self.critic_model = critic_model
         self.horizon = horizon
         self.x_size = dynamics_model.x_size
         self.settings = settings

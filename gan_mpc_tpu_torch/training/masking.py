@@ -22,13 +22,17 @@ from torch import nn
 
 def policy_components(policy: nn.Module) -> Dict[str, List[torch.Tensor]]:
     """The JAX parameter dict's top-level components, as lists of the
-    port policy's parameters (the critic is not ported)."""
-    return {
+    port policy's parameters; ``critic_params`` where the policy has a
+    critic."""
+    comps = {
         "mpc_weights": [policy.cost_model.weights],
         "cost_params": list(policy.cost_model.net.parameters()),
         "dynamics_params": list(policy.dynamics_model.parameters()),
         "expert_params": list(policy.expert_model.parameters()),
     }
+    if getattr(policy, "critic_model", None) is not None:
+        comps["critic_params"] = list(policy.critic_model.parameters())
+    return comps
 
 
 class ClippedAdam:

@@ -2,10 +2,11 @@
 
 ``solve_spd`` on SPD systems from a numpy seed (atol 1e-5); the batch
 iLQR on a batched LQR problem where every lane converges before the
-iteration cap (the port's fixed-trip loop against JAX's
-``while any(active)``); and one full flagship ``plan_batch`` solve on 8
-envs with weights carried across by ``from_jax_params`` (U atol 1e-4,
-``iterations`` and ``converged`` equal). Float32 on the CPU.
+iteration cap (the port's loop, which stops once no lane is active and
+reports the trips it ran, against JAX's ``while any(active)``); and one
+full flagship ``plan_batch`` solve on 8 envs with weights carried across
+by ``from_jax_params`` (U atol 1e-4, ``iterations`` and ``converged``
+equal). Float32 on the CPU.
 """
 
 import dataclasses
@@ -96,6 +97,7 @@ def test_batch_ilqr_matches_jax_when_lanes_converge_early():
     # the exact Newton step converges every lane well before the cap
     assert np.all(np.asarray(ref.converged)) and np.all(np.asarray(ref.iterations) < 8)
     np.testing.assert_array_equal(got.iterations.numpy(), np.asarray(ref.iterations))
+    assert got.trips == int(np.asarray(ref.iterations).max()) < 8
     np.testing.assert_array_equal(got.converged.numpy(), np.asarray(ref.converged))
     for name in ("X", "U", "obj", "grad", "adjoints"):
         np.testing.assert_allclose(

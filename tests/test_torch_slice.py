@@ -18,9 +18,10 @@ by 5e-3. (A flip moves one by 1e-2 or more; rounding carried through the
 stiff ground contact moves them by about 1e-3 at the third step.) On that
 key the port agrees to about 1e-4 in actions and states.
 
-Also: the port (the control path, the dynamics trainer and a cost-trainer
-step) runs with JAX, flax and the JAX package made unimportable, and its entry points run
-on the card unless asked for the CPU.
+Also: the port (the control path, the dynamics trainer, a cost-trainer
+step, and the committed run gan/9 loaded and continued by a cut GAN epoch)
+runs with JAX, flax and the JAX package made unimportable, and its entry
+points run on the card unless asked for the CPU.
 """
 
 import subprocess
@@ -43,6 +44,7 @@ from gan_mpc_tpu_torch.data.buffers import ReplayBuffer
 from gan_mpc_tpu_torch.data.normalizer import Normalizer
 from gan_mpc_tpu_torch.envs import EnvState, make_env
 from gan_mpc_tpu_torch.envs.cheetah import CheetahRun
+from gan_mpc_tpu_torch.envs.pendulum import PendulumSwingup
 from gan_mpc_tpu_torch.envs.rollout import policy_rollout
 from gan_mpc_tpu_torch.params import from_jax_params
 
@@ -191,6 +193,25 @@ BLOCKED_RUN = textwrap.dedent(
         polyak_factor=0.9, generator=torch.Generator().manual_seed(0))
     assert len(train_losses) == len(test_losses) == 1
     assert all(l == l for l in train_losses + test_losses)
+
+    # the committed run gan/9 loaded and continued by one GAN epoch, cut
+    from gan_mpc_tpu_torch.runners import common, gan
+
+    g9 = "runs/trained_models/imitator/pendulum_swingup/gan/9"
+    cfg = common.load_run_config(g9).replace(
+        mpc__train__init_from_run=g9, mpc__solver__max_iterations=2,
+        mpc__train__num_trajectories=2, mpc__train__trajectory_len=30,
+        mpc__train__dynamics__max_interactions_per_episode=12,
+        mpc__train__dynamics__warm_start_updates=1, mpc__train__dynamics__expert_updates=0,
+        mpc__train__dynamics__num_updates=1, mpc__train__dynamics__batch_size=16,
+        mpc__train__critic__plan_batch=4, mpc__train__critic__batch_size=4,
+        mpc__train__critic__num_updates=1, mpc__train__cost__batch_size=4,
+        mpc__train__cost__num_updates=1, mpc__train__cost__steps_per_update=1,
+        mpc__train__cost__eval_windows=4)
+    ctx = common.setup(cfg, True, "runs/expert_trajectories/pendulum_swingup/"
+                       "trajectories-f690b23776.gmts", "cpu")
+    record = gan.gan_epoch(ctx, gan.phase_optimizers(ctx), 1, torch.Generator().manual_seed(0))
+    assert all(v and all(x == x for x in v) for v in record.values()), record
     assert not [m for m in sys.modules if blocked(m)]
     print("imported", len(mods), "modules")
     """
@@ -211,6 +232,7 @@ ENTRY_POINTS = {
     "flagship": lambda: flagship(2, 1, seed=0),
     "make_env": lambda: make_env("cheetah_run"),
     "CheetahRun": lambda: CheetahRun(),
+    "PendulumSwingup": lambda: PendulumSwingup(),
     "Normalizer.identity": lambda: Normalizer.identity(17, 6),
     "ReplayBuffer.create": lambda: ReplayBuffer.create(10, 5, 17, 6),
 }
@@ -225,6 +247,8 @@ def test_entry_points_default_to_the_card(name):
         tensor = {"flagship": lambda p: next(p.parameters()),
                   "make_env": lambda e: e.model(e.default_params()).mass,
                   "CheetahRun": lambda e: e.model(e.default_params()).mass,
+                  "PendulumSwingup": lambda e: e.reset(e.default_params(), 2,
+                                                       torch.Generator()).qpos,
                   "Normalizer.identity": lambda nrm: nrm.state_mean,
                   "ReplayBuffer.create": lambda buf: buf.states}[name](made)
         assert tensor.is_cuda
