@@ -134,6 +134,24 @@ Phases, in order; any failure raises and exits non-zero:
        move its own components and leave its no_grads bitwise unchanged,
        and the launches must equal the counts the solver's reported
        solves and trips and the trainers' steps give.
+  9. the GAN training run: ``runners.gan.run`` on gan/9's own config,
+     continued from gan/9, with ``G9_RUN_CUTS`` (phase 8's epoch cuts; 2
+     epochs; evaluation every epoch on 4 envs of 25 steps; a candidate
+     pool of 2; the action-goal gain appended as a 5th weight at 1.0 and
+     calibrated over 1.0 and 1.4; checkpoints every epoch; DAgger off) in
+     a temporary workdir on the committed store. The first call's log
+     raises on the "[gan] epoch 1 " line; a second call resumes from the
+     epoch-1 checkpoint, trains epoch 2 alone, evaluates, selects,
+     calibrates and saves. Checks: the resume logged, the checkpoints
+     cleared, the saved run (config.json, params.msgpack, the six loss
+     curves; 5 MPC weights) reloaded by ``common.setup(init_from_run=...)``
+     bitwise equal to the returned params, every loss and return finite,
+     gan.jsonl holding both epochs' rows and epoch 2's evaluation, and
+     the launches of both MLP kernels equal to what the solver's trips and
+     the trainers' minibatch steps give. Prints the wall time of each
+     epoch and evaluation kind (midrun, selection, calibration, final,
+     fresh), the selection scores, the chosen gain, the stamped reward
+     and fresh_eval, and the launches; then the script's total wall time.
 The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Exits 1 without a CUDA device.
 """
@@ -240,6 +258,24 @@ G9_CUTS = dict(mpc__train__dynamics__max_interactions_per_episode=50,  # of 300
                mpc__train__cost__num_updates=1,  # of 3
                mpc__train__cost__steps_per_update=4,  # of 61
                mpc__train__cost__eval_windows=256)
+# phase 9's cuts of gan/9's config for runners.gan.run (the rest is the
+# run's own): 2 epochs of phase 8's epoch, evaluation every epoch on 4
+# envs of 25 steps (of 16 of 1000), a pool of 2, and the gain calibrated
+# over 2 gains from 1.0 appended to gan/9's 4 weights
+G9_RUN_CUTS = dict(G9_CUTS, mpc__train__num_epochs=2,  # of 9
+                   mpc__evaluate__every_epochs=1,  # of 3
+                   mpc__evaluate__midrun_episodes=4,  # of 16
+                   mpc__evaluate__candidate_pool=2,  # of 6
+                   mpc__evaluate__selection_episodes=4,  # of 16
+                   mpc__evaluate__num_runs_for_avg=4,  # of 16
+                   mpc__evaluate__fresh_eval_episodes=4,  # of 16
+                   mpc__evaluate__max_interactions=25,  # of 1000
+                   mpc__model__cost__calibrate_action_goal_gain=True,
+                   mpc__model__cost__gain_grid=[1.0, 1.4],
+                   mpc__model__cost__weights__action_goal_gain=1.0,
+                   runtime__checkpoint={"every_epochs": 1, "keep": 2},
+                   # of 2: the JAX modular loop runs no DAgger round, the port refuses them
+                   expert_prediction__dagger__rounds=0)
 # cost windows (history 1, H=10) of the whole normalized store: 8 whose
 # plans move by less than 5e-5 under rounding-sized nudges, and 16 whose
 # plans converge in at most 12 iterations and whose implicit gradient in
@@ -947,7 +983,182 @@ def gan9_phase(kernels, card_line, dev):
     return {"gan/9 serving": serve_counts, "gan/9 epoch": epoch_counts}
 
 
+@contextlib.contextmanager
+def run_watched():
+    """Times each piece of a training run (``runners.l2``'s module functions,
+    ``runners.gan.gan_epoch``) as the run calls it; yields the list of
+    (kind, seconds). An evaluation is "selection" inside the re-rank and
+    "final" outside it; "midrun" is the periodic evaluation with its
+    solver statistics."""
+    from gan_mpc_tpu_torch.runners import gan, l2
+
+    timed, inside = [], []
+
+    def watch(kind, fn):
+        def watched(*args, **kwargs):
+            inside.append(kind)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                inside.pop()
+                if kind != "evaluate" or not inside:
+                    timed.append(("final" if kind == "evaluate" else kind,
+                                  time.perf_counter() - t0))
+        return watched
+
+    patched = [(gan, "gan_epoch", "epoch"), (l2, "midrun_eval", "midrun"),
+               (l2, "select_best_params", "selection"), (l2, "calibrate_gain", "calibration"),
+               (l2, "evaluate", "evaluate"), (l2, "fresh_seed_eval", "fresh")]
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    for mod, name, kind in patched:
+        setattr(mod, name, watch(kind, getattr(mod, name)))
+    try:
+        yield timed
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def update_steps_recorded():
+    """Each minibatch step of the dynamics and the cost trainers inside the
+    block adds one to the yielded dict's entry."""
+    from gan_mpc_tpu_torch.training import cost, dynamics
+
+    steps = {"dynamics": 0, "cost": 0}
+    originals = {"dynamics": dynamics.update_pass, "cost": cost.update_pass}
+
+    def counting(name):
+        def update_pass(*args, **kwargs):
+            indices = args[4] if name == "cost" else args[3]
+            steps[name] += indices.shape[0]
+            return originals[name](*args, **kwargs)
+        return update_pass
+
+    dynamics.update_pass, cost.update_pass = counting("dynamics"), counting("cost")
+    try:
+        yield steps
+    finally:
+        dynamics.update_pass, cost.update_pass = originals["dynamics"], originals["cost"]
+
+
+def gan_run_phase(kernels, card_line, dev):
+    """Phase 9: ``runners.gan.run`` on gan/9 with ``G9_RUN_CUTS``, crashed
+    after epoch 1 and resumed; the saved run reloaded bitwise. Returns the
+    run's launches."""
+    import os
+    import tempfile
+
+    from gan_mpc_tpu_torch.params import to_jax_params
+    from gan_mpc_tpu_torch.planner.batch_ilqr import mlp_calls_per_solve
+    from gan_mpc_tpu_torch.runners import common, gan, l2
+
+    class Interrupted(RuntimeError):
+        pass
+
+    logs = []
+
+    def log_crashing(msg):
+        print(f"  {msg}")
+        logs.append(msg)
+        if msg.startswith("[gan] epoch 1 "):
+            raise Interrupted(msg)
+
+    def log(msg):
+        print(f"  {msg}")
+        logs.append(msg)
+
+    with tempfile.TemporaryDirectory() as workdir:
+        cfg = gan9_config(**G9_RUN_CUTS).replace(runtime__workdir=workdir,
+                                                 env__trajectories_path=GAN9_STORE)
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with solves_recorded() as trips, update_steps_recorded() as steps, \
+                run_watched() as timed:
+            try:
+                gan.run(cfg, log_fn=log_crashing, device=dev)
+                raise SystemExit("the GAN run was not interrupted after epoch 1")
+            except Interrupted:
+                pass
+            t_first = time.perf_counter() - t0
+            ckpt = l2.checkpointer_for(cfg, "gan")
+            if ckpt.latest_step() != 1:
+                raise SystemExit("the interrupted GAN run left no epoch-1 checkpoint")
+            out = gan.run(cfg, log_fn=log, device=dev)
+            torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in kernels.items()}
+        H = cfg.mpc.horizon
+        solves = dict(mlp_calls_per_solve(H, sum(trips), solves=len(trips)))
+        expected = {"fused_mlp_fwd": solves["fused_mlp_fwd"] + H * steps["dynamics"]
+                    + (H + 1) * steps["cost"],
+                    "fused_ls_step": 0, "fused_mlp_bwd": H * (steps["dynamics"] + steps["cost"])}
+        run_dir, history = out["run_dir"], out["history"]
+        stamp = l2.io.load_json(os.path.join(run_dir, "config.json"))
+        files = sorted(os.listdir(run_dir))
+        with open(os.path.join(workdir, "metrics", cfg.env.name, "gan.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        cleared = ckpt.latest_step() is None
+        # the saved run, reloaded as a continuation loads it
+        ctx = common.setup(cfg.replace(mpc__train__init_from_run=run_dir), True, device=dev)
+        reloaded = to_jax_params(ctx["policy"])
+
+    def leaves(tree, prefix=""):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                yield from leaves(tree[k], f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", tree[k]
+
+    got, want = dict(leaves(reloaded)), dict(leaves(out["params"]))
+    bitwise = sorted(got) == sorted(want) and all(np.array_equal(got[k], want[k]) for k in want)
+    kinds = {}
+    for kind, secs in timed:
+        kinds.setdefault(kind, []).append(round(secs, 3))
+    print(f"gan/9 run (runners.gan.run, one GPU: {card_line}): {total_s:.3f} s, of it "
+          f"{t_first:.3f} s until the interruption after epoch 1; cuts {G9_RUN_CUTS}")
+    print(f"  wall s by piece: {kinds}")
+    print(f"  selection and gain: {[m for m in logs if m.startswith(('[select]', '[calibrate]'))]}; "
+          f"stamped reward {stamp['reward']}, fresh_eval {stamp['fresh_eval']}, "
+          f"dm_control_reward {stamp['dm_control_reward']}")
+    print(f"  saved {run_dir}: {files}; mpc_weights {out['params']['mpc_weights'].tolist()}; "
+          f"reload bitwise equal {bitwise}; checkpoints cleared {cleared}; "
+          f"{len(rows)} metrics rows")
+    print(f"  kernel launches {counts} (expected {expected}: {len(trips)} solves of "
+          f"{sum(trips)} trips, {steps['dynamics']} dynamics and {steps['cost']} generator "
+          f"steps of {H} time steps)")
+    if not any(m == "[gan] resumed from checkpoint at epoch 1" for m in logs):
+        raise SystemExit("the GAN run did not resume from its epoch-1 checkpoint")
+    if sum(m.startswith("[gan] epoch 2 return") for m in logs) != 1 or \
+            sum(m.startswith("[gan] epoch 1 return") for m in logs) != 1:
+        raise SystemExit("the GAN run did not train epoch 1, then epoch 2 alone after resuming")
+    if not cleared:
+        raise SystemExit("the finished GAN run left its checkpoints")
+    if not bitwise:
+        raise SystemExit("the saved GAN run does not reload bitwise")
+    if files != sorted(["config.json", "params.msgpack", *(f"{n}.json" for n in gan.GAN_HISTORY)]):
+        raise SystemExit(f"the saved GAN run holds {files}")
+    if out["params"]["mpc_weights"].shape != (5,):
+        raise SystemExit("the calibrated gain was not appended to the MPC weights")
+    values = [v for vs in history.values() for v in vs] + [stamp["reward"]]
+    values += stamp["fresh_eval"]["episodes"]
+    if not all(vs for vs in history.values()) or not np.all(np.isfinite(values)):
+        raise SystemExit("the GAN run's losses or returns are missing or not finite")
+    epochs = {r["step"] for r in rows if "generator_train_loss" in r}
+    evals = {r["step"] for r in rows if "eval_reward" in r}
+    if epochs != {1, 2} or evals != {2}:
+        raise SystemExit(f"gan.jsonl holds epoch rows {epochs} and eval rows {evals}")
+    if counts != expected:
+        raise SystemExit("the GAN run did not launch the kernels on every MLP call")
+    return {"gan run": counts}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1242,6 +1453,9 @@ def main() -> int:
     # 8. the GAN slice on the committed run gan/9
     launches.update(gan9_phase(kernels, card_line, dev))
 
+    # 9. the GAN training run on gan/9, interrupted and resumed
+    launches.update(gan_run_phase(kernels, card_line, dev))
+
     # the planner's line-search call (8192 rows) leads the forward kernels'
     # entries, the trainer's call (128 rows) the backward kernel's
     lead = {"fused_mlp_fwd": ("dynamics", 8192), "fused_ls_step": ("line search", 8192),
@@ -1268,6 +1482,7 @@ def main() -> int:
                 for (kname, shape, rows), t in timed.items() if kname == name
             ],
         })
+    print(f"chip_smoke total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

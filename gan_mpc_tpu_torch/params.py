@@ -11,6 +11,11 @@ its prediction heads, and the critic's scanned cell and head.
 ``load_msgpack`` reads a ``params.msgpack`` file as the JAX runners save it
 (``flax.serialization.msgpack_serialize``) into that nested dict, with a
 decoder of its own: neither flax nor a ``msgpack`` package is needed.
+The other way, ``to_jax_params`` gives a policy's tree under the JAX
+names and ``save_msgpack`` writes it as flax does: the same bytes as
+``flax.serialization.to_bytes`` of that tree (map keys sorted, as flax's
+tree copy leaves them; arrays as ext type 1). The port's ``Dense`` keeps
+flax's (in, out) kernel, so no layout changes on the way.
 
 ``init_flax_like`` draws fresh weights from a ``torch.Generator`` with
 flax's default initializers: lecun_normal (truncated normal, std
@@ -24,7 +29,7 @@ from __future__ import annotations
 
 import math
 import struct
-from typing import Mapping
+from typing import Mapping, Tuple
 
 import numpy as np
 import torch
@@ -105,6 +110,48 @@ def dynamics_from_jax_params(tree: Mapping, dynamics: nn.Module) -> nn.Module:
     returned)."""
     _load_dense_stack(dynamics.net.layers, tree["params"])
     return dynamics
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32, copy=True)
+
+
+def _dense_stack_tree(layers) -> dict:
+    return {f"Dense_{i}": {"kernel": _np(d.kernel), "bias": _np(d.bias)}
+            for i, d in enumerate(layers)}
+
+
+def _lstm_cell_tree(cell: OptimizedLSTMCell) -> dict:
+    tree = {}
+    for g in GATES:
+        tree[f"i{g}"] = {"kernel": _np(getattr(cell, f"i{g}"))}
+        tree[f"h{g}"] = {"kernel": _np(getattr(cell, f"h{g}")),
+                         "bias": _np(getattr(cell, f"h{g}_bias"))}
+    return tree
+
+
+def to_jax_params(policy: nn.Module) -> dict:
+    """The inverse of ``from_jax_params``: ``policy``'s weights as the JAX
+    ``build_policy`` tree (``mpc_weights``, ``cost_params``,
+    ``dynamics_params``, ``expert_params``, and ``critic_params`` where the
+    policy has a critic), numpy float32 arrays on the host."""
+    cost, expert = policy.cost_model, policy.expert_model
+    tree = {
+        "mpc_weights": _np(cost.weights),
+        "cost_params": {"params": _dense_stack_tree(cost.net.layers)},
+        "dynamics_params": {"params": _dense_stack_tree(policy.dynamics_model.net.layers)},
+        "expert_params": {"params": {"_LSTMCell_0": {
+            "OptimizedLSTMCell_0": _lstm_cell_tree(expert.cell.lstm),
+            "_PredictionHeads_0": _dense_stack_tree(expert.cell.heads.layers),
+        }}},
+    }
+    critic = getattr(policy, "critic_model", None)
+    if critic is not None:
+        tree["critic_params"] = {"params": {
+            "ScanOptimizedLSTMCell_0": _lstm_cell_tree(critic.lstm),
+            **_dense_stack_tree(critic.head),
+        }}
+    return tree
 
 
 class _Msgpack:
@@ -190,6 +237,80 @@ def load_msgpack(path) -> dict:
     if reader.pos != len(reader.data):
         raise ValueError(f"{path}: {len(reader.data) - reader.pos} bytes after the tree")
     return tree
+
+
+def _header(small: int, n: int, fix_max: int, wide: Tuple[int, int, int]) -> bytes:
+    """A msgpack length header: ``small | n`` up to ``fix_max``, else the
+    first of the 8-, 16- and 32-bit forms ``wide`` (0 where a form does
+    not exist) that holds ``n``."""
+    if n <= fix_max:
+        return bytes([small | n])
+    for code, fmt, top in zip(wide, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code and n <= top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack length {n} is too large")
+
+
+def _pack_int(v: int) -> bytes:
+    if -32 <= v <= 127:
+        return struct.pack(">b" if v < 0 else ">B", v)
+    if v > 0:
+        forms = ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF), (0xCE, ">I", 0xFFFFFFFF),
+                 (0xCF, ">Q", 2 ** 64 - 1))
+        for code, fmt, top in forms:
+            if v <= top:
+                return bytes([code]) + struct.pack(fmt, v)
+    else:
+        forms = ((0xD0, ">b", 2 ** 7), (0xD1, ">h", 2 ** 15), (0xD2, ">i", 2 ** 31),
+                 (0xD3, ">q", 2 ** 63))
+        for code, fmt, top in forms:
+            if v >= -top:
+                return bytes([code]) + struct.pack(fmt, v)
+    raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _pack_ext(code: int, payload: bytes) -> bytes:
+    n = len(payload)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    head = bytes([fixed[n]]) if n in fixed else _header(0, n, -1, (0xC7, 0xC8, 0xC9))
+    return head + struct.pack(">b", code) + payload
+
+
+def _pack(obj) -> bytes:
+    """msgpack of ``obj`` as flax writes a parameter tree (``msgpack.packb``
+    with flax's ext hook): maps with their keys sorted, arrays as ext type
+    1 and numpy scalars as ext type 3 over (shape, dtype name, C bytes)."""
+    if obj is None or isinstance(obj, bool):
+        return bytes([{None: 0xC0, False: 0xC2, True: 0xC3}[obj]])
+    if isinstance(obj, int):
+        return _pack_int(obj)
+    if isinstance(obj, float):
+        return b"\xcb" + struct.pack(">d", obj)
+    if isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        return _header(0xA0, len(raw), 31, (0xD9, 0xDA, 0xDB)) + raw
+    if isinstance(obj, bytes):
+        return _header(0, len(obj), -1, (0xC4, 0xC5, 0xC6)) + obj
+    if isinstance(obj, (list, tuple)):
+        return _header(0x90, len(obj), 15, (0, 0xDC, 0xDD)) + b"".join(map(_pack, obj))
+    if isinstance(obj, dict):
+        return _header(0x80, len(obj), 15, (0, 0xDE, 0xDF)) + b"".join(
+            _pack(k) + _pack(obj[k]) for k in sorted(obj))
+    if isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)
+        if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+            raise ValueError("object and structured dtypes are not written")
+        payload = _pack([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+        return _pack_ext(1 if isinstance(obj, np.ndarray) else 3, payload)
+    raise TypeError(f"{type(obj).__name__} is not written to msgpack")
+
+
+def save_msgpack(tree: Mapping, path) -> None:
+    """Write ``tree`` (nested dicts of numpy arrays, e.g. ``to_jax_params``)
+    to ``path`` as ``flax.serialization.to_bytes`` would; JAX's
+    ``io.load_params`` and ``load_msgpack`` read it back."""
+    with open(path, "wb") as f:
+        f.write(_pack(dict(tree)))
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

@@ -9,7 +9,9 @@ amounts to the same: the others get no update. Each group of the phase's
 then Adam (b1 0.9, b2 0.999, eps 1e-8; ``torch.optim.Adam`` has optax's
 update formula), clipped over its own parameters only: "learn", and with
 ``weights_learning_rate`` (the cost phase's) "weights", the MPC weights at
-a rate of their own. Also ``polyak_blend``.
+a rate of their own. Also ``polyak_blend``, and ``policy_state`` /
+``load_policy_state``, the copy of every component's tensors that the
+runners keep as a model-selection candidate and checkpoint.
 """
 
 from __future__ import annotations
@@ -35,6 +37,39 @@ def policy_components(policy: nn.Module) -> Dict[str, List[torch.Tensor]]:
     return comps
 
 
+def policy_state(policy: nn.Module) -> Dict[str, List[torch.Tensor]]:
+    """Detached copies of every component's tensors (``policy_components``
+    order): a value that later training does not change."""
+    return {name: [p.detach().clone() for p in ps]
+            for name, ps in policy_components(policy).items()}
+
+
+def set_mpc_weights(policy: nn.Module, weights: torch.Tensor) -> None:
+    """Install ``weights`` as the policy's raw MPC weights: a new parameter,
+    since their number may change (calibration appends the gain)."""
+    old = policy.cost_model.weights
+    policy.cost_model.weights = nn.Parameter(weights.detach().clone().to(old.device),
+                                             requires_grad=old.requires_grad)
+
+
+@torch.no_grad()
+def load_policy_state(policy: nn.Module, state: Mapping[str, List[torch.Tensor]]) -> None:
+    """Copy ``state`` (a ``policy_state``) into the policy's own tensors, in
+    place, so that the phase optimizers keep holding them. Only the MPC
+    weights may change length: they are then installed anew
+    (``set_mpc_weights``)."""
+    for name, ps in policy_components(policy).items():
+        if len(state[name]) != len(ps):
+            raise ValueError(f"{name}: {len(state[name])} tensors for {len(ps)}")
+        for p, q in zip(ps, state[name]):
+            if p.shape == q.shape:
+                p.copy_(q)
+            elif name == "mpc_weights":
+                set_mpc_weights(policy, q)
+            else:
+                raise ValueError(f"{name}: shape {tuple(q.shape)} for {tuple(p.shape)}")
+
+
 class ClippedAdam:
     """``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr))`` per
     group of ``groups`` = [(params, learning_rate), ...], each group's norm
@@ -57,6 +92,14 @@ class ClippedAdam:
         for ps, _ in self.groups:
             torch.nn.utils.clip_grad_norm_(ps, self.max_grad_norm)
         self.adam.step()
+
+    def state_dict(self) -> dict:
+        return self.adam.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        """Adam's moments and step counts, group by group (the groups are
+        rebuilt by ``masked_adam`` in the same order)."""
+        self.adam.load_state_dict(state)
 
 
 def masked_adam(components: Mapping[str, List[torch.Tensor]], no_grads: Iterable[str],

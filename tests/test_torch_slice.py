@@ -19,8 +19,9 @@ stiff ground contact moves them by about 1e-3 at the third step.) On that
 key the port agrees to about 1e-4 in actions and states.
 
 Also: the port (the control path, the dynamics trainer, a cost-trainer
-step, and the committed run gan/9 loaded and continued by a cut GAN epoch)
-runs with JAX, flax and the JAX package made unimportable, and its entry
+step, the committed run gan/9 loaded and continued by a cut GAN epoch, and
+a tiny L2 training run from config to saved run) runs with JAX, flax and
+the JAX package made unimportable, and its entry
 points run on the card unless asked for the CPU.
 """
 
@@ -47,6 +48,7 @@ from gan_mpc_tpu_torch.envs.cheetah import CheetahRun
 from gan_mpc_tpu_torch.envs.pendulum import PendulumSwingup
 from gan_mpc_tpu_torch.envs.rollout import policy_rollout
 from gan_mpc_tpu_torch.params import from_jax_params
+from test_end_to_end import TINY_OVERRIDES
 
 torch.set_num_threads(1)
 pin_fp32()
@@ -212,15 +214,33 @@ BLOCKED_RUN = textwrap.dedent(
                        "trajectories-f690b23776.gmts", "cpu")
     record = gan.gan_epoch(ctx, gan.phase_optimizers(ctx), 1, torch.Generator().manual_seed(0))
     assert all(v and all(x == x for x in v) for v in record.values()), record
+
+    # a tiny L2 training run, from its config to the saved run
+    import os, shutil
+    from gan_mpc_tpu_torch.config import Config
+    from gan_mpc_tpu_torch.runners import l2
+    from gan_mpc_tpu_torch.utils.io import load_params
+
+    work = sys.argv[1]
+    shutil.copytree("runs/trained_models/expert/pendulum_swingup/0",
+                    os.path.join(work, "trained_models/expert/pendulum_swingup/0"))
+    cfg = Config.from_yaml_str(TINY_YAML).replace(
+        runtime__workdir=work, mpc__evaluate__max_interactions=15,
+        mpc__evaluate__fresh_eval_episodes=2,
+        env__trajectories_path="runs/expert_trajectories/pendulum_swingup/"
+        "trajectories-f690b23776.gmts")
+    out = l2.run(cfg, log_fn=None, device="cpu")
+    assert sorted(load_params(os.path.join(out["run_dir"], "params.msgpack"))) == [
+        "cost_params", "dynamics_params", "expert_params", "mpc_weights"]
     assert not [m for m in sys.modules if blocked(m)]
     print("imported", len(mods), "modules")
     """
-)
+).replace("TINY_YAML", repr(TINY_OVERRIDES))
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(tmp_path):
     proc = subprocess.run(
-        [sys.executable, "-c", BLOCKED_RUN], cwd=REPO, capture_output=True,
+        [sys.executable, "-c", BLOCKED_RUN, str(tmp_path)], cwd=REPO, capture_output=True,
         text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
