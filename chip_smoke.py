@@ -15,7 +15,9 @@ Phases, in order; any failure raises and exits non-zero:
      - fused_mlp_fwd at the shapes the main paths give it (serving 8192
        and 512 rows; the trainer's loss 128; its 1-env collection 16 and
        1, on the dynamics and the cost stack; the cost trainer's solves
-       2048 and 128 rows, its evaluation 4096 and 256), plus a ragged row count,
+       2048 and 128 rows, its evaluation 4096 and 256; the humanoid-class
+       row's 41->200->200->200->29 and 29->128->128->10 at 2048 and 128
+       rows), plus a ragged row count,
        the 256-wide stack at 8192 and 512 rows, and a 23->41->17 stack
        (no width a multiple of 8) at 9, 17 and 65 rows (ragged against
        16- and 64-row tiles);
@@ -58,7 +60,9 @@ Phases, in order; any failure raises and exits non-zero:
      at 2048 rows on both stacks, fused_mlp_bwd on the cost stack at 128,
      fused_ls_step at 128 x 16 and 128 x 1; in the GAN slice's: gan/9's
      trained stacks at 256, 4096, 2048 and 128 rows forward, 128
-     backward);
+     backward; in the humanoid-class row's: both humanoid stacks forward
+     at 2048 and 128 rows, fused_ls_step at 128 x 16 and 128 x 1 with
+     n = 29, m = 12);
   4. check the main path's pieces on a small input against the same code
      on the CPU (plain versions): one flagship plan_batch at 8 envs and 2
      iLQR iterations with fused_ls off and on (U atol 1e-3), one cheetah
@@ -151,7 +155,28 @@ Phases, in order; any failure raises and exits non-zero:
      the trainers' minibatch steps give. Prints the wall time of each
      epoch and evaluation kind (midrun, selection, calibration, final,
      fresh), the selection scores, the chosen gain, the stamped reward
-     and fresh_eval, and the launches; then the script's total wall time.
+     and fresh_eval, and the launches.
+ 10. the humanoid-class row ``H50`` (the reference's third bench row:
+     humanoid_stand, 128 envs, H=50, iLQR <= 5, 16 step sizes; the
+     flagship's widths on 29 states and 12 actions, weights from seed 0,
+     identity normalizer), where "auto" resolves to the materializing
+     line search (printed with the candidates' bytes):
+     - served with fused_ls off, then on: 1 warmup and 10 timed control
+       steps (of the bench's 50-step episodes); env steps/s, trips per
+       solve, mean reward; every output finite; the launches of both
+       forward kernels equal to mlp_calls_per_solve(50, trips, fused,
+       solves, materialize=True) for the trips the solver reported;
+     - one plan_batch of 16 of the row's histories on the card and on
+       the CPU, cut to one iLQR trip: the served action U[:, 0] atol 1e-3
+       and equal iterations, each fused_ls setting; the whole plan's
+       difference and the CPU's own spread under 1 +- 1e-7 nudges printed
+       beside, and the same at the row's 5 trips (not checked: the
+       random-weight row is chaotic at H=50, see ``H50_CHECK_ITERS``);
+     - one solve of the 128 histories on the card with each line-search
+       strategy, one trip, the dynamics' output layer scaled by 1/32: U
+       atol 1e-4 max(1, max|U|) and equal iterations, each fused_ls
+       setting.
+     Then the script's total wall time.
 The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Exits 1 without a CUDA device.
 """
@@ -194,9 +219,18 @@ CHECKS = [
     # ragged against the 16- and 64-row tiles; the wide stack on the 16-row tile
     ("odd", ODD, 9), ("odd", ODD, 17), ("odd", ODD, 65), ("wide", WIDE, 512),
 ]
+HUMANOID_COST = [29, 128, 128, 10]
+# the humanoid-class row (phase 10): the line search at 128 envs x 16 step
+# sizes = 2048 rows, the rollout, the recompute and the terminal cost at 128
+CHECKS += [("humanoid-class", HUMANOID, 2048), ("humanoid-class", HUMANOID, 128),
+           ("humanoid-class cost", HUMANOID_COST, 2048),
+           ("humanoid-class cost", HUMANOID_COST, 128)]
 TIMED = [("dynamics", DYNAMICS, 8192), ("dynamics", DYNAMICS, 512),
          ("dynamics", DYNAMICS, 128), ("cost", COST, 8192), ("cost", COST, 512),
-         ("dynamics", DYNAMICS, 2048), ("cost", COST, 2048)]
+         ("dynamics", DYNAMICS, 2048), ("cost", COST, 2048),
+         ("humanoid-class", HUMANOID, 2048), ("humanoid-class", HUMANOID, 128),
+         ("humanoid-class cost", HUMANOID_COST, 2048),
+         ("humanoid-class cost", HUMANOID_COST, 128)]
 # the trainer calls the backward kernel at 128 rows (one time step of a
 # minibatch); 8192 is the JAX package's fused-VJP threshold
 BWD_CHECKS = [("dynamics", DYNAMICS, 128), ("dynamics", DYNAMICS, 1000),
@@ -225,7 +259,9 @@ LS_CHECKS = [
 ]
 LS_TIMED = [("line search", 512, 16, 17, 6, 17), ("rollout", 512, 1, 17, 6, 17),
             ("cost-trainer line search", 128, 16, 17, 6, 17),
-            ("cost-trainer rollout", 128, 1, 17, 6, 17)]
+            ("cost-trainer rollout", 128, 1, 17, 6, 17),
+            ("humanoid-class", 128, 16, 29, 12, 29),
+            ("humanoid-class rollout", 128, 1, 29, 12, 29)]
 # the cost phase of configs/gan_cheetah.yaml (mpc.train.cost, mpc.bilevel;
 # no_grads without critic_params: the flagship policy has no critic)
 COST_PHASE = dict(batch_size=128, polyak_factor=0.9, num_updates=1, max_steps_per_update=4,
@@ -286,6 +322,22 @@ G9_RUN_CUTS = dict(G9_CUTS, mpc__train__num_epochs=2,  # of 9
 G9_STABLE = [1998, 2368, 4699, 4736, 5698, 7696, 9028, 9139]
 G9_CONVERGED = [28, 896, 1029, 2100, 2156, 4018, 5068, 6104, 7028, 8155, 8407, 8806, 8911,
                 8946, 9093, 9170]
+# phase 10, the reference's humanoid-class row (scripts/r5_bench_h50b.sh:
+# humanoid_stand, 128 envs, H=50, iLQR <= 5 at tolerance 1e-4, 16 step
+# sizes), at the flagship's widths on the humanoid's 29 states and 12
+# actions; the timed control steps are cut from the bench's 50-step episodes
+H50 = dict(env="humanoid_stand", num_envs=128, horizon=50, iters=5)
+H50_STEPS = 10
+H50_CHECK_ENVS = 16  # the card-against-CPU plan
+# The random-weight row is chaotic at H=50: its dynamics grow every
+# rollout (|X| ~ 5e4) and 1e-7 nudges of the input move the CPU's own plan
+# by its own size (phase 10 prints this). So the two numeric checks cut
+# the solve to one iLQR trip (rollout, linearization, Riccati, line search
+# of 16 step sizes and the winner), and the materialize-against-recompute
+# check also scales the dynamics' output layer by 1/32 (a power of two),
+# which keeps the rollouts bounded.
+H50_CHECK_ITERS = 1
+H50_DYN_SCALE = 1.0 / 32.0
 # one H100 SXM (NVIDIA's data sheet): dense TF32 on the tensor cores, HBM3.
 # An f32-accurate product takes three TF32 passes (hi x hi, hi x lo, lo x
 # hi), so the least time for f32 products is their operations over a third
@@ -556,7 +608,8 @@ def train_phase(expert_episode, env, kernels, card_line, dev):
              + DYN["num_updates"] * max(min(COLLECT_STEPS - HORIZON_DYN, REPLAY_SIZE) // batch, 1))
     expected = {"fused_mlp_bwd": steps * HORIZON_DYN, "fused_ls_step": 0,
                 "fused_mlp_fwd": steps * HORIZON_DYN + COLLECT_STEPS
-                * mlp_calls_per_solve(policy.horizon, ILQR_ITERS)["fused_mlp_fwd"]}
+                * mlp_calls_per_solve(policy.horizon, ILQR_ITERS,
+                                       materialize=False)["fused_mlp_fwd"]}
     for k in kernels.values():
         k.launches = 0
     torch.cuda.synchronize()
@@ -669,8 +722,8 @@ def cost_phase(expert_episode, kernels, card_line, dev):
     plan = policy._plan
     batch, steps = COST_PHASE["batch_size"], COST_PHASE["max_steps_per_update"]
     steps = min(steps, train[0].shape[0] // batch)
-    per_step = mlp_calls_per_step(policy.horizon, ILQR_ITERS)
-    per_eval = mlp_calls_per_solve(policy.horizon, ILQR_ITERS)
+    per_step = mlp_calls_per_step(policy.horizon, ILQR_ITERS, materialize=False)
+    per_eval = mlp_calls_per_solve(policy.horizon, ILQR_ITERS, materialize=False)
     updates = COST_PHASE["num_updates"]
     expected = {name: steps * per_step[name] + updates * per_eval.get(name, 0)
                 for name in kernels}
@@ -895,7 +948,8 @@ def gan9_phase(kernels, card_line, dev):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     serve_counts = {name: k.launches for name, k in kernels.items()}
-    expected = dict(mlp_calls_per_solve(H, sum(trips), solves=len(trips)), fused_mlp_bwd=0)
+    expected = dict(mlp_calls_per_solve(H, sum(trips), solves=len(trips), materialize=False),
+                    fused_mlp_bwd=0)
     returns = ep.rewards.sum(1)
     print(f"gan/9 serving: {SERVE_ENVS} envs x {SERVE_STEPS} control steps (of 1000) on the "
           f"imitator's pendulum in {dt:.3f} s: {SERVE_ENVS * SERVE_STEPS / dt:.2f} env steps/s, "
@@ -951,7 +1005,7 @@ def gan9_phase(kernels, card_line, dev):
     dyn_steps = ((dcfg.warm_start_updates + dcfg.expert_updates) * batches(n_dyn, dcfg.batch_size)
                  + dcfg.num_updates * batches(ctx["replay"].size, dcfg.batch_size))
     gen_steps = ccfg.num_updates * min(batches(n_cost, ccfg.batch_size), ccfg.steps_per_update)
-    solves = dict(mlp_calls_per_solve(H, sum(trips), solves=len(trips)))
+    solves = dict(mlp_calls_per_solve(H, sum(trips), solves=len(trips), materialize=False))
     expected = {"fused_mlp_fwd": solves["fused_mlp_fwd"] + H * dyn_steps + (H + 1) * gen_steps,
                 "fused_ls_step": 0, "fused_mlp_bwd": H * dyn_steps + H * gen_steps}
     print(f"gan/9 GAN epoch (one GPU: {card_line}) in {epoch_s:.3f} s; cuts: on-policy episode "
@@ -1093,7 +1147,7 @@ def gan_run_phase(kernels, card_line, dev):
         total_s = time.perf_counter() - t0
         counts = {name: k.launches for name, k in kernels.items()}
         H = cfg.mpc.horizon
-        solves = dict(mlp_calls_per_solve(H, sum(trips), solves=len(trips)))
+        solves = dict(mlp_calls_per_solve(H, sum(trips), solves=len(trips), materialize=False))
         expected = {"fused_mlp_fwd": solves["fused_mlp_fwd"] + H * steps["dynamics"]
                     + (H + 1) * steps["cost"],
                     "fused_ls_step": 0, "fused_mlp_bwd": H * (steps["dynamics"] + steps["cost"])}
@@ -1155,6 +1209,124 @@ def gan_run_phase(kernels, card_line, dev):
     if counts != expected:
         raise SystemExit("the GAN run did not launch the kernels on every MLP call")
     return {"gan run": counts}
+
+
+def humanoid_phase(kernels, card_line, dev):
+    """Phase 10: the humanoid-class row ``H50`` served with fused_ls off
+    and on, its launches held to ``mlp_calls_per_solve(materialize=True)``
+    over the trips the solver reported; then one plan held card against
+    CPU and materialize against recompute on the card. Returns the
+    launches of both serving runs, summed."""
+    from gan_mpc_tpu_torch.bench import FUSED_LS, bench_row, flagship, run_steps
+    from gan_mpc_tpu_torch.data.normalizer import Normalizer
+    from gan_mpc_tpu_torch.envs import make_env
+    from gan_mpc_tpu_torch.planner.batch_ilqr import ls_materializes, mlp_calls_per_solve
+
+    t_phase = time.perf_counter()
+    H, B, iters = H50["horizon"], H50["num_envs"], H50["iters"]
+    env = make_env(H50["env"], dev)
+    n, m = env.obs_size, env.act_size
+    norm = Normalizer.identity(n, m, dev)
+    policy = lambda fused, it=iters, device=dev, ls="auto": flagship(
+        H, it, n, m, device, SEED, fused, ls_materialize=ls)
+    settings = policy("off").settings
+    mat = ls_materializes(settings, H, B, n, m)
+    cand = 4 * H * B * settings.num_alphas * (n + m)
+    print(f"humanoid-class row ({H50['env']}, {B} envs, H={H}, iLQR <= {iters} at tolerance "
+          f"{settings.grad_norm_tol}, {settings.num_alphas} step sizes; dynamics "
+          f"{n + m}->200->200->200->{n}, cost {n}->128->128->10): ls_materialize="
+          f"{settings.ls_materialize!r} resolves to {'materialize' if mat else 'recompute'} "
+          f"(candidates {cand} B, limit {32 * 1024 * 1024} B)")
+    if not mat:
+        raise SystemExit("the humanoid-class row did not resolve to the materializing line search")
+
+    counts, histories = {}, None
+    for fused in FUSED_LS:
+        pol = policy(fused)
+        gen = torch.Generator().manual_seed(SEED)
+        _, t_warm = run_steps(pol, env, norm, 1, gen, B)
+        for k in kernels.values():
+            k.launches = 0
+        with solves_recorded() as trips:
+            ep, dt = run_steps(pol, env, norm, H50_STEPS, gen, B)
+        got = {name: k.launches for name, k in kernels.items()}
+        expected = dict(mlp_calls_per_solve(H, sum(trips), fused == "on", len(trips),
+                                            materialize=True), fused_mlp_bwd=0)
+        print(f"humanoid-class fused_ls={fused}: {H50_STEPS} control steps x {B} envs in "
+              f"{dt:.3f} s (warmup 1 step {t_warm:.3f} s): {B * H50_STEPS / dt:.2f} env steps/s, "
+              f"{dt / H50_STEPS:.3f} s a control step (one GPU: {card_line}); trips per solve "
+              f"{trips}; mean reward {ep.rewards.mean().item():.4f}; kernel launches {got} "
+              f"(expected {expected})")
+        print(json.dumps(bench_row(B * H50_STEPS / dt, card_line, fused, H50["env"], B, iters, H)))
+        if got != expected:
+            raise SystemExit(f"the humanoid-class row (fused_ls={fused}) did not launch the "
+                             "kernels on every MLP call")
+        shapes = {"states": (B, H50_STEPS, n), "actions": (B, H50_STEPS, m),
+                  "rewards": (B, H50_STEPS), "qpos": (B, H50_STEPS, 15)}
+        for name, shape in shapes.items():
+            t = getattr(ep, name)
+            if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+                raise SystemExit(f"humanoid-class output {name} is malformed or not finite")
+        counts = {k: counts.get(k, 0) + v for k, v in got.items()}
+        if histories is None:  # the first control step's histories: zero past, reset obs
+            histories = torch.zeros((B, 2, n))
+            histories[:, 1] = ep.states[:, 0].cpu()
+    hU = torch.zeros((B, 1, m))
+
+    # the card against the CPU: one plan of 16 histories, cut to one trip
+    hX = histories[:H50_CHECK_ENVS]
+    hU16 = hU[:H50_CHECK_ENVS]
+    plan = lambda pol, x, device: pol.plan_batch(x.to(device), hU16.to(device))
+    for fused in FUSED_LS:
+        gpu = plan(policy(fused, H50_CHECK_ITERS), hX, dev)
+        cpu_pol = policy(fused, H50_CHECK_ITERS, "cpu")
+        cpu = plan(cpu_pol, hX, "cpu")
+        nudged = [plan(cpu_pol, hX * s, "cpu").U - cpu.U for s in (1 + 1e-7, 1 - 1e-7)]
+        spread0 = max(dU[:, 0].abs().max().item() for dU in nudged)
+        spread = max(dU.abs().max().item() for dU in nudged)
+        d0 = (gpu.U[:, 0].cpu() - cpu.U[:, 0]).abs().max().item()
+        d = (gpu.U.cpu() - cpu.U).abs().max().item()
+        same_it = torch.equal(gpu.iterations.cpu(), cpu.iterations)
+        print(f"humanoid-class plan_batch ({H50_CHECK_ENVS} histories, H={H}, {H50_CHECK_ITERS} "
+              f"iLQR trip, fused_ls={fused}) GPU vs CPU: served action max|dU[:, 0]|={d0:.3e} "
+              f"(atol 1e-3; the CPU's own under 1 +- 1e-7 nudges {spread0:.3e}); whole plan "
+              f"max|dU|={d:.3e} of max|U| {cpu.U.abs().max().item():.4g} (the CPU's own "
+              f"{spread:.3e}); iterations GPU {gpu.iterations.tolist()} CPU "
+              f"{cpu.iterations.tolist()}")
+        if not (d0 <= 1e-3 and same_it):
+            raise SystemExit(f"the humanoid-class plan (fused_ls={fused}) on the card disagrees "
+                             "with the CPU path")
+    # at the row's own iterations, for the record: the plan is chaotic
+    cpu_pol = policy("off", iters, "cpu")
+    cpu = plan(cpu_pol, hX, "cpu")
+    spread = max((plan(cpu_pol, hX * s, "cpu").U - cpu.U).abs().max().item()
+                 for s in (1 + 1e-7, 1 - 1e-7))
+    d = (plan(policy("off"), hX, dev).U.cpu() - cpu.U).abs().max().item()
+    print(f"  at iLQR <= {iters} (not checked): GPU vs CPU max|dU|={d:.3e}, the CPU's own "
+          f"spread under 1 +- 1e-7 nudges {spread:.3e}, max|U| {cpu.U.abs().max().item():.4g}")
+
+    # materialize against recompute on the card, on the same inputs
+    for fused in FUSED_LS:
+        sols = {}
+        for mode in ("materialize", "recompute"):
+            pol = policy(fused, H50_CHECK_ITERS, ls=mode)
+            with torch.no_grad():
+                w, b = pol.dynamics_model.net.stack()[-1]
+                w.mul_(H50_DYN_SCALE)
+                b.mul_(H50_DYN_SCALE)
+            sols[mode] = pol.plan_batch(histories.to(dev), hU.to(dev))
+        a, r = sols["materialize"], sols["recompute"]
+        d = (a.U - r.U).abs().max().item()
+        tol = 1e-4 * max(1.0, r.U.abs().max().item())
+        same_it = torch.equal(a.iterations, r.iterations)
+        print(f"humanoid-class materialize vs recompute on the card ({B} histories, "
+              f"{H50_CHECK_ITERS} trip, dynamics output x {H50_DYN_SCALE}, fused_ls={fused}): "
+              f"max|dU|={d:.3e} (atol {tol:.3e}); iterations equal: {same_it}")
+        if not (d <= tol and same_it):
+            raise SystemExit(f"the materializing line search (fused_ls={fused}) disagrees with "
+                             "the recompute on the card")
+    print(f"phase 10 wall time {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 def main() -> int:
@@ -1423,7 +1595,8 @@ def main() -> int:
             k.launches = 0
         ep, dt = run_steps(policy, env, norm, STEPS, gen)
         counts = {name: k.launches for name, k in kernels.items()}
-        per_step = mlp_calls_per_solve(HORIZON, ILQR_ITERS, fused=fused_ls == "on")
+        per_step = mlp_calls_per_solve(HORIZON, ILQR_ITERS, fused=fused_ls == "on",
+                                       materialize=False)
         expected = {name: STEPS * c for name, c in per_step.items()}
         expected["fused_mlp_bwd"] = 0
         launches[f"fused_ls={fused_ls}"] = counts
@@ -1455,6 +1628,9 @@ def main() -> int:
 
     # 9. the GAN training run on gan/9, interrupted and resumed
     launches.update(gan_run_phase(kernels, card_line, dev))
+
+    # 10. the humanoid-class row: H=50, the materializing line search
+    launches["humanoid H=50"] = humanoid_phase(kernels, card_line, dev)
 
     # the planner's line-search call (8192 rows) leads the forward kernels'
     # entries, the trainer's call (128 rows) the backward kernel's

@@ -12,6 +12,17 @@ drawn with flax's default initializers from ``--seed``.
 
     python -m gan_mpc_tpu_torch.bench [--seed 0] [--profile 3]
 
+The flags ``--env``, ``--num-envs``, ``--horizon``, ``--iters``,
+``--alphas`` and ``--ls`` mirror the JAX bench's ``BENCH_ENV``,
+``BENCH_NUM_ENVS``, ``BENCH_HORIZON``, ``BENCH_ILQR_ITERS``,
+``BENCH_ALPHAS`` and ``BENCH_LS``; their defaults are the flagship's. The
+reference's humanoid-class row (planar humanoid, 29 states, 12 actions;
+dynamics 41->200->200->200->29, where "auto" resolves to the
+materializing line search):
+
+    python -m gan_mpc_tpu_torch.bench --env humanoid_stand --num-envs 128 \
+        --horizon 50 --iters 5
+
 The window is the JAX bench's: one full warmup episode of 50 control
 steps, then 3 timed episodes of 50 steps each (every episode from a fresh
 reset drawn from the run's generator), and the mean of the three.
@@ -48,23 +59,28 @@ from gan_mpc_tpu_torch.policies.mpc import MPCPolicy
 
 # the flagship row's sizes; chip_smoke.py drives the same widths over a
 # shorter episode of its own
+ENV = "cheetah_run"
 NUM_ENVS = 512
 STEPS = 50  # control steps per episode
 WARMUP_EPISODES = 1  # full episodes before the timed ones
 REPS = 3  # timed episodes; the row is their mean
 HORIZON = 5
 ILQR_ITERS = 5
+NUM_ALPHAS = 16
+LS_MATERIALIZE = "auto"
 HISTORY = 1
 FUSED_LS = ("off", "on")  # the rows, in print order
 
 
 def flagship(horizon: int = HORIZON, max_iterations: int = ILQR_ITERS,
              x_size: int = 17, u_size: int = 6, device="cuda", seed=None,
-             fused_ls: str = "off") -> MPCPolicy:
+             fused_ls: str = "off", num_alphas: int = NUM_ALPHAS,
+             ls_materialize: str = LS_MATERIALIZE) -> MPCPolicy:
     """The flagship policy at full width, on the card unless ``device``
     says otherwise. With ``seed`` its weights are drawn flax-style from a
     torch.Generator; without, they are zero and the caller loads them
-    (``params.from_jax_params``). ``fused_ls`` as in ``SolverSettings``."""
+    (``params.from_jax_params``). ``fused_ls``, ``num_alphas`` and
+    ``ls_materialize`` as in ``SolverSettings``."""
     device = resolve_device(device)
     policy = MPCPolicy(
         cost_model=MPCCost(
@@ -79,7 +95,8 @@ def flagship(horizon: int = HORIZON, max_iterations: int = ILQR_ITERS,
             x_size, u_size, arch="lstm", features=128, hidden=(128, 128)
         ),
         horizon=horizon,
-        settings=SolverSettings(max_iterations=max_iterations, fused_ls=fused_ls),
+        settings=SolverSettings(max_iterations=max_iterations, fused_ls=fused_ls,
+                                num_alphas=num_alphas, ls_materialize=ls_materialize),
     )
     if seed is not None:
         init_flax_like(policy, torch.Generator().manual_seed(seed))
@@ -95,27 +112,27 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def run_steps(policy, env, norm, num_steps, generator):
-    """One closed-loop rollout of NUM_ENVS envs on the card; returns
+def run_steps(policy, env, norm, num_steps, generator, num_envs=NUM_ENVS):
+    """One closed-loop rollout of ``num_envs`` envs on the card; returns
     (episode, seconds)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ep = policy_rollout(
         env, env.default_params(), policy, norm, num_steps=num_steps,
-        history=HISTORY, num_envs=NUM_ENVS, generator=generator,
+        history=HISTORY, num_envs=num_envs, generator=generator,
     )
     torch.cuda.synchronize()
     return ep, time.perf_counter() - t0
 
 
-def profile_steps(policy, env, norm, num_steps, generator, top=25):
+def profile_steps(policy, env, norm, num_steps, generator, num_envs=NUM_ENVS, top=25):
     """Trace ``num_steps`` control steps with torch.profiler; print the
     device's busy share of the wall time and the ops with the most device
     time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, dt = run_steps(policy, env, norm, num_steps, generator)
+        _, dt = run_steps(policy, env, norm, num_steps, generator, num_envs)
     events = prof.key_averages()
     # kernel events only: an op's row repeats the time of the kernels it launched
     busy_s = sum(
@@ -127,19 +144,27 @@ def profile_steps(policy, env, norm, num_steps, generator, top=25):
     print(events.table(sort_by="self_device_time_total", row_limit=top))
 
 
-def timed_episodes(policy, env, norm, generator):
+def timed_episodes(policy, env, norm, generator, num_envs=NUM_ENVS):
     """The bench window: WARMUP_EPISODES full episodes, then REPS timed
     ones; returns the mean seconds of a timed episode."""
     for _ in range(WARMUP_EPISODES):
-        run_steps(policy, env, norm, STEPS, generator)
-    return sum(run_steps(policy, env, norm, STEPS, generator)[1] for _ in range(REPS)) / REPS
+        run_steps(policy, env, norm, STEPS, generator, num_envs)
+    return sum(run_steps(policy, env, norm, STEPS, generator, num_envs)[1]
+               for _ in range(REPS)) / REPS
 
 
-def bench_row(steps_per_sec, card_name, fused_ls):
+def bench_row(steps_per_sec, card_name, fused_ls, env_name=ENV, num_envs=NUM_ENVS,
+              iters=ILQR_ITERS, horizon=HORIZON, num_alphas=NUM_ALPHAS,
+              ls_materialize=LS_MATERIALIZE):
+    """The JSON row; the step sizes and the line-search mode are named
+    where they are not the defaults."""
+    extra = "".join(f", {name}={value}" for name, value, default in (
+        ("alphas", num_alphas, NUM_ALPHAS), ("ls_materialize", ls_materialize, LS_MATERIALIZE),
+    ) if value != default)
     return {
         "metric": f"batched env+planner steps/sec (one GPU: {card_name}; "
-        f"cheetah_run, {NUM_ENVS} envs, iLQR<= {ILQR_ITERS} iters, "
-        f"H={HORIZON}, fused_ls={fused_ls}, torch port)",
+        f"{env_name}, {num_envs} envs, iLQR<= {iters} iters, "
+        f"H={horizon}, fused_ls={fused_ls}{extra}, torch port)",
         "value": steps_per_sec,
         "unit": "steps/sec",
         "vs_baseline": None,
@@ -151,22 +176,32 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="also trace this many steps and print where device time goes")
+    ap.add_argument("--env", default=ENV, help="environment name (BENCH_ENV)")
+    ap.add_argument("--num-envs", type=int, default=NUM_ENVS, help="BENCH_NUM_ENVS")
+    ap.add_argument("--horizon", type=int, default=HORIZON, help="BENCH_HORIZON")
+    ap.add_argument("--iters", type=int, default=ILQR_ITERS, help="BENCH_ILQR_ITERS")
+    ap.add_argument("--alphas", type=int, default=NUM_ALPHAS, help="BENCH_ALPHAS")
+    ap.add_argument("--ls", default=LS_MATERIALIZE, choices=("auto", "recompute", "materialize"),
+                    help="the line-search strategy (BENCH_LS)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device: the benchmark runs only on a GPU", file=sys.stderr)
         return 1
     pin_fp32()
     dev = torch.device("cuda")
-    env = make_env("cheetah_run", dev)
+    env = make_env(args.env, dev)
     norm = Normalizer.identity(env.obs_size, env.act_size, dev)
     card_name = card()
     for fused_ls in FUSED_LS:
-        policy = flagship(device=dev, seed=args.seed, fused_ls=fused_ls)
+        policy = flagship(args.horizon, args.iters, env.obs_size, env.act_size, dev, args.seed,
+                          fused_ls, args.alphas, args.ls)
         gen = torch.Generator().manual_seed(args.seed)
-        dt = timed_episodes(policy, env, norm, gen)
-        print(json.dumps(bench_row(NUM_ENVS * STEPS / dt, card_name, fused_ls)), flush=True)
+        dt = timed_episodes(policy, env, norm, gen, args.num_envs)
+        row = bench_row(args.num_envs * STEPS / dt, card_name, fused_ls, args.env, args.num_envs,
+                        args.iters, args.horizon, args.alphas, args.ls)
+        print(json.dumps(row), flush=True)
         if args.profile:
-            profile_steps(policy, env, norm, args.profile, gen)
+            profile_steps(policy, env, norm, args.profile, gen, args.num_envs)
     return 0
 
 

@@ -16,5 +16,13 @@ def make_env(name: str, device="cuda"):
         from gan_mpc_tpu_torch.envs.pendulum import PendulumSwingup
 
         return PendulumSwingup(device)
+    if name == "humanoid_stand":
+        from gan_mpc_tpu_torch.envs.humanoid import HumanoidStand
+
+        return HumanoidStand(device)
+    if name == "humanoid_walk":
+        from gan_mpc_tpu_torch.envs.humanoid import HumanoidWalk
+
+        return HumanoidWalk(device)
     raise ValueError(f"environment {name!r} is not ported (ported: cheetah_run, "
-                     "pendulum_swingup)")
+                     "pendulum_swingup, humanoid_stand, humanoid_walk)")

@@ -15,10 +15,12 @@ sync a trip). The solution reports the trips that ran
 (``ILQRSolution.trips``), from which ``mlp_calls_per_solve`` gives the
 kernel launches.
 
-Ported: ``riccati="sequential"``, the recompute line search, f32, and
-the forward scans either through the separate callbacks or through the
-fused step ``ls_step`` (``fused_ls``). The other settings raise
-``NotImplementedError``.
+Ported: ``riccati="sequential"``, f32, both line-search strategies
+(``ls_materialize``, resolved by ``ls_materializes`` as the JAX package
+resolves it: recompute the winner, or materialize every candidate and
+gather it), and the forward scans either through the separate callbacks
+or through the fused step ``ls_step`` (``fused_ls``). The other settings
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,8 +61,21 @@ class BatchProblem:
     ls_step: Optional[Callable] = None
 
 
-def _check_settings(settings: SolverSettings, problem: BatchProblem,
-                    T: int, B: int, n: int, m: int) -> None:
+def ls_materializes(settings: SolverSettings, T: int, B: int, n: int, m: int) -> bool:
+    """Whether a solve of B lanes over horizon T with n states and m
+    actions materializes its line-search candidates: ``ls_materialize``
+    "materialize", or "auto" when T >= 16 and the candidates take at most
+    32 MiB (the JAX package's rule: every length-T scan saved pays off at
+    long horizons while the candidate block stays small)."""
+    cand_bytes = 4 * T * B * settings.num_alphas * (n + m)
+    return settings.ls_materialize == "materialize" or (
+        settings.ls_materialize == "auto"
+        and T >= 16
+        and cand_bytes <= 32 * 1024 * 1024
+    )
+
+
+def _check_settings(settings: SolverSettings, problem: BatchProblem) -> None:
     """Raise for the settings that select paths not ported, and for
     ``fused_ls="on"`` on a problem without the fused step."""
     if settings.riccati != "sequential":
@@ -73,17 +88,6 @@ def _check_settings(settings: SolverSettings, problem: BatchProblem,
         raise ValueError(
             "fused_ls='on' needs a problem with the fused step (ls_step); "
             "MPCPolicy.plan_batch builds one"
-        )
-    cand_bytes = 4 * T * B * settings.num_alphas * (n + m)
-    materialize = settings.ls_materialize == "materialize" or (
-        settings.ls_materialize == "auto"
-        and T >= 16
-        and cand_bytes <= 32 * 1024 * 1024
-    )
-    if materialize:
-        raise NotImplementedError(
-            "the materializing line search (ls_materialize resolving to "
-            "'materialize') is not ported"
         )
 
 
@@ -162,29 +166,38 @@ def _backward(A, Bm, cx, cu, cxx, cuu, cux, reg):
     return torch.stack(ks), torch.stack(Ks), adjoints, torch.stack(Gs)
 
 
-def _line_search_objs(problem, X, U, k, K, alphas):
+def _line_search_objs(problem, X, U, k, K, alphas, materialize=False):
     """Objective of every (lane, alpha) closed-loop rollout: (B, A).
 
-    Only the running objective is carried; the winner is recomputed once
-    afterwards (``_forward_best``).
+    ``materialize=False``: only the running objective is carried; the
+    winner is recomputed once afterwards (``_forward_best``).
+    ``materialize=True``: each step's candidate states and actions are
+    kept, and the result is (objs, (Xc (T,B,A,n), Uc (T,B,A,m))), Xc
+    holding x_1..x_T and Uc the actions the cost was taken on (with the
+    fused step, the ``u`` it returns); the winner is then a gather.
     """
     B = X.shape[1]
     A_ = alphas.shape[0]
     x = X[0][:, None].expand(B, A_, X.shape[-1])
     acc = torch.zeros((B, A_), dtype=X.dtype, device=X.device)
+    xs, us = [], []
     if problem.ls_step is not None:
         x = x.contiguous()
         alphaBA = alphas[None].expand(B, A_).contiguous()
     for t in range(U.shape[0]):
         if problem.ls_step is not None:
-            x, _, cost = problem.ls_step(x, X[t], U[t], alphaBA, k[t], K[t], t)
+            x, u, cost = problem.ls_step(x, X[t], U[t], alphaBA, k[t], K[t], t)
             acc = acc + cost
-            continue
-        du = torch.einsum("bmn,ban->bam", K[t], x - X[t][:, None])
-        u = U[t][:, None] + alphas[None, :, None] * k[t][:, None] + du
-        acc = acc + problem.stage_cost(x, u, t)
-        x = problem.dynamics_step(x, u, t)
-    return acc + problem.terminal_cost(x)
+        else:
+            du = torch.einsum("bmn,ban->bam", K[t], x - X[t][:, None])
+            u = U[t][:, None] + alphas[None, :, None] * k[t][:, None] + du
+            acc = acc + problem.stage_cost(x, u, t)
+            x = problem.dynamics_step(x, u, t)
+        if materialize:
+            xs.append(x)
+            us.append(u)
+    objs = acc + problem.terminal_cost(x)
+    return (objs, (torch.stack(xs), torch.stack(us))) if materialize else objs
 
 
 def _forward_best(problem, X, U, k, K, alpha_b):
@@ -210,19 +223,22 @@ def _forward_best(problem, X, U, k, K, alpha_b):
 
 
 def mlp_calls_per_solve(horizon: int, trips: int, fused: bool = False,
-                        solves: int = 1) -> Dict[str, int]:
+                        solves: int = 1, materialize: bool = False) -> Dict[str, int]:
     """Kernel launches on the card of ``solves`` ``batch_ilqr`` calls that
     ran ``trips`` iterations in all (``ILQRSolution.trips``, or
-    ``max_iterations`` each where no lane stops early), by kernel.
+    ``max_iterations`` each where no lane stops early), by kernel;
+    ``materialize`` is the line-search strategy the solves resolved to
+    (``ls_materializes``).
 
     Three forward scans run: the initial rollout, then per trip the
-    line search and the winner recompute, H steps each. Every step is one
-    dynamics MLP forward (``fused_mlp_fwd``), or with the fused step one
+    line search and the winner recompute, H steps each; materializing
+    solves run no recompute, so two. Every step is one dynamics MLP
+    forward (``fused_mlp_fwd``), or with the fused step one
     ``fused_ls_step`` launch. The rollout and the line search end in one
     terminal-cost MLP forward each; the recompute reads no objective.
     (The linearization and quadratization run plain torch.)
     """
-    steps = horizon * (solves + 2 * trips)
+    steps = horizon * (solves + (1 if materialize else 2) * trips)
     terminal = solves + trips
     if fused:
         return {"fused_mlp_fwd": terminal, "fused_ls_step": steps}
@@ -244,7 +260,8 @@ def batch_ilqr(
     U0 = U0.to(torch.float32).transpose(0, 1).contiguous()  # -> (T, B, m)
     T, B, m = U0.shape
     n = x0.shape[-1]
-    _check_settings(settings, problem, T, B, n, m)
+    _check_settings(settings, problem)
+    materialize = ls_materializes(settings, T, B, n, m)
     dev = x0.device
     alphas = settings.alpha_0 * settings.alpha_decay ** torch.arange(
         settings.num_alphas, dtype=torch.float32, device=dev
@@ -272,14 +289,23 @@ def batch_ilqr(
         gnorm = torch.sqrt(torch.sum(g * g, dim=(0, 2)))
         grad_small = gnorm < settings.grad_norm_tol
 
-        objs = _line_search_objs(problem, X, U, k, K, alphas)
+        objs = _line_search_objs(problem, X, U, k, K, alphas, materialize)
+        if materialize:
+            objs, (Xc, Uc) = objs
         objs = torch.where(torch.isfinite(objs), objs, float("inf"))
         best = torch.argmin(objs, dim=1)
         best_obj = torch.gather(objs, 1, best[:, None])[:, 0]
         improved = best_obj < obj
         take = active & ~grad_small & improved
-        alpha_b = torch.where(take, alphas[best], 0.0)
-        Xb, Ub = _forward_best(problem, X, U, k, K, alpha_b)
+        if materialize:
+            # the winner is a gather over the alpha axis (a copy, not a
+            # view into the candidates); the states get X[0] back in front
+            sel = best[None, :, None, None]
+            Xb = torch.cat([X[:1], torch.gather(Xc, 2, sel.expand(T, B, 1, n))[:, :, 0]])
+            Ub = torch.gather(Uc, 2, sel.expand(T, B, 1, m))[:, :, 0]
+        else:
+            alpha_b = torch.where(take, alphas[best], 0.0)
+            Xb, Ub = _forward_best(problem, X, U, k, K, alpha_b)
 
         mask_tb = take[None, :, None]
         objn = torch.where(take, best_obj, obj)

@@ -111,19 +111,19 @@ def batched_cg(matvec: Callable, b: torch.Tensor, iters: int) -> torch.Tensor:
 
 
 def mlp_calls_per_step(horizon: int, trips: int, fused: bool = False,
-                       steps: int = 1) -> Dict[str, int]:
+                       steps: int = 1, materialize: bool = False) -> Dict[str, int]:
     """Kernel launches of ``steps`` implicit solves that ran ``trips``
     iterations in all, and their backwards, on the card, for an outer loss
     that reads X or U and not obj (the imitation and generator losses).
 
-    The solves: ``mlp_calls_per_solve``. Each backward's first-order
-    rollout at (U*, theta): ``horizon`` dynamics MLP forwards and one terminal-cost
-    forward (``fused_mlp_fwd`` through ``FusedMlpFunction``), then the X
+    The solves: ``mlp_calls_per_solve`` (``materialize`` as there). Each
+    backward's first-order rollout at (U*, theta): ``horizon`` dynamics MLP
+    forwards and one terminal-cost forward (``fused_mlp_fwd`` through ``FusedMlpFunction``), then the X
     pullback, ``horizon`` dynamics backwards (``fused_mlp_bwd``). A loss
     that reads obj adds the envelope's ``horizon`` dynamics backwards and
     one of the cost net. The Hessian and the mixed term run plain torch.
     """
-    calls = dict(mlp_calls_per_solve(horizon, trips, fused, solves=steps))
+    calls = dict(mlp_calls_per_solve(horizon, trips, fused, steps, materialize))
     calls["fused_mlp_fwd"] += steps * (horizon + 1)
     calls["fused_mlp_bwd"] = steps * horizon
     return calls

@@ -35,9 +35,9 @@ class SolverSettings:
     # An XLA scan-unroll knob; eager PyTorch has no counterpart. Accepted
     # so that configs load, and ignored.
     inner_unroll: int = 1
-    # "recompute" (ported), "materialize" (not ported), or "auto", which
-    # resolves as in the JAX package: materialize when T >= 16 and the
-    # candidate block is <= 32 MB.
+    # "recompute", "materialize", or "auto", which resolves as in the JAX
+    # package: materialize when T >= 16 and the candidate block is <= 32 MiB
+    # (``batch_ilqr.ls_materializes``).
     ls_materialize: str = "auto"
     # "float32" (ported) or "bfloat16" (not ported).
     compute_dtype: str = "float32"

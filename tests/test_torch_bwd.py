@@ -261,20 +261,26 @@ def test_loaded_checkpoint_dynamics_match_jax():
 
 
 def test_bench_window_is_the_reference_one():
-    """One full warmup episode, then the mean of three 50-step episodes."""
+    """One full warmup episode, then the mean of three 50-step episodes,
+    at the flagship's envs or the row's own (the humanoid-class row's 128)."""
     assert (bench.STEPS, bench.WARMUP_EPISODES, bench.REPS) == (50, 1, 3)
     calls = []
 
-    def fake_run_steps(policy, env, norm, num_steps, generator):
-        calls.append(num_steps)
+    def fake_run_steps(policy, env, norm, num_steps, generator, num_envs):
+        calls.append((num_steps, num_envs))
         return None, float(len(calls))
 
     real, bench.run_steps = bench.run_steps, fake_run_steps
     try:
         mean = bench.timed_episodes(None, None, None, None)
+        bench.timed_episodes(None, None, None, None, 128)
     finally:
         bench.run_steps = real
-    assert calls == [50, 50, 50, 50]
+    assert calls == [(50, 512)] * 4 + [(50, 128)] * 4
     assert mean == (2.0 + 3.0 + 4.0) / 3  # the warmup episode is not in the mean
     row = bench.bench_row(1.0, "card", "off")
     assert set(row) == {"metric", "value", "unit", "vs_baseline"} and row["unit"] == "steps/sec"
+    assert "cheetah_run, 512 envs, iLQR<= 5 iters, H=5, fused_ls=off, torch port" in row["metric"]
+    row = bench.bench_row(1.0, "card", "on", "humanoid_stand", 128, 5, 50, 16, "recompute")
+    assert ("humanoid_stand, 128 envs, iLQR<= 5 iters, H=50, fused_ls=on, "
+            "ls_materialize=recompute, torch port") in row["metric"]

@@ -254,7 +254,8 @@ def test_plan_batch_fused_matches_jax_at_flagship_width(monkeypatch):
     monkeypatch.setattr(mpc, "fused_ls_step", counted_step)
     monkeypatch.setattr(LearnedDynamics, "batch_apply", no_dynamics)
     got = policy.plan_batch(torch.from_numpy(hX), torch.from_numpy(hU))
-    assert calls == {"step": mlp_calls_per_solve(H, ITERS, fused=True)["fused_ls_step"],
+    assert calls == {"step": mlp_calls_per_solve(H, ITERS, fused=True,
+                                                     materialize=False)["fused_ls_step"],
                      "dynamics": 0}
     np.testing.assert_allclose(got.U.numpy(), np.asarray(ref.U), rtol=0, atol=1e-4)
     np.testing.assert_array_equal(got.iterations.numpy(), np.asarray(ref.iterations))

@@ -3,10 +3,14 @@
 ``solve_spd`` on SPD systems from a numpy seed (atol 1e-5); the batch
 iLQR on a batched LQR problem where every lane converges before the
 iteration cap (the port's loop, which stops once no lane is active and
-reports the trips it ran, against JAX's ``while any(active)``); and one
-full flagship ``plan_batch`` solve on 8 envs with weights carried across
-by ``from_jax_params`` (U atol 1e-4, ``iterations`` and ``converged``
-equal). Float32 on the CPU.
+reports the trips it ran, against JAX's ``while any(active)``); the
+materializing line search on the same oracle, forced and resolved by
+"auto" (rtol and atol 1e-5), and against the port's recompute (atol
+1e-6); the launch counts of both strategies against the callbacks a
+solve made; and one full flagship ``plan_batch`` solve on 8 envs with
+weights carried across by ``from_jax_params`` (U atol 1e-4,
+``iterations`` and ``converged`` equal), at H=5 and at H=16, where
+"auto" materializes. Float32 on the CPU.
 """
 
 import dataclasses
@@ -28,6 +32,7 @@ from gan_mpc_tpu_torch.params import from_jax_params
 from gan_mpc_tpu_torch.planner.batch_ilqr import (
     BatchProblem,
     batch_ilqr,
+    ls_materializes,
     mlp_calls_per_solve,
 )
 from gan_mpc_tpu_torch.planner.ilqr import SolverSettings
@@ -106,6 +111,118 @@ def test_batch_ilqr_matches_jax_when_lanes_converge_early():
         )
 
 
+def _counted(callbacks, counts):
+    """The problem's callbacks, each call of the MLP-launching ones
+    (``dynamics_step``, ``terminal_cost``, ``ls_step``) counted."""
+    def wrap(name, fn):
+        def counted(*args):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*args)
+        return counted
+    return {name: wrap(name, fn) if name in ("dynamics_step", "terminal_cost", "ls_step")
+            else fn for name, fn in callbacks.items()}
+
+
+def _lqr_ls_step(A, Bm, Q, R):
+    """The LQR's fused forward-scan step: control law, stage cost and
+    dynamics in one call, as ``BatchProblem.ls_step`` takes it."""
+    def ls_step(x, Xref, Uref, alphaBA, kt, Kt, t):
+        u = (Uref[:, None] + alphaBA[..., None] * kt[:, None]
+             + torch.einsum("bmn,ban->bam", Kt, x - Xref[:, None]))
+        cost = 0.5 * (torch.einsum("bki,ij,bkj->bk", x, Q, x)
+                      + torch.einsum("bki,ij,bkj->bk", u, R, u))
+        nx = torch.einsum("bij,bkj->bki", A, x) + torch.einsum("bij,bkj->bki", Bm, u)
+        return nx, u, cost
+    return ls_step
+
+
+@pytest.mark.parametrize("mode,T", [("materialize", 5), ("auto", 16)],
+                         ids=["materialize_T5", "auto_T16"])
+def test_materializing_line_search_matches_jax(mode, T):
+    """The line search that keeps every candidate and gathers the winner,
+    forced at T=5 and resolved by "auto" at T=16 (JAX's rule), against
+    JAX's ``batch_ilqr`` in the same mode on the LQR oracle: iterations
+    and convergence equal, each field within 1e-5 max(1, max|ref|) of its
+    scale. At T=16 the adjoints reach ~170 and the converged gradient
+    (cu + B^T lam, ~1e-5) is the rounding left of terms that size, so its
+    scale is the adjoints'. The port's dynamics calls show that no
+    recompute scan ran: T per scan, one scan per trip after the rollout."""
+    A, Bm, Q, R, x0 = _lqr()
+    B, n, m = x0.shape[0], A.shape[-1], Bm.shape[-1]
+    U0 = 0.1 * np.random.default_rng(T).standard_normal((B, T, m)).astype(np.float32)
+    jprob = JaxProblem(**_lqr_problem(JAX_OPS, *map(jnp.asarray, (A, Bm, Q, R))))
+    ref = jax_batch_ilqr(jprob, jnp.asarray(x0), jnp.asarray(U0),
+                         JaxSettings(max_iterations=8, ls_materialize=mode))
+    counts = {}
+    prob = BatchProblem(**_counted(_lqr_problem(TORCH_OPS, *map(torch.from_numpy,
+                                                                (A, Bm, Q, R))), counts))
+    settings = SolverSettings(max_iterations=8, ls_materialize=mode)
+    assert ls_materializes(settings, T, B, n, m)
+    got = batch_ilqr(prob, torch.from_numpy(x0), torch.from_numpy(U0), settings)
+    assert np.all(np.asarray(ref.converged))
+    np.testing.assert_array_equal(got.iterations.numpy(), np.asarray(ref.iterations))
+    np.testing.assert_array_equal(got.converged.numpy(), np.asarray(ref.converged))
+    assert counts == {"dynamics_step": T * (1 + got.trips), "terminal_cost": 1 + got.trips}
+    for name in ("X", "U", "obj", "grad", "adjoints"):
+        scale = np.abs(np.asarray(ref.adjoints if name == "grad" else getattr(ref, name))).max()
+        np.testing.assert_allclose(
+            getattr(got, name).numpy(), np.asarray(getattr(ref, name)),
+            rtol=0, atol=1e-5 * max(1.0, scale), err_msg=name,
+        )
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["callbacks", "fused_step"])
+def test_materialize_matches_recompute(fused):
+    """The port's two line-search strategies on the same LQR problem,
+    through the separate callbacks and through a fused step: the same
+    math in another schedule, so X, U and obj agree to atol 1e-6 and the
+    iterations are equal. With the fused step the gathered actions are
+    the ``u`` the step returned for the winning step size."""
+    A, Bm, Q, R, x0 = _lqr(seed=3)
+    T, m = 20, Bm.shape[-1]
+    U0 = 0.1 * np.random.default_rng(1).standard_normal((x0.shape[0], T, m)).astype(np.float32)
+    tensors = tuple(map(torch.from_numpy, (A, Bm, Q, R)))
+    prob = BatchProblem(**_lqr_problem(TORCH_OPS, *tensors),
+                        ls_step=_lqr_ls_step(*tensors) if fused else None)
+    sols = {mode: batch_ilqr(prob, torch.from_numpy(x0), torch.from_numpy(U0),
+                             SolverSettings(max_iterations=8, ls_materialize=mode))
+            for mode in ("recompute", "materialize")}
+    assert bool(sols["recompute"].converged.all())
+    torch.testing.assert_close(sols["materialize"].iterations, sols["recompute"].iterations,
+                               rtol=0, atol=0)
+    for name in ("X", "U", "obj"):
+        torch.testing.assert_close(getattr(sols["materialize"], name),
+                                   getattr(sols["recompute"], name), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["recompute", "materialize"])
+@pytest.mark.parametrize("fused", [False, True], ids=["callbacks", "fused_step"])
+def test_launch_counts_follow_the_line_search_mode(mode, fused):
+    """``mlp_calls_per_solve`` against the MLP-launching callbacks a solve
+    made (a dynamics step or a fused step is one launch, a terminal cost
+    one), for both strategies; 3 solves counted together. The LQR's lanes
+    stop early, so the trips come from the solver."""
+    A, Bm, Q, R, x0 = _lqr(seed=5)
+    T = 6
+    tensors = tuple(map(torch.from_numpy, (A, Bm, Q, R)))
+    counts = {}
+    callbacks = _lqr_problem(TORCH_OPS, *tensors)
+    if fused:
+        callbacks["ls_step"] = _lqr_ls_step(*tensors)
+    prob = BatchProblem(**_counted(callbacks, counts))
+    trips = 0
+    for seed in range(3):
+        U0 = np.random.default_rng(seed).standard_normal((x0.shape[0], T, 2)).astype(np.float32)
+        trips += batch_ilqr(prob, torch.from_numpy(x0), torch.from_numpy(U0),
+                            SolverSettings(max_iterations=8, ls_materialize=mode)).trips
+    expected = mlp_calls_per_solve(T, trips, fused, solves=3,
+                                   materialize=mode == "materialize")
+    step = "ls_step" if fused else "dynamics_step"
+    assert {"fused_mlp_fwd": counts.get("dynamics_step", 0) + counts["terminal_cost"],
+            "fused_ls_step": counts.get("ls_step", 0)} == expected
+    assert counts[step] == T * (3 + (1 if mode == "materialize" else 2) * trips)
+
+
 def test_plan_batch_matches_jax_at_flagship_width():
     """One solve at the first control step's input: zero history and
     reset-like observations (rest pose + 0.01 noise).
@@ -140,13 +257,11 @@ def test_plan_batch_matches_jax_at_flagship_width():
     "change,T,error",
     [
         (dict(riccati="associative"), 5, NotImplementedError),
-        (dict(ls_materialize="materialize"), 5, NotImplementedError),
-        (dict(ls_materialize="auto"), 16, NotImplementedError),  # resolves to materialize
         # "on" is ported, but forces the fused step: a problem without one raises
         (dict(fused_ls="on"), 5, ValueError),
         (dict(compute_dtype="bfloat16"), 5, NotImplementedError),
     ],
-    ids=["associative", "materialize", "auto_long", "fused_ls", "bf16"],
+    ids=["associative", "fused_ls", "bf16"],
 )
 def test_settings_outside_the_slice_raise(change, T, error):
     A, Bm, Q, R, x0 = _lqr(B=2)
@@ -165,6 +280,15 @@ def test_defaults_stay_on_the_ported_path():
         assert sol.U.shape == (2, 5, 2)
     assert mlp_calls_per_solve(5, 5) == {"fused_mlp_fwd": 61, "fused_ls_step": 0}
     assert mlp_calls_per_solve(5, 5, fused=True) == {"fused_mlp_fwd": 6, "fused_ls_step": 55}
+    # the humanoid-class row: 128 envs, H=50, 16 step sizes, n=29, m=12
+    # (16.8 MB of candidates) resolves to materialize: 2 scans, not 3
+    assert ls_materializes(SolverSettings(), 50, 128, 29, 12)
+    assert not ls_materializes(SolverSettings(), 15, 128, 29, 12)
+    assert not ls_materializes(SolverSettings(), 50, 512, 29, 12)  # 67 MB
+    assert mlp_calls_per_solve(50, 5, materialize=True) == {"fused_mlp_fwd": 306,
+                                                            "fused_ls_step": 0}
+    assert mlp_calls_per_solve(50, 5, fused=True, materialize=True) == {
+        "fused_mlp_fwd": 6, "fused_ls_step": 300}
 
 
 def test_policy_paths_outside_the_slice_raise():

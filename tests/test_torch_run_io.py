@@ -11,7 +11,8 @@
     against ``msgpack_serialize`` on ints, scalars and maps of every
     header size;
   * ``collection_fingerprint`` and ``trajectories_path`` equal to JAX's
-    strings for every committed config of an env the port has;
+    strings, and ``imitator_env``'s env and shifted knobs equal to JAX's
+    (rtol 1e-6), for every committed config of an env the port has;
   * ``moment_distance`` (rtol 1e-5) and ``calibrate_action_goal_gain``
     with 4 and 5 raw weights against JAX on the same states: the same
     distances (rtol 1e-5), the same gain, the same weights after;
@@ -122,7 +123,8 @@ def test_writer_matches_flax(tree):
 
 PORTED_CONFIGS = sorted(
     p for p in glob.glob(str(REPO / "configs" / "*.yaml"))
-    if Config.from_yaml(p).env.name in ("pendulum_swingup", "cheetah_run")
+    if Config.from_yaml(p).env.name in ("pendulum_swingup", "cheetah_run", "humanoid_stand",
+                                        "humanoid_walk")
 )
 
 
@@ -140,6 +142,19 @@ def test_fingerprint_and_store_path_match_jax(path, tmp_path):
         (base / f"trajectories-{fp}.{suffix}").write_bytes(b"")
         assert common.trajectories_path(pcfg) == jcommon.trajectories_path(jcfg)
         assert common.trajectories_path(pcfg).endswith(suffix)
+
+
+@pytest.mark.parametrize("path", PORTED_CONFIGS, ids=[Path(p).stem for p in PORTED_CONFIGS])
+def test_imitator_env_matches_jax(path):
+    """The imitator's env and its shifted physics knobs, in JAX's leaf
+    order, for every committed config of an env the port has."""
+    jenv, jparams = jcommon.imitator_env(JaxConfig.from_yaml(path))
+    env, params = common.imitator_env(Config.from_yaml(path), "cpu")
+    assert env.name == jenv.name and (env.obs_size, env.act_size) == (jenv.obs_size,
+                                                                       jenv.act_size)
+    np.testing.assert_allclose([getattr(params, f) for f in params.__dataclass_fields__],
+                               [float(v) for v in jax.tree_util.tree_leaves(jparams)],
+                               rtol=1e-6, atol=0)
 
 
 def test_store_resolver_names_the_store_and_never_collects(tmp_path):
