@@ -176,6 +176,27 @@ Phases, in order; any failure raises and exits non-zero:
        strategy, one trip, the dynamics' output layer scaled by 1/32: U
        atol 1e-4 max(1, max|U|) and equal iterations, each fused_ls
        setting.
+ 11. a committed config from an empty workdir: ``runners.gan.run`` on
+     configs/gan_cheetah.yaml with ``G11_CUTS`` (64 expert episodes of the
+     config's 1000 steps, so that the reward gate keeps its 5; iLQR <= 5;
+     1 epoch of phase 9's epoch cuts; 2 expert epochs; 25-step
+     evaluations) in a temporary workdir: it collects the fingerprinted
+     store with the scripted cheetah expert, trains and saves the expert
+     (no saved one matches the store), runs the epoch. Checks: the
+     store's name, shapes (64, 1000, 17), (64, 1000, 6), (64, 1000) and
+     sidecar, at least 5 episodes clearing the gate (each total printed),
+     the expert's fingerprint equal to the store's and its losses finite,
+     both MLP kernels' launches equal to what the recorded solves and
+     update steps reckon, a second ``setup`` that reads the store and the
+     saved expert without collecting or training, and the collector on
+     the card against the CPU over the store's first 20 steps from its
+     own draws: each env at the steps before the CPU's own spread of its
+     states under 1 +- 1e-7 and 1 +- 2e-7 nudges of the resets reaches
+     1e-3 (the stiff ground contact amplifies rounding past that), within
+     max(1e-4, twice the spread under those and 1 +- 5e-7 nudges; rewards
+     1e-5), at least half the entries so checked, the rest printed. Prints
+     the wall time of the collection, the expert's training and
+     evaluation, the epoch and the phase.
      Then the script's total wall time.
 The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Exits 1 without a CUDA device.
@@ -327,6 +348,33 @@ G9_CONVERGED = [28, 896, 1029, 2100, 2156, 4018, 5068, 6104, 7028, 8155, 8407, 8
 # sizes), at the flagship's widths on the humanoid's 29 states and 12
 # actions; the timed control steps are cut from the bench's 50-step episodes
 H50 = dict(env="humanoid_stand", num_envs=128, horizon=50, iters=5)
+# phase 11: a committed config run from an empty workdir, with these cuts of
+# it (the rest is the config's own). env.expert_episode_steps stays 1000: the
+# reward gate sums each stored episode whole before it is cut to
+# trajectory_len, and over 300 steps no episode of this expert clears 20.
+G11_CONFIG = "configs/gan_cheetah.yaml"
+G11_CUTS = dict(
+    # of mpc.train.num_trajectories = 5: the JAX runner's own oversampling
+    # knob, so that the gate (min_expert_reward 20) keeps 5; it enters the
+    # collection fingerprint, so the store and the expert are this config's
+    env__collect_trajectories=64,
+    mpc__solver__max_iterations=5,  # of 50
+    mpc__train__num_epochs=1,  # of 2
+    mpc__train__dynamics__max_interactions_per_episode=50,  # of 300
+    mpc__train__cost__num_updates=1,  # of 3
+    mpc__train__cost__steps_per_update=4,  # of 9 (1,176 train windows / batch 128)
+    mpc__evaluate__max_interactions=25,  # of 1000: the imitator's and the expert's episodes
+    mpc__evaluate__fresh_eval_episodes=2,  # of 16 (the default)
+    expert_prediction__train__num_epochs=2,  # of 10
+)
+G11_CHECK_STEPS = 20  # the collector held card against CPU over the store's first steps
+G11_NUDGES = (1 + 1e-7, 1 - 1e-7, 1 + 2e-7, 1 - 2e-7)
+G11_REPRODUCIBLE = 1e-3  # the CPU's own spread of a lane's states up to which it is checked
+# the card's rounding enters every operation of every step, not the resets
+# alone, so its drift is held against nudges of the resets up to 5e-7 (a few
+# ulp; on an H100 it reached 1.8x the spread of the 1e-7 and 2e-7 nudges
+# where a lane nears a contact event)
+G11_WIDE_NUDGES = (1 + 5e-7, 1 - 5e-7)
 H50_STEPS = 10
 H50_CHECK_ENVS = 16  # the card-against-CPU plan
 # The random-weight row is chaotic at H=50: its dynamics grow every
@@ -1038,12 +1086,12 @@ def gan9_phase(kernels, card_line, dev):
 
 
 @contextlib.contextmanager
-def run_watched():
+def run_watched(extra=()):
     """Times each piece of a training run (``runners.l2``'s module functions,
-    ``runners.gan.gan_epoch``) as the run calls it; yields the list of
-    (kind, seconds). An evaluation is "selection" inside the re-rank and
-    "final" outside it; "midrun" is the periodic evaluation with its
-    solver statistics."""
+    ``runners.gan.gan_epoch``, and the (module, name, kind) of ``extra``) as
+    the run calls it; yields the list of (kind, seconds). An evaluation is
+    "selection" inside the re-rank and "final" outside it; "midrun" is the
+    periodic evaluation with its solver statistics."""
     from gan_mpc_tpu_torch.runners import gan, l2
 
     timed, inside = [], []
@@ -1065,7 +1113,7 @@ def run_watched():
 
     patched = [(gan, "gan_epoch", "epoch"), (l2, "midrun_eval", "midrun"),
                (l2, "select_best_params", "selection"), (l2, "calibrate_gain", "calibration"),
-               (l2, "evaluate", "evaluate"), (l2, "fresh_seed_eval", "fresh")]
+               (l2, "evaluate", "evaluate"), (l2, "fresh_seed_eval", "fresh"), *extra]
     originals = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
     for mod, name, kind in patched:
         setattr(mod, name, watch(kind, getattr(mod, name)))
@@ -1326,6 +1374,201 @@ def humanoid_phase(kernels, card_line, dev):
             raise SystemExit(f"the materializing line search (fused_ls={fused}) disagrees with "
                              "the recompute on the card")
     print(f"phase 10 wall time {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+@contextlib.contextmanager
+def calls_refused(*targets):
+    """Inside the block each (module, name) of ``targets`` raises when
+    called."""
+    originals = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def refuse(name):
+        def refused(*args, **kwargs):
+            raise SystemExit(f"{name} was called again")
+        return refused
+
+    for mod, name in targets:
+        setattr(mod, name, refuse(name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
+def check_collector(cfg, dev):
+    """The scripted cheetah expert's collection on the card against the
+    CPU over the store's first ``G11_CHECK_STEPS`` steps, from the store's
+    own resets and noise (the generator seeded with seed + 7, drawn on the
+    CPU). The cheetah's stiff ground contact amplifies rounding: after a
+    contact event a lane's states move by 1e-2 to 1 under 1e-7 nudges of
+    its resets, on the CPU alone. So a lane is checked at the steps before
+    the CPU's own spread of its states (under the ``G11_NUDGES`` scalings
+    of the resets) first reaches ``G11_REPRODUCIBLE``, there within
+    max(base, twice the spread over the checked lanes under those and the
+    ``G11_WIDE_NUDGES``); the rest is printed, not checked. Returns the
+    card's collection."""
+    from gan_mpc_tpu_torch.envs import EnvState, make_env
+    from gan_mpc_tpu_torch.runners import collect, common
+
+    n, steps = common.collection_size(cfg), cfg.get_path("env.expert_episode_steps", 1000)
+    T = G11_CHECK_STEPS
+    env_c, env_g = make_env(cfg.env.name, "cpu"), make_env(cfg.env.name, dev)
+    gen = torch.Generator().manual_seed(cfg.seed + 7)
+    init = env_c.reset(env_c.default_params(), n, gen)
+    noise = torch.randn((steps, n, env_c.act_size), generator=gen)[:T]
+
+    def run(env, scale=1.0, device="cpu"):
+        start = EnvState(qpos=(init.qpos * scale).to(device), qvel=(init.qvel * scale).to(device),
+                         t=init.t.to(device))
+        return collect.collect_expert_trajectories(
+            env, n, num_steps=T, init_state=start, noise=noise,
+            noise_sigma=cfg.get_path("env.expert_noise", 0.25))
+
+    cpu, gpu = run(env_c), run(env_g, device=dev)
+    nudged = [run(env_c, s) for s in G11_NUDGES]
+    wide = nudged + [run(env_c, s) for s in G11_WIDE_NUDGES]
+
+    def moves(field, runs):  # (n, T): the card's and the nudged CPU runs' largest moves
+        want = getattr(cpu, field)
+        move = lambda c: np.abs(getattr(c, field) - want).reshape(n, T, -1).max(-1)
+        return move(gpu), np.max([move(c) for c in runs], axis=0)
+
+    checked = np.maximum.accumulate(moves("states", nudged)[1], axis=1) < G11_REPRODUCIBLE
+    fmt = lambda a: " ".join(f"{v:.2e}" for v in a)
+    print(f"  collector GPU vs CPU ({n} envs x {T} steps, the store's draws): checked "
+          f"{int(checked.sum())} of {n * T} (env, step) entries, {int(checked.all(1).sum())} "
+          f"envs at every step (the CPU's own spread of their states under 1 +- 1e-7 and "
+          f"1 +- 2e-7 nudges of the resets below {G11_REPRODUCIBLE})")
+    worst = 0.0
+    for field, base in (("states", 1e-4), ("actions", 1e-4), ("executed_actions", 1e-4),
+                        ("rewards", 1e-5)):
+        d, spread = moves(field, wide)
+        tol = np.maximum(base, 2.0 * np.where(checked, spread, 0.0).max(0))
+        d_checked = np.where(checked, d, 0.0).max(0)
+        worst = max(worst, float((d_checked / tol).max()))
+        print(f"    {field}: checked max|d| per step [{fmt(d_checked)}], atol [{fmt(tol)}]; "
+              f"all envs (not checked) max|d| [{fmt(d.max(0))}], the CPU's own spread "
+              f"under nudges up to 5e-7 [{fmt(spread.max(0))}]")
+        if np.any(checked & (d > tol[None])):
+            raise SystemExit(f"the expert collector on the card disagrees with the CPU: {field}")
+    print(f"    largest checked max|d| / atol: {worst:.3f}")
+    if checked.mean() < 0.5:
+        raise SystemExit("fewer than half the collector's entries are reproducible on the CPU")
+    return gpu
+
+
+def fresh_run_phase(kernels, card_line, dev):
+    """Phase 11: ``runners.gan.run`` on ``G11_CONFIG`` with ``G11_CUTS``
+    from an empty workdir: it collects the fingerprinted store, trains and
+    saves the expert, runs the epoch; then the store, the expert and the
+    launches are checked, a second ``setup`` reads both without collecting
+    or training, and the collector is held card against CPU. Returns the
+    run's launches."""
+    import os
+    import tempfile
+
+    from gan_mpc_tpu_torch.config import Config
+    from gan_mpc_tpu_torch.data.trajectories import read_gmts
+    from gan_mpc_tpu_torch.params import expert_to_jax_params, load_msgpack
+    from gan_mpc_tpu_torch.planner.batch_ilqr import mlp_calls_per_solve
+    from gan_mpc_tpu_torch.runners import common, expert, gan
+
+    t_phase = time.perf_counter()
+
+    def log(msg):
+        print(f"  {msg}")
+
+    with tempfile.TemporaryDirectory() as workdir:
+        cfg = Config.from_yaml(G11_CONFIG).replace(runtime__workdir=workdir, **G11_CUTS)
+        print(f"fresh run ({G11_CONFIG} from an empty workdir, one GPU: {card_line}); cuts "
+              f"{G11_CUTS}")
+        for k in kernels.values():
+            k.launches = 0
+        watched = [(common, "collect_expert_trajectories", "collection"),
+                   (expert, "train_expert", "expert training"),
+                   (expert, "average_return", "expert evaluation")]
+        t0 = time.perf_counter()
+        with solves_recorded() as trips, update_steps_recorded() as steps, \
+                run_watched(watched) as timed:
+            out = gan.run(cfg, log_fn=log, device=dev)
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in kernels.items()}
+        H = cfg.mpc.horizon
+        solves = dict(mlp_calls_per_solve(H, sum(trips), solves=len(trips), materialize=False))
+        expected = {"fused_mlp_fwd": solves["fused_mlp_fwd"] + H * steps["dynamics"]
+                    + (H + 1) * steps["cost"],
+                    "fused_ls_step": 0, "fused_mlp_bwd": H * (steps["dynamics"] + steps["cost"])}
+
+        path, fp = common.trajectories_path(cfg), common.collection_fingerprint(cfg)
+        states, actions, rewards = read_gmts(path)  # in the order collected
+        totals = rewards.sum(1)
+        gate, wanted = cfg.mpc.train.min_expert_reward, cfg.mpc.train.num_trajectories
+        n_clear = int((totals > gate).sum())
+        expert_dirs = sorted(os.listdir(common.expert_model_dir(cfg)))
+        expert_dir = os.path.join(common.expert_model_dir(cfg), expert_dirs[0])
+        with open(os.path.join(expert_dir, "config.json")) as f:
+            stamp = json.load(f)
+        sidecar = os.path.exists(path + ".exec.npz")
+        saved_expert = load_msgpack(os.path.join(expert_dir, "params.msgpack"))
+        # a second setup in the same workdir reads the store and the expert
+        with calls_refused((common, "collect_expert_trajectories"), (expert, "run")):
+            ctx = common.setup(cfg, True, device=dev)
+        served = expert_to_jax_params(ctx["policy"].expert_model)
+
+    kinds = {}
+    for kind, secs in timed:
+        kinds.setdefault(kind, []).append(round(secs, 3))
+    print(f"  store {os.path.basename(path)} (fingerprint {fp}): states {states.shape}, "
+          f"actions {actions.shape}, rewards {rewards.shape}, sidecar "
+          f"{sidecar}; {n_clear} of {len(totals)} clear min_expert_reward={gate} "
+          f"({wanted} asked for)")
+    print(f"  total reward of each trajectory: {[round(float(t), 2) for t in totals]}")
+    print(f"  expert {expert_dirs}: fingerprint {stamp['collection_fingerprint']}, loss "
+          f"{stamp['loss']}, avg_reward {stamp['avg_reward']}")
+    print(f"  run {run_s:.3f} s, wall s by piece: {kinds}; saved {out['run_dir']}")
+    print(f"  kernel launches {counts} (expected {expected}: {len(trips)} solves of "
+          f"{sum(trips)} trips, {steps['dynamics']} dynamics and {steps['cost']} generator "
+          f"steps of {H} time steps)")
+    n, steps_full = common.collection_size(cfg), cfg.get_path("env.expert_episode_steps", 1000)
+    if os.path.basename(path) != f"trajectories-{fp}.gmts" or not sidecar:
+        raise SystemExit(f"the run's store is {path}, sidecar {sidecar}")
+    if (states.shape, actions.shape, rewards.shape) != (
+            (n, steps_full, 17), (n, steps_full, 6), (n, steps_full)):
+        raise SystemExit("the collected store has the wrong shapes")
+    if n_clear < wanted:
+        raise SystemExit(f"only {n_clear} trajectories clear the gate, {wanted} asked for")
+    if expert_dirs != ["0"] or stamp["collection_fingerprint"] != fp or not np.all(
+            np.isfinite([stamp["loss"]["train_loss"], stamp["loss"]["test_loss"]])):
+        raise SystemExit("the trained expert was not saved with the store's fingerprint and "
+                         "finite losses")
+
+    def leaves(tree, prefix=""):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                yield from leaves(tree[k], f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", np.asarray(tree[k])
+
+    a, b = dict(leaves(served)), dict(leaves(saved_expert))
+    if sorted(a) != sorted(b) or not all(np.array_equal(a[k], b[k]) for k in a):
+        raise SystemExit("the second setup did not serve the saved expert")
+    print("  second setup: the store read and the saved expert loaded, nothing collected or "
+          "trained again")
+    if counts != expected:
+        raise SystemExit("the fresh run did not launch the kernels on every MLP call")
+    history = out["history"]
+    if not all(vs and np.all(np.isfinite(vs)) for vs in history.values()):
+        raise SystemExit("the fresh run's losses or returns are missing or not finite")
+
+    t0 = time.perf_counter()
+    gpu = check_collector(cfg, dev)
+    same = np.array_equal(gpu.states, states[:, :G11_CHECK_STEPS])
+    print(f"  the card's {G11_CHECK_STEPS}-step collection equals the store's first steps "
+          f"bitwise: {same}; check {time.perf_counter() - t0:.1f} s")
+    print(f"phase 11 wall time {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -1631,6 +1874,9 @@ def main() -> int:
 
     # 10. the humanoid-class row: H=50, the materializing line search
     launches["humanoid H=50"] = humanoid_phase(kernels, card_line, dev)
+
+    # 11. a committed config from an empty workdir: collect, train the expert, run
+    launches["fresh gan run"] = fresh_run_phase(kernels, card_line, dev)
 
     # the planner's line-search call (8192 rows) leads the forward kernels'
     # entries, the trainer's call (128 rows) the backward kernel's

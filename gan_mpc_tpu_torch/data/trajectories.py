@@ -1,7 +1,8 @@
-"""Expert trajectory stores: reading and the quality gate.
+"""Expert trajectory stores: writing, reading and the quality gate.
 
-Counterpart of ``TrajectorySet`` and ``load_trajectories`` in
-``gan_mpc_tpu/data/trajectories.py``, numpy only. Three formats:
+Counterpart of ``TrajectorySet``, ``save_trajectories`` and
+``load_trajectories`` in ``gan_mpc_tpu/data/trajectories.py``, numpy only
+(no native library). Three formats:
 
   * ``.gmts``, the binary store that ``gan_mpc_tpu/native/trajstore.cpp``
     writes: a 40-byte header (uint64 magic "GANMPCTS", int64 n_traj,
@@ -57,6 +58,39 @@ def read_gmts(path: str):
     s, a, r = np.split(body, np.cumsum(sizes)[:2])
     return (s.reshape(n, length, x).copy(), a.reshape(n, length, u).copy(),
             r.reshape(n, length).copy())
+
+
+def write_gmts(path: str, states, actions, rewards) -> None:
+    """Write a ``.gmts`` store: the bytes ``traj_write`` of
+    ``gan_mpc_tpu/native/trajstore.cpp`` writes for the same arrays."""
+    s, a, r = (np.ascontiguousarray(v, dtype=np.float32) for v in (states, actions, rewards))
+    n, length, x = s.shape
+    head = np.array([(GMTS_MAGIC, n, length, x, a.shape[-1])], _HEADER)
+    with open(path, "wb") as f:
+        for block in (head, s, a, r):
+            f.write(block.tobytes())
+
+
+def save_trajectories(path: str, trajs: TrajectorySet) -> None:
+    """Write ``trajs`` to ``path`` in the format its suffix names (``.gmts``
+    with the executed actions in ``<path>.exec.npz``, ``.npz``, else JSON),
+    as the JAX ``save_trajectories`` does."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    extra = {}
+    if trajs.executed_actions is not None:
+        extra["executed_actions"] = trajs.executed_actions
+    if path.endswith(".gmts"):
+        write_gmts(path, trajs.states, trajs.actions, trajs.rewards)
+        if extra:
+            np.savez_compressed(path + ".exec.npz", **extra)
+    elif path.endswith(".npz"):
+        np.savez_compressed(path, states=trajs.states, actions=trajs.actions,
+                            rewards=trajs.rewards, **extra)
+    else:
+        with open(path, "w") as fp:
+            json.dump({"states": trajs.states.tolist(), "actions": trajs.actions.tolist(),
+                       "rewards": trajs.rewards.tolist(),
+                       **{k: v.tolist() for k, v in extra.items()}}, fp)
 
 
 def load_trajectories(path: str, num_trajectories: Optional[int] = None,

@@ -1,10 +1,11 @@
-"""Sliding-window datasets of the dynamics and cost trainers.
+"""Sliding-window datasets of the dynamics, cost and expert trainers.
 
-Counterpart of ``cost_windows``, ``sequence_windows``, ``shuffle_and_split``
-and ``minibatch_indices`` in ``gan_mpc_tpu/data/windows.py``: one gather per
-trajectory set, on the trajectories' device. Random draws come from a
-``torch.Generator`` (``jax.random`` cannot be reproduced in torch); the
-split also takes an explicit permutation, so that tests can feed JAX's.
+Counterpart of ``cost_windows``, ``sequence_windows``,
+``split_sequence_windows``, ``shuffle_and_split`` and ``minibatch_indices``
+in ``gan_mpc_tpu/data/windows.py``: one gather per trajectory set, on the
+trajectories' device. Random draws come from a ``torch.Generator``
+(``jax.random`` cannot be reproduced in torch); the splits also take an
+explicit permutation, so that tests can feed JAX's.
 """
 
 from __future__ import annotations
@@ -59,6 +60,50 @@ def sequence_windows(
     return X, U, Y
 
 
+def _permutation(size: int, generator: Optional[torch.Generator],
+                 perm: Optional[torch.Tensor]) -> torch.Tensor:
+    if perm is None:
+        if generator is None:
+            raise ValueError("pass a torch.Generator or a permutation")
+        perm = torch.randperm(size, generator=generator, device=generator.device)
+    return perm
+
+
+def split_sequence_windows(
+    states: torch.Tensor,
+    actions: torch.Tensor,
+    seqlen: int,
+    generator: Optional[torch.Generator] = None,
+    start_oversample: int = 0,
+    train_frac: float = 0.8,
+    perm: Optional[torch.Tensor] = None,
+):
+    """Train/test split of the (xseq, useq, next_xseq) windows of (N, L, ·)
+    trajectories, with the rest-start oversampling applied to the train
+    split only: the window ids (trajectory-major) are split by ``perm``
+    (else a permutation drawn from ``generator``), then the train side
+    gains ``start_oversample`` extra copies of its early windows (those
+    that start within the first ``seqlen`` steps of their trajectory), so
+    that no copy of a trained window lands in the held-out split. Returns
+    (train, test) tuples."""
+    n, length, x_size = states.shape
+    num = length - seqlen
+    idx = _window_indices(num, seqlen, states.device)
+    perm = _permutation(n * num, generator, perm).to(states.device)
+    cut = int(n * num * train_frac)
+    train_ids, test_ids = perm[:cut], perm[cut:]
+    if start_oversample > 0:
+        early_train = train_ids[train_ids % num < min(seqlen, num)]
+        train_ids = torch.cat([train_ids] + [early_train] * start_oversample)
+
+    def gather(ids):
+        traj, widx = ids // num, idx[ids % num]
+        return (states[traj[:, None], widx], actions[traj[:, None], widx],
+                states[traj[:, None], widx + 1])
+
+    return gather(train_ids), gather(test_ids)
+
+
 def shuffle_and_split(
     dataset: tuple,
     generator: Optional[torch.Generator] = None,
@@ -68,11 +113,7 @@ def shuffle_and_split(
     """Random shuffle and train/test split: ``perm`` if given, else a
     permutation drawn from ``generator``. Returns (train, test) tuples."""
     size = dataset[0].shape[0]
-    if perm is None:
-        if generator is None:
-            raise ValueError("pass a torch.Generator or a permutation")
-        perm = torch.randperm(size, generator=generator, device=generator.device)
-    perm = perm.to(dataset[0].device)
+    perm = _permutation(size, generator, perm).to(dataset[0].device)
     cut = int(size * train_frac)
     train = tuple(d[perm[:cut]] for d in dataset)
     test = tuple(d[perm[cut:]] for d in dataset)

@@ -61,12 +61,17 @@ class PendulumSwingup:
             t=torch.zeros(num_envs, dtype=torch.int32, device=self.device),
         )
 
+    def inertia(self, params: PendulumParams) -> torch.Tensor:
+        """Moment of inertia about the hinge (parallel axis), float32."""
+        f = self._f32
+        return f(params.body_mass_pole) * f(params.geom_size_pole) ** 2 + f(params.com_inertia)
+
     def step(self, params: PendulumParams, state: base.EnvState, action):
         u = torch.clamp(action, -1.0, 1.0)[:, 0]
         th, thd = state.qpos[:, 0], state.qvel[:, 0]
         f = self._f32
         m, r = f(params.body_mass_pole), f(params.geom_size_pole)
-        inertia = m * r ** 2 + f(params.com_inertia)
+        inertia = self.inertia(params)
         torque = f(params.torque_gain) * u + m * f(params.gravity) * r * torch.sin(th)
         thd = (thd + self.dt * torque / inertia) / (1.0 + self.dt * f(params.damping) / inertia)
         th = th + self.dt * thd

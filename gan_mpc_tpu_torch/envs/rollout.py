@@ -1,7 +1,7 @@
 """Closed-loop rollouts of a batch of envs under a batch policy.
 
-Counterpart of ``batch_policy_rollout`` / ``policy_rollout`` in
-``gan_mpc_tpu/envs/rollout.py``: per control step
+Counterpart of ``batch_policy_rollout`` / ``policy_rollout`` /
+``average_return`` in ``gan_mpc_tpu/envs/rollout.py``: per control step
 
     observe -> normalize -> plan (one solver for all envs) -> env.step
 
@@ -103,3 +103,23 @@ def policy_rollout(
         num_envs, init_state=init_state, generator=generator, action_noise=action_noise,
         noise=noise,
     )
+
+
+def average_return(
+    env,
+    env_params,
+    batch_policy_fn: Callable,
+    normalizer: Normalizer,
+    num_steps: int,
+    history: int,
+    num_runs: int,
+    init_state: Optional[EnvState] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Mean episode return over ``max(num_runs, 1)`` envs rolled at once
+    under ``batch_policy_fn`` (the reference's ``avg_run_dm_policy``
+    metric); the same history windows as the JAX per-env rollouts. Starts
+    from ``init_state`` if given, else resets from ``generator``."""
+    ep = batch_policy_rollout(env, env_params, batch_policy_fn, normalizer, num_steps, history,
+                              max(num_runs, 1), init_state=init_state, generator=generator)
+    return ep.rewards.sum(-1).mean()

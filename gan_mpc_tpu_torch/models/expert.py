@@ -1,9 +1,15 @@
 """Expert predictor: an autoregressive state-action sequence model.
 
-Counterpart of ``ExpertPredictor`` (``arch="lstm"``), ``_LSTMCell`` and
+Counterpart of ``ExpertPredictor``, ``_LSTMCell``, ``_MLPCell`` and
 ``_PredictionHeads`` in ``gan_mpc_tpu/models/expert.py``, batched over
-envs (a leading batch axis in place of ``jax.vmap``; the time scan is a
-Python loop). The ``"mlp"`` arch is not ported.
+sequences (a leading batch axis in place of ``jax.vmap``; the time scan
+is a Python loop). Both archs: ``"lstm"`` (flax's OptimizedLSTMCell
+trunk) and ``"mlp"`` (one relu Dense trunk). Per step the cell reads the
+sequence's state (teacher forcing) or its own last prediction, and emits
+the next state (residual on its input) and a tanh-squashed action.
+Carries are tuples as in JAX: ``((c, h), x)`` for the LSTM, ``(x,)`` for
+the MLP, the last entry the state the next step reads without teacher
+forcing.
 """
 
 from __future__ import annotations
@@ -91,39 +97,80 @@ class LSTMCell(nn.Module):
         return lstm_state, next_x, u
 
 
-Carry = Tuple[Tuple[torch.Tensor, torch.Tensor], torch.Tensor]
+class MLPCell(nn.Module):
+    """One expert step of the "mlp" arch: a relu Dense trunk of
+    ``hidden[0]`` (flax ``Dense_0``), then the prediction heads
+    (``_PredictionHeads_0``)."""
+
+    def __init__(self, x_size: int, u_size: int, hidden: Sequence[int]):
+        super().__init__()
+        self.trunk = Dense(x_size, hidden[0])
+        self.heads = PredictionHeads(hidden[0], x_size, u_size, hidden)
+
+    def forward(self, x):
+        y = torch.relu(x @ self.trunk.kernel + self.trunk.bias)
+        return self.heads(y, x)
+
+
+Carry = Tuple[torch.Tensor, ...]
 
 
 class ExpertPredictor(nn.Module):
-    """Batched LSTM expert: warm a carry on the observed history, then
-    generate the goal states and warm-start actions for the planner."""
+    """Batched expert: ``forward`` scans the cell over state sequences;
+    ``warm_carry`` and ``generate`` serve the planner its goal states and
+    warm-start actions."""
 
     def __init__(self, x_size: int, u_size: int, arch: str = "lstm",
                  features: int = 128, hidden: Sequence[int] = (128, 128)):
         super().__init__()
-        if arch != "lstm":
-            raise NotImplementedError(f"expert arch {arch!r} is not ported")
-        self.x_size, self.u_size, self.features = x_size, u_size, features
-        self.cell = LSTMCell(x_size, u_size, features, hidden)
+        self.x_size, self.u_size, self.arch, self.features = x_size, u_size, arch, features
+        if arch == "lstm":
+            self.cell = LSTMCell(x_size, u_size, features, hidden)
+        elif arch == "mlp":
+            self.cell = MLPCell(x_size, u_size, hidden)
+        else:
+            raise ValueError(f"unknown expert arch {arch!r}")
+
+    def init_carry(self, x0: torch.Tensor) -> Carry:
+        """The carry of fresh sequences starting at x0 (B, x)."""
+        if self.arch == "lstm":
+            zeros = x0.new_zeros((x0.shape[0], self.features))
+            return ((zeros, zeros), x0)
+        return (x0,)
+
+    def step(self, carry: Carry, x: torch.Tensor):
+        """One cell step reading ``x`` (B, x): (carry, next_x, u)."""
+        if self.arch == "lstm":
+            lstm_state, next_x, u = self.cell(carry[0], x)
+            return (lstm_state, next_x), next_x, u
+        next_x, u = self.cell(x)
+        return (next_x,), next_x, u
+
+    def forward(self, carry: Carry, xseq: torch.Tensor, teacher_forcing: bool):
+        """Scan over xseq (B, T, x): with ``teacher_forcing`` each step reads
+        the sequence's state, else the carry's last prediction. Returns
+        (carry, (next_xseq (B, T, x), useq (B, T, u)))."""
+        xs, us = [], []
+        for t in range(xseq.shape[1]):
+            carry, next_x, u = self.step(carry, xseq[:, t] if teacher_forcing else carry[-1])
+            xs.append(next_x)
+            us.append(u)
+        if not xs:  # an empty sequence (the history of a single state)
+            return carry, (xseq, xseq.new_zeros(xseq.shape[:2] + (self.u_size,)))
+        return carry, (torch.stack(xs, dim=1), torch.stack(us, dim=1))
 
     def warm_carry(self, history_x: torch.Tensor) -> Carry:
         """Teacher-forced replay of history_x (B, h+1, x): the carry poised
         at the current state (the last row), which seeds generation."""
-        B = history_x.shape[0]
-        zeros = history_x.new_zeros((B, self.features))
-        state = (zeros, zeros)
-        for t in range(history_x.shape[1] - 1):
-            state, _, _ = self.cell(state, history_x[:, t])
-        return state, history_x[:, -1]
+        carry = self.init_carry(history_x[:, 0])
+        carry, _ = self(carry, history_x[:, :-1], True)
+        return carry[:-1] + (history_x[:, -1],)
 
     def generate(self, carry: Carry, horizon: int):
         """Closed-loop rollout of the predicted future: goal states
         (B, horizon+1, x), with the current state first, and actions
         (B, horizon, u)."""
-        state, x = carry
-        xs, us = [x], []
-        for _ in range(horizon):
-            state, x, u = self.cell(state, x)
-            xs.append(x)
-            us.append(u)
-        return torch.stack(xs, dim=1), torch.stack(us, dim=1)
+        x_now = carry[-1]
+        placeholder = x_now.new_zeros((x_now.shape[0], horizon, self.x_size))
+        _, (next_xs, us) = self(carry, placeholder, False)
+        return torch.cat([x_now[:, None], next_xs], dim=1), us

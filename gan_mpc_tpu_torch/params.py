@@ -3,10 +3,12 @@
 ``from_jax_params`` loads the JAX policy's parameter tree (nested dicts
 of numpy arrays, as ``jax.device_get`` returns them) into an
 ``MPCPolicy``: Dense stacks in ``Dense_i`` index order with (in, out)
-kernels, the expert's ``OptimizedLSTMCell`` gate kernels and biases, and
-its prediction heads, and the critic's scanned cell and head.
-``dynamics_from_jax_params``, ``expert_from_jax_params`` and
-``critic_from_jax_params`` load one component alone.
+kernels, the expert's ``OptimizedLSTMCell`` gate kernels and biases (or
+its "mlp" arch's Dense trunk) and its prediction heads, and the critic's
+scanned cell and head. ``dynamics_from_jax_params``,
+``expert_from_jax_params`` and ``critic_from_jax_params`` load one
+component alone; ``expert_to_jax_params`` gives an expert's tree back, as
+an expert run saves it.
 
 ``load_msgpack`` reads a ``params.msgpack`` file as the JAX runners save it
 (``flax.serialization.msgpack_serialize``) into that nested dict, with a
@@ -87,9 +89,14 @@ def from_jax_params(tree: Mapping, policy: nn.Module) -> nn.Module:
 
 def expert_from_jax_params(tree: Mapping, expert: nn.Module) -> nn.Module:
     """Load a JAX ``expert_params`` tree (``{"params": {"_LSTMCell_0":
-    ...}}``) into an LSTM ``ExpertPredictor`` (in place; also returned)."""
-    cell = tree["params"]["_LSTMCell_0"]
-    _load_lstm_cell(expert.cell.lstm, cell["OptimizedLSTMCell_0"])
+    ...}}`` or ``{"params": {"_MLPCell_0": ...}}``) into an
+    ``ExpertPredictor`` of that arch (in place; also returned)."""
+    if expert.arch == "lstm":
+        cell = tree["params"]["_LSTMCell_0"]
+        _load_lstm_cell(expert.cell.lstm, cell["OptimizedLSTMCell_0"])
+    else:
+        cell = tree["params"]["_MLPCell_0"]
+        _load_dense_stack([expert.cell.trunk], {"Dense_0": cell["Dense_0"]})
     _load_dense_stack(expert.cell.heads.layers, cell["_PredictionHeads_0"])
     return expert
 
@@ -130,20 +137,32 @@ def _lstm_cell_tree(cell: OptimizedLSTMCell) -> dict:
     return tree
 
 
+def expert_to_jax_params(expert: nn.Module) -> dict:
+    """The inverse of ``expert_from_jax_params``: the flax tree of an
+    ``ExpertPredictor`` of either arch."""
+    cell = expert.cell
+    if expert.arch == "lstm":
+        return {"params": {"_LSTMCell_0": {
+            "OptimizedLSTMCell_0": _lstm_cell_tree(cell.lstm),
+            "_PredictionHeads_0": _dense_stack_tree(cell.heads.layers),
+        }}}
+    return {"params": {"_MLPCell_0": {
+        **_dense_stack_tree([cell.trunk]),
+        "_PredictionHeads_0": _dense_stack_tree(cell.heads.layers),
+    }}}
+
+
 def to_jax_params(policy: nn.Module) -> dict:
     """The inverse of ``from_jax_params``: ``policy``'s weights as the JAX
     ``build_policy`` tree (``mpc_weights``, ``cost_params``,
     ``dynamics_params``, ``expert_params``, and ``critic_params`` where the
     policy has a critic), numpy float32 arrays on the host."""
-    cost, expert = policy.cost_model, policy.expert_model
+    cost = policy.cost_model
     tree = {
         "mpc_weights": _np(cost.weights),
         "cost_params": {"params": _dense_stack_tree(cost.net.layers)},
         "dynamics_params": {"params": _dense_stack_tree(policy.dynamics_model.net.layers)},
-        "expert_params": {"params": {"_LSTMCell_0": {
-            "OptimizedLSTMCell_0": _lstm_cell_tree(expert.cell.lstm),
-            "_PredictionHeads_0": _dense_stack_tree(expert.cell.heads.layers),
-        }}},
+        "expert_params": expert_to_jax_params(policy.expert_model),
     }
     critic = getattr(policy, "critic_model", None)
     if critic is not None:

@@ -3,20 +3,19 @@
 Counterpart of ``gan_mpc_tpu/runners/common.py`` (the factories,
 ``solver_settings``, ``build_normalizer``, ``load_run_config``,
 ``imitator_env``, ``collection_fingerprint``, ``trajectories_path``,
-``imitator_model_dir``, ``record_solver_stats``) and of the shared
-``setup`` of ``gan_mpc_tpu/runners/l2.py``. Differences:
+``ensure_trajectories``, ``imitator_model_dir``, ``record_solver_stats``)
+and of the shared ``setup`` of ``gan_mpc_tpu/runners/l2.py``. As there,
+``setup`` reads the config's expert store, collecting it with the
+scripted expert where it is missing (``ensure_trajectories``), and the
+saved expert predictor, training one where none matches the store's data
+(``runners/expert.py``). Differences:
 
-  * the port never collects expert data: ``setup`` reads the store that
-    ``resolve_trajectories`` names (``env.trajectories_path``, else the
-    fingerprinted store under the workdir) and raises
-    ``FileNotFoundError`` where the JAX ``ensure_trajectories`` would
-    collect one (the collectors are not ported). The committed pendulum
-    runs' fingerprint names no committed store, so they are run with
-    ``env.trajectories_path``;
-  * the expert is read from a saved expert run; where the JAX ``setup``
-    trains one when none is saved, this one raises (the expert trainer is
-    not ported), unless ``mpc.train.init_from_run`` names a run whose
-    params replace it anyway;
+  * where ``mpc.train.init_from_run`` names a run, ``setup`` trains no
+    expert when none is saved: the run's params replace the expert anyway
+    (JAX trains one and then overwrites it, so the policy is the same);
+  * ``setup`` takes a store path of its own, read as it is (never
+    collected), which tests and the card's smoke run use for the
+    committed pendulum store; the expert trainer then reads that store;
   * ``solver_settings`` reads every knob ``SolverSettings`` has, where the
     JAX one leaves ``fused_ls``, ``num_alphas`` and ``compute_dtype`` at
     their defaults;
@@ -25,10 +24,10 @@ Counterpart of ``gan_mpc_tpu/runners/common.py`` (the factories,
     have no counterpart; ``check_supported`` refuses the settings whose
     paths are not ported.
 
-Weights are drawn flax-style (``params.init_flax_like``) from a
-``torch.Generator`` seeded with the config's seed; then the expert is read
-from the saved expert run, and every component replaced by a saved run's
-where ``mpc.train.init_from_run`` names one, as the JAX ``setup`` does.
+Random draws come from ``torch.Generator``s: the collection from one
+seeded with ``seed + 7`` (where JAX seeds its key), the expert trainer
+from one seeded with the config's seed, the policy's flax-style weights
+and the splits from the run's generator.
 """
 
 from __future__ import annotations
@@ -46,7 +45,11 @@ from gan_mpc_tpu_torch import resolve_device
 from gan_mpc_tpu_torch.config import Config
 from gan_mpc_tpu_torch.data.buffers import ReplayBuffer
 from gan_mpc_tpu_torch.data.normalizer import Normalizer
-from gan_mpc_tpu_torch.data.trajectories import TrajectorySet, load_trajectories
+from gan_mpc_tpu_torch.data.trajectories import (
+    TrajectorySet,
+    load_trajectories,
+    save_trajectories,
+)
 from gan_mpc_tpu_torch.data.windows import cost_windows, sequence_windows, shuffle_and_split
 from gan_mpc_tpu_torch.envs import apply_physics_shift, make_env
 from gan_mpc_tpu_torch.envs.rollout import policy_rollout
@@ -54,21 +57,18 @@ from gan_mpc_tpu_torch.models.cost import CostFeatureNet, MPCCost
 from gan_mpc_tpu_torch.models.critic import SequenceCritic
 from gan_mpc_tpu_torch.models.dynamics import LearnedDynamics, ResidualMLPDynamicsNet
 from gan_mpc_tpu_torch.models.expert import ExpertPredictor
-from gan_mpc_tpu_torch.params import (
-    expert_from_jax_params,
-    from_jax_params,
-    init_flax_like,
-    load_msgpack,
-)
+from gan_mpc_tpu_torch.params import from_jax_params, init_flax_like, load_msgpack
 from gan_mpc_tpu_torch.planner.ilqr import SolverSettings
 from gan_mpc_tpu_torch.policies.mpc import MPCPolicy
+from gan_mpc_tpu_torch.runners.collect import collect_expert_trajectories, expert_version
 from gan_mpc_tpu_torch.training.masking import masked_adam, policy_components
 from gan_mpc_tpu_torch.utils.metrics import solver_stats
 
-# The scripted experts' behaviour versions (``gan_mpc_tpu/runners/collect.py``),
-# folded into the collection fingerprint; cheetah's variant comes from
-# GMT_CHEETAH_EXPERT, read when the fingerprint is taken.
-EXPERT_VERSION = {"pendulum_swingup": 2, "humanoid_walk": 3, "walker_walk": 2}
+def split(generator: torch.Generator) -> torch.Generator:
+    """A new CPU generator seeded from one draw of ``generator``: what the
+    draw is used for cannot change the stream after it."""
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    return torch.Generator().manual_seed(seed)
 
 
 def build_cost_model(config: Config, horizon: int, x_size: int) -> MPCCost:
@@ -94,10 +94,14 @@ def build_dynamics_model(config: Config, x_size: int, u_size: int) -> LearnedDyn
 def build_expert_model_from_dict(mdict: dict, x_size: int, u_size: int) -> ExpertPredictor:
     """The expert from a model-config dict (the schema of an expert run's
     ``config.json``)."""
-    if mdict["use"] != "lstm":
-        raise NotImplementedError(f"expert model.use={mdict['use']!r} is not ported")
-    return ExpertPredictor(x_size, u_size, arch="lstm", features=mdict["lstm"]["features"],
-                           hidden=tuple(mdict["lstm"]["hidden"]))
+    use = mdict["use"]
+    if use == "lstm":
+        return ExpertPredictor(x_size, u_size, arch="lstm", features=mdict["lstm"]["features"],
+                               hidden=tuple(mdict["lstm"]["hidden"]))
+    if use == "mlp":
+        return ExpertPredictor(x_size, u_size, arch="mlp", features=0,
+                               hidden=tuple(mdict["mlp"]["hidden"]))
+    raise ValueError(f"expert model.use must be mlp|lstm, got {use!r}")
 
 
 def build_expert_model(config: Config, x_size: int, u_size: int) -> ExpertPredictor:
@@ -206,11 +210,12 @@ def imitator_model_dir(config: Config, family: str) -> str:
     return os.path.join(workdir, "trained_models", "imitator", config.env.name, family)
 
 
-def expert_version(env_name: str):
-    if env_name == "cheetah_run":
-        variant = os.environ.get("GMT_CHEETAH_EXPERT", "nominal")
-        return 2 if variant == "nominal" else f"2-{variant}"
-    return EXPERT_VERSION.get(env_name, 1)
+def collection_size(config: Config) -> int:
+    """The episodes a collection draws: ``env.collect_trajectories`` (more
+    than ``mpc.train.num_trajectories`` leaves the reward gate headroom),
+    at least ``num_trajectories`` and 4."""
+    num = config.mpc.train.num_trajectories
+    return max(config.get_path("env.collect_trajectories", num), num, 4)
 
 
 def collection_fingerprint(config: Config) -> str:
@@ -222,13 +227,11 @@ def collection_fingerprint(config: Config) -> str:
     payload = [config.env.name]
     payload += [f"{float(np.float32(getattr(params, f.name))):.9g}"
                 for f in dataclasses.fields(params)]
-    num = max(config.get_path("env.collect_trajectories", config.mpc.train.num_trajectories),
-              config.mpc.train.num_trajectories, 4)
     payload += [
         str(config.get_path("env.expert_episode_steps", 1000)),
         str(config.get_path("env.expert_noise", 0.25)),
         str(config.get_path("env.expert_reset_velocity", 0.0)),
-        str(num),
+        str(collection_size(config)),
         str(config.seed + 7),
         f"expert-v{expert_version(config.env.name)}",
     ]
@@ -256,17 +259,44 @@ def trajectories_path(config: Config) -> str:
 
 
 def resolve_trajectories(config: Config) -> str:
-    """The store a run reads (the JAX ``ensure_trajectories``' choice):
-    ``env.trajectories_path`` where set, else ``trajectories_path``. Raises
-    ``FileNotFoundError`` where the JAX package would collect it: expert
-    collection is not ported (ROADMAP Queue 1 item 8)."""
-    path = config.get_path("env.trajectories_path") or trajectories_path(config)
+    """The store a run reads: ``env.trajectories_path`` where set, else
+    ``trajectories_path``; whether it exists or not."""
+    return config.get_path("env.trajectories_path") or trajectories_path(config)
+
+
+def load_store(config: Config, path: str) -> TrajectorySet:
+    """The store at ``path`` through the reward gate of ``mpc.train``,
+    with a warning where fewer trajectories clear it than were asked for
+    (``load_trajectories`` raises only where none does)."""
+    tcfg = config.mpc.train
+    min_reward = tcfg.get_path("min_expert_reward", 500.0)
+    trajs = load_trajectories(path, num_trajectories=tcfg.num_trajectories,
+                              trajectory_len=tcfg.trajectory_len, min_reward=min_reward)
+    if trajs.states.shape[0] < tcfg.num_trajectories:
+        print(f"[trajectories] WARNING: only {trajs.states.shape[0]} of the requested "
+              f"{tcfg.num_trajectories} trajectories clear min_expert_reward={min_reward} "
+              f"in {path}; training proceeds on the smaller set; raise "
+              "env.collect_trajectories to restore oversampling headroom")
+    return trajs
+
+
+def ensure_trajectories(config: Config, device="cuda") -> TrajectorySet:
+    """The config's expert store (``resolve_trajectories``) through the
+    reward gate; where it is missing, first collected with the scripted
+    expert (``collection_size`` episodes of ``env.expert_episode_steps``
+    steps, ``env.expert_noise``, ``env.expert_reset_velocity``; draws from a
+    generator seeded with ``seed + 7``) on ``device`` and saved there."""
+    path = resolve_trajectories(config)
     if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"no expert trajectory store at {path!r}: the port does not collect expert "
-            "data (the collectors are not ported, ROADMAP Queue 1 item 8); set "
-            "env.trajectories_path to a store")
-    return path
+        trajs = collect_expert_trajectories(
+            make_env(config.env.name, device), collection_size(config),
+            torch.Generator().manual_seed(config.seed + 7),
+            num_steps=config.get_path("env.expert_episode_steps", 1000),
+            noise_sigma=config.get_path("env.expert_noise", 0.25),
+            reset_velocity_sigma=config.get_path("env.expert_reset_velocity", 0.0),
+        )
+        save_trajectories(path, trajs)
+    return load_store(config, path)
 
 
 # dm_control's suite tasks of the repo's envs (``gan_mpc_tpu/envs/dm_eval.py``)
@@ -292,17 +322,17 @@ def check_supported(config: Config) -> None:
     dm_control cross-evaluation where it would run (``dm_cross_eval_runs``)."""
     if dm_cross_eval_runs(config):
         raise NotImplementedError(
-            "the dm_control cross-evaluation (envs/dm_eval.py) is not ported (item 8 of "
+            "the dm_control cross-evaluation (envs/dm_eval.py) is not ported (item 8(c) of "
             "ROADMAP Queue 1); set mpc.evaluate.dm_control_episodes: 0")
     unported = [
         (config.get_path("runtime.fused_epochs", False), "runtime.fused_epochs: true",
-         "the fused epochs, item 9"),
+         "the fused epochs, item 9(a)"),
         (config.get_path("expert_prediction.dagger.rounds", 0) > 0,
-         "expert_prediction.dagger.rounds > 0", "DAgger, items 7-8"),
+         "expert_prediction.dagger.rounds > 0", "DAgger, item 7, after item 9(a)"),
         (config.get_path("mpc.evaluate.save_video", False), "mpc.evaluate.save_video: true",
-         "video, item 8"),
+         "video, item 8(c)"),
         (int(config.get_path("runtime.data_parallel_devices", 1) or 1) > 1,
-         "runtime.data_parallel_devices > 1", "data parallel, item 9"),
+         "runtime.data_parallel_devices > 1", "data parallel, item 9(b)"),
     ]
     for on, setting, item in unported:
         if on:
@@ -353,63 +383,44 @@ def load_saved_params(policy: MPCPolicy, run_dir: str) -> MPCPolicy:
     return from_jax_params(tree, policy)
 
 
-def load_saved_expert(config: Config, policy: MPCPolicy) -> MPCPolicy:
-    """The expert of the saved expert run ``mpc.model.expert.load_id`` (or
-    the newest), rebuilt from that run's own ``config.json``."""
-    base = expert_model_dir(config)
-    run_id = config.get_path("mpc.model.expert.load_id")
-    if run_id is None:
-        ids = [int(d) for d in os.listdir(base) if d.isdigit()]
-        if not ids:
-            raise FileNotFoundError(f"no expert runs under {base!r} (the expert trainer "
-                                    "is not ported, ROADMAP Queue 1 item 7)")
-        run_id = max(ids)
-    run_dir = os.path.join(base, str(run_id))
-    with open(os.path.join(run_dir, "config.json")) as fp:
-        mdict = json.load(fp)["model"]
-    old = policy.expert_model
-    expert = build_expert_model_from_dict(mdict, old.x_size, old.u_size)
-    expert_from_jax_params(load_msgpack(os.path.join(run_dir, "params.msgpack")), expert)
-    policy.expert_model = expert.requires_grad_(False).to(next(old.parameters()).device)
-    return policy
-
-
 def setup(config: Config, with_critic: bool, trajectories_path: Optional[str] = None,
           device="cuda", generator: Optional[torch.Generator] = None) -> dict:
-    """The L2 and GAN runners' shared setup (``runners/l2.py`` ``setup``)
-    on the store at ``trajectories_path`` (default: ``resolve_trajectories``):
-    the policy (weights of
-    ``mpc.train.init_from_run`` where set), the normalizer fitted on the
-    store, the cost windows split into train and test, the expert's
-    dynamics windows (train split), the imitator env, the replay buffer
-    and ``collect_fn(generator)``, the on-policy episode of the dynamics
-    phase with its exploration noise. The splits draw from ``generator``
-    (default: seeded with ``config.seed``). Returns a dict of them."""
+    """The L2 and GAN runners' shared setup (``runners/l2.py`` ``setup``):
+    the expert store (the one at ``trajectories_path`` where given, else
+    ``ensure_trajectories``), the normalizer fitted on it, the policy (its
+    expert the saved one that matches the store's data, else trained now;
+    every component of ``mpc.train.init_from_run`` where set), the cost
+    windows split into train and test, the expert's dynamics windows (train
+    split), the imitator env, the replay buffer and ``collect_fn(generator)``,
+    the on-policy episode of the dynamics phase with its exploration noise.
+    The weights and splits draw from ``generator`` (default: seeded with
+    ``config.seed``). Returns a dict of them."""
+    from gan_mpc_tpu_torch.runners import expert as expert_runner
+
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(config.seed)
     env = make_env(config.env.name, device)
     x_size, u_size = env.obs_size, env.act_size
     tcfg = config.mpc.train
-    path = trajectories_path or resolve_trajectories(config)
-    min_reward = tcfg.get_path("min_expert_reward", 500.0)
-    trajs = load_trajectories(path, num_trajectories=tcfg.num_trajectories,
-                              trajectory_len=tcfg.trajectory_len, min_reward=min_reward)
-    if trajs.states.shape[0] < tcfg.num_trajectories:
-        print(f"[trajectories] WARNING: only {trajs.states.shape[0]} of the requested "
-              f"{tcfg.num_trajectories} trajectories clear min_expert_reward={min_reward} "
-              f"in {path}; training proceeds on the smaller set")
+    if trajectories_path is None:
+        trajs = ensure_trajectories(config, device)
+    else:
+        trajs = load_store(config, trajectories_path)
     normalizer = build_normalizer(config, trajs, device)
 
     policy = build_policy(config, x_size, u_size, with_critic, device)
-    # the saved expert first (its model rebuilt from its own config.json),
-    # then a saved run over every component, as the JAX setup does
+    # the saved expert (its model rebuilt from its own config.json), else
+    # a new one trained on this store; then a saved run over every
+    # component, as the JAX setup does
     init_run = tcfg.get_path("init_from_run")
     try:
-        load_saved_expert(config, policy)
+        policy.expert_model = expert_runner.load_pretrained_expert(config, x_size, u_size,
+                                                                   device)
     except FileNotFoundError:
         if not init_run:
-            raise
+            policy.expert_model = expert_runner.run(config, log_fn=None, device=device,
+                                                    trajs=trajs)["model"]
     if init_run:
         load_saved_params(policy, init_run)
 

@@ -103,7 +103,7 @@ def run(config: Config, log_fn=print, device="cuda") -> dict:
     for epoch in range(start_epoch, config.mpc.train.num_epochs + 1):
         with profiler_trace(profile_dir if epoch == start_epoch else None), \
                 metrics.timed("epoch", epoch):
-            record = gan_epoch(ctx, opts, epoch, l2.split(generator))
+            record = gan_epoch(ctx, opts, epoch, common.split(generator))
         for name, values in record.items():
             history[name] += values
         metrics.record(epoch, episode_return=record["episode_returns"][-1],

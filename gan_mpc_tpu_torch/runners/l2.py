@@ -46,6 +46,7 @@ from gan_mpc_tpu_torch.envs.rollout import policy_rollout
 from gan_mpc_tpu_torch.params import to_jax_params
 from gan_mpc_tpu_torch.policies.losses import l2_imitation_loss
 from gan_mpc_tpu_torch.runners import common
+from gan_mpc_tpu_torch.runners.common import split
 from gan_mpc_tpu_torch.training.calibrate import DEFAULT_GRID, calibrate_action_goal_gain
 from gan_mpc_tpu_torch.training.cost import train_cost
 from gan_mpc_tpu_torch.training.dynamics import train_dynamics
@@ -57,13 +58,6 @@ from gan_mpc_tpu_torch.utils.metrics import MetricsRecorder, profiler_trace
 FRESH_EVAL_SEED = 987654321
 L2_HISTORY = ("dynamics_train_losses", "cost_train_losses", "cost_test_losses",
               "episode_returns")
-
-
-def split(generator: torch.Generator) -> torch.Generator:
-    """A new CPU generator seeded from one draw of ``generator``: what the
-    draw is used for cannot change the stream after it."""
-    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
-    return torch.Generator().manual_seed(seed)
 
 
 def checkpointer_for(config: Config, family: str) -> Optional[TrainCheckpointer]:

@@ -302,8 +302,9 @@ def test_policy_paths_outside_the_slice_raise():
     with pytest.raises(NotImplementedError, match="goal projection"):
         MPCPolicy(policy.cost_model, policy.dynamics_model, policy.expert_model,
                   goal_projection=2)
-    with pytest.raises(NotImplementedError, match="arch"):
-        ExpertPredictor(17, 6, arch="mlp")
+    # both of the JAX package's expert archs are ported; another raises there as here
+    with pytest.raises(ValueError, match="arch"):
+        ExpertPredictor(17, 6, arch="gru")
 
     class Recurrent(nn.Module):  # stands in for the LSTM dynamics net
         x_size, carry_size = 17, 256

@@ -11,7 +11,7 @@
     against ``msgpack_serialize`` on ints, scalars and maps of every
     header size;
   * ``collection_fingerprint`` and ``trajectories_path`` equal to JAX's
-    strings, and ``imitator_env``'s env and shifted knobs equal to JAX's
+    strings, the store resolver naming the store without collecting it, and ``imitator_env``'s env and shifted knobs equal to JAX's
     (rtol 1e-6), for every committed config of an env the port has;
   * ``moment_distance`` (rtol 1e-5) and ``calibrate_action_goal_gain``
     with 4 and 5 raw weights against JAX on the same states: the same
@@ -158,10 +158,11 @@ def test_imitator_env_matches_jax(path):
 
 
 def test_store_resolver_names_the_store_and_never_collects(tmp_path):
+    """The resolver names the store a run reads, present or not, and
+    collects nothing (``ensure_trajectories`` collects)."""
     pcfg = Config.from_yaml(str(REPO / "configs" / "gan_pendulum.yaml")).replace(
         runtime__workdir=str(tmp_path))
-    with pytest.raises(FileNotFoundError, match="does not collect"):
-        common.resolve_trajectories(pcfg)
+    assert common.resolve_trajectories(pcfg) == common.trajectories_path(pcfg)
     assert not (tmp_path / "expert_trajectories").exists()
     store = str(REPO / "runs/expert_trajectories/pendulum_swingup/trajectories-f690b23776.gmts")
     assert common.resolve_trajectories(pcfg.replace(env__trajectories_path=store)) == store

@@ -15,13 +15,16 @@ by 1 + 1e-7 moves an action by up to 0.2. The test uses a reset key
 (42) whose 8 lanes stay clear of flips for the 3 steps, and checks that
 itself: JAX against itself from resets scaled by 1 +- 1e-7 moves no action
 by 5e-3. (A flip moves one by 1e-2 or more; rounding carried through the
-stiff ground contact moves them by about 1e-3 at the third step.) On that
-key the port agrees to about 1e-4 in actions and states.
+stiff ground contact moves them by about 1e-3 at the third step.) So each
+quantity is held per step to max(its tolerance, 2 x JAX's own spread under
+those nudges): at the third step the port's states sit 1.44e-3 from JAX's,
+where JAX's own nudges move them by 1.40e-3.
 
 Also: the port (the control path, the dynamics trainer, a cost-trainer
-step, the committed run gan/9 loaded and continued by a cut GAN epoch, and
-a tiny L2 training run from config to saved run) runs with JAX, flax and
-the JAX package made unimportable, and its entry
+step, the committed run gan/9 loaded and continued by a cut GAN epoch, a
+tiny L2 training run from config to saved run, and a tiny GAN run from an
+empty workdir, which collects its expert store and trains its expert)
+runs with JAX, flax and the JAX package made unimportable, and its entry
 points run on the card unless asked for the CPU.
 """
 
@@ -89,9 +92,9 @@ def test_closed_loop_rollout_matches_jax():
     ref = jax_rollout(jenv)
     # the key's lanes stay clear of line-search flips: rounding-sized
     # changes to the resets move JAX's own actions by less than a flip would
-    for scale in (1 + 1e-7, 1 - 1e-7):
-        nudged = jax_rollout(_NudgedResets(jenv, scale))
-        assert np.abs(np.asarray(nudged.actions) - np.asarray(ref.actions)).max() < 5e-3
+    nudged = [jax_rollout(_NudgedResets(jenv, scale)) for scale in (1 + 1e-7, 1 - 1e-7)]
+    for n in nudged:
+        assert np.abs(np.asarray(n.actions) - np.asarray(ref.actions)).max() < 5e-3
     # the JAX rollout's own resets: split(split(key)[0], num_envs)
     resets = jax.vmap(lambda k: jenv.reset(jenv.default_params(), k))(
         jax.random.split(jax.random.split(key)[0], B)
@@ -110,10 +113,11 @@ def test_closed_loop_rollout_matches_jax():
     for t in range(steps):
         for name, atol in [("states", 1e-3), ("actions", 1e-3), ("qpos", 1e-3),
                            ("qvel", 1e-3), ("rewards", 1e-4)]:
+            want = np.asarray(getattr(ref, name))[:, t]
+            spread = max(np.abs(np.asarray(getattr(n, name))[:, t] - want).max() for n in nudged)
             np.testing.assert_allclose(
-                getattr(got, name)[:, t].numpy(),
-                np.asarray(getattr(ref, name))[:, t],
-                rtol=0, atol=atol, err_msg=f"{name} at step {t}",
+                getattr(got, name)[:, t].numpy(), want,
+                rtol=0, atol=max(atol, 2 * spread), err_msg=f"{name} at step {t}",
             )
     assert np.all(np.isfinite(got.states.numpy()))
 
@@ -232,6 +236,15 @@ BLOCKED_RUN = textwrap.dedent(
     out = l2.run(cfg, log_fn=None, device="cpu")
     assert sorted(load_params(os.path.join(out["run_dir"], "params.msgpack"))) == [
         "cost_params", "dynamics_params", "expert_params", "mpc_weights"]
+
+    # a tiny GAN run from an empty workdir: runners.collect collects its
+    # store, runners.expert trains its expert
+    cfg = Config.from_yaml_str(TINY_YAML).replace(
+        runtime__workdir=os.path.join(work, "fresh"), env__expert_episode_steps=200,
+        mpc__evaluate__max_interactions=15, mpc__evaluate__fresh_eval_episodes=2)
+    gan.run(cfg, log_fn=None, device="cpu")
+    assert os.path.exists(common.trajectories_path(cfg))
+    assert os.listdir(common.expert_model_dir(cfg)) == ["0"]
     assert not [m for m in sys.modules if blocked(m)]
     print("imported", len(mods), "modules")
     """
