@@ -46,9 +46,11 @@ Phases, in order; any failure raises and exits non-zero:
        3->128->128->10, loaded by runners.common as phase 8 loads them)
        at the rows phase 8 gives them (serving 16 envs x 16 step sizes =
        256 and 16; the critic's dataset 4096 and 256; a generator step 2048
-       and 128; the 1-env collection 16 and 1), and fused_mlp_bwd on its
-       dynamics at 128 rows (the dynamics trainer, the implicit gradient's
-       rollout pullback);
+       and 128; the 1-env collection 16 and 1) and phase 12 gives them
+       (the critic's dataset and the test split 64 histories x 16 = 1024
+       and 64; the 4-env collection, evaluations and DAgger rollout 64 and
+       4), and fused_mlp_bwd on its dynamics at 128 rows (the dynamics
+       trainer, the implicit gradient's rollout pullback);
   3. time kernels and plain versions with CUDA events (median of 21 runs
      of 20 back-to-back launches, queued behind a device sleep so that
      host overhead is not timed), and compute each call's bound: the
@@ -197,6 +199,36 @@ Phases, in order; any failure raises and exits non-zero:
      1e-5), at least half the entries so checked, the rest printed. Prints
      the wall time of the collection, the expert's training and
      evaluation, the epoch and the phase.
+ 12. the fused epochs and a DAgger round: ``runners.gan.run`` on
+     configs/gan_pendulum_rung5b.yaml (continued from gan/9, 4 envs, H=10,
+     iLQR <= 30, gan/9's widths) with ``G12_CUTS`` (2 fused epochs of 20
+     collection steps and 1 dynamics pass, evaluation every epoch on 4
+     envs of 10 steps, one DAgger round: 4 policy episodes, 32 segments of
+     50 steps, 1 fine-tune epoch, 1 extra fused epoch; checkpoints every
+     epoch) in a temporary workdir on phase 8's store, interrupted on the
+     "[gan/fused] epoch 1 " line and resumed; then ``runners.l2.run`` on
+     configs/l2_pendulum.yaml with ``G12_L2_CUTS`` (1 fused epoch, iLQR
+     <= 10; setup trains the expert). Checks: both MLP kernels' launches
+     equal to what the recorded solves and update steps reckon, none of
+     fused_ls_step; the metrics files' fused rows (epochs 1, 2 and the
+     extra epoch 1; one DAgger row) and every value finite; the resumed
+     run restarting at epoch 2; each saved run reloaded bitwise; DAgger's
+     expert segments on the card against the CPU from the same picked
+     (qpos, qvel) and noise (phase 11's check: within twice the CPU's
+     spread under nudges of the starts); the fused dynamics phase's first
+     4 steps from the run's own replay, params and optimizer state on the
+     card against the CPU (loss within max(1e-5 |loss|, twice the CPU's
+     spread under 1 +- 1e-7 scalings of the replay's states and 1 +- 1e-6
+     of the weights), the params' updates within max(1e-7, twice the
+     spread)). Prints the wall time of each
+     fused epoch beside phase 8's modular epoch, of each piece (the
+     collection, dynamics, critic dataset and updates, generator or cost
+     steps, test metrics, DAgger's rollout, segments and fine-tune,
+     evaluations) and of the phase.
+     After each of phases 6-12, both MLP kernels are held against their
+     plain versions (as in phase 2) at every (stack, rows) pair that the
+     phase's runs gave them and no earlier phase's check held, on the
+     runs' own weights (``shapes_recorded``, ``check_recorded``).
      Then the script's total wall time.
 The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Exits 1 without a CUDA device.
@@ -303,10 +335,12 @@ LS_WEIGHTS = [
 # fitted on (the JAX runner's ensure_trajectories would collect a new one)
 GAN9 = "runs/trained_models/imitator/pendulum_swingup/gan/9"
 GAN9_STORE = "runs/expert_trajectories/pendulum_swingup/trajectories-f690b23776.gmts"
-# gan/9's stacks at the rows phase 8 gives them: the critic's dataset 256
-# histories x 16 step sizes and 256, a generator step 128 x 16 and 128,
-# serving 16 envs x 16 and 16, the 1-env collection 16 and 1
-G9_ROWS = (4096, 2048, 256, 128, 16, 1)
+# gan/9's stacks at the rows phases 8 and 12 give them: the critic's dataset
+# 256 histories x 16 step sizes and 256, a generator step 128 x 16 and 128,
+# serving 16 envs x 16 and 16, the 1-env collection 16 and 1; phase 12's
+# critic dataset and test split 64 x 16 and 64, its 4-env collection,
+# evaluations and DAgger rollout 4 x 16 and 4
+G9_ROWS = (4096, 2048, 1024, 256, 128, 64, 16, 4, 1)
 G9_TIMED = [("dynamics", 256), ("dynamics", 4096), ("dynamics", 2048), ("dynamics", 128),
             ("cost", 256), ("cost", 4096)]
 SERVE_ENVS, SERVE_STEPS = 16, 200  # swing-up takes about 160 steps
@@ -331,7 +365,8 @@ G9_RUN_CUTS = dict(G9_CUTS, mpc__train__num_epochs=2,  # of 9
                    mpc__model__cost__gain_grid=[1.0, 1.4],
                    mpc__model__cost__weights__action_goal_gain=1.0,
                    runtime__checkpoint={"every_epochs": 1, "keep": 2},
-                   # of 2: the JAX modular loop runs no DAgger round, the port refuses them
+                   # of 2: the modular loop runs no DAgger round, as JAX's does not (the
+                   # fused runs do: phase 12)
                    expert_prediction__dagger__rounds=0)
 # cost windows (history 1, H=10) of the whole normalized store: 8 whose
 # plans move by less than 5e-5 under rounding-sized nudges, and 16 whose
@@ -375,6 +410,44 @@ G11_REPRODUCIBLE = 1e-3  # the CPU's own spread of a lane's states up to which i
 # ulp; on an H100 it reached 1.8x the spread of the 1e-7 and 2e-7 nudges
 # where a lane nears a contact event)
 G11_WIDE_NUDGES = (1 + 5e-7, 1 - 5e-7)
+# phase 12: the fused epochs and a DAgger round. The GAN run is
+# configs/gan_pendulum_rung5b.yaml (continued from gan/9, on phase 8's store)
+# with these cuts (the rest is the config's own: 4 envs, H=10, iLQR <= 30,
+# gan/9's widths, 20 warm-start and 6 expert-refresh dynamics passes, 3
+# generator steps of 128 histories, the critic on 64):
+G12_CONFIG = "configs/gan_pendulum_rung5b.yaml"
+G12_CUTS = dict(
+    mpc__evaluate__dm_control_episodes=0,  # of 10: the cross-evaluation is not ported
+    mpc__train__num_epochs=2,  # of 9
+    mpc__train__dynamics__max_interactions_per_episode=20,  # of 300
+    mpc__train__dynamics__num_updates=1,  # of 12 passes of 61 minibatch steps
+    mpc__evaluate__every_epochs=1,  # of 3
+    mpc__evaluate__max_interactions=10,  # of 1000: evaluations and DAgger's policy episodes
+    mpc__evaluate__midrun_episodes=4,  # of 16
+    mpc__evaluate__candidate_pool=2,  # of 6
+    mpc__evaluate__selection_episodes=4,  # of 16
+    mpc__evaluate__num_runs_for_avg=4,  # of 16
+    mpc__evaluate__fresh_eval_episodes=4,  # of 16 (the default)
+    expert_prediction__dagger__rounds=1,  # of 2
+    expert_prediction__dagger__policy_episodes=4,  # of 8
+    expert_prediction__dagger__num_segments=32,  # of 384
+    expert_prediction__dagger__segment_steps=50,  # of 200
+    expert_prediction__dagger__finetune_epochs=1,  # of 8
+    expert_prediction__dagger__extra_epochs=1,  # of 15
+    runtime__checkpoint={"every_epochs": 1, "keep": 2},  # of every 10
+)
+# the L2 run: configs/l2_pendulum.yaml (random cost and dynamics, H=5, 1 env)
+# on the same store, with these cuts
+G12_L2_CONFIG = "configs/l2_pendulum.yaml"
+G12_L2_CUTS = dict(
+    mpc__solver__max_iterations=10,  # of 100 (random weights)
+    mpc__train__num_epochs=1,  # of 2
+    mpc__train__dynamics__max_interactions_per_episode=20,  # of 300
+    mpc__evaluate__max_interactions=10,  # of 1000
+    mpc__evaluate__fresh_eval_episodes=2,  # of 16 (the default)
+    expert_prediction__train__num_epochs=1,  # of 40, where setup trains the expert
+)
+G12_DYN_CHECK_STEPS = 4  # the fused dynamics phase held card against CPU over its first steps
 H50_STEPS = 10
 H50_CHECK_ENVS = 16  # the card-against-CPU plan
 # The random-weight row is chaotic at H=50: its dynamics grow every
@@ -953,9 +1026,10 @@ def solves_recorded():
         mpc.batch_ilqr = bilevel.batch_ilqr = original
 
 
-def gan9_phase(kernels, card_line, dev):
+def gan9_phase(kernels, card_line, dev, wall):
     """Phase 8: gan/9 loaded as the GAN runner loads it, served closed
-    loop, then continued by one GAN epoch. Returns the launches of each."""
+    loop, then continued by one GAN epoch. Returns the launches of each;
+    keeps the epoch's wall seconds in ``wall`` for phase 12."""
     from gan_mpc_tpu_torch.envs.rollout import batch_policy_rollout
     from gan_mpc_tpu_torch.planner.batch_ilqr import mlp_calls_per_solve
     from gan_mpc_tpu_torch.runners import common, gan
@@ -1043,6 +1117,7 @@ def gan9_phase(kernels, card_line, dev):
             record = gan.gan_epoch(ctx, opts, 1, gen)
             torch.cuda.synchronize()
             epoch_s = time.perf_counter() - t0
+            wall["gan/9 modular epoch"] = epoch_s
     finally:
         for name, fn in originals.items():
             setattr(gan, name, fn)
@@ -1426,9 +1501,25 @@ def check_collector(cfg, dev):
             env, n, num_steps=T, init_state=start, noise=noise,
             noise_sigma=cfg.get_path("env.expert_noise", 0.25))
 
-    cpu, gpu = run(env_c), run(env_g, device=dev)
-    nudged = [run(env_c, s) for s in G11_NUDGES]
-    wide = nudged + [run(env_c, s) for s in G11_WIDE_NUDGES]
+    gpu = run(env_g, device=dev)
+    hold_against_cpu("collector", "the store's draws", gpu, run(env_c),
+                     [run(env_c, s) for s in G11_NUDGES],
+                     [run(env_c, s) for s in G11_WIDE_NUDGES])
+    return gpu
+
+
+def hold_against_cpu(label, draws, gpu, cpu, nudged, wide):
+    """Hold a scripted expert's rollout on the card (``gpu``, a
+    ``TrajectorySet`` of n lanes x T steps) against the CPU's (``cpu``)
+    from the same start states and noise: each lane at the steps before
+    the CPU's own spread of its states under the ``nudged`` runs (its
+    start states scaled by 1 +- 1e-7 and 1 +- 2e-7) first reaches
+    ``G11_REPRODUCIBLE``, within max(base, twice the spread under those
+    and the ``wide`` nudges) over the checked lanes; at least half the
+    entries checked, the rest printed. Returns the largest checked
+    deviation as a share of its tolerance."""
+    n, T = cpu.states.shape[:2]
+    wide = nudged + wide
 
     def moves(field, runs):  # (n, T): the card's and the nudged CPU runs' largest moves
         want = getattr(cpu, field)
@@ -1437,10 +1528,10 @@ def check_collector(cfg, dev):
 
     checked = np.maximum.accumulate(moves("states", nudged)[1], axis=1) < G11_REPRODUCIBLE
     fmt = lambda a: " ".join(f"{v:.2e}" for v in a)
-    print(f"  collector GPU vs CPU ({n} envs x {T} steps, the store's draws): checked "
+    print(f"  {label} GPU vs CPU ({n} envs x {T} steps, {draws}): checked "
           f"{int(checked.sum())} of {n * T} (env, step) entries, {int(checked.all(1).sum())} "
           f"envs at every step (the CPU's own spread of their states under 1 +- 1e-7 and "
-          f"1 +- 2e-7 nudges of the resets below {G11_REPRODUCIBLE})")
+          f"1 +- 2e-7 nudges of the starts below {G11_REPRODUCIBLE})")
     worst = 0.0
     for field, base in (("states", 1e-4), ("actions", 1e-4), ("executed_actions", 1e-4),
                         ("rewards", 1e-5)):
@@ -1452,11 +1543,11 @@ def check_collector(cfg, dev):
               f"all envs (not checked) max|d| [{fmt(d.max(0))}], the CPU's own spread "
               f"under nudges up to 5e-7 [{fmt(spread.max(0))}]")
         if np.any(checked & (d > tol[None])):
-            raise SystemExit(f"the expert collector on the card disagrees with the CPU: {field}")
+            raise SystemExit(f"the {label} on the card disagrees with the CPU: {field}")
     print(f"    largest checked max|d| / atol: {worst:.3f}")
     if checked.mean() < 0.5:
-        raise SystemExit("fewer than half the collector's entries are reproducible on the CPU")
-    return gpu
+        raise SystemExit(f"fewer than half the {label}'s entries are reproducible on the CPU")
+    return worst
 
 
 def fresh_run_phase(kernels, card_line, dev):
@@ -1570,6 +1661,340 @@ def fresh_run_phase(kernels, card_line, dev):
           f"bitwise: {same}; check {time.perf_counter() - t0:.1f} s")
     print(f"phase 11 wall time {time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+@contextlib.contextmanager
+def shapes_recorded():
+    """Inside the block every call of the two MLP kernels' wrappers records
+    its stack and rows: {(kernel, widths, rows): the stack's weights at the
+    first such call (detached copies)}. One dictionary lookup per call."""
+    from gan_mpc_tpu_torch.ops import fused_mlp
+
+    seen = {}
+
+    def recording(name):
+        def wrap(original):
+            def call(self, x, layers, *rest):
+                key = (name, tuple([x.shape[1]] + [w.shape[1] for w, _ in layers]),
+                       x.shape[0])
+                if key not in seen:
+                    seen[key] = [(w.detach().clone(), b.detach().clone()) for w, b in layers]
+                return original(self, x, layers, *rest)
+            return call
+        return wrap
+
+    with wrapped(fused_mlp.FusedMlpKernel, "__call__", recording("fused_mlp_fwd")), \
+            wrapped(fused_mlp.FusedMlpBwdKernel, "__call__", recording("fused_mlp_bwd")):
+        yield seen
+
+
+def check_recorded(label, seen, checked, rng, dev, max_err):
+    """Each MLP kernel held against its plain version at every (stack,
+    rows) that ``seen`` (``shapes_recorded``) holds and ``checked`` does
+    not, on the run's own weights: the forward on standard normal rows
+    within 1e-4 max(1, max|ref|) (as phase 2), the backward by
+    ``check_backward``. Adds the keys to ``checked``."""
+    from gan_mpc_tpu_torch.ops.fused_mlp import fused_mlp_forward, reference_forward
+
+    new = sorted(k for k in seen if k not in checked)
+    print(f"{label}: the MLP kernels at the {len(new)} (stack, rows) pairs of {len(seen)} "
+          f"its runs gave them that no earlier check held, on the runs' weights")
+    for key in new:
+        name, widths, rows = key
+        layers = seen[key]
+        if name == "fused_mlp_bwd":
+            err = check_backward(label, layers, rows, rng, dev) if rows else 0.0
+        else:
+            x = torch.tensor(rng.standard_normal((rows, widths[0])), dtype=torch.float32,
+                             device=dev)
+            got, ref = fused_mlp_forward(x, layers), reference_forward(x, layers)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item() if rows else 0.0
+            tol = 1e-4 * max(1.0, ref.abs().max().item() if rows else 0.0)
+            print(f"check fused_mlp_fwd {label} {list(widths)} rows={rows}: "
+                  f"max|d|={err:.3e} bound={tol:.3e}")
+            if not (err <= tol and tuple(got.shape) == tuple(ref.shape)):
+                raise SystemExit(f"fused_mlp_fwd disagrees with plain version at {label}'s "
+                                 f"stack {list(widths)}, {rows} rows")
+        max_err[name] = max(max_err[name], err)
+        checked.add(key)
+
+
+@contextlib.contextmanager
+def wrapped(module, name, wrapper):
+    """Inside the block ``module.name`` is ``wrapper(original)``."""
+    original = getattr(module, name)
+    setattr(module, name, wrapper(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def check_fused_dynamics(snap, cfg, dev):
+    """The fused epoch's dynamics phase (``fused_epoch.dynamics_steps``)
+    on the card against the CPU: from the replay, the dynamics params, the
+    optimizer's state and the first ``G12_DYN_CHECK_STEPS`` rows of
+    ``dyn_perm`` that the run's first fused epoch started from. The mean
+    loss within max(1e-5 |loss|, twice the CPU's own spread) and the
+    params' updates within max(1e-7, twice the spread), the spread under
+    the replay's states scaled by 1 +- 1e-7 and the dynamics weights by
+    1 +- 1e-6 (the kernels' split-TF32 products are a few 1e-6 off f32
+    ones, phase 2)."""
+    import copy
+    from types import SimpleNamespace
+
+    from gan_mpc_tpu_torch.data.buffers import ReplayBuffer
+    from gan_mpc_tpu_torch.runners import common
+    from gan_mpc_tpu_torch.training import fused_epoch
+    from gan_mpc_tpu_torch.training.masking import masked_adam
+
+    dcfg = cfg.mpc.train.dynamics
+
+    def run(device, scale=1.0, w_scale=1.0):
+        model = common.build_dynamics_model(cfg, 3, 1).to(device)
+        with torch.no_grad():
+            for p, q in zip(model.parameters(), snap["params"]):
+                p.copy_(q * w_scale)
+        opt = masked_adam({"dynamics_params": list(model.parameters())}, [], dcfg.learning_rate)
+        opt.load_state_dict(copy.deepcopy(snap["opt"]))  # loading keeps same-device tensors
+        states, actions, next_states = (t.to(device) for t in snap["replay"])
+        replay = ReplayBuffer(states * scale, actions, next_states * scale,
+                              size=states.shape[0])
+        start = [p.detach().clone() for p in model.parameters()]
+        loss = fused_epoch.dynamics_steps(SimpleNamespace(dynamics_model=model), opt, replay,
+                                          snap["dyn_perm"], snap["gamma"],
+                                          snap["teacher_forcing"])
+        return loss, [(p.detach() - q).cpu() for p, q in zip(model.parameters(), start)]
+
+    l_gpu, p_gpu = run(dev)
+    l_cpu, p_cpu = run("cpu")
+    spread_l, spread_p = 0.0, 0.0
+    for kw in (dict(scale=1 + 1e-7), dict(scale=1 - 1e-7), dict(w_scale=1 + 1e-6),
+               dict(w_scale=1 - 1e-6)):
+        l_n, p_n = run("cpu", **kw)
+        spread_l = max(spread_l, abs(l_n - l_cpu))
+        spread_p = max(spread_p, max((a - b).abs().max().item() for a, b in zip(p_n, p_cpu)))
+    d_l = abs(l_gpu - l_cpu)
+    d_p = max((a - b).abs().max().item() for a, b in zip(p_gpu, p_cpu))
+    tol_l, tol_p = max(1e-5 * abs(l_cpu), 2 * spread_l), max(1e-7, 2 * spread_p)
+    print(f"  fused dynamics phase GPU vs CPU ({len(snap['dyn_perm'])} steps of "
+          f"{snap['dyn_perm'].shape[1]} replay windows of {snap['replay'][0].shape[0]}, "
+          f"teacher forcing {snap['teacher_forcing']}): loss {l_gpu:.7g} vs {l_cpu:.7g} "
+          f"(|d| {d_l:.2e}, tol {tol_l:.2e}, the CPU's own spread {spread_l:.2e}); the "
+          f"params' updates (largest {max(u.abs().max().item() for u in p_cpu):.2e}) max|d| "
+          f"{d_p:.2e} (tol {tol_p:.2e}, the CPU's own spread {spread_p:.2e})")
+    if not (d_l <= tol_l and d_p <= tol_p):
+        raise SystemExit("the fused dynamics phase on the card disagrees with the CPU")
+
+
+def check_dagger_segments(seg, dev):
+    """DAgger's expert segments of the run (the card's) against the CPU's
+    from the same picked (qpos, qvel) and noise (``hold_against_cpu``)."""
+    from gan_mpc_tpu_torch.envs import EnvState, make_env
+    from gan_mpc_tpu_torch.runners import collect
+
+    n, kw, gpu = seg
+    init, env_c = kw["init_state"], make_env("pendulum_swingup", "cpu")
+
+    def run(scale=1.0):
+        start = EnvState(qpos=init.qpos.cpu() * scale, qvel=init.qvel.cpu() * scale,
+                         t=init.t.cpu())
+        return collect.collect_expert_trajectories(
+            env_c, n, num_steps=kw["num_steps"], noise_sigma=kw["noise_sigma"],
+            init_state=start, noise=kw["noise"].cpu())
+
+    return hold_against_cpu("DAgger expert segments", "the run's picks and noise", gpu, run(),
+                            [run(s) for s in G11_NUDGES], [run(s) for s in G11_WIDE_NUDGES])
+
+
+def fused_phase(kernels, card_line, dev, wall):
+    """Phase 12: the fused epochs and a DAgger round. ``runners.gan.run`` on
+    ``G12_CONFIG`` with ``G12_CUTS`` (interrupted after fused epoch 1,
+    resumed: epoch 2, the DAgger round and its extra fused epoch, the end),
+    then ``runners.l2.run`` on ``G12_L2_CONFIG`` with ``G12_L2_CUTS``, each
+    in a temporary workdir on phase 8's store; their launches against the
+    recorded solves and update steps, their metrics files, the resume and
+    the saved run; then DAgger's expert segments and the fused dynamics
+    phase card against CPU. Prints each fused epoch's wall time beside
+    phase 8's modular epoch (``wall``). Returns each run's launches."""
+    import copy
+    import os
+    import tempfile
+
+    from gan_mpc_tpu_torch.config import Config
+    from gan_mpc_tpu_torch.params import to_jax_params
+    from gan_mpc_tpu_torch.planner.batch_ilqr import mlp_calls_per_solve
+    from gan_mpc_tpu_torch.runners import collect, common, expert, gan, l2
+    from gan_mpc_tpu_torch.training import critic, fused_epoch
+
+    t_phase = time.perf_counter()
+
+    class Interrupted(RuntimeError):
+        pass
+
+    logs = []
+
+    def log(msg):
+        print(f"  {msg}")
+        logs.append(msg)
+
+    def log_crashing(msg):
+        log(msg)
+        if msg.startswith("[gan/fused] epoch 1 "):
+            raise Interrupted(msg)
+
+    captured = {}
+
+    def capture_segments(original):
+        def segments(env, n, **kw):
+            out = original(env, n, **kw)
+            captured["segments"] = (n, kw, out)
+            return out
+        return segments
+
+    def capture_dynamics(original):
+        def dynamics_steps(policy, optimizer, replay, dyn_perm, gamma, teacher_forcing,
+                           *args, **kw):
+            if "dynamics" not in captured:
+                n = max(replay.size, 1)
+                captured["dynamics"] = dict(
+                    params=[p.detach().cpu().clone() for p in policy.dynamics_model.parameters()],
+                    opt=copy.deepcopy(optimizer.state_dict()),
+                    replay=tuple(t[:n].cpu().clone() for t in (replay.states, replay.actions,
+                                                                replay.next_states)),
+                    dyn_perm=dyn_perm[:G12_DYN_CHECK_STEPS].cpu(), gamma=gamma,
+                    teacher_forcing=teacher_forcing)
+            return original(policy, optimizer, replay, dyn_perm, gamma, teacher_forcing,
+                            *args, **kw)
+        return dynamics_steps
+
+    def timed_epochs(original):
+        def make(*args, **kw):
+            epoch = original(*args, **kw)
+
+            def timed(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = epoch(*a, **k)
+                torch.cuda.synchronize()
+                epochs.append(time.perf_counter() - t0)
+                return out
+            return timed
+        return make
+
+    pieces = [(fused_epoch, "collect_episode", "collection"),
+              (fused_epoch, "dynamics_steps", "dynamics"),
+              (fused_epoch, "critic_dataset", "critic dataset"),
+              (critic, "update_pass", "critic updates"),
+              (fused_epoch, "cost_steps", "generator or cost"),
+              (fused_epoch, "gan_test_metrics", "test metrics"),
+              (fused_epoch, "l2_test_metric", "test metrics"),
+              (collect, "policy_rollout", "DAgger rollout"),
+              (collect, "collect_expert_trajectories", "expert segments"),
+              (gan, "train_expert", "DAgger fine-tune"),
+              (expert, "train_expert", "expert training")]
+    results = {}
+    for family, config, cuts in (("gan", G12_CONFIG, G12_CUTS), ("l2", G12_L2_CONFIG,
+                                                                  G12_L2_CUTS)):
+        epochs = []
+        with tempfile.TemporaryDirectory() as workdir:
+            cfg = Config.from_yaml(config).replace(runtime__workdir=workdir,
+                                                   env__trajectories_path=GAN9_STORE, **cuts)
+            print(f"fused {family} run ({config} in a temporary workdir on {GAN9_STORE}, one "
+                  f"GPU: {card_line}); cuts {cuts}")
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            with wrapped(collect, "collect_expert_trajectories", capture_segments), \
+                    wrapped(fused_epoch, "dynamics_steps", capture_dynamics), \
+                    wrapped(l2, "make_fused_epoch", timed_epochs), \
+                    solves_recorded() as trips, update_steps_recorded() as steps, \
+                    run_watched(pieces) as timed:
+                if family == "gan":
+                    try:
+                        gan.run(cfg, log_fn=log_crashing, device=dev)
+                        raise SystemExit("the fused GAN run was not interrupted after epoch 1")
+                    except Interrupted:
+                        pass
+                    if l2.checkpointer_for(cfg, "gan").latest_step() != 1:
+                        raise SystemExit("the interrupted fused GAN run left no epoch-1 "
+                                         "checkpoint")
+                    out = gan.run(cfg, log_fn=log, device=dev)
+                else:
+                    out = l2.run(cfg, log_fn=log, device=dev)
+                torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts = {name: k.launches for name, k in kernels.items()}
+            H = cfg.mpc.horizon
+            solves = dict(mlp_calls_per_solve(H, sum(trips), solves=len(trips),
+                                              materialize=False))
+            expected = {"fused_mlp_fwd": solves["fused_mlp_fwd"] + H * steps["dynamics"]
+                        + (H + 1) * steps["cost"], "fused_ls_step": 0,
+                        "fused_mlp_bwd": H * (steps["dynamics"] + steps["cost"])}
+            with open(os.path.join(workdir, "metrics", cfg.env.name, f"{family}.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            cleared = l2.checkpointer_for(cfg, family) is None or \
+                l2.checkpointer_for(cfg, family).latest_step() is None
+            trained_expert = os.path.isdir(common.expert_model_dir(cfg))
+            reloaded = to_jax_params(common.setup(cfg.replace(
+                mpc__train__init_from_run=out["run_dir"]), family == "gan", device=dev)["policy"])
+        kinds = {}
+        for kind, secs in timed:
+            kinds.setdefault(kind, []).append(round(secs, 3))
+        print(f"  {family} run {run_s:.3f} s; fused epochs {[round(e, 3) for e in epochs]} s "
+              f"(phase 8's modular epoch {wall.get('gan/9 modular epoch', float('nan')):.3f} s); "
+              f"wall s by piece: {kinds}")
+        init_run = cfg.mpc.train.get_path("init_from_run")
+        print("  setup " + ("trained and saved an expert (none saved in the workdir matched "
+                            "the store)" if trained_expert else
+                            f"took every component, the expert included, from {init_run}"))
+        print(f"  kernel launches {counts} (expected {expected}: {len(trips)} solves of "
+              f"{sum(trips)} trips, {steps['dynamics']} dynamics and {steps['cost']} "
+              f"{'generator' if family == 'gan' else 'cost'} steps of {H} time steps)")
+        if counts != expected:
+            raise SystemExit(f"the fused {family} run did not launch the kernels on every MLP "
+                             "call")
+        fused_keys = set(l2.FUSED_RECORDS[family][f][1] for f in l2.FUSED_RECORDS[family])
+        epoch_rows = [r for r in rows if fused_keys <= set(r)]
+        dagger_rows = [r for r in rows if "dagger_test_loss" in r]
+        losses = [v for r in rows for k, v in r.items() if k not in ("step", "time")]
+        print(f"  {family}.jsonl: {len(rows)} rows, fused epoch rows at steps "
+              f"{[r['step'] for r in epoch_rows]}, DAgger rows {dagger_rows}, eval rows at "
+              f"{[r['step'] for r in rows if 'eval_reward' in r]}")
+        if not np.all(np.isfinite(losses)) or any(not vs for vs in out["history"].values()) or \
+                not np.all(np.isfinite([v for vs in out["history"].values() for v in vs])):
+            raise SystemExit(f"the fused {family} run's metrics are missing or not finite")
+        want_epochs = [1, 2, 1] if family == "gan" else [1]
+        if [r["step"] for r in epoch_rows] != want_epochs or \
+                len(dagger_rows) != (1 if family == "gan" else 0) or not cleared:
+            raise SystemExit(f"the fused {family} run wrote {len(epoch_rows)} epoch rows and "
+                             f"{len(dagger_rows)} DAgger rows, checkpoints cleared {cleared}")
+        got = dict(leaves_of(reloaded))
+        if sorted(got) != sorted(dict(leaves_of(out["params"]))) or not all(
+                np.array_equal(v, dict(leaves_of(out["params"]))[k]) for k, v in got.items()):
+            raise SystemExit(f"the saved fused {family} run does not reload bitwise")
+        print(f"  saved {out['run_dir']} reloads bitwise; stamped reward {out['avg_reward']:.2f}")
+        results[family] = counts
+        if family == "gan":
+            resumed = [m for m in logs if m.startswith("[gan/fused] epoch")]
+            if "[gan] resumed from checkpoint at epoch 1" not in logs or not \
+                    resumed[1].startswith("[gan/fused] epoch 2 "):
+                raise SystemExit("the fused GAN run did not restart at epoch 2")
+            snapshot = captured.pop("dynamics")
+            check_dagger_segments(captured.pop("segments"), dev)
+            check_fused_dynamics(snapshot, cfg, dev)
+        captured.clear()
+    print(f"phase 12 wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"fused gan run": results["gan"], "fused l2 run": results["l2"]}
+
+
+def leaves_of(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from leaves_of(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", np.asarray(tree[k])
 
 
 def main() -> int:
@@ -1860,23 +2285,46 @@ def main() -> int:
               f"mean reward {ep.rewards.mean().item():.4f}")
         print(json.dumps(bench_row(NUM_ENVS * STEPS / dt, card_line, fused_ls)))
 
+    # phases 6-12 record the (stack, rows) of every MLP kernel call; after
+    # each, the kernels are held against their plain versions at the pairs
+    # that no earlier check held (the counts were read before)
+    checked = set()
+
     # 6. the training path
-    launches["trainer"] = train_phase(episodes["off"], env, kernels, card_line, dev)
+    with shapes_recorded() as seen:
+        launches["trainer"] = train_phase(episodes["off"], env, kernels, card_line, dev)
+    check_recorded("phase 6", seen, checked, rng, dev, max_err)
 
     # 7. the cost-trainer path
-    launches["cost trainer"] = cost_phase(episodes["off"], kernels, card_line, dev)
+    with shapes_recorded() as seen:
+        launches["cost trainer"] = cost_phase(episodes["off"], kernels, card_line, dev)
+    check_recorded("phase 7", seen, checked, rng, dev, max_err)
 
     # 8. the GAN slice on the committed run gan/9
-    launches.update(gan9_phase(kernels, card_line, dev))
+    wall = {}
+    with shapes_recorded() as seen:
+        launches.update(gan9_phase(kernels, card_line, dev, wall))
+    check_recorded("phase 8", seen, checked, rng, dev, max_err)
 
     # 9. the GAN training run on gan/9, interrupted and resumed
-    launches.update(gan_run_phase(kernels, card_line, dev))
+    with shapes_recorded() as seen:
+        launches.update(gan_run_phase(kernels, card_line, dev))
+    check_recorded("phase 9", seen, checked, rng, dev, max_err)
 
     # 10. the humanoid-class row: H=50, the materializing line search
-    launches["humanoid H=50"] = humanoid_phase(kernels, card_line, dev)
+    with shapes_recorded() as seen:
+        launches["humanoid H=50"] = humanoid_phase(kernels, card_line, dev)
+    check_recorded("phase 10", seen, checked, rng, dev, max_err)
 
     # 11. a committed config from an empty workdir: collect, train the expert, run
-    launches["fresh gan run"] = fresh_run_phase(kernels, card_line, dev)
+    with shapes_recorded() as seen:
+        launches["fresh gan run"] = fresh_run_phase(kernels, card_line, dev)
+    check_recorded("phase 11", seen, checked, rng, dev, max_err)
+
+    # 12. the fused epochs and a DAgger round
+    with shapes_recorded() as seen:
+        launches.update(fused_phase(kernels, card_line, dev, wall))
+    check_recorded("phase 12", seen, checked, rng, dev, max_err)
 
     # the planner's line-search call (8192 rows) leads the forward kernels'
     # entries, the trainer's call (128 rows) the backward kernel's

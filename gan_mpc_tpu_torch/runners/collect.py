@@ -23,9 +23,11 @@ Differences from the JAX module:
     ``collection_fingerprint``) but not the JAX package's random draws:
     its resets and noise, and so its trajectories, differ.
 
-Not ported: DAgger's ``collect_dagger_trajectories``, the walker and
-cartpole experts (their envs are not ported), and the open-loop v1 cheetah
-gait, which no expert version reaches.
+``collect_dagger_trajectories`` restarts the scripted expert from states
+that the imitator's policy visits (DAgger's corrective segments).
+
+Not ported: the walker and cartpole experts (their envs are not ported),
+and the open-loop v1 cheetah gait, which no expert version reaches.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ import torch
 from gan_mpc_tpu_torch.data.trajectories import TrajectorySet
 from gan_mpc_tpu_torch.envs.base import EnvState
 from gan_mpc_tpu_torch.envs.planar import contact_points, forward_kinematics
+from gan_mpc_tpu_torch.envs.rollout import policy_rollout
+from gan_mpc_tpu_torch.training.common import split
 
 # Bump an env's entry whenever its scripted expert's behaviour changes: the
 # collection fingerprint folds it in, so a store labelled by an older
@@ -346,3 +350,69 @@ def collect_expert_trajectories(
         outs.append((obs, u_clean, u_exec, reward))
     xs, us, ues, rs = (torch.stack(f, dim=1).cpu().numpy() for f in zip(*outs))
     return TrajectorySet(states=xs, actions=us, rewards=rs, executed_actions=ues)
+
+
+@torch.no_grad()
+def collect_dagger_trajectories(
+    env,
+    env_params,
+    policy,
+    normalizer,
+    generator: Optional[torch.Generator] = None,
+    num_segments: int = 64,
+    segment_steps: int = 120,
+    policy_steps: int = 1000,
+    policy_episodes: int = 8,
+    noise_sigma: float = 0.25,
+    history: int = 1,
+    imitator_env=None,
+    imitator_env_params=None,
+    state_weighting: str = "uniform",
+    weight_power: float = 2.0,
+    weight_floor: float = 0.05,
+    policy_reset: Optional[EnvState] = None,
+    picked: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> TrajectorySet:
+    """DAgger's corrective expert data: roll the current ``policy`` in the
+    imitator env (``policy_episodes`` envs x ``policy_steps`` steps, no
+    exploration noise), pick ``num_segments`` of the visited states without
+    replacement, uniformly or ``reward_weighted`` (weights (1 - clip(r, 0,
+    1))^weight_power + weight_floor), and restart the scripted expert from
+    exactly those (qpos, qvel) in ``env`` for ``segment_steps`` steps with
+    the DART noise ``noise_sigma``, all segments as one batched rollout.
+    Returns the ``TrajectorySet`` of the segments (clean actions logged,
+    executed ones recorded).
+
+    Draws, from three generators split off ``generator`` (the rollout's
+    resets, the picks, the segments' standard normal noise
+    (segment_steps, num_segments, act)); ``policy_reset``, ``picked``
+    (flat indices into the (episode, step) states) and ``noise`` replace
+    them where given.
+    """
+    k_roll, k_pick, k_noise = (split(generator) if generator is not None else None
+                               for _ in range(3))
+    ienv = imitator_env if imitator_env is not None else env
+    iparams = imitator_env_params if imitator_env_params is not None else env_params
+    episode = policy_rollout(ienv, iparams, policy, normalizer, num_steps=policy_steps,
+                             history=history, num_envs=policy_episodes, init_state=policy_reset,
+                             generator=k_roll)
+    nq = episode.qpos.shape[-1]
+    qpos, qvel = episode.qpos.reshape(-1, nq), episode.qvel.reshape(-1, nq)
+    if picked is None:
+        if state_weighting == "reward_weighted":
+            # the states where the policy does worst (reward near 0), with a
+            # floor that keeps some of the easy band
+            r = torch.clamp(episode.rewards.reshape(-1), 0.0, 1.0).cpu()
+            w = (1.0 - r) ** weight_power + weight_floor
+            picked = torch.multinomial(w, num_segments, replacement=False, generator=k_pick)
+        else:
+            picked = torch.randperm(qpos.shape[0], generator=k_pick)[:num_segments]
+    picked = picked.to(qpos.device)
+    start = EnvState(qpos=qpos[picked], qvel=qvel[picked],
+                     t=torch.zeros(num_segments, dtype=torch.int32, device=qpos.device))
+    if noise is None:
+        noise = torch.randn((segment_steps, num_segments, env.act_size), generator=k_noise)
+    return collect_expert_trajectories(env, num_segments, num_steps=segment_steps,
+                                       env_params=env_params, noise_sigma=noise_sigma,
+                                       init_state=start, noise=noise)

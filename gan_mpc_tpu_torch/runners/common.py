@@ -22,7 +22,8 @@ saved expert predictor, training one where none matches the store's data
   * ``maybe_clear_caches``, ``maybe_mesh`` and the runners'
     ``runtime_setup`` manage XLA's compile caches and device meshes and
     have no counterpart; ``check_supported`` refuses the settings whose
-    paths are not ported.
+    paths are not ported (video, data parallel, the dm_control
+    cross-evaluation where it would run).
 
 Random draws come from ``torch.Generator``s: the collection from one
 seeded with ``seed + 7`` (where JAX seeds its key), the expert trainer
@@ -64,12 +65,6 @@ from gan_mpc_tpu_torch.runners.collect import collect_expert_trajectories, exper
 from gan_mpc_tpu_torch.training.masking import masked_adam, policy_components
 from gan_mpc_tpu_torch.utils.metrics import solver_stats
 
-def split(generator: torch.Generator) -> torch.Generator:
-    """A new CPU generator seeded from one draw of ``generator``: what the
-    draw is used for cannot change the stream after it."""
-    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
-    return torch.Generator().manual_seed(seed)
-
 
 def build_cost_model(config: Config, horizon: int, x_size: int) -> MPCCost:
     ccfg = config.mpc.model.cost
@@ -87,7 +82,8 @@ def build_cost_model(config: Config, horizon: int, x_size: int) -> MPCCost:
 def build_dynamics_model(config: Config, x_size: int, u_size: int) -> LearnedDynamics:
     mcfg = config.mpc.model.dynamics
     if mcfg.use != "mlp":
-        raise NotImplementedError(f"dynamics.use={mcfg.use!r} is not ported (only 'mlp')")
+        raise NotImplementedError(f"dynamics.use={mcfg.use!r} is not ported (only 'mlp'; the "
+                                  "per-instance planning path, item 5 of ROADMAP Queue 1)")
     return LearnedDynamics(ResidualMLPDynamicsNet(x_size, u_size, hidden=tuple(mcfg.mlp.hidden)))
 
 
@@ -325,10 +321,6 @@ def check_supported(config: Config) -> None:
             "the dm_control cross-evaluation (envs/dm_eval.py) is not ported (item 8(c) of "
             "ROADMAP Queue 1); set mpc.evaluate.dm_control_episodes: 0")
     unported = [
-        (config.get_path("runtime.fused_epochs", False), "runtime.fused_epochs: true",
-         "the fused epochs, item 9(a)"),
-        (config.get_path("expert_prediction.dagger.rounds", 0) > 0,
-         "expert_prediction.dagger.rounds > 0", "DAgger, item 7, after item 9(a)"),
         (config.get_path("mpc.evaluate.save_video", False), "mpc.evaluate.save_video: true",
          "video, item 8(c)"),
         (int(config.get_path("runtime.data_parallel_devices", 1) or 1) > 1,
@@ -346,14 +338,14 @@ def phase_optimizers(ctx: dict) -> dict:
     a critic."""
     tcfg = ctx["config"].mpc.train
     comps = policy_components(ctx["policy"])
-    ccfg, dcfg, qcfg = tcfg.cost, tcfg.dynamics, tcfg.critic
+    ccfg, dcfg = tcfg.cost, tcfg.dynamics
     opts = {
         "cost": masked_adam(comps, ccfg.no_grads, ccfg.learning_rate,
                             weights_learning_rate=ccfg.get_path("weights_learning_rate")),
         "dynamics": masked_adam(comps, dcfg.no_grads, dcfg.learning_rate),
     }
-    if "critic_params" in comps:
-        opts["critic"] = masked_adam(comps, qcfg.no_grads, qcfg.learning_rate)
+    if "critic_params" in comps:  # an L2 config may have no critic section
+        opts["critic"] = masked_adam(comps, tcfg.critic.no_grads, tcfg.critic.learning_rate)
     return opts
 
 

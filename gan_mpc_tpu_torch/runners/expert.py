@@ -18,8 +18,8 @@ for a match, as in JAX.
 
 Random draws: a generator seeded with the config's seed gives the
 initial weights (flax's initializers, ``params.init_flax_like``) and, one
-child generator each (``common.split``), the split, the minibatches and
-the evaluation's resets.
+child generator each (``training.common.split``), the split, the
+minibatches and the evaluation's resets.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from gan_mpc_tpu_torch.params import (
     save_msgpack,
 )
 from gan_mpc_tpu_torch.runners import common
+from gan_mpc_tpu_torch.training.common import split
 from gan_mpc_tpu_torch.training.expert import train_expert
 from gan_mpc_tpu_torch.training.masking import ClippedAdam
 from gan_mpc_tpu_torch.utils import io
@@ -69,7 +70,7 @@ def run(config: Config, log_fn=print, device="cuda",
     run directory, the average return and the last losses."""
     device = resolve_device(device)
     generator = torch.Generator().manual_seed(config.seed)
-    k_split, k_train, k_eval = (common.split(generator) for _ in range(3))
+    k_split, k_train, k_eval = (split(generator) for _ in range(3))
     env = common.make_env(config.env.name, device)
     if trajs is None:
         trajs = common.ensure_trajectories(config, device)

@@ -24,6 +24,12 @@ Parameters live in the policy. A candidate is a detached copy of every
 component (``masking.policy_state``); evaluating one loads it into the
 policy, and the selection leaves the winner there.
 
+With ``runtime.fused_epochs`` the epochs are the fused ones
+(``fused_epochs``, JAX's ``_run_fused_epochs``; ``training/fused_epoch.py``)
+in place of the modular loop: the same checkpoints, evaluation and end,
+the metrics under JAX's fused names and the ``[l2/fused]`` log lines. The
+L2 run ignores ``expert_prediction.dagger``, as JAX's does.
+
 Differences from the JAX run: ``runtime.eval_chunk_steps`` is accepted and
 the episode runs whole (JAX's chunked rollout is defined to be
 bit-identical to the whole one); ``dm_cross_eval`` returns None where JAX
@@ -46,10 +52,11 @@ from gan_mpc_tpu_torch.envs.rollout import policy_rollout
 from gan_mpc_tpu_torch.params import to_jax_params
 from gan_mpc_tpu_torch.policies.losses import l2_imitation_loss
 from gan_mpc_tpu_torch.runners import common
-from gan_mpc_tpu_torch.runners.common import split
+from gan_mpc_tpu_torch.training.common import split
 from gan_mpc_tpu_torch.training.calibrate import DEFAULT_GRID, calibrate_action_goal_gain
 from gan_mpc_tpu_torch.training.cost import train_cost
-from gan_mpc_tpu_torch.training.dynamics import train_dynamics
+from gan_mpc_tpu_torch.training.dynamics import _run_updates, train_dynamics
+from gan_mpc_tpu_torch.training.fused_epoch import make_fused_gan_epoch, make_fused_l2_epoch
 from gan_mpc_tpu_torch.training.masking import load_policy_state, policy_state
 from gan_mpc_tpu_torch.utils import io
 from gan_mpc_tpu_torch.utils.checkpoint import TrainCheckpointer
@@ -231,24 +238,114 @@ def calibrate_gain(config: Config, ctx: dict, generator: torch.Generator, log_fn
                                       grid=tuple(float(g) for g in grid), log=log_fn or print)
 
 
+NO_BEST = (float("-inf"), None)
+
+
 def midrun_eval(config: Config, ctx: dict, generator: torch.Generator, epoch: int, metrics,
-                best_eval: float, tag: str, log_fn=None) -> float:
+                best: tuple, tag: str, log_fn=None) -> tuple:
     """The periodic evaluation after ``epoch`` (every
     ``mpc.evaluate.every_epochs``): records ``eval_reward`` and the
-    solver's statistics, pools the params as a candidate. Returns the best
-    score so far."""
+    solver's statistics, pools the params as a candidate. ``best`` is the
+    best (score, params) so far (``NO_BEST`` at first); returns it updated,
+    a later score that ties replacing an earlier one, as in JAX."""
     every = config.get_path("mpc.evaluate.every_epochs", 0)
     if not (every and epoch % every == 0):
-        return best_eval
+        return best
     mid = evaluate(config, ctx, split(generator),
                    num_runs=config.get_path("mpc.evaluate.midrun_episodes", 3))
     metrics.record(epoch, eval_reward=mid)
     common.record_solver_stats(metrics, ctx["policy"], ctx["cost_data"][1], epoch)
-    best_eval = max(best_eval, mid)
-    note_candidate(ctx, mid, policy_state(ctx["policy"]), config=config)
+    params = policy_state(ctx["policy"])
+    if mid >= best[0]:
+        best = (mid, params)
+    note_candidate(ctx, mid, params, config=config)
     if log_fn is not None:
-        log_fn(f"[{tag}] epoch {epoch} eval_reward {mid:.1f} (best {best_eval:.1f})")
-    return best_eval
+        log_fn(f"[{tag}] epoch {epoch} eval_reward {mid:.1f} (best {best[0]:.1f})")
+    return best
+
+
+# the fused epochs' metrics: field -> (history list, metrics-file name)
+FUSED_RECORDS = {
+    "l2": {"episode_return": ("episode_returns", "episode_return"),
+           "dynamics_loss": ("dynamics_train_losses", "dynamics_train_loss"),
+           "cost_loss": ("cost_train_losses", "cost_train_loss"),
+           "cost_test_loss": ("cost_test_losses", "cost_test_loss")},
+    "gan": {"episode_return": ("episode_returns", "episode_return"),
+            "dynamics_loss": ("dynamics_train_losses", "dynamics_train_loss"),
+            "critic_loss": ("critic_train_losses", "critic_train_loss"),
+            "critic_test_loss": ("critic_test_losses", "critic_test_loss"),
+            "generator_loss": ("cost_train_losses", "generator_train_loss"),
+            "generator_test_loss": ("cost_test_losses", "generator_test_loss")},
+}
+
+
+def make_fused_epoch(config: Config, ctx: dict, opts: dict, family: str):
+    """The config's fused epoch (``training/fused_epoch.py``) on the live
+    run: the GAN epoch for ``family`` "gan", else the L2 epoch. Every minibatch has the cost phase's batch size; the critic
+    plans ``min(critic.plan_batch or 64, N)`` of the N train histories."""
+    tcfg = config.mpc.train
+    ccfg, dcfg = tcfg.cost, tcfg.dynamics
+    cost_train, cost_test = ctx["cost_data"]
+    args = (ctx["policy"], ctx["env_im"], ctx["env_im_params"], ctx["normalizer"], opts,
+            cost_train[0], cost_train[1])
+    kwargs = dict(
+        num_envs=config.get_path("runtime.num_parallel_envs", 1),
+        episode_steps=dcfg.max_interactions_per_episode, history=config.mpc.history,
+        dynamics_updates=dcfg.num_updates, cost_updates=ccfg.num_updates,
+        batch_size=ccfg.batch_size, gamma=dcfg.discount_factor,
+        polyak_factor=ccfg.polyak_factor, expert_history_X_test=cost_test[0],
+        expert_future_Y_test=cost_test[1], expert_dyn_windows=ctx["dyn_train"],
+        expert_dyn_updates=dcfg.get_path("expert_updates", 0),
+        chunk_updates=config.get_path("runtime.fused_chunk_updates", 0),
+        plan_chunk=config.get_path("runtime.fused_plan_chunk", 0),
+        collect_noise=dcfg.get_path("collection_noise", 0.0),
+        collect_chunk_steps=config.get_path("runtime.fused_collect_chunk", 0),
+    )
+    if family != "gan":
+        return make_fused_l2_epoch(*args, **kwargs)
+    qcfg = tcfg.critic
+    return make_fused_gan_epoch(
+        *args, critic_updates=qcfg.num_updates,
+        critic_plan_batch=min(qcfg.get_path("plan_batch", 64), cost_train[0].shape[0]),
+        **kwargs)
+
+
+def fused_epochs(config: Config, ctx: dict, opts: dict, generator: torch.Generator,
+                 history: dict, metrics, family: str, log_fn=None, ckpt=None,
+                 start_epoch: int = 1) -> tuple:
+    """The fused epoch loop (JAX's ``_run_fused_epochs``): at epoch 1 only,
+    ``warm_start_updates`` dynamics passes on the expert windows (the
+    dynamics batch size, teacher forced); then epochs ``start_epoch`` to
+    ``num_epochs``, each one fused epoch with teacher forcing while epoch
+    <= num_epochs * teacher_forcing_factor, its metrics appended to
+    ``history`` and recorded, the run checkpointed (``ckpt``), and the
+    periodic evaluation. Returns the best (score, params) of its
+    evaluations (``NO_BEST`` without one)."""
+    tcfg = config.mpc.train
+    dcfg = tcfg.dynamics
+    epoch_fn = make_fused_epoch(config, ctx, opts, family)
+    warm = dcfg.get_path("warm_start_updates", 3)
+    if start_epoch == 1 and warm > 0:
+        _run_updates(ctx["policy"].dynamics_model, opts["dynamics"], ctx["dyn_train"], warm,
+                     dcfg.batch_size, dcfg.discount_factor, 1.0, split(generator))
+    records, tag = FUSED_RECORDS[family], f"{family}/fused"
+    best = NO_BEST
+    for epoch in range(start_epoch, tcfg.num_epochs + 1):
+        teacher_forcing = epoch <= tcfg.num_epochs * dcfg.teacher_forcing_factor
+        m = epoch_fn(ctx["replay"], split(generator), teacher_forcing)._asdict()
+        for field, (name, _) in records.items():
+            history[name].append(m[field])
+        metrics.record(epoch, **{key: m[field] for field, (_, key) in records.items()})
+        if ckpt is not None:
+            ckpt.maybe_save(epoch, train_state(ctx, opts, generator))
+        if log_fn is not None:
+            losses = (f"critic {m['critic_loss']:.5f} gen {m['generator_loss']:.5f}"
+                      if family == "gan" else f"cost_loss {m['cost_loss']:.5f}")
+            dyn = "dyn" if family == "gan" else "dyn_loss"
+            log_fn(f"[{tag}] epoch {epoch} return {m['episode_return']:.1f} "
+                   f"{dyn} {m['dynamics_loss']:.5f} {losses}")
+        best = midrun_eval(config, ctx, generator, epoch, metrics, best, tag, log_fn)
+    return best
 
 
 def finish_run(config: Config, ctx: dict, generator: torch.Generator, history: dict, metrics,
@@ -319,7 +416,11 @@ def run(config: Config, log_fn=print, device="cuda") -> dict:
     metrics = metrics_recorder(config, "l2")
     ckpt = checkpointer_for(config, "l2")
     start_epoch = maybe_resume(ckpt, ctx, opts, generator, "l2", log_fn)
-    best_eval = float("-inf")
+    best = NO_BEST
+    if config.get_path("runtime.fused_epochs", False):
+        fused_epochs(config, ctx, opts, generator, history, metrics, "l2", log_fn, ckpt,
+                     start_epoch)
+        start_epoch = tcfg.num_epochs + 1  # no modular epoch
     profile_dir = config.get_path("runtime.profile_dir")
     for epoch in range(start_epoch, tcfg.num_epochs + 1):
         k_dyn, k_cost = split(generator), split(generator)
@@ -353,7 +454,7 @@ def run(config: Config, log_fn=print, device="cuda") -> dict:
         if log_fn is not None:
             log_fn(f"[l2] epoch {epoch} return {ep_returns[-1]:.1f} "
                    f"dyn_loss {dyn_losses[-1]:.5f} cost_loss {cost_losses[-1]:.5f}")
-        best_eval = midrun_eval(config, ctx, generator, epoch, metrics, best_eval, "l2", log_fn)
+        best = midrun_eval(config, ctx, generator, epoch, metrics, best, "l2", log_fn)
     return finish_run(config, ctx, generator, history, metrics, ckpt, "l2", log_fn)
 
 

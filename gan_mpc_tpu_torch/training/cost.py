@@ -45,6 +45,16 @@ def update_pass(policy, optimizer, loss_fn: Callable, dataset, indices: torch.Te
 
 
 @torch.no_grad()
+def blend_back(params: List[torch.Tensor], prev: List[torch.Tensor], polyak_factor: float) -> None:
+    """Polyak-blend each of ``params`` back toward ``prev``, its value
+    before the updates, in place."""
+    blended = polyak_blend(dict(enumerate(prev)), {i: p.detach() for i, p in enumerate(params)},
+                           polyak_factor)
+    for i, p in enumerate(params):
+        p.copy_(blended[i])
+
+
+@torch.no_grad()
 def evaluate_cost_loss(policy, loss_fn: Callable, dataset, has_targets: bool = True,
                        eval_windows: Optional[int] = None) -> float:
     """Planning loss on at most ``eval_windows`` (default 256) windows of a
@@ -74,7 +84,7 @@ def train_cost(
     ``max_steps_per_update``) minibatch steps, each followed by the test
     loss, then the Polyak blend. Returns (train_losses, test_losses)."""
     params = [p for ps in policy_components(policy).values() for p in ps]
-    prev = {i: p.detach().clone() for i, p in enumerate(params)}
+    prev = [p.detach().clone() for p in params]
     datasize = train_data[0].shape[0]
     steps = max(datasize // batch_size, 1)
     if max_steps_per_update is not None:
@@ -87,9 +97,5 @@ def train_cost(
         if eval_test:
             test_losses.append(evaluate_cost_loss(policy, loss_fn, test_data, has_targets,
                                                   eval_windows))
-    with torch.no_grad():
-        blended = polyak_blend(prev, {i: p.detach() for i, p in enumerate(params)},
-                               polyak_factor)
-        for i, p in enumerate(params):
-            p.copy_(blended[i])
+    blend_back(params, prev, polyak_factor)
     return train_losses, test_losses

@@ -16,7 +16,8 @@ repo's ``runs/``):
     ``test_l2_checkpoint_resume``, with periodic evaluation off: the
     checkpoint is taken before an epoch's evaluation, as in JAX);
   * each setting whose path is not ported raises ``NotImplementedError``
-    before the run does any work;
+    before the run does any work; the fused epochs run, and DAgger rounds
+    leave the L2 and the modular GAN runs as they are, as in JAX;
   * ``dm_cross_eval`` gives None with 0 episodes and where dm_control does
     not import, and raises here, where it does.
 """
@@ -127,12 +128,10 @@ def test_l2_resume_equals_uninterrupted_run(tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    {"runtime__fused_epochs": True},
-    {"expert_prediction__dagger": {"rounds": 1}},
     {"mpc__evaluate__save_video": True},
     {"runtime__data_parallel_devices": 2},
     {"mpc__evaluate__dm_control_episodes": 2},  # dm_control imports here
-], ids=["fused_epochs", "dagger", "video", "data_parallel", "dm_control"])
+], ids=["video", "data_parallel", "dm_control"])
 @pytest.mark.parametrize("family", ["l2", "gan"])
 def test_unported_settings_raise(tmp_path, override, family):
     from gan_mpc_tpu_torch.runners import gan
@@ -141,6 +140,35 @@ def test_unported_settings_raise(tmp_path, override, family):
         {"l2": l2, "gan": gan}[family].run(tiny_config(tmp_path, **override), log_fn=None,
                                            device="cpu")
     assert not os.path.exists(os.path.join(tmp_path, "metrics"))
+
+
+DAGGER = {"rounds": 1, "num_segments": 4, "segment_steps": 12, "policy_episodes": 2,
+          "finetune_epochs": 1, "extra_epochs": 1}
+
+
+@pytest.mark.parametrize("setting", ["fused_epochs", "dagger"])
+@pytest.mark.parametrize("family", ["l2", "gan"])
+def test_settings_that_now_run(tmp_path, setting, family):
+    """The fused epochs run, through the fused loop; DAgger rounds are left
+    alone by the L2 run and the modular GAN run, which train as without
+    them (JAX runs DAgger in the GAN run's fused branch only)."""
+    from gan_mpc_tpu_torch.runners import gan
+
+    run = {"l2": l2, "gan": gan}[family].run
+    cut = dict(mpc__evaluate__fresh_eval_episodes=2)
+    logs = []
+    if setting == "fused_epochs":
+        out = run(tiny_config(tmp_path, runtime__fused_epochs=True, **cut), log_fn=logs.append,
+                  device="cpu")
+        assert sum(m.startswith(f"[{family}/fused] epoch 1 return") for m in logs) == 1
+        assert all(len(v) == 1 and np.isfinite(v).all() for v in out["history"].values())
+        return
+    plain = run(tiny_config(tmp_path / "plain", **cut), log_fn=None, device="cpu")
+    out = run(tiny_config(tmp_path / "dagger", expert_prediction__dagger=DAGGER, **cut),
+              log_fn=logs.append, device="cpu")
+    assert not any(m.startswith("[gan/dagger]") for m in logs)
+    assert_params_equal(out["params"], plain["params"])
+    assert out["history"] == plain["history"]
 
 
 def test_dm_cross_eval(tmp_path, monkeypatch):

@@ -22,8 +22,9 @@ where JAX's own nudges move them by 1.40e-3.
 
 Also: the port (the control path, the dynamics trainer, a cost-trainer
 step, the committed run gan/9 loaded and continued by a cut GAN epoch, a
-tiny L2 training run from config to saved run, and a tiny GAN run from an
-empty workdir, which collects its expert store and trains its expert)
+tiny L2 training run from config to saved run, a tiny fused GAN run with
+a DAgger round, and a tiny GAN run from an empty workdir, which collects
+its expert store and trains its expert)
 runs with JAX, flax and the JAX package made unimportable, and its entry
 points run on the card unless asked for the CPU.
 """
@@ -236,6 +237,15 @@ BLOCKED_RUN = textwrap.dedent(
     out = l2.run(cfg, log_fn=None, device="cpu")
     assert sorted(load_params(os.path.join(out["run_dir"], "params.msgpack"))) == [
         "cost_params", "dynamics_params", "expert_params", "mpc_weights"]
+
+    # the fused epochs and a DAgger round with its extra fused epoch
+    assert "gan_mpc_tpu_torch.training.fused_epoch" in mods
+    logs = []
+    out = gan.run(cfg.replace(runtime__fused_epochs=True, expert_prediction__dagger={
+        "rounds": 1, "num_segments": 4, "segment_steps": 12, "policy_episodes": 2,
+        "finetune_epochs": 1, "extra_epochs": 1}), log_fn=logs.append, device="cpu")
+    assert sum(m.startswith("[gan/fused] epoch") for m in logs) == 2, logs
+    assert sum(m.startswith("[gan/dagger] round 1") for m in logs) == 1, logs
 
     # a tiny GAN run from an empty workdir: runners.collect collects its
     # store, runners.expert trains its expert
