@@ -123,7 +123,7 @@ Phases, in order; any failure raises and exits non-zero:
      pendulum_swingup gan/9 from its own config.json and params.msgpack
      (every component, the critic included; continued from itself) and
      fits the normalizer on the committed expert store; then
-     - serving: 16 envs closed loop on the imitator's pendulum for 200
+     - serving: 16 envs closed loop on the imitator's pendulum for 100
        control steps (2 warmup steps), H=10, iLQR <= 30 with the loop's
        early exit; prints the mean return, the mean and max trips per
        solve and steps/s; fused_mlp_fwd must have launched
@@ -225,10 +225,33 @@ Phases, in order; any failure raises and exits non-zero:
      collection, dynamics, critic dataset and updates, generator or cost
      steps, test metrics, DAgger's rollout, segments and fine-tune,
      evaluations) and of the phase.
-     After each of phases 6-12, both MLP kernels are held against their
+ 13. walker and cartpole, and the committed trained checkpoints (each
+     served by ``bench.load_checkpoint`` from its own config.json and
+     params.msgpack, the normalizer refitted on its committed store under
+     runs/expert_trajectories/):
+     (a) walker_walk and cartpole_balance stepped on the card and on the
+         CPU from the same states and actions (``check_env_steps``);
+     (b) both scripted experts' collections on the card against the CPU
+         (``check_expert``, phase 11's ``hold_against_cpu``);
+     (c) the trained-checkpoint row, the JAX bench's second line:
+         cheetah_run gan/4 at 512 envs, 1 warmup and ``G13_GAN4_STEPS``
+         timed control steps (the bench times 50-step episodes); env
+         steps/s, trips per solve, launches against mlp_calls_per_solve;
+     (d) walker_walk gan/0 (8 envs) and cartpole_balance l2/0 (1 env, no
+         critic) served ``G13_SERVE_STEPS`` control steps: launches as in
+         (c), the mean return beside the run's episode_returns.json
+         (printed, not checked);
+     (e) configs/gan_walker.yaml (collection, expert, 2 fused epochs, one
+         DAgger round) and configs/l2_cartpole_quality.yaml (collection,
+         expert, 1 fused epoch) from empty temporary workdirs with
+         ``G13_RUNS``' cuts: launches against the recorded solves and
+         update steps, the store through its gate, the expert, the metrics
+         rows and the saved run reloaded bitwise.
+     After each of phases 6-13, both MLP kernels are held against their
      plain versions (as in phase 2) at every (stack, rows) pair that the
      phase's runs gave them and no earlier phase's check held, on the
-     runs' own weights (``shapes_recorded``, ``check_recorded``).
+     runs' own weights (``shapes_recorded``, ``check_recorded``); phase
+     13's new pairs are also timed as in phase 3 (``time_recorded``).
      Then the script's total wall time.
 The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Exits 1 without a CUDA device.
@@ -343,7 +366,9 @@ GAN9_STORE = "runs/expert_trajectories/pendulum_swingup/trajectories-f690b23776.
 G9_ROWS = (4096, 2048, 1024, 256, 128, 64, 16, 4, 1)
 G9_TIMED = [("dynamics", 256), ("dynamics", 4096), ("dynamics", 2048), ("dynamics", 128),
             ("cost", 256), ("cost", 4096)]
-SERVE_ENVS, SERVE_STEPS = 16, 200  # swing-up takes about 160 steps
+# 100 of the episode's 1000 control steps (200 until phase 13 came: the
+# script's time stays near half its limit); swing-up takes about 160
+SERVE_ENVS, SERVE_STEPS = 16, 100
 # phase 8's cuts of gan/9's config (the rest is the run's own)
 G9_CUTS = dict(mpc__train__dynamics__max_interactions_per_episode=50,  # of 300
                mpc__train__cost__num_updates=1,  # of 3
@@ -448,6 +473,45 @@ G12_L2_CUTS = dict(
     expert_prediction__train__num_epochs=1,  # of 40, where setup trains the expert
 )
 G12_DYN_CHECK_STEPS = 4  # the fused dynamics phase held card against CPU over its first steps
+# phase 13: walker and cartpole, and the committed trained checkpoints
+G13_ENV_ENVS = 32  # (a): envs stepped on the card and on the CPU from the same states
+G13_CARTPOLE_STEPS = 100  # (a): cart-pole steps (smooth: no contact)
+G13_AIRBORNE_STEPS = 20  # (a): walker steps in the air, no contact switching on
+G13_EXPERT_ENVS, G13_EXPERT_STEPS = 16, 20  # (b): each scripted expert's check
+G13_GAN4_STEPS = 3  # (c): timed control steps of the gan/4 row, after 1 warmup step
+G13_SERVE_STEPS = 30  # (d): the cut episode of walker gan/0 and cartpole l2/0
+# (e): the two configs that walker and cartpole unlock, from empty workdirs,
+# cut in the way of G12_CUTS (the rest is the config's own: widths, horizon,
+# the critic, the stores' 1000-step episodes through the reward gate, the
+# walker's 8 envs and DAgger's reward weighting)
+G13_CUTS = dict(
+    mpc__evaluate__dm_control_episodes=0,  # of 5: the cross-evaluation is not ported
+    mpc__solver__max_iterations=5,  # of 30 / 20 (untrained weights)
+    mpc__train__dynamics__max_interactions_per_episode=20,  # of 300
+    mpc__train__dynamics__num_updates=1,  # of 12 / 5 passes
+    mpc__evaluate__every_epochs=1,  # of 2 / 5
+    mpc__evaluate__max_interactions=10,  # of 1000: evaluations and DAgger's policy episodes
+    mpc__evaluate__midrun_episodes=4,  # of 6 / 16
+    mpc__evaluate__candidate_pool=2,  # of 4 / 6
+    mpc__evaluate__selection_episodes=4,  # of 12 / 16
+    mpc__evaluate__num_runs_for_avg=4,  # of 8
+    mpc__evaluate__fresh_eval_episodes=4,  # of 16 (the default)
+    expert_prediction__train__num_epochs=2,  # of 24 / 40
+    expert_prediction__eval_runs=1,  # of 4 / 3: the expert's own evaluation episodes
+)
+G13_RUNS = [
+    ("gan", "configs/gan_walker.yaml", dict(
+        G13_CUTS,
+        mpc__train__num_epochs=2,  # of 16
+        expert_prediction__dagger__rounds=1,  # of 2
+        expert_prediction__dagger__policy_episodes=4,  # of 8
+        expert_prediction__dagger__num_segments=32,  # of 256
+        expert_prediction__dagger__segment_steps=50,  # of 200
+        expert_prediction__dagger__finetune_epochs=1,  # of 8
+        expert_prediction__dagger__extra_epochs=0,  # of 8: the round ends in one evaluation
+    )),
+    ("l2", "configs/l2_cartpole_quality.yaml", dict(G13_CUTS, mpc__train__num_epochs=1)),  # of 10
+]
 H50_STEPS = 10
 H50_CHECK_ENVS = 16  # the card-against-CPU plan
 # The random-weight row is chaotic at H=50: its dynamics grow every
@@ -1484,28 +1548,42 @@ def check_collector(cfg, dev):
     max(base, twice the spread over the checked lanes under those and the
     ``G11_WIDE_NUDGES``); the rest is printed, not checked. Returns the
     card's collection."""
-    from gan_mpc_tpu_torch.envs import EnvState, make_env
-    from gan_mpc_tpu_torch.runners import collect, common
+    from gan_mpc_tpu_torch.envs import make_env
+    from gan_mpc_tpu_torch.runners import common
 
     n, steps = common.collection_size(cfg), cfg.get_path("env.expert_episode_steps", 1000)
-    T = G11_CHECK_STEPS
-    env_c, env_g = make_env(cfg.env.name, "cpu"), make_env(cfg.env.name, dev)
+    env_c, sigma = make_env(cfg.env.name, "cpu"), cfg.get_path("env.expert_noise", 0.25)
     gen = torch.Generator().manual_seed(cfg.seed + 7)
     init = env_c.reset(env_c.default_params(), n, gen)
-    noise = torch.randn((steps, n, env_c.act_size), generator=gen)[:T]
-
-    def run(env, scale=1.0, device="cpu"):
-        start = EnvState(qpos=(init.qpos * scale).to(device), qvel=(init.qvel * scale).to(device),
-                         t=init.t.to(device))
-        return collect.collect_expert_trajectories(
-            env, n, num_steps=T, init_state=start, noise=noise,
-            noise_sigma=cfg.get_path("env.expert_noise", 0.25))
-
-    gpu = run(env_g, device=dev)
-    hold_against_cpu("collector", "the store's draws", gpu, run(env_c),
-                     [run(env_c, s) for s in G11_NUDGES],
-                     [run(env_c, s) for s in G11_WIDE_NUDGES])
+    noise = torch.randn((steps, n, env_c.act_size), generator=gen)[:G11_CHECK_STEPS]
+    gpu = expert_rollout(cfg.env.name, init, noise, sigma, dev)
+    hold_expert(cfg.env.name, init, noise, sigma, gpu, "collector", "the store's draws")
     return gpu
+
+
+def expert_rollout(env_name, init, noise, noise_sigma, device, scale=1.0):
+    """The scripted expert of ``env_name`` collected on ``device`` from the
+    start states ``init`` scaled by ``scale``, with the standard normal
+    ``noise`` (T, n, act) and DART noise ``noise_sigma``."""
+    from gan_mpc_tpu_torch.envs import EnvState, make_env
+    from gan_mpc_tpu_torch.runners import collect
+
+    env = make_env(env_name, device)
+    start = EnvState(qpos=(init.qpos.cpu() * scale).to(env.device),
+                     qvel=(init.qvel.cpu() * scale).to(env.device), t=init.t.to(env.device))
+    return collect.collect_expert_trajectories(env, init.qpos.shape[0], num_steps=noise.shape[0],
+                                               init_state=start, noise=noise.cpu(),
+                                               noise_sigma=noise_sigma)
+
+
+def hold_expert(env_name, init, noise, noise_sigma, gpu, label, draws):
+    """``hold_against_cpu`` of the card's expert rollout ``gpu`` against
+    ``expert_rollout`` on the CPU from the same ``init`` and ``noise``, and
+    the CPU's from ``init`` scaled by the ``G11_NUDGES`` and
+    ``G11_WIDE_NUDGES``. Returns the largest checked share of tolerance."""
+    run = lambda scale=1.0: expert_rollout(env_name, init, noise, noise_sigma, "cpu", scale)
+    return hold_against_cpu(label, draws, gpu, run(), [run(s) for s in G11_NUDGES],
+                            [run(s) for s in G11_WIDE_NUDGES])
 
 
 def hold_against_cpu(label, draws, gpu, cpu, nudged, wide):
@@ -1790,22 +1868,10 @@ def check_fused_dynamics(snap, cfg, dev):
 
 def check_dagger_segments(seg, dev):
     """DAgger's expert segments of the run (the card's) against the CPU's
-    from the same picked (qpos, qvel) and noise (``hold_against_cpu``)."""
-    from gan_mpc_tpu_torch.envs import EnvState, make_env
-    from gan_mpc_tpu_torch.runners import collect
-
-    n, kw, gpu = seg
-    init, env_c = kw["init_state"], make_env("pendulum_swingup", "cpu")
-
-    def run(scale=1.0):
-        start = EnvState(qpos=init.qpos.cpu() * scale, qvel=init.qvel.cpu() * scale,
-                         t=init.t.cpu())
-        return collect.collect_expert_trajectories(
-            env_c, n, num_steps=kw["num_steps"], noise_sigma=kw["noise_sigma"],
-            init_state=start, noise=kw["noise"].cpu())
-
-    return hold_against_cpu("DAgger expert segments", "the run's picks and noise", gpu, run(),
-                            [run(s) for s in G11_NUDGES], [run(s) for s in G11_WIDE_NUDGES])
+    from the same picked (qpos, qvel) and noise (``hold_expert``)."""
+    _, kw, gpu = seg
+    return hold_expert("pendulum_swingup", kw["init_state"], kw["noise"], kw["noise_sigma"], gpu,
+                       "DAgger expert segments", "the run's picks and noise")
 
 
 def fused_phase(kernels, card_line, dev, wall):
@@ -1987,6 +2053,321 @@ def fused_phase(kernels, card_line, dev, wall):
         captured.clear()
     print(f"phase 12 wall time {time.perf_counter() - t_phase:.1f} s")
     return {"fused gan run": results["gan"], "fused l2 run": results["l2"]}
+
+
+def check_env_steps(dev):
+    """Phase 13 (a): walker_walk and cartpole_balance stepped on the card and
+    on the CPU from the same states and actions, each step's qpos, qvel and
+    reward within tol x max(1, max|CPU's|): the cart-pole for
+    ``G13_CARTPOLE_STEPS`` steps from its resets (1e-5: smooth, no contact);
+    the walker one step from its resets, heels and toes in the ground (qvel
+    1e-4: the velocity comes out of a 9 x 9 solve through the contacts, as
+    in the CPU tests against JAX), and ``G13_AIRBORNE_STEPS`` steps in the
+    air (1e-5), every contact point kept 0.2 or more above the ground."""
+    from gan_mpc_tpu_torch.envs import EnvState, make_env
+    from gan_mpc_tpu_torch.envs.planar import contact_points, forward_kinematics
+
+    B, rng = G13_ENV_ENVS, np.random.default_rng(SEED)
+    cp, wk = make_env("cartpole_balance", "cpu"), make_env("walker_walk", "cpu")
+    s_cp = cp.reset(cp.default_params(), B, torch.Generator().manual_seed(SEED))
+    s_wk = wk.reset(wk.default_params(), B, torch.Generator().manual_seed(SEED))
+    q_air = torch.zeros((B, 9))
+    q_air[:, 1] = 2.5
+    q_air += 0.1 * torch.tensor(rng.standard_normal((B, 9)), dtype=torch.float32)
+    qd_air = 0.5 * torch.tensor(rng.standard_normal((B, 9)), dtype=torch.float32)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)
+    cases = [
+        ("cartpole_balance", "from its resets", s_cp.qpos, s_cp.qvel,
+         f32(rng.uniform(-1.2, 1.2, (G13_CARTPOLE_STEPS, B, 1))), (1e-5, 1e-5, 1e-5)),
+        ("walker_walk", "from its resets, in contact", s_wk.qpos, s_wk.qvel,
+         f32(rng.uniform(-1.3, 1.3, (1, B, 6))), (1e-5, 1e-4, 1e-5)),
+        ("walker_walk", "in the air", q_air, qd_air,
+         f32(rng.uniform(-1.0, 1.0, (G13_AIRBORNE_STEPS, B, 6))), (1e-5, 1e-5, 1e-5)),
+    ]
+    for name, where, q, qd, us, tol in cases:
+        envs = {"cpu": make_env(name, "cpu"), "gpu": make_env(name, dev)}
+        states = {k: EnvState(q.to(e.device), qd.to(e.device),
+                              torch.zeros(B, dtype=torch.int32, device=e.device))
+                  for k, e in envs.items()}
+        worst = [0.0, 0.0, 0.0]
+        for t, u in enumerate(us):
+            out = {}
+            for k, e in envs.items():
+                states[k], reward = e.step(e.default_params(), states[k], u.to(e.device))
+                out[k] = (states[k].qpos, states[k].qvel, reward)
+            for i, (g, c) in enumerate(zip(out["gpu"], out["cpu"])):
+                err = (g.cpu() - c).abs().max().item() / max(1.0, c.abs().max().item())
+                worst[i] = max(worst[i], err)
+                if not (err <= tol[i] and bool(torch.isfinite(g).all())):
+                    raise SystemExit(f"{name} {where}: the step on the card disagrees with the "
+                                     f"CPU at step {t} ({('qpos', 'qvel', 'reward')[i]} "
+                                     f"{err:.2e} > {tol[i]:.0e} of scale)")
+            if where == "in the air":
+                model = envs["cpu"].model(envs["cpu"].default_params())
+                angles, origins, _ = forward_kinematics(model, states["cpu"].qpos)
+                if contact_points(model, angles, origins)[..., 1].min().item() <= 0.1:
+                    raise SystemExit("the walker came within 0.1 of the ground in the air")
+        print(f"  {name} {where}: {B} envs x {len(us)} steps, GPU vs CPU max|d| / max(1, "
+              f"max|ref|) qpos {worst[0]:.2e} qvel {worst[1]:.2e} reward {worst[2]:.2e} "
+              f"(tol {tol[0]:.0e} / {tol[1]:.0e} / {tol[2]:.0e})")
+
+
+def check_expert(env_name, noise_sigma, dev):
+    """Phase 13 (b): a scripted expert's collection (``G13_EXPERT_ENVS`` x
+    ``G13_EXPERT_STEPS``, DART noise ``noise_sigma``) on the card against
+    the CPU from the same resets and noise (drawn from seed 0 on the CPU),
+    by ``hold_expert``."""
+    from gan_mpc_tpu_torch.envs import make_env
+
+    env_c = make_env(env_name, "cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    init = env_c.reset(env_c.default_params(), G13_EXPERT_ENVS, gen)
+    noise = torch.randn((G13_EXPERT_STEPS, G13_EXPERT_ENVS, env_c.act_size), generator=gen)
+    gpu = expert_rollout(env_name, init, noise, noise_sigma, dev)
+    return hold_expert(env_name, init, noise, noise_sigma, gpu, f"{env_name} scripted expert",
+                       "resets and noise from seed 0")
+
+
+def serve_checkpoint(run_dir, num_envs, steps, kernels, card_line, dev):
+    """Serve a committed trained run as the bench does (``bench.load_checkpoint``:
+    its config, every component, the normalizer refitted on its committed
+    store) for 1 warmup and ``steps`` timed control steps of ``num_envs``
+    envs; the launches held to ``mlp_calls_per_solve`` over the trips the
+    solver reported. Returns (launches, episode, seconds, trips, checkpoint)."""
+    from gan_mpc_tpu_torch.bench import load_checkpoint, run_steps
+    from gan_mpc_tpu_torch.planner.batch_ilqr import ls_materializes, mlp_calls_per_solve
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt = load_checkpoint(run_dir, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    policy, env, s = ckpt.policy, ckpt.env, ckpt.policy.settings
+    H, n, m = policy.horizon, env.obs_size, env.act_size
+    mat = ls_materializes(s, H, num_envs, n, m)
+    fused = s.fused_ls in ("on", "auto")  # "auto" is on for the card's inputs
+    served = dict(env_params=ckpt.env_params, history=ckpt.history)
+    gen = torch.Generator().manual_seed(SEED)
+    _, t_warm = run_steps(policy, env, ckpt.normalizer, 1, gen, num_envs, **served)
+    for k in kernels.values():
+        k.launches = 0
+    with solves_recorded() as trips:
+        ep, dt = run_steps(policy, env, ckpt.normalizer, steps, gen, num_envs, **served)
+    got = {name: k.launches for name, k in kernels.items()}
+    expected = dict(mlp_calls_per_solve(H, sum(trips), fused, len(trips), materialize=mat),
+                    fused_mlp_bwd=0)
+    stacks = {name: [model.net.stack()[0][0].shape[0]] + [w.shape[1] for w, _ in model.net.stack()]
+              for name, model in (("dynamics", policy.dynamics_model),
+                                  ("cost", policy.cost_model))}
+    print(f"{ckpt.name} served from {run_dir} (loaded in {load_s:.2f} s: its config.json, "
+          f"params.msgpack with{'' if policy.critic_model is not None else 'out'} a critic, the "
+          f"normalizer refitted on its committed store): {num_envs} envs x {steps} control steps "
+          f"in {dt:.3f} s (warmup 1 step {t_warm:.3f} s): {num_envs * steps / dt:.2f} env steps/s, "
+          f"{dt / steps:.3f} s a control step (one GPU: {card_line}); H={H}, iLQR <= "
+          f"{s.max_iterations}, fused_ls={s.fused_ls}, history {ckpt.history}, stacks {stacks}; "
+          f"trips per solve {trips}; kernel launches {got} (expected {expected})")
+    if got != expected:
+        raise SystemExit(f"{ckpt.name} did not launch the kernels on every MLP call")
+    for name, shape in (("states", (num_envs, steps, n)), ("actions", (num_envs, steps, m)),
+                        ("rewards", (num_envs, steps))):
+        t = getattr(ep, name)
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            raise SystemExit(f"{ckpt.name} output {name} is malformed or not finite")
+    return got, ep, dt, trips, ckpt
+
+
+def fresh_fused_run(family, config, cuts, kernels, card_line, dev):
+    """Phase 13 (e): ``runners.{gan,l2}.run`` on ``config`` with ``cuts`` from
+    an empty temporary workdir (it collects the store with the scripted
+    expert, trains the expert, trains the fused epochs and, for the GAN run,
+    the DAgger round); the launches against the recorded solves and update
+    steps, the store, the metrics file and the saved run reloaded bitwise.
+    Returns the launches."""
+    import os
+    import tempfile
+
+    from gan_mpc_tpu_torch.config import Config
+    from gan_mpc_tpu_torch.data.trajectories import load_trajectories
+    from gan_mpc_tpu_torch.params import to_jax_params
+    from gan_mpc_tpu_torch.planner.batch_ilqr import mlp_calls_per_solve
+    from gan_mpc_tpu_torch.runners import collect, common, expert, gan, l2
+    from gan_mpc_tpu_torch.training import critic, fused_epoch
+
+    pieces = [(common, "collect_expert_trajectories", "store collection"),
+              (expert, "train_expert", "expert training"),
+              (fused_epoch, "collect_episode", "collection"),
+              (fused_epoch, "dynamics_steps", "dynamics"),
+              (fused_epoch, "critic_dataset", "critic dataset"),
+              (critic, "update_pass", "critic updates"),
+              (fused_epoch, "cost_steps", "generator or cost"),
+              (collect, "policy_rollout", "DAgger rollout"),
+              (collect, "collect_expert_trajectories", "expert segments"),
+              (gan, "train_expert", "DAgger fine-tune")]
+    logs = []
+
+    def log(msg):
+        print(f"  {msg}")
+        logs.append(msg)
+
+    with tempfile.TemporaryDirectory() as workdir:
+        cfg = Config.from_yaml(config).replace(runtime__workdir=workdir, **cuts)
+        print(f"fresh fused {family} run ({config} from an empty temporary workdir, one GPU: "
+              f"{card_line}); cuts {cuts}")
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with solves_recorded() as trips, update_steps_recorded() as steps, \
+                run_watched(pieces) as timed:
+            out = (gan if family == "gan" else l2).run(cfg, log_fn=log, device=dev)
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = {name: k.launches for name, k in kernels.items()}
+        H = cfg.mpc.horizon
+        solves = dict(mlp_calls_per_solve(H, sum(trips), solves=len(trips), materialize=False))
+        expected = {"fused_mlp_fwd": solves["fused_mlp_fwd"] + H * steps["dynamics"]
+                    + (H + 1) * steps["cost"], "fused_ls_step": 0,
+                    "fused_mlp_bwd": H * (steps["dynamics"] + steps["cost"])}
+        store = load_trajectories(common.trajectories_path(cfg), num_trajectories=1000,
+                                  trajectory_len=cfg.get_path("env.expert_episode_steps", 1000),
+                                  min_reward=-1.0)
+        gated = common.load_store(cfg, common.trajectories_path(cfg))
+        with open(os.path.join(workdir, "metrics", cfg.env.name, f"{family}.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        experts = os.listdir(common.expert_model_dir(cfg))
+        reloaded = to_jax_params(common.setup(cfg.replace(
+            mpc__train__init_from_run=out["run_dir"]), family == "gan", device=dev)["policy"])
+    kinds = {}
+    for kind, secs in timed:
+        kinds.setdefault(kind, []).append(round(secs, 3))
+    totals = np.round(store.rewards.sum(1), 1).tolist()
+    print(f"  {family} run {run_s:.3f} s; wall s by piece: {kinds}")
+    print(f"  store {os.path.basename(common.trajectories_path(cfg))}: states "
+          f"{store.states.shape}, episode returns {totals}; {gated.states.shape[0]} clear "
+          f"min_expert_reward={cfg.mpc.train.get_path('min_expert_reward', 500.0)}; experts "
+          f"saved {experts}")
+    print(f"  kernel launches {counts} (expected {expected}: {len(trips)} solves of "
+          f"{sum(trips)} trips, {steps['dynamics']} dynamics and {steps['cost']} "
+          f"{'generator' if family == 'gan' else 'cost'} steps of {H} time steps)")
+    if counts != expected:
+        raise SystemExit(f"the fresh {family} run of {config} did not launch the kernels on "
+                         "every MLP call")
+    if store.states.shape[0] != common.collection_size(cfg) or not gated.states.shape[0] or \
+            experts != ["0"]:
+        raise SystemExit(f"the fresh {family} run of {config} collected no usable store or "
+                         "saved no expert")
+    fused_keys = set(l2.FUSED_RECORDS[family][f][1] for f in l2.FUSED_RECORDS[family])
+    epoch_rows = [r for r in rows if fused_keys <= set(r)]
+    dagger_rows = [r for r in rows if "dagger_test_loss" in r]
+    values = [v for r in rows for k, v in r.items() if k not in ("step", "time")]
+    want_epochs = list(range(1, cfg.mpc.train.num_epochs + 1))
+    print(f"  {family}.jsonl: {len(rows)} rows, fused epoch rows at steps "
+          f"{[r['step'] for r in epoch_rows]}, DAgger rows {dagger_rows}; stamped reward "
+          f"{out['avg_reward']:.2f}")
+    if [r["step"] for r in epoch_rows] != want_epochs or not np.all(np.isfinite(values)) or \
+            len(dagger_rows) != cfg.get_path("expert_prediction.dagger.rounds", 0):
+        raise SystemExit(f"the fresh {family} run of {config} wrote unexpected metrics rows")
+    got, want = dict(leaves_of(reloaded)), dict(leaves_of(out["params"]))
+    if sorted(got) != sorted(want) or not all(np.array_equal(v, want[k]) for k, v in got.items()):
+        raise SystemExit(f"the saved fresh {family} run of {config} does not reload bitwise")
+    return counts
+
+
+def walker_cartpole_phase(kernels, card_line, dev):
+    """Phase 13: walker and cartpole, and the committed trained checkpoints
+    (see the module's docstring). Returns the launches of each path."""
+    import os
+
+    from gan_mpc_tpu_torch.bench import DEFAULT_CHECKPOINT, NUM_ENVS, bench_row
+    from gan_mpc_tpu_torch.config import Config
+
+    t_phase = time.perf_counter()
+    wall, launches = {}, {}
+    t0 = time.perf_counter()
+    print("phase 13 (a): the envs on the card against the CPU")
+    check_env_steps(dev)
+    wall["(a) envs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    print("phase 13 (b): the scripted experts on the card against the CPU")
+    for env_name, noise in (("walker_walk", 0.1), ("cartpole_balance", 0.25)):
+        check_expert(env_name, noise, dev)
+    wall["(b) experts"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    print("phase 13 (c): the trained-checkpoint row, the JAX bench's second line")
+    got, ep, dt, trips, ckpt = serve_checkpoint(DEFAULT_CHECKPOINT, NUM_ENVS, G13_GAN4_STEPS,
+                                                kernels, card_line, dev)
+    settings = ckpt.policy.settings
+    print(json.dumps(bench_row(NUM_ENVS * G13_GAN4_STEPS / dt, card_line, settings.fused_ls,
+                               ckpt.name, NUM_ENVS, settings.max_iterations, ckpt.policy.horizon,
+                               settings.num_alphas, settings.ls_materialize)))
+    print(f"  mean trips per solve {np.mean(trips):.2f} of {settings.max_iterations}")
+    launches["gan/4 serving"] = got
+    wall["(c) gan/4 row"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    print("phase 13 (d): walker gan/0 and cartpole l2/0 served at their configs' "
+          "num_parallel_envs")
+    for run, config in (("walker_walk/gan/0", "configs/gan_walker.yaml"),
+                        ("cartpole_balance/l2/0", "configs/l2_cartpole_quality.yaml")):
+        run_dir = os.path.join("runs/trained_models/imitator", run)
+        cfg = Config.from_yaml(config)
+        n = cfg.runtime.num_parallel_envs
+        got, ep, _, _, _ = serve_checkpoint(run_dir, n, G13_SERVE_STEPS, kernels, card_line, dev)
+        with open(os.path.join(run_dir, "episode_returns.json")) as f:
+            recorded = json.load(f)
+        T_rec = cfg.mpc.train.dynamics.max_interactions_per_episode
+        mean = ep.rewards.sum(1).mean().item()
+        print(f"  {run}: mean return {mean:.3f} over a cut episode of {G13_SERVE_STEPS} control "
+              f"steps ({mean / G13_SERVE_STEPS:.4f} a step); the run's episode_returns.json: "
+              f"mean {np.mean(recorded):.3f} over its {len(recorded)} training episodes of "
+              f"{T_rec} steps with collection noise "
+              f"{cfg.mpc.train.dynamics.collection_noise} ({np.mean(recorded) / T_rec:.4f} a "
+              f"step); printed, not checked")
+        launches[f"{run} serving"] = got
+    wall["(d) walker and cartpole served"] = time.perf_counter() - t0
+
+    print("phase 13 (e): the walker and cartpole configs from empty workdirs")
+    for family, config, cuts in G13_RUNS:
+        t0 = time.perf_counter()
+        name = os.path.basename(config)
+        launches[f"{name} fresh run"] = fresh_fused_run(family, config, cuts, kernels,
+                                                        card_line, dev)
+        wall[f"(e) {name}"] = time.perf_counter() - t0
+    print(f"phase 13 wall s by piece: { {k: round(v, 1) for k, v in wall.items()} }; phase 13 "
+          f"wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def time_recorded(label, seen, keys, timed):
+    """Time each MLP kernel and its plain version at the (stack, rows)
+    pairs ``keys`` of ``seen`` (``shapes_recorded``) on the runs' own weights,
+    as phase 3 does, and add them to ``timed``."""
+    from gan_mpc_tpu_torch.ops.fused_mlp import (
+        fused_mlp_backward, fused_mlp_forward, reference_backward, reference_forward,
+    )
+
+    rng = np.random.default_rng(SEED)
+    for name, widths, rows in sorted(keys):
+        if not rows:
+            continue
+        layers = seen[(name, widths, rows)]
+        x = torch.tensor(rng.standard_normal((rows, widths[0])), dtype=torch.float32,
+                         device=layers[0][0].device)
+        if name == "fused_mlp_bwd":
+            g = torch.tensor(rng.standard_normal((rows, widths[-1])), dtype=torch.float32,
+                             device=x.device)
+            k = device_ms(lambda: fused_mlp_backward(x, layers, g))
+            p = device_ms(lambda: reference_backward(x, layers, g))
+            b_ms, b_by = bwd_bound(rows, list(widths))
+        else:
+            k = device_ms(lambda: fused_mlp_forward(x, layers))
+            p = device_ms(lambda: reference_forward(x, layers))
+            b_ms, b_by = mlp_bound(rows, list(widths))
+        timed[(name, f"{label} {list(widths)}", rows)] = (k, p, b_ms, b_by)
+        print(f"time {name} {label} {list(widths)} rows={rows}: kernel {k:.4f} ms, plain "
+              f"{p:.4f} ms, bound {b_ms:.5f} ms ({b_by}), kernel at {100 * b_ms / k:.1f}% of "
+              f"bound")
 
 
 def leaves_of(tree, prefix=""):
@@ -2325,6 +2706,14 @@ def main() -> int:
     with shapes_recorded() as seen:
         launches.update(fused_phase(kernels, card_line, dev, wall))
     check_recorded("phase 12", seen, checked, rng, dev, max_err)
+
+    # 13. walker and cartpole, and the committed trained checkpoints
+    with shapes_recorded() as seen:
+        launches.update(walker_cartpole_phase(kernels, card_line, dev))
+    new = [key for key in seen if key not in checked]
+    check_recorded("phase 13", seen, checked, rng, dev, max_err)
+    with torch.no_grad():
+        time_recorded("phase 13", seen, new, timed)
 
     # the planner's line-search call (8192 rows) leads the forward kernels'
     # entries, the trainer's call (128 rows) the backward kernel's

@@ -27,12 +27,22 @@ The window is the JAX bench's: one full warmup episode of 50 control
 steps, then 3 timed episodes of 50 steps each (every episode from a fresh
 reset drawn from the run's generator), and the mean of the three.
 
-Prints one JSON line per solver setting, {"metric", "value", "unit",
-"vs_baseline"}, with the card's name and power limit and the setting in
-the metric: first the forward scans through the separate dynamics and
-stage-cost callbacks (``fused_ls="off"``), then through the fused
-line-search step (``fused_ls="on"``, the JAX bench's ``BENCH_FUSED=on``
-row). The port has no GPU baseline yet, so ``vs_baseline`` is null.
+Prints one JSON line per row, {"metric", "value", "unit", "vs_baseline"},
+with the card's name and power limit and the solver setting in the
+metric: first the flagship with the forward scans through the separate
+dynamics and stage-cost callbacks (``fused_ls="off"``), then through the
+fused line-search step (``fused_ls="on"``, the JAX bench's
+``BENCH_FUSED=on`` row), then, as the JAX bench's second line, the
+committed production checkpoint ``DEFAULT_CHECKPOINT`` (cheetah_run
+gan/4) at its own solver budget, "(trained ckpt)" in the row's name.
+``--checkpoint DIR`` (the JAX bench's ``BENCH_CHECKPOINT``) benches only
+that trained run. A checkpoint row rebuilds the policy, its solver
+settings, the imitator env with the run's physics shift and the history
+from the run's own ``config.json``, loads every component from its
+``params.msgpack``, and refits the normalizer on the run's expert store
+through ``ensure_trajectories`` (the store in the run's workdir, the
+directory that holds its ``trained_models``); a run that fails to load
+raises. The port has no GPU baseline yet, so ``vs_baseline`` is null.
 Exits non-zero without a card.
 """
 
@@ -40,9 +50,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -53,9 +66,10 @@ from gan_mpc_tpu_torch.envs.rollout import policy_rollout
 from gan_mpc_tpu_torch.models.cost import CostFeatureNet, MPCCost
 from gan_mpc_tpu_torch.models.dynamics import LearnedDynamics, ResidualMLPDynamicsNet
 from gan_mpc_tpu_torch.models.expert import ExpertPredictor
-from gan_mpc_tpu_torch.params import init_flax_like
+from gan_mpc_tpu_torch.params import init_flax_like, load_msgpack
 from gan_mpc_tpu_torch.planner.ilqr import SolverSettings
 from gan_mpc_tpu_torch.policies.mpc import MPCPolicy
+from gan_mpc_tpu_torch.runners import common
 
 # the flagship row's sizes; chip_smoke.py drives the same widths over a
 # shorter episode of its own
@@ -70,6 +84,9 @@ NUM_ALPHAS = 16
 LS_MATERIALIZE = "auto"
 HISTORY = 1
 FUSED_LS = ("off", "on")  # the rows, in print order
+# the committed production checkpoint, benched as the row after the flagship's
+DEFAULT_CHECKPOINT = str(Path(__file__).resolve().parent.parent
+                         / "runs/trained_models/imitator/cheetah_run/gan/4")
 
 
 def flagship(horizon: int = HORIZON, max_iterations: int = ILQR_ITERS,
@@ -112,27 +129,62 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def run_steps(policy, env, norm, num_steps, generator, num_envs=NUM_ENVS):
-    """One closed-loop rollout of ``num_envs`` envs on the card; returns
-    (episode, seconds)."""
+class Checkpoint(NamedTuple):
+    """A trained run as the bench serves it (the JAX bench's
+    ``_load_checkpoint``)."""
+
+    policy: MPCPolicy
+    env: object
+    env_params: object
+    normalizer: Normalizer
+    history: int
+    name: str  # the row's env name: "<env> (trained ckpt)"
+
+
+def load_checkpoint(run_dir: str, device="cuda") -> Checkpoint:
+    """The trained run ``run_dir`` (``<workdir>/trained_models/imitator/
+    <env>/<family>/<id>``) from its own ``config.json`` and
+    ``params.msgpack`` (the critic where the run saved one), the
+    normalizer refitted on the expert store that ``ensure_trajectories``
+    reads in the run's workdir, on the card unless ``device`` says
+    otherwise."""
+    run_dir = os.path.abspath(run_dir)
+    workdir = str(Path(run_dir).parents[4])
+    config = common.load_run_config(run_dir).replace(runtime__workdir=workdir)
+    env, env_params = common.imitator_env(config, device)
+    trajs = common.ensure_trajectories(config, device)
+    norm = common.build_normalizer(config, trajs, device)
+    with_critic = "critic_params" in load_msgpack(os.path.join(run_dir, "params.msgpack"))
+    policy = common.build_policy(config, env.obs_size, env.act_size, with_critic, device)
+    common.load_saved_params(policy, run_dir)
+    return Checkpoint(policy, env, env_params, norm, config.mpc.history,
+                      f"{config.env.name} (trained ckpt)")
+
+
+def run_steps(policy, env, norm, num_steps, generator, num_envs=NUM_ENVS, env_params=None,
+              history=HISTORY):
+    """One closed-loop rollout of ``num_envs`` envs on the card (the env's
+    default physics unless ``env_params`` is given); returns (episode,
+    seconds)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ep = policy_rollout(
-        env, env.default_params(), policy, norm, num_steps=num_steps,
-        history=HISTORY, num_envs=num_envs, generator=generator,
+        env, env_params if env_params is not None else env.default_params(), policy, norm,
+        num_steps=num_steps, history=history, num_envs=num_envs, generator=generator,
     )
     torch.cuda.synchronize()
     return ep, time.perf_counter() - t0
 
 
-def profile_steps(policy, env, norm, num_steps, generator, num_envs=NUM_ENVS, top=25):
+def profile_steps(policy, env, norm, num_steps, generator, num_envs=NUM_ENVS, top=25,
+                  **served):
     """Trace ``num_steps`` control steps with torch.profiler; print the
     device's busy share of the wall time and the ops with the most device
-    time."""
+    time. ``served``: ``run_steps``' ``env_params`` and ``history``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, dt = run_steps(policy, env, norm, num_steps, generator, num_envs)
+        _, dt = run_steps(policy, env, norm, num_steps, generator, num_envs, **served)
     events = prof.key_averages()
     # kernel events only: an op's row repeats the time of the kernels it launched
     busy_s = sum(
@@ -144,12 +196,13 @@ def profile_steps(policy, env, norm, num_steps, generator, num_envs=NUM_ENVS, to
     print(events.table(sort_by="self_device_time_total", row_limit=top))
 
 
-def timed_episodes(policy, env, norm, generator, num_envs=NUM_ENVS):
+def timed_episodes(policy, env, norm, generator, num_envs=NUM_ENVS, **served):
     """The bench window: WARMUP_EPISODES full episodes, then REPS timed
-    ones; returns the mean seconds of a timed episode."""
+    ones; returns the mean seconds of a timed episode. ``served``:
+    ``run_steps``' ``env_params`` and ``history``."""
     for _ in range(WARMUP_EPISODES):
-        run_steps(policy, env, norm, STEPS, generator, num_envs)
-    return sum(run_steps(policy, env, norm, STEPS, generator, num_envs)[1]
+        run_steps(policy, env, norm, STEPS, generator, num_envs, **served)
+    return sum(run_steps(policy, env, norm, STEPS, generator, num_envs, **served)[1]
                for _ in range(REPS)) / REPS
 
 
@@ -183,15 +236,20 @@ def main(argv=None) -> int:
     ap.add_argument("--alphas", type=int, default=NUM_ALPHAS, help="BENCH_ALPHAS")
     ap.add_argument("--ls", default=LS_MATERIALIZE, choices=("auto", "recompute", "materialize"),
                     help="the line-search strategy (BENCH_LS)")
+    ap.add_argument("--checkpoint", metavar="DIR",
+                    help="bench only this trained run (BENCH_CHECKPOINT)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device: the benchmark runs only on a GPU", file=sys.stderr)
         return 1
     pin_fp32()
     dev = torch.device("cuda")
+    card_name = card()
+    if args.checkpoint:
+        bench_checkpoint(args.checkpoint, card_name, args)
+        return 0
     env = make_env(args.env, dev)
     norm = Normalizer.identity(env.obs_size, env.act_size, dev)
-    card_name = card()
     for fused_ls in FUSED_LS:
         policy = flagship(args.horizon, args.iters, env.obs_size, env.act_size, dev, args.seed,
                           fused_ls, args.alphas, args.ls)
@@ -202,7 +260,25 @@ def main(argv=None) -> int:
         print(json.dumps(row), flush=True)
         if args.profile:
             profile_steps(policy, env, norm, args.profile, gen, args.num_envs)
+    bench_checkpoint(DEFAULT_CHECKPOINT, card_name, args)
     return 0
+
+
+def bench_checkpoint(run_dir: str, card_name: str, args) -> None:
+    """Print the bench row of the trained run ``run_dir`` at
+    ``args.num_envs`` envs (then its trace, with ``args.profile``)."""
+    ckpt = load_checkpoint(run_dir)
+    settings = ckpt.policy.settings
+    gen = torch.Generator().manual_seed(args.seed)
+    served = dict(env_params=ckpt.env_params, history=ckpt.history)
+    dt = timed_episodes(ckpt.policy, ckpt.env, ckpt.normalizer, gen, args.num_envs, **served)
+    row = bench_row(args.num_envs * STEPS / dt, card_name, settings.fused_ls, ckpt.name,
+                    args.num_envs, settings.max_iterations, ckpt.policy.horizon,
+                    settings.num_alphas, settings.ls_materialize)
+    print(json.dumps(row), flush=True)
+    if args.profile:
+        profile_steps(ckpt.policy, ckpt.env, ckpt.normalizer, args.profile, gen, args.num_envs,
+                      **served)
 
 
 if __name__ == "__main__":

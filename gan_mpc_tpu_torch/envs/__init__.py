@@ -16,6 +16,14 @@ def make_env(name: str, device="cuda"):
         from gan_mpc_tpu_torch.envs.pendulum import PendulumSwingup
 
         return PendulumSwingup(device)
+    if name == "cartpole_balance":
+        from gan_mpc_tpu_torch.envs.cartpole import CartpoleBalance
+
+        return CartpoleBalance(device)
+    if name == "walker_walk":
+        from gan_mpc_tpu_torch.envs.walker import WalkerWalk
+
+        return WalkerWalk(device)
     if name == "humanoid_stand":
         from gan_mpc_tpu_torch.envs.humanoid import HumanoidStand
 
@@ -24,5 +32,5 @@ def make_env(name: str, device="cuda"):
         from gan_mpc_tpu_torch.envs.humanoid import HumanoidWalk
 
         return HumanoidWalk(device)
-    raise ValueError(f"environment {name!r} is not ported (ported: cheetah_run, "
-                     "pendulum_swingup, humanoid_stand, humanoid_walk)")
+    raise ValueError(f"unknown environment {name!r} (known: cheetah_run, pendulum_swingup, "
+                     "cartpole_balance, walker_walk, humanoid_stand, humanoid_walk)")

@@ -2,8 +2,9 @@
 
 Counterpart of ``gan_mpc_tpu/runners/collect.py`` for the ported envs:
 each env ships a scripted expert (pendulum energy-shaping swing-up, the
-humanoid's centre-of-mass balance and its state-indexed walking gait, the
-cheetah's state-indexed phase-PD gait), and
+cart-pole's linear balance feedback, the walker's, the humanoid's and the
+cheetah's state-indexed phase-PD gaits, the humanoid's centre-of-mass
+balance), and
 ``collect_expert_trajectories`` rolls it out over a batch of envs and
 returns the reference-schema ``TrajectorySet``.
 
@@ -26,8 +27,7 @@ Differences from the JAX module:
 ``collect_dagger_trajectories`` restarts the scripted expert from states
 that the imitator's policy visits (DAgger's corrective segments).
 
-Not ported: the walker and cartpole experts (their envs are not ported),
-and the open-loop v1 cheetah gait, which no expert version reaches.
+Not ported: the open-loop v1 cheetah gait, which no expert version reaches.
 """
 
 from __future__ import annotations
@@ -218,6 +218,43 @@ def humanoid_walk_phase_action(w: torch.Tensor, obs: torch.Tensor, env,
     return _walk_action(w, obs, ph, env)
 
 
+# The state-indexed walker gait (expert v2): the humanoid v3 design on the
+# biped (antiphase hip sines, rectified swing-knee flexion, ankle push-off,
+# torso-pitch balance and a speed servo through the hips), the phase matched
+# to the observed pose; CEM-tuned over the differentiable engine.
+# w = [freq, A_hip, A_knee, ph_knee, A_ank, ph_ank, kp, kd, k_pitch,
+#      k_pitchd, k_v, v_ref, delta, lam]
+_WALKER_WALK_PHASE = (
+    -0.0552, 0.6620, -0.7798, -0.0775, 0.5858, -1.1868, 2.9690, -0.0028,
+    5.0975, 0.2397, 0.2843, 1.4972, 1.9741, -0.0349,
+)
+
+
+def _walker_targets(w: torch.Tensor, ph: torch.Tensor) -> torch.Tensor:
+    """Phase (...) -> 6 joint-angle targets (..., 6): left hip, knee,
+    ankle, right hip, knee, ankle."""
+    A_h, A_k, ph_k, A_a, ph_a = w[1], w[2], w[3], w[4], w[5]
+    zero = torch.zeros_like(ph)
+    knee_l = -A_k * torch.maximum(torch.sin(ph + ph_k), zero)
+    knee_r = -A_k * torch.maximum(torch.sin(ph + math.pi + ph_k), zero)
+    return torch.stack([A_h * torch.sin(ph), knee_l, A_a * torch.sin(ph + ph_a),
+                        A_h * torch.sin(ph + math.pi), knee_r,
+                        A_a * torch.sin(ph + math.pi + ph_a)], dim=-1)
+
+
+def walker_walk_phase_action(w: torch.Tensor, obs: torch.Tensor, grid=None) -> torch.Tensor:
+    """The memoryless walker gait, (B, 17) observations [z, pitch, 6
+    joints, xd, zd, pitchd, 6 joint velocities] -> (B, 6) actions."""
+    kp, kd = torch.abs(w[6]), torch.abs(w[7])
+    k_p, k_pd, k_v, v_ref, delta = w[8], w[9], w[10], w[11], w[12]
+    joints, jointsd = obs[:, 2:8], obs[:, 11:17]
+    grid = grid if grid is not None else phase_grid(_walker_targets, w)
+    ph = match_phase(grid, joints, jointsd, torch.abs(w[13])) + delta
+    u = kp * (_walker_targets(w, ph) - joints) - kd * jointsd
+    hip = k_p * obs[:, 1] + k_pd * obs[:, 10] - k_v * (v_ref - obs[:, 8])
+    return torch.clamp(_add_columns(u, (0, 3), hip), -1.0, 1.0)
+
+
 # The state-indexed cheetah gait (expert v2): per-joint sinusoidal targets
 # tracked by PD, the phase matched to the observed pose, pitch feedback
 # through the thighs and a speed servo; CEM-tuned over the differentiable
@@ -285,6 +322,19 @@ def scripted_expert(env) -> Callable[[torch.Tensor], torch.Tensor]:
             return torch.clamp(u[:, None] / gain, -1.0, 1.0)
 
         return pendulum
+    if env.name == "cartpole_balance":
+
+        def cartpole(obs):
+            x, cos_th, sin_th, xd, thd = obs.unbind(-1)
+            # hand-tuned stabilizing feedback around upright
+            u = 18.0 * torch.atan2(sin_th, cos_th) + 3.0 * thd + 0.9 * x + 1.6 * xd
+            return torch.clamp(u[:, None], -1.0, 1.0)
+
+        return cartpole
+    if env.name == "walker_walk":
+        w = _f32(_WALKER_WALK_PHASE, dev)
+        grid = phase_grid(_walker_targets, w)
+        return lambda obs: walker_walk_phase_action(w, obs, grid)
     if env.name == "humanoid_stand":
         gains = _f32(_HUMANOID_STAND_GAINS, dev)
         return lambda obs: humanoid_balance_policy(gains, obs, env)

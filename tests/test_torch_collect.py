@@ -1,7 +1,8 @@
 """The port's scripted experts and expert collection against the JAX package.
 
 Here the pendulum and the cheetah; ``test_torch_collect_humanoid.py`` runs
-the same tests on humanoid_stand and humanoid_walk.
+the same tests on humanoid_stand and humanoid_walk, and
+``test_torch_walker_cartpole.py`` on walker_walk and cartpole_balance.
 
   * each expert's action equals JAX's on the same observations, taken from a short
     JAX collection: atol 1e-5. The observations used sit clear of the
@@ -42,7 +43,8 @@ torch.set_num_threads(1)
 ENVS = ["pendulum_swingup", "cheetah_run"]
 # (noise, reset velocity) of the collection per env: the configs' values
 KNOBS = {"pendulum_swingup": (0.25, 0.5), "humanoid_stand": (0.1, 0.0),
-         "humanoid_walk": (0.1, 0.0), "cheetah_run": (0.25, 0.0)}
+         "humanoid_walk": (0.1, 0.0), "cheetah_run": (0.25, 0.0), "walker_walk": (0.1, 0.0),
+         "cartpole_balance": (0.25, 0.0)}
 N, T = 6, 30
 NUDGES = (1 + 1e-7, 1 - 1e-7, 1 + 2e-7, 1 - 2e-7)
 REPRODUCIBLE = 0.1  # JAX's own spread of an env's states under which it is compared
@@ -104,12 +106,16 @@ def clear_of_switches(name, env, obs: np.ndarray, margin=1e-4) -> np.ndarray:
     if name == "pendulum_swingup":
         th = np.arctan2(o[:, 1], o[:, 0])
         return (np.abs(np.abs(th) - 0.5) > margin) & (np.abs(o[:, 2] + 0.3 * o[:, 1]) > margin)
-    if name == "humanoid_stand":
+    if name in ("humanoid_stand", "cartpole_balance"):
         return np.ones(len(o), bool)
     if name == "humanoid_walk":
         w = collect._f32(collect._HUMANOID_WALK_PHASE, "cpu")
         _, qts, qdts = collect.phase_grid(collect._walk_pd_targets, w)
         joints, jointsd, lam = o[:, 2:14], o[:, 17:29], abs(float(w[14]))
+    elif name == "walker_walk":
+        w = collect._f32(collect._WALKER_WALK_PHASE, "cpu")
+        _, qts, qdts = collect.phase_grid(collect._walker_targets, w)
+        joints, jointsd, lam = o[:, 2:8], o[:, 11:17], abs(float(w[13]))
     else:
         w = collect._f32(collect.cheetah_pd_weights(), "cpu")
         _, qts, qdts = collect.phase_grid(collect._cheetah_targets, w)
@@ -181,5 +187,6 @@ def test_expert_version_matches_jax(monkeypatch, variant):
     assert collect.expert_version("cheetah_run") == want
     assert collect.cheetah_pd_weights() == tuple(
         jcollect._CHEETAH_PD_W_NOMINAL if variant == "nominal" else jcollect._CHEETAH_PD_W_SHIFT3)
-    for name in ("pendulum_swingup", "humanoid_walk", "humanoid_stand"):
+    for name in ("pendulum_swingup", "humanoid_walk", "humanoid_stand", "walker_walk",
+                 "cartpole_balance"):
         assert collect.expert_version(name) == jcollect.EXPERT_VERSION.get(name, 1)

@@ -42,8 +42,13 @@ from gan_mpc_tpu_torch.params import load_msgpack
 from gan_mpc_tpu_torch.runners import common
 from gan_mpc_tpu_torch.training.masking import policy_components
 
+import jax_native_store
+
 torch.set_num_threads(1)
 pin_fp32()
+
+# the JAX loaders read the committed .gmts through its native library
+jax_native_store.ensure()
 
 REPO = Path(__file__).resolve().parent.parent
 G9 = "runs/trained_models/imitator/pendulum_swingup/gan/9"

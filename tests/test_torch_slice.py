@@ -23,8 +23,9 @@ where JAX's own nudges move them by 1.40e-3.
 Also: the port (the control path, the dynamics trainer, a cost-trainer
 step, the committed run gan/9 loaded and continued by a cut GAN epoch, a
 tiny L2 training run from config to saved run, a tiny fused GAN run with
-a DAgger round, and a tiny GAN run from an empty workdir, which collects
-its expert store and trains its expert)
+a DAgger round, a tiny GAN run from an empty workdir, which collects
+its expert store and trains its expert, and configs/gan_walker.yaml and
+configs/l2_cartpole_quality.yaml cut tiny, from empty workdirs)
 runs with JAX, flax and the JAX package made unimportable, and its entry
 points run on the card unless asked for the CPU.
 """
@@ -255,6 +256,30 @@ BLOCKED_RUN = textwrap.dedent(
     gan.run(cfg, log_fn=None, device="cpu")
     assert os.path.exists(common.trajectories_path(cfg))
     assert os.listdir(common.expert_model_dir(cfg)) == ["0"]
+
+    # configs/gan_walker.yaml and configs/l2_cartpole_quality.yaml from
+    # empty workdirs, cut tiny: collection, expert, fused epochs (DAgger)
+    cuts = dict(env__expert_episode_steps=40, env__collect_trajectories=4,
+                mpc__train__num_trajectories=2, mpc__train__trajectory_len=40,
+                mpc__train__min_expert_reward=1.0, mpc__solver__max_iterations=1,
+                mpc__train__num_epochs=1, mpc__train__dynamics__max_interactions_per_episode=12,
+                mpc__train__dynamics__num_updates=1, mpc__train__dynamics__warm_start_updates=1,
+                mpc__train__dynamics__batch_size=8, mpc__train__cost__num_updates=1,
+                mpc__train__cost__batch_size=2, mpc__evaluate__dm_control_episodes=0,
+                mpc__evaluate__max_interactions=6, mpc__evaluate__midrun_episodes=1,
+                mpc__evaluate__candidate_pool=1, mpc__evaluate__selection_episodes=1,
+                mpc__evaluate__num_runs_for_avg=1, mpc__evaluate__fresh_eval_episodes=1,
+                expert_prediction__train__num_epochs=1, expert_prediction__eval_runs=1)
+    walker = dict(mpc__train__critic__num_updates=1, mpc__train__critic__batch_size=2,
+                  runtime__num_parallel_envs=2, expert_prediction__dagger={
+                      "rounds": 1, "num_segments": 2, "segment_steps": 12, "policy_episodes": 1,
+                      "finetune_epochs": 1, "extra_epochs": 0})
+    for name, runner, extra in (("gan_walker", gan, walker), ("l2_cartpole_quality", l2, {})):
+        cfg = Config.from_yaml(f"configs/{name}.yaml").replace(
+            runtime__workdir=os.path.join(work, name), **cuts, **extra)
+        out = runner.run(cfg, log_fn=None, device="cpu")
+        assert os.path.exists(os.path.join(out["run_dir"], "params.msgpack"))
+        assert os.listdir(common.expert_model_dir(cfg)) == ["0"]
     assert not [m for m in sys.modules if blocked(m)]
     print("imported", len(mods), "modules")
     """

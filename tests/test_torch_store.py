@@ -11,7 +11,11 @@
     collects ``collection_size`` episodes into the fingerprinted store
     that JAX's ``trajectories_path`` names, and a second call reads it
     without collecting; a gate that fewer trajectories clear than asked
-    for prints JAX's warning.
+    for prints JAX's warning;
+  * ``jax_native_store.ensure`` loads the JAX package's native library in
+    a process that kept a failed load of a half-written one (the race of
+    test workers in a fresh checkout), by building it to a temporary name
+    and renaming it into place.
 """
 
 import os
@@ -28,6 +32,10 @@ from gan_mpc_tpu_torch.data import trajectories as traj
 from gan_mpc_tpu_torch.runners import common
 from test_end_to_end import TINY_OVERRIDES
 
+import jax_native_store
+
+jax_native_store.ensure()
+
 FIELDS = ("states", "actions", "rewards", "executed_actions")
 
 
@@ -35,6 +43,25 @@ def _arrays(n=5, length=12, x=4, u=2, seed=0):
     rng = np.random.default_rng(seed)
     f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
     return f(n, length, x), f(n, length, u), np.abs(f(n, length)), f(n, length, u)
+
+
+def test_native_store_recovers_from_a_half_written_library(tmp_path, monkeypatch):
+    """A process that loaded the library while another was still writing
+    it keeps the failure (``_lib_load_failed``); ``ensure`` rebuilds the
+    library in place and clears it, and the store reads again."""
+    lib = tmp_path / "libtrajstore.so"
+    lib.write_bytes(b"\x7fELF" + b"\0" * 60)  # a linker's output cut short
+    monkeypatch.setattr(native_store, "_LIB", str(lib))
+    monkeypatch.setattr(native_store, "_lib", None)
+    monkeypatch.setattr(native_store, "_lib_load_failed", False)
+    assert not native_store.available()  # the failed load is kept
+    assert native_store._lib_load_failed and not native_store.available()
+    assert jax_native_store.ensure() is not None
+    assert native_store.available() and lib.stat().st_size > 64
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["libtrajstore.so"]
+    s, a, r, _ = _arrays()
+    native_store.write_trajectories(str(tmp_path / "x.gmts"), jtraj.TrajectorySet(s, a, r))
+    np.testing.assert_array_equal(traj.read_gmts(str(tmp_path / "x.gmts"))[0], s)
 
 
 def test_gmts_bytes_match_the_native_writer(tmp_path):
