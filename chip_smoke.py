@@ -123,7 +123,7 @@ Phases, in order; any failure raises and exits non-zero:
      pendulum_swingup gan/9 from its own config.json and params.msgpack
      (every component, the critic included; continued from itself) and
      fits the normalizer on the committed expert store; then
-     - serving: 16 envs closed loop on the imitator's pendulum for 100
+     - serving: 16 envs closed loop on the imitator's pendulum for 50
        control steps (2 warmup steps), H=10, iLQR <= 30 with the loop's
        early exit; prints the mean return, the mean and max trips per
        solve and steps/s; fused_mlp_fwd must have launched
@@ -247,11 +247,28 @@ Phases, in order; any failure raises and exits non-zero:
          ``G13_RUNS``' cuts: launches against the recorded solves and
          update steps, the store through its gate, the expert, the metrics
          rows and the saved run reloaded bitwise.
-     After each of phases 6-13, both MLP kernels are held against their
+ 14. the per-instance planning path (ensemble and LSTM dynamics), goal
+     projection, and the trained runs they unlock:
+     (a) one ``plan_batch`` on the card and on the CPU from the same
+         histories (2 envs, iLQR cut to 2 trips): humanoid_stand gan/0 (an
+         8-member ensemble of 41->256^3->29, H=50, planned per instance),
+         cheetah gan/0 (goal projection 2) and an LSTM-dynamics policy on
+         random weights at configs/gan_cheetah.yaml's widths (its carry
+         warmed from random past actions); U atol 1e-3, the CPU's own
+         spread under 1 +- 1e-7 nudges printed beside;
+     (b) served by ``serve_checkpoint`` (1 warmup step, then timed):
+         humanoid_stand gan/0 at 4 envs for 2 steps, humanoid_walk gan/0
+         and cheetah gan/0 at 16 envs for 3 steps each; env steps/s,
+         seconds a control step, trips per solve, the return a step beside
+         the run's episode_returns.json (printed, not checked); launches
+         held to ``mlp_calls_per_solve`` with the ensemble's members on
+         every dynamics call and the projection's advances, and no
+         ``fused_ls_step`` on the per-instance path.
+     After each of phases 6-14, both MLP kernels are held against their
      plain versions (as in phase 2) at every (stack, rows) pair that the
      phase's runs gave them and no earlier phase's check held, on the
-     runs' own weights (``shapes_recorded``, ``check_recorded``); phase
-     13's new pairs are also timed as in phase 3 (``time_recorded``).
+     runs' own weights (``shapes_recorded``, ``check_recorded``); phases
+     13 and 14's new pairs are also timed as in phase 3 (``time_recorded``).
      Then the script's total wall time.
 The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Exits 1 without a CUDA device.
@@ -366,9 +383,10 @@ GAN9_STORE = "runs/expert_trajectories/pendulum_swingup/trajectories-f690b23776.
 G9_ROWS = (4096, 2048, 1024, 256, 128, 64, 16, 4, 1)
 G9_TIMED = [("dynamics", 256), ("dynamics", 4096), ("dynamics", 2048), ("dynamics", 128),
             ("cost", 256), ("cost", 4096)]
-# 100 of the episode's 1000 control steps (200 until phase 13 came: the
-# script's time stays near half its limit); swing-up takes about 160
-SERVE_ENVS, SERVE_STEPS = 16, 100
+# 50 of the episode's 1000 control steps (200 until phase 13 came, 100
+# until phase 14: the script's time stays near half its limit); swing-up
+# takes about 160
+SERVE_ENVS, SERVE_STEPS = 16, 50
 # phase 8's cuts of gan/9's config (the rest is the run's own)
 G9_CUTS = dict(mpc__train__dynamics__max_interactions_per_episode=50,  # of 300
                mpc__train__cost__num_updates=1,  # of 3
@@ -512,6 +530,15 @@ G13_RUNS = [
     )),
     ("l2", "configs/l2_cartpole_quality.yaml", dict(G13_CUTS, mpc__train__num_epochs=1)),  # of 10
 ]
+# phase 14: the per-instance path (ensemble, LSTM dynamics), goal projection,
+# and the trained runs they unlock
+G14_STAND = "runs/trained_models/imitator/humanoid_stand/gan/0"  # 8 x 41->256^3->29, H=50
+G14_WALK = "runs/trained_models/imitator/humanoid_walk/gan/0"  # 41->256^3->29, H=10
+G14_CHEETAH0 = "runs/trained_models/imitator/cheetah_run/gan/0"  # goal projection 2, H=10
+G14_CHECK_ENVS, G14_CHECK_ITERS = 2, 2  # (a): the card-against-CPU plans
+G14_LSTM_CONFIG = "configs/gan_cheetah.yaml"  # (a): its widths with dynamics.use: lstm
+G14_STAND_ENVS, G14_STAND_STEPS = 4, 2  # (b): humanoid_stand gan/0, after 1 warmup step
+G14_SERVE_ENVS, G14_SERVE_STEPS = 16, 3  # (b): humanoid_walk gan/0 and cheetah gan/0
 H50_STEPS = 10
 H50_CHECK_ENVS = 16  # the card-against-CPU plan
 # The random-weight row is chaotic at H=50: its dynamics grow every
@@ -2133,7 +2160,9 @@ def serve_checkpoint(run_dir, num_envs, steps, kernels, card_line, dev):
     its config, every component, the normalizer refitted on its committed
     store) for 1 warmup and ``steps`` timed control steps of ``num_envs``
     envs; the launches held to ``mlp_calls_per_solve`` over the trips the
-    solver reported. Returns (launches, episode, seconds, trips, checkpoint)."""
+    solver reported (an ensemble's members launch on every dynamics call, a
+    goal projection adds its H advances, the per-instance path reads no
+    fused step). Returns (launches, episode, seconds, trips, checkpoint)."""
     from gan_mpc_tpu_torch.bench import load_checkpoint, run_steps
     from gan_mpc_tpu_torch.planner.batch_ilqr import ls_materializes, mlp_calls_per_solve
 
@@ -2143,9 +2172,12 @@ def serve_checkpoint(run_dir, num_envs, steps, kernels, card_line, dev):
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     policy, env, s = ckpt.policy, ckpt.env, ckpt.policy.settings
-    H, n, m = policy.horizon, env.obs_size, env.act_size
+    dyn = policy.dynamics_model
+    members = getattr(dyn, "num_members", 1)
+    H, n, m = policy.horizon, env.obs_size + dyn.carry_size, env.act_size
     mat = ls_materializes(s, H, num_envs, n, m)
-    fused = s.fused_ls in ("on", "auto")  # "auto" is on for the card's inputs
+    # "auto" is on for the card's inputs; the per-instance path reads no fused step
+    fused = policy.batch_native and s.fused_ls in ("on", "auto")
     served = dict(env_params=ckpt.env_params, history=ckpt.history)
     gen = torch.Generator().manual_seed(SEED)
     _, t_warm = run_steps(policy, env, ckpt.normalizer, 1, gen, num_envs, **served)
@@ -2154,22 +2186,27 @@ def serve_checkpoint(run_dir, num_envs, steps, kernels, card_line, dev):
     with solves_recorded() as trips:
         ep, dt = run_steps(policy, env, ckpt.normalizer, steps, gen, num_envs, **served)
     got = {name: k.launches for name, k in kernels.items()}
-    expected = dict(mlp_calls_per_solve(H, sum(trips), fused, len(trips), materialize=mat),
+    expected = dict(mlp_calls_per_solve(H, sum(trips), fused, len(trips), materialize=mat,
+                                        members=members,
+                                        projection=policy.goal_projection > 0),
                     fused_mlp_bwd=0)
-    stacks = {name: [model.net.stack()[0][0].shape[0]] + [w.shape[1] for w, _ in model.net.stack()]
-              for name, model in (("dynamics", policy.dynamics_model),
-                                  ("cost", policy.cost_model))}
+    nets = [mm.net for mm in dyn.members] if members > 1 else [dyn.net]
+    widths = lambda st: [st[0][0].shape[0]] + [w.shape[1] for w, _ in st]
+    stacks = {"dynamics": (f"{members} x " if members > 1 else "") + str(widths(nets[0].stack())),
+              "cost": str(widths(policy.cost_model.net.stack()))}
     print(f"{ckpt.name} served from {run_dir} (loaded in {load_s:.2f} s: its config.json, "
           f"params.msgpack with{'' if policy.critic_model is not None else 'out'} a critic, the "
           f"normalizer refitted on its committed store): {num_envs} envs x {steps} control steps "
           f"in {dt:.3f} s (warmup 1 step {t_warm:.3f} s): {num_envs * steps / dt:.2f} env steps/s, "
           f"{dt / steps:.3f} s a control step (one GPU: {card_line}); H={H}, iLQR <= "
-          f"{s.max_iterations}, fused_ls={s.fused_ls}, history {ckpt.history}, stacks {stacks}; "
+          f"{s.max_iterations}, fused_ls={s.fused_ls}, "
+          f"{'batch-native' if policy.batch_native else 'per-instance'} path, goal projection "
+          f"{policy.goal_projection}, history {ckpt.history}, stacks {stacks}; "
           f"trips per solve {trips}; kernel launches {got} (expected {expected})")
     if got != expected:
         raise SystemExit(f"{ckpt.name} did not launch the kernels on every MLP call")
-    for name, shape in (("states", (num_envs, steps, n)), ("actions", (num_envs, steps, m)),
-                        ("rewards", (num_envs, steps))):
+    for name, shape in (("states", (num_envs, steps, env.obs_size)),
+                        ("actions", (num_envs, steps, m)), ("rewards", (num_envs, steps))):
         t = getattr(ep, name)
         if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
             raise SystemExit(f"{ckpt.name} output {name} is malformed or not finite")
@@ -2335,6 +2372,124 @@ def walker_cartpole_phase(kernels, card_line, dev):
                                                         card_line, dev)
         wall[f"(e) {name}"] = time.perf_counter() - t0
     print(f"phase 13 wall s by piece: { {k: round(v, 1) for k, v in wall.items()} }; phase 13 "
+          f"wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def first_histories(ckpt, num_envs, device):
+    """The first control step's histories of ``num_envs`` envs of a served
+    run, as the closed loop builds them: a zero past, then the normalized
+    observation of a reset drawn from a generator seeded with ``SEED``; zero
+    past actions."""
+    env, norm = ckpt.env, ckpt.normalizer
+    state = env.reset(ckpt.env_params, num_envs, torch.Generator().manual_seed(SEED))
+    hX = torch.zeros((num_envs, ckpt.history + 1, env.obs_size), device=device)
+    hX[:, -1] = norm.normalize_state(env.observe(ckpt.env_params, state))
+    return hX, torch.zeros((num_envs, ckpt.history, env.act_size), device=device)
+
+
+def hold_plan_against_cpu(label, gpu_policy, cpu_policy, hX, hU, dev):
+    """One ``plan_batch`` on the card and on the CPU from the same histories
+    (CPU tensors): the served action U[:, 0] within max(1e-3, twice the
+    CPU's own spread) and equal iterations, the spread being the largest
+    move of the CPU's served action when hX is scaled by 1 +- 1e-7 or the
+    dynamics' weights by 1 +- 1e-6 (phase 12's nudges: the kernel's
+    arithmetic is a few 1e-6 off f32, and trained solves amplify that; at
+    H=50, 2 trips move humanoid_stand gan/0's action by 3e-3 under them).
+    The whole plan's difference and spread are printed, not checked: its
+    later actions flip with the line search on rounding, as phase 10's
+    do."""
+    cpu = cpu_policy.plan_batch(hX, hU)
+    gpu = gpu_policy.plan_batch(hX.to(dev), hU.to(dev))
+    nudged = [cpu_policy.plan_batch(hX * s, hU).U - cpu.U for s in (1 + 1e-7, 1 - 1e-7)]
+    weights = list(cpu_policy.dynamics_model.parameters())
+    saved = [w.detach().clone() for w in weights]
+    with torch.no_grad():
+        for s in (1 + 1e-6, 1 - 1e-6):
+            for w, w0 in zip(weights, saved):
+                w.copy_(w0 * s)
+            nudged.append(cpu_policy.plan_batch(hX, hU).U - cpu.U)
+        for w, w0 in zip(weights, saved):
+            w.copy_(w0)
+    spread0 = max(dU[:, 0].abs().max().item() for dU in nudged)
+    spread = max(dU.abs().max().item() for dU in nudged)
+    d0 = (gpu.U[:, 0].cpu() - cpu.U[:, 0]).abs().max().item()
+    d = (gpu.U.cpu() - cpu.U).abs().max().item()
+    tol = max(1e-3, 2.0 * spread0)
+    same_it = torch.equal(gpu.iterations.cpu(), cpu.iterations)
+    print(f"{label} plan_batch ({hX.shape[0]} envs, iLQR <= "
+          f"{gpu_policy.settings.max_iterations}, H={gpu_policy.horizon}) GPU vs CPU: served "
+          f"action max|dU[:, 0]|={d0:.3e} (atol {tol:.3e}: max(1e-3, twice the CPU's own "
+          f"{spread0:.3e} under the nudges)); whole plan max|dU|={d:.3e} of max|U| "
+          f"{cpu.U.abs().max().item():.4g} (the CPU's own {spread:.3e}); iterations GPU "
+          f"{gpu.iterations.tolist()} CPU {cpu.iterations.tolist()}")
+    if not (d0 <= tol and same_it and bool(torch.isfinite(gpu.U).all())):
+        raise SystemExit(f"the {label} plan on the card disagrees with the CPU path")
+
+
+def per_instance_phase(kernels, card_line, dev):
+    """Phase 14: the per-instance path and goal projection, card against
+    CPU, and the trained runs they unlock served (see the module's
+    docstring). Returns the launches of each served run."""
+    import dataclasses
+    import os
+
+    from gan_mpc_tpu_torch.bench import load_checkpoint
+    from gan_mpc_tpu_torch.config import Config
+    from gan_mpc_tpu_torch.runners import common
+
+    t_phase = time.perf_counter()
+    wall, launches = {}, {}
+    cut = lambda pol: setattr(pol, "settings", dataclasses.replace(
+        pol.settings, max_iterations=G14_CHECK_ITERS))
+
+    t0 = time.perf_counter()
+    print("phase 14 (a): the per-instance path and goal projection on the card against the CPU")
+    for label, run in (("humanoid_stand gan/0 (ensemble of 8)", G14_STAND),
+                       ("cheetah gan/0 (goal projection 2)", G14_CHEETAH0)):
+        gpu, cpu = load_checkpoint(run, dev), load_checkpoint(run, "cpu")
+        for ck in (gpu, cpu):
+            cut(ck.policy)
+        hX, hU = first_histories(cpu, G14_CHECK_ENVS, "cpu")
+        hold_plan_against_cpu(label, gpu.policy, cpu.policy, hX, hU, dev)
+    cfg = Config.from_yaml(G14_LSTM_CONFIG).replace(
+        mpc__model__dynamics__use="lstm", mpc__solver__max_iterations=G14_CHECK_ITERS)
+    lstm_gpu, lstm_cpu = (common.build_policy(cfg, 17, 6, device=d) for d in (dev, "cpu"))
+    rng = np.random.default_rng(SEED)
+    hX = torch.tensor(0.3 * rng.standard_normal((G14_CHECK_ENVS, 2, 17)), dtype=torch.float32)
+    hU = torch.tensor(0.3 * rng.standard_normal((G14_CHECK_ENVS, 1, 6)), dtype=torch.float32)
+    lstm = lstm_gpu.dynamics_model.net
+    print(f"LSTM dynamics (random weights from seed {cfg.seed}, {G14_LSTM_CONFIG}'s widths): cell "
+          f"{lstm.cell.features} features, head {[w.shape[0] for w, _ in lstm.stack()] + [17]}, "
+          f"planner state {17 + lstm_gpu.dynamics_model.carry_size}, cost net in "
+          f"{lstm_gpu.cost_model.net.stack()[0][0].shape[0]}")
+    hold_plan_against_cpu("LSTM dynamics (carry warmed from history_U)", lstm_gpu, lstm_cpu, hX,
+                          hU, dev)
+    wall["(a) card vs CPU"] = time.perf_counter() - t0
+
+    print("phase 14 (b): the trained runs served")
+    for run, num_envs, steps in ((G14_STAND, G14_STAND_ENVS, G14_STAND_STEPS),
+                                 (G14_WALK, G14_SERVE_ENVS, G14_SERVE_STEPS),
+                                 (G14_CHEETAH0, G14_SERVE_ENVS, G14_SERVE_STEPS)):
+        t0 = time.perf_counter()
+        got, ep, dt, trips, ckpt = serve_checkpoint(run, num_envs, steps, kernels, card_line, dev)
+        cfg = common.load_run_config(run)
+        with open(os.path.join(run, "episode_returns.json")) as f:
+            recorded = json.load(f)
+        T_rec = cfg.mpc.train.dynamics.max_interactions_per_episode
+        mean = ep.rewards.sum(1).mean().item()
+        name = run.split("imitator/")[1]
+        print(f"  {name}: {num_envs * steps / dt:.2f} env steps/s, {dt / steps:.3f} s a control "
+              f"step, trips per solve mean {np.mean(trips):.2f} of "
+              f"{ckpt.policy.settings.max_iterations}; return {mean / steps:.4f} a step over "
+              f"{steps} control steps from rest; the run's episode_returns.json: "
+              f"{np.mean(recorded) / T_rec:.4f} a step (mean {np.mean(recorded):.3f} over "
+              f"{len(recorded)} training episodes of {T_rec} steps with collection noise "
+              f"{cfg.get_path('mpc.train.dynamics.collection_noise', 0.0)}); printed, not "
+              "checked")
+        launches[f"{name} serving"] = got
+        wall[f"(b) {name}"] = time.perf_counter() - t0
+    print(f"phase 14 wall s by piece: { {k: round(v, 1) for k, v in wall.items()} }; phase 14 "
           f"wall time {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -2714,6 +2869,14 @@ def main() -> int:
     check_recorded("phase 13", seen, checked, rng, dev, max_err)
     with torch.no_grad():
         time_recorded("phase 13", seen, new, timed)
+
+    # 14. the per-instance path, goal projection and the runs they unlock
+    with shapes_recorded() as seen:
+        launches.update(per_instance_phase(kernels, card_line, dev))
+    new = [key for key in seen if key not in checked]
+    check_recorded("phase 14", seen, checked, rng, dev, max_err)
+    with torch.no_grad():
+        time_recorded("phase 14", seen, new, timed)
 
     # the planner's line-search call (8192 rows) leads the forward kernels'
     # entries, the trainer's call (128 rows) the backward kernel's

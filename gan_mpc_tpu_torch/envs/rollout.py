@@ -92,12 +92,10 @@ def policy_rollout(
     action_noise: float = 0.0,
     noise: Optional[torch.Tensor] = None,
 ) -> EpisodeData:
-    """Rollout through the batch-native planner (``MPCPolicy.act_batch``).
-    The vmapped per-env planning path is not ported."""
-    if not getattr(policy, "batch_native", False):
-        raise NotImplementedError(
-            "only batch-native policies (residual-MLP dynamics) are ported"
-        )
+    """Rollout through the policy's planner (``MPCPolicy.act_batch``), one
+    solve for all envs: batch-native policies solve their lanes jointly,
+    the others per instance, each lane independently, as the JAX package's
+    per-env ``act`` does."""
     return batch_policy_rollout(
         env, env_params, policy.act_batch, normalizer, num_steps, history,
         num_envs, init_state=init_state, generator=generator, action_noise=action_noise,

@@ -4,8 +4,11 @@
 of numpy arrays, as ``jax.device_get`` returns them) into an
 ``MPCPolicy``: Dense stacks in ``Dense_i`` index order with (in, out)
 kernels, the expert's ``OptimizedLSTMCell`` gate kernels and biases (or
-its "mlp" arch's Dense trunk) and its prediction heads, and the critic's
-scanned cell and head. ``dynamics_from_jax_params``,
+its "mlp" arch's Dense trunk) and its prediction heads, the critic's
+scanned cell and head, and the dynamics of each kind: a residual MLP's
+stack, an LSTM dynamics net's cell and head, an ensemble's stacked
+leaves (a leading member axis E on every kernel and bias) member by
+member. ``dynamics_from_jax_params``,
 ``expert_from_jax_params`` and ``critic_from_jax_params`` load one
 component alone; ``expert_to_jax_params`` gives an expert's tree back, as
 an expert run saves it.
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gan_mpc_tpu_torch.models.dynamics import LSTMDynamicsNet
 from gan_mpc_tpu_torch.models.expert import GATES, OptimizedLSTMCell
 from gan_mpc_tpu_torch.ops.fused_mlp import Dense
 
@@ -112,11 +116,44 @@ def critic_from_jax_params(tree: Mapping, critic: nn.Module) -> nn.Module:
 
 
 def dynamics_from_jax_params(tree: Mapping, dynamics: nn.Module) -> nn.Module:
-    """Load a JAX ``dynamics_params`` tree (``{"params": {"Dense_i": ...}}``)
-    into a ``LearnedDynamics`` with a residual MLP net (in place; also
-    returned)."""
-    _load_dense_stack(dynamics.net.layers, tree["params"])
+    """Load a JAX ``dynamics_params`` tree into ``dynamics`` (in place; also
+    returned): ``{"params": {"Dense_i": ...}}`` into a ``LearnedDynamics``
+    with a residual MLP net, or into an ``EnsembleDynamics`` from stacked
+    leaves (member e takes ``[e]`` of each); ``{"params":
+    {"OptimizedLSTMCell_0": ..., "Dense_i": ...}}`` into one with an LSTM
+    net."""
+    params = tree["params"]
+    members = getattr(dynamics, "members", None)
+    if members is not None:
+        lead = {np.asarray(leaf).shape[0] for layer in params.values() for leaf in layer.values()}
+        if lead != {len(members)}:
+            raise ValueError(f"stacked dynamics leaves of {sorted(lead)} members for an "
+                             f"ensemble of {len(members)}")
+        for e, member in enumerate(members):
+            dynamics_from_jax_params({"params": {
+                name: {k: np.asarray(v)[e] for k, v in layer.items()}
+                for name, layer in params.items()}}, member)
+        return dynamics
+    net = dynamics.net
+    if isinstance(net, LSTMDynamicsNet):
+        _load_lstm_cell(net.cell, params["OptimizedLSTMCell_0"])
+        params = {k: v for k, v in params.items() if k.startswith("Dense_")}
+    _load_dense_stack(net.layers, params)
     return dynamics
+
+
+def dynamics_to_jax_params(dynamics: nn.Module) -> dict:
+    """The inverse of ``dynamics_from_jax_params``."""
+    members = getattr(dynamics, "members", None)
+    if members is not None:
+        trees = [dynamics_to_jax_params(m)["params"] for m in members]
+        return {"params": {name: {k: np.stack([t[name][k] for t in trees])
+                                  for k in layer} for name, layer in trees[0].items()}}
+    net = dynamics.net
+    tree = _dense_stack_tree(net.layers)
+    if isinstance(net, LSTMDynamicsNet):
+        tree["OptimizedLSTMCell_0"] = _lstm_cell_tree(net.cell)
+    return {"params": tree}
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -161,7 +198,7 @@ def to_jax_params(policy: nn.Module) -> dict:
     tree = {
         "mpc_weights": _np(cost.weights),
         "cost_params": {"params": _dense_stack_tree(cost.net.layers)},
-        "dynamics_params": {"params": _dense_stack_tree(policy.dynamics_model.net.layers)},
+        "dynamics_params": dynamics_to_jax_params(policy.dynamics_model),
         "expert_params": expert_to_jax_params(policy.expert_model),
     }
     critic = getattr(policy, "critic_model", None)

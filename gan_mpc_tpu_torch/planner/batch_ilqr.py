@@ -21,6 +21,14 @@ resolves it: recompute the winner, or materialize every candidate and
 gather it), and the forward scans either through the separate callbacks
 or through the fused step ``ls_step`` (``fused_ls``). The other settings
 raise ``NotImplementedError``.
+
+A problem marked ``per_instance`` is solved as the JAX package's
+``vmap(ilqr)`` solves it (``tests/test_batch_ilqr.py`` holds that equal
+to its ``batch_ilqr``): Quu projected onto eigenvalues >= ``psd_delta``
+in the Riccati step, and ``fused_ls`` and ``compute_dtype`` not read
+(its callbacks have no fused step and run f32). The generic ``ilqr``
+(``planner/ilqr.py``) and the policies whose dynamics are not batch
+native (ensembles, recurrent nets) build such problems.
 """
 
 from __future__ import annotations
@@ -50,7 +58,9 @@ class BatchProblem:
       (x (B,A,n), Xref (B,n), Uref (B,m), alphaBA (B,A), k (B,m),
        K (B,m,n), t) -> (nx (B,A,n), u (B,A,m), cost (B,A)), every
       argument contiguous. When set, ``batch_rollout``,
-      ``_line_search_objs`` and ``_forward_best`` route through it.
+      ``_line_search_objs`` and ``_forward_best`` route through it;
+    per_instance: the semantics of the JAX per-instance ``ilqr`` (the
+      module's docstring).
     """
 
     dynamics_step: Callable
@@ -59,6 +69,7 @@ class BatchProblem:
     terminal_cost: Callable
     quad: Callable
     ls_step: Optional[Callable] = None
+    per_instance: bool = False
 
 
 def ls_materializes(settings: SolverSettings, T: int, B: int, n: int, m: int) -> bool:
@@ -77,9 +88,12 @@ def ls_materializes(settings: SolverSettings, T: int, B: int, n: int, m: int) ->
 
 def _check_settings(settings: SolverSettings, problem: BatchProblem) -> None:
     """Raise for the settings that select paths not ported, and for
-    ``fused_ls="on"`` on a problem without the fused step."""
+    ``fused_ls="on"`` on a batch-native problem without the fused step."""
     if settings.riccati != "sequential":
-        raise NotImplementedError(f"riccati={settings.riccati!r} is not ported")
+        raise NotImplementedError(f"riccati={settings.riccati!r} is not ported (item 9(b) "
+                                  "of ROADMAP Queue 1)")
+    if problem.per_instance:
+        return
     if settings.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={settings.compute_dtype!r} is not ported"
@@ -117,7 +131,14 @@ def batch_rollout(problem: BatchProblem, U, x0):
     return torch.stack(xs), obj
 
 
-def _backward(A, Bm, cx, cu, cxx, cuu, cux, reg):
+def project_psd(mat: torch.Tensor, delta: float) -> torch.Tensor:
+    """Symmetric (..., m, m) matrices with their eigenvalues clamped to >=
+    delta (the JAX ``ilqr._project_psd``)."""
+    w, v = torch.linalg.eigh((mat + mat.transpose(-1, -2)) / 2.0)
+    return (v * torch.clamp(w, min=delta)[..., None, :]) @ v.transpose(-1, -2)
+
+
+def _backward(A, Bm, cx, cu, cxx, cuu, cux, reg, psd_delta=0.0):
     """Batched Riccati recursion, time-major inputs; reg (B,).
 
     Fused-block form: with C = [A | B] (B, n, n+m) the Q-model is
@@ -127,7 +148,9 @@ def _backward(A, Bm, cx, cu, cxx, cuu, cux, reg):
     reverse loop (one C^T [Vx, lam] product). Returns (k, K, adjoints, G)
     with G (T, B, m) = dJ/dU. The JAX version also returns the expected
     cost reductions dv1, dv2, which its caller never reads; they are not
-    computed here.
+    computed here. With ``psd_delta`` > 0 the gains solve against Quu
+    projected onto eigenvalues >= psd_delta (the value recursion keeps Quu,
+    as the JAX ``ilqr._backward_pass`` does).
     """
     T, B, n, _ = A.shape
     m = Bm.shape[-1]
@@ -151,7 +174,8 @@ def _backward(A, Bm, cx, cu, cxx, cuu, cux, reg):
         M = torch.einsum("bnp,bnq->bpq", Ct, Vxx)  # C^T Vxx
         Q = cbt + M @ Ct
         Qu = q[:, n:]
-        Quu_reg = Q[:, n:, n:] + reg_eye
+        Quu = Q[:, n:, n:]
+        Quu_reg = (project_psd(Quu, psd_delta) if psd_delta > 0.0 else Quu) + reg_eye
         kK = solve_spd(Quu_reg, torch.cat([Qu[..., None], Q[:, n:, :n]], dim=-1))
         k, K = -kK[..., 0], -kK[..., 1:]
         S = torch.cat([eye_b, K], dim=1)  # (B, n+m, n)
@@ -223,7 +247,8 @@ def _forward_best(problem, X, U, k, K, alpha_b):
 
 
 def mlp_calls_per_solve(horizon: int, trips: int, fused: bool = False,
-                        solves: int = 1, materialize: bool = False) -> Dict[str, int]:
+                        solves: int = 1, materialize: bool = False, members: int = 1,
+                        projection: bool = False) -> Dict[str, int]:
     """Kernel launches on the card of ``solves`` ``batch_ilqr`` calls that
     ran ``trips`` iterations in all (``ILQRSolution.trips``, or
     ``max_iterations`` each where no lane stops early), by kernel;
@@ -232,17 +257,23 @@ def mlp_calls_per_solve(horizon: int, trips: int, fused: bool = False,
 
     Three forward scans run: the initial rollout, then per trip the
     line search and the winner recompute, H steps each; materializing
-    solves run no recompute, so two. Every step is one dynamics MLP
-    forward (``fused_mlp_fwd``), or with the fused step one
-    ``fused_ls_step`` launch. The rollout and the line search end in one
-    terminal-cost MLP forward each; the recompute reads no objective.
-    (The linearization and quadratization run plain torch.)
+    solves run no recompute, so two. Every step is one dynamics forward,
+    ``members`` MLP launches (``fused_mlp_fwd``; an ensemble's members,
+    ``models/ensemble.py``; 1 for a residual MLP or the LSTM dynamics'
+    head), or with the fused step one ``fused_ls_step`` launch. The
+    rollout and the line search end in one terminal-cost MLP forward each;
+    the recompute reads no objective. With ``projection`` (the policy's
+    ``goal_projection`` > 0) each solve is preceded by the goal
+    projection's H dynamics advances. (The linearization, the
+    quadratization and the projection's Gauss-Newton steps run plain
+    torch.)
     """
     steps = horizon * (solves + (1 if materialize else 2) * trips)
     terminal = solves + trips
+    advances = members * horizon * solves if projection else 0
     if fused:
-        return {"fused_mlp_fwd": terminal, "fused_ls_step": steps}
-    return {"fused_mlp_fwd": steps + terminal, "fused_ls_step": 0}
+        return {"fused_mlp_fwd": terminal + advances, "fused_ls_step": steps}
+    return {"fused_mlp_fwd": members * steps + terminal + advances, "fused_ls_step": 0}
 
 
 def batch_ilqr(
@@ -285,7 +316,8 @@ def batch_ilqr(
         trips += 1
         A, Bm = problem.dynamics_jac(X[:-1], U)
         cx, cu, cxx, cuu, cux = problem.quad(X, U)
-        k, K, adjoints, g = _backward(A, Bm, cx, cu, cxx, cuu, cux, reg)
+        k, K, adjoints, g = _backward(A, Bm, cx, cu, cxx, cuu, cux, reg,
+                                      settings.psd_delta if problem.per_instance else 0.0)
         gnorm = torch.sqrt(torch.sum(g * g, dim=(0, 2)))
         grad_small = gnorm < settings.grad_norm_tol
 

@@ -14,7 +14,16 @@ Counterpart of ``gan_mpc_tpu/policies/mpc.py``, batch-major throughout:
 
 ``critic_model`` (a ``models.critic.SequenceCritic``, or None) is the GAN
 discriminator the generator loss reads; the planner never calls it.
-Goal projection and recurrent (LSTM) dynamics are not ported.
+
+Dynamics that are not batch native (``models/ensemble.py``, the LSTM
+dynamics of ``models/dynamics.py``) plan as the JAX package's vmapped
+``plan`` does: from ``xc0 = [x, carry]``, the carry warmed from the
+history (``history_U`` is read), through ``batch_ilqr`` on a problem
+marked ``per_instance`` (lanes solve independently; ``fused_ls`` and
+``compute_dtype`` are not read, so no fused line-search step launches).
+With ``goal_projection`` > 0 both paths first project the expert's goals
+onto the learned dynamics' reachable states (``project_goals``); the
+action-goal target stays the expert's unprojected actions.
 """
 
 from __future__ import annotations
@@ -48,8 +57,6 @@ class MPCPolicy(nn.Module):
         goal_projection: int = 0,
     ):
         super().__init__()
-        if goal_projection > 0:
-            raise NotImplementedError("goal projection is not ported")
         self.cost_model = cost_model
         self.dynamics_model = dynamics_model
         self.expert_model = expert_model
@@ -57,18 +64,14 @@ class MPCPolicy(nn.Module):
         self.horizon = horizon
         self.x_size = dynamics_model.x_size
         self.settings = settings
+        self.goal_projection = goal_projection
         self._plan = ImplicitPlanner(settings, solver=bilevel_solver, ridge=bilevel_ridge)
 
     @property
     def batch_native(self) -> bool:
-        """Whether the batch-major fused planner path applies."""
+        """Whether the batch-major fused planner path applies (carry-free
+        MLP dynamics; the others plan per instance)."""
         return self.dynamics_model.is_batch_native
-
-    def _check_batch_native(self) -> None:
-        if not self.batch_native:
-            raise NotImplementedError(
-                "vmapped per-env planning (recurrent dynamics) is not ported"
-            )
 
     def goals_and_warm_start(self, history_X: torch.Tensor):
         """Expert-predicted goal states (B, H+1, x) and warm-start actions
@@ -77,23 +80,73 @@ class MPCPolicy(nn.Module):
         return self.expert_model.generate(carry, self.horizon)
 
     @torch.no_grad()
+    def project_goals(self, xc0: torch.Tensor, goal_X: torch.Tensor, init_U: torch.Tensor):
+        """Project the expert's goals onto the learned dynamics' reachable
+        states (the JAX ``project_goals``, batch-major): per step, from the
+        current state xc (B, n), ``goal_projection`` damped Gauss-Newton
+        steps on the action, whose residual r and Jacobian J_u (of the
+        predicted next x against the next goal) come from one
+        ``batch_value_and_jac``, each u <- u - (J^T J + 1e-6 I)^-1 J^T r
+        (``torch.linalg.solve``, as ``jnp.linalg.solve``); then u clipped
+        to [-1, 1] and the state advanced through ``batch_apply``. Returns
+        the reachable goals (B, H+1, x), the first the expert's own, and
+        the actions that reach them (B, H, u), the new warm start."""
+        dyn, xs = self.dynamics_model, self.x_size
+        m = init_U.shape[-1]
+        ridge = 1e-6 * torch.eye(m, dtype=init_U.dtype, device=init_U.device)
+        xc, goals, us = xc0, [goal_X[:, 0]], []
+        for t in range(init_U.shape[1]):
+            u, g_next = init_U[:, t], goal_X[:, t + 1]
+            for _ in range(self.goal_projection):
+                nx, _, Bm = dyn.batch_value_and_jac(xc, u)
+                r, J = nx[:, :xs] - g_next, Bm[:, :xs]
+                Jt = J.transpose(-1, -2)
+                u = u - torch.linalg.solve(Jt @ J + ridge, (Jt @ r[..., None]))[..., 0]
+            u = torch.clamp(u, -1.0, 1.0)
+            xc = dyn.batch_apply(xc, u)
+            goals.append(xc[:, :xs])
+            us.append(u)
+        return torch.stack(goals, 1), torch.stack(us, 1)
+
+    def _start(self, history_X, history_U, warm_start_carry: bool = True):
+        """(xc0 (B, n), goals (B, H+1, x), warm start (B, H, u), action
+        goals (B, H, u)) of a batch of histories: the expert's goals and
+        warm start without a gradient, the state extended by the dynamics'
+        carry (warmed from the history where ``warm_start_carry``), the
+        goals projected where ``goal_projection`` > 0. The action goals
+        are the expert's actions before the projection."""
+        with torch.no_grad():
+            goal_X, init_U = self.goals_and_warm_start(history_X)
+            xc0 = history_X[:, -1]
+            if not self.batch_native:
+                dyn = self.dynamics_model
+                if warm_start_carry and history_U is not None:
+                    carry = dyn.warm_carry(history_X[:, :-1], history_U)
+                else:
+                    carry = dyn.zero_carry(xc0.shape[0], xc0.device)
+                xc0 = torch.cat([xc0, carry], -1)
+            u_goal = init_U
+            if self.goal_projection > 0:
+                goal_X, init_U = self.project_goals(xc0, goal_X, init_U)
+        return xc0, goal_X, init_U, u_goal
+
+    @torch.no_grad()
     def plan_batch(self, history_X: torch.Tensor, history_U: torch.Tensor) -> ILQRSolution:
         """Solve a (B,)-batch of MPC problems in one batch-major solver.
-        history_X (B, h+1, x); history_U (B, h, u). Carry-free dynamics
-        have no carry to warm, so history_U is not read.
+        history_X (B, h+1, x); history_U (B, h, u), which warms the carry
+        of recurrent dynamics (carry-free dynamics do not read it).
 
-        ``settings.fused_ls`` picks the forward scans' step: "on" the fused
-        step (``ops/fused_ls.py``: the CUDA kernel on the card, its plain
-        version on the CPU), "off" the separate dynamics and stage-cost
-        callbacks, "auto" the fused step for CUDA inputs only."""
-        del history_U
-        self._check_batch_native()
-        goal_X, init_U = self.goals_and_warm_start(history_X)
-        problem = self._problem(goal_X.transpose(0, 1), init_U.transpose(0, 1), order=0)
-        return batch_ilqr(problem, history_X[:, -1], init_U, self.settings)
+        On the batch-native path ``settings.fused_ls`` picks the forward
+        scans' step: "on" the fused step (``ops/fused_ls.py``: the CUDA
+        kernel on the card, its plain version on the CPU), "off" the
+        separate dynamics and stage-cost callbacks, "auto" the fused step
+        for CUDA inputs only. The per-instance path reads none."""
+        xc0, goal_X, init_U, u_goal = self._start(history_X, history_U)
+        problem = self._problem(goal_X.transpose(0, 1), u_goal.transpose(0, 1), order=0)
+        return batch_ilqr(problem, xc0, init_U, self.settings)
 
     def act_batch(self, history_X, history_U) -> torch.Tensor:
-        """(B, u) first optimal actions via the batch-native planner."""
+        """(B, u) first optimal actions of ``plan_batch``."""
         return self.plan_batch(history_X, history_U).U[:, 0]
 
     def _problem(self, goal_tm, goal_u_tm, order: int) -> BatchProblem:
@@ -107,7 +160,8 @@ class MPCPolicy(nn.Module):
         fused kernels, under autograd ``FusedMlpFunction``); 2 for second
         derivatives, every MLP plain (``twice_differentiable``)."""
         cost, dyn = self.cost_model, self.dynamics_model
-        cdt = self.settings.compute_dtype
+        native = self.batch_native
+        cdt = self.settings.compute_dtype if native else None
         twice = order == 2
 
         def dynamics_step(X, U, t):
@@ -125,7 +179,7 @@ class MPCPolicy(nn.Module):
 
         fused = self.settings.fused_ls
         ls_step = None
-        if order == 0 and (fused == "on" or (fused == "auto" and goal_tm.is_cuda)):
+        if native and order == 0 and (fused == "on" or (fused == "auto" and goal_tm.is_cuda)):
             # everything the step reads but x and the iterate, once per plan
             wvec, ag_scale = cost.stage_weights()
             layers = split_w0(dyn.net.stack(), self.x_size)
@@ -150,6 +204,7 @@ class MPCPolicy(nn.Module):
             ),
             quad=lambda X, U: cost.quad_batch(X, U, goal_tm, goal_u_tm),
             ls_step=ls_step,
+            per_instance=not native,
         )
 
     # -- differentiable planning -----------------------------------------
@@ -159,18 +214,16 @@ class MPCPolicy(nn.Module):
         """Solve the MPC problems of a (B, h+1, x) batch of observed
         (normalized) histories; X, U and obj are differentiable in the MPC
         weights, the cost net and the dynamics net through the implicit
-        gradient. Goals and warm starts come from the expert without a
-        gradient. Carry-free dynamics have no carry, so ``history_U`` and
-        ``warm_start_carry`` change nothing."""
-        del history_U, warm_start_carry
-        self._check_batch_native()
-        with torch.no_grad():
-            goal_X, init_U = self.goals_and_warm_start(history_X)
-        goal_tm, goal_u_tm = goal_X.transpose(0, 1), init_U.transpose(0, 1)
+        gradient. Goals, warm starts and the goal projection are not
+        differentiated (as in the JAX package). Recurrent dynamics warm
+        their carry from ``history_U`` where ``warm_start_carry``, else
+        start from a zero carry (the train-time simplification)."""
+        xc0, goal_X, init_U, u_goal = self._start(history_X, history_U, warm_start_carry)
+        goal_tm, goal_u_tm = goal_X.transpose(0, 1), u_goal.transpose(0, 1)
         theta = [self.cost_model.weights, *self.cost_model.net.parameters(),
                  *self.dynamics_model.parameters()]
         return self._plan(lambda order: self._problem(goal_tm, goal_u_tm, order), theta,
-                          history_X[:, -1], init_U)
+                          xc0, init_U)
 
     def act(self, history_X, history_U=None) -> torch.Tensor:
         """(B, u) first optimal actions of ``plan``."""

@@ -21,9 +21,10 @@ saved expert predictor, training one where none matches the store's data
     their defaults;
   * ``maybe_clear_caches``, ``maybe_mesh`` and the runners'
     ``runtime_setup`` manage XLA's compile caches and device meshes and
-    have no counterpart; ``check_supported`` refuses the settings whose
-    paths are not ported (video, data parallel, the dm_control
-    cross-evaluation where it would run).
+    have no counterpart; ``check_supported`` refuses the training settings
+    whose paths are not ported (video, data parallel, the dm_control
+    cross-evaluation where it would run, dynamics other than "mlp", which
+    ``build_policy`` builds and the bench serves).
 
 Random draws come from ``torch.Generator``s: the collection from one
 seeded with ``seed + 7`` (where JAX seeds its key), the expert trainer
@@ -56,7 +57,12 @@ from gan_mpc_tpu_torch.envs import apply_physics_shift, make_env
 from gan_mpc_tpu_torch.envs.rollout import policy_rollout
 from gan_mpc_tpu_torch.models.cost import CostFeatureNet, MPCCost
 from gan_mpc_tpu_torch.models.critic import SequenceCritic
-from gan_mpc_tpu_torch.models.dynamics import LearnedDynamics, ResidualMLPDynamicsNet
+from gan_mpc_tpu_torch.models.dynamics import (
+    LearnedDynamics,
+    LSTMDynamicsNet,
+    ResidualMLPDynamicsNet,
+)
+from gan_mpc_tpu_torch.models.ensemble import EnsembleDynamics
 from gan_mpc_tpu_torch.models.expert import ExpertPredictor
 from gan_mpc_tpu_torch.params import from_jax_params, init_flax_like, load_msgpack
 from gan_mpc_tpu_torch.planner.ilqr import SolverSettings
@@ -79,12 +85,23 @@ def build_cost_model(config: Config, horizon: int, x_size: int) -> MPCCost:
     )
 
 
-def build_dynamics_model(config: Config, x_size: int, u_size: int) -> LearnedDynamics:
+def build_dynamics_model(config: Config, x_size: int, u_size: int):
+    """The dynamics of ``mpc.model.dynamics.use``: "mlp" (a residual MLP),
+    "lstm" (``LSTMDynamicsNet``) or "ensemble" (``ensemble.num_members``
+    residual MLPs of ``ensemble.mlp.hidden``)."""
     mcfg = config.mpc.model.dynamics
-    if mcfg.use != "mlp":
-        raise NotImplementedError(f"dynamics.use={mcfg.use!r} is not ported (only 'mlp'; the "
-                                  "per-instance planning path, item 5 of ROADMAP Queue 1)")
-    return LearnedDynamics(ResidualMLPDynamicsNet(x_size, u_size, hidden=tuple(mcfg.mlp.hidden)))
+    if mcfg.use == "mlp":
+        return LearnedDynamics(ResidualMLPDynamicsNet(x_size, u_size,
+                                                      hidden=tuple(mcfg.mlp.hidden)))
+    if mcfg.use == "lstm":
+        return LearnedDynamics(LSTMDynamicsNet(x_size, u_size, features=mcfg.lstm.features,
+                                               hidden=tuple(mcfg.lstm.hidden)))
+    if mcfg.use == "ensemble":
+        ecfg = mcfg.ensemble
+        return EnsembleDynamics([ResidualMLPDynamicsNet(x_size, u_size,
+                                                        hidden=tuple(ecfg.mlp.hidden))
+                                 for _ in range(ecfg.num_members)])
+    raise ValueError(f"dynamics.use must be mlp|lstm|ensemble, got {mcfg.use!r}")
 
 
 def build_expert_model_from_dict(mdict: dict, x_size: int, u_size: int) -> ExpertPredictor:
@@ -142,9 +159,11 @@ def build_policy(config: Config, x_size: int, u_size: int, with_critic: bool = F
     without gradient, on the card unless ``device`` says otherwise."""
     device = resolve_device(device)
     horizon = config.mpc.horizon
+    dynamics = build_dynamics_model(config, x_size, u_size)
     policy = MPCPolicy(
-        cost_model=build_cost_model(config, horizon, x_size),
-        dynamics_model=build_dynamics_model(config, x_size, u_size),
+        # the cost net reads the planner state, the dynamics' carry included
+        cost_model=build_cost_model(config, horizon, x_size + dynamics.carry_size),
+        dynamics_model=dynamics,
         expert_model=build_expert_model(config, x_size, u_size),
         critic_model=build_critic_model(config, x_size) if with_critic else None,
         horizon=horizon,
@@ -313,9 +332,11 @@ def dm_cross_eval_runs(config: Config) -> bool:
 
 
 def check_supported(config: Config) -> None:
-    """Raise ``NotImplementedError``, before any work, for a run setting
-    whose path is not ported, naming its ROADMAP Queue 1 item; the
-    dm_control cross-evaluation where it would run (``dm_cross_eval_runs``)."""
+    """Raise ``NotImplementedError``, before any work, for a training-run
+    setting whose path is not ported, naming its ROADMAP Queue 1 item; the
+    dm_control cross-evaluation where it would run (``dm_cross_eval_runs``).
+    Dynamics other than "mlp" are served (``bench.load_checkpoint``) but
+    not trained."""
     if dm_cross_eval_runs(config):
         raise NotImplementedError(
             "the dm_control cross-evaluation (envs/dm_eval.py) is not ported (item 8(c) of "
@@ -325,6 +346,9 @@ def check_supported(config: Config) -> None:
          "video, item 8(c)"),
         (int(config.get_path("runtime.data_parallel_devices", 1) or 1) > 1,
          "runtime.data_parallel_devices > 1", "data parallel, item 9(b)"),
+        (config.mpc.model.dynamics.use != "mlp",
+         f"training with mpc.model.dynamics.use: {config.mpc.model.dynamics.use}",
+         "ensemble and LSTM dynamics in training, item 5(b)"),
     ]
     for on, setting, item in unported:
         if on:

@@ -34,7 +34,10 @@ def multistep_prediction_loss(dynamics_model, xseq, useq, next_xseq, gamma: floa
     """Discounted multi-step prediction error of each (seqlen, ·) window:
     xseq, next_xseq (B, T, x), useq (B, T, u) -> (B,)."""
     if not dynamics_model.is_batch_native:
-        raise NotImplementedError("only carry-free residual-MLP dynamics are ported")
+        raise NotImplementedError(
+            "training ensemble or LSTM dynamics is not ported (ensemble and LSTM dynamics in "
+            "training, item 5(b) of ROADMAP Queue 1); only carry-free residual-MLP dynamics "
+            "train")
     x = xseq[:, 0]
     preds = []
     for t in range(xseq.shape[1]):

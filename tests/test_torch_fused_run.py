@@ -21,8 +21,9 @@ extra fused epoch):
   * over the 17 committed configs: where each one stops in the port. With
     dm_control importable (here) ``check_supported`` refuses the 9 that
     cross-evaluate in it and 6 run; with dm_control unimportable (the
-    card's host) it accepts all 17, the dynamics refuses the two ensemble
-    configs, and 15 run (walker and cartpole among them).
+    card's host) it refuses only the two ensemble configs, whose dynamics
+    the port serves but does not train, and 15 run (walker and cartpole
+    among them).
 """
 
 import glob
@@ -139,8 +140,10 @@ def test_fused_resume_equals_uninterrupted_run(tmp_path, family):
 
 
 # where each committed config stops in the port on a host without
-# dm_control (the card's): None runs; else the step that refuses it and the
-# ROADMAP Queue 1 item it waits on
+# dm_control (the card's): None runs; else check_supported's refusal, which
+# names the ROADMAP Queue 1 item it waits on
+TRAIN_ENSEMBLE = ("training with mpc.model.dynamics.use: ensemble is not ported (ensemble and "
+                  "LSTM dynamics in training, item 5(b) of ROADMAP Queue 1)")
 STOPS = {
     "gan_cheetah.yaml": None,
     "gan_cheetah_quality.yaml": None,
@@ -154,8 +157,8 @@ STOPS = {
     "gan_pendulum_rung5.yaml": None,
     "gan_pendulum_rung5b.yaml": None,
     "gan_walker.yaml": None,
-    "humanoid_scale.yaml": "build_dynamics_model: ensemble, item 5",
-    "humanoid_scale_continue.yaml": "build_dynamics_model: ensemble, item 5",
+    "humanoid_scale.yaml": TRAIN_ENSEMBLE,
+    "humanoid_scale_continue.yaml": TRAIN_ENSEMBLE,
     "l2_cartpole_quality.yaml": None,
     "l2_pendulum.yaml": None,
     "l2_pendulum_quality.yaml": None,
@@ -170,20 +173,16 @@ CROSS_EVALUATED = {"gan_cheetah_quality.yaml", "gan_pendulum_continue.yaml",
 
 
 def stop_of(config: Config):
-    """Where the port refuses ``config``: ``check_supported``, then the
-    dynamics model (the steps a run takes before any work; every committed
-    config's env is ported)."""
+    """Where the port refuses ``config``: ``check_supported`` (the steps a
+    run takes before any work), else None once its env and dynamics build
+    (every committed config's env and dynamics are ported)."""
     try:
         common.check_supported(config)
     except NotImplementedError as e:
         assert "ROADMAP Queue 1" in str(e)
         return DM_CROSS_EVAL if "dm_control" in str(e) else str(e)
     make_env(config.env.name, "cpu")
-    try:
-        common.build_dynamics_model(config, 3, 1)
-    except NotImplementedError as e:
-        assert "item 5 of ROADMAP Queue 1" in str(e)
-        return f"build_dynamics_model: {config.mpc.model.dynamics.use}, item 5"
+    common.build_dynamics_model(config, 3, 1)
     return None
 
 
@@ -205,10 +204,9 @@ def test_where_each_committed_config_stops(monkeypatch):
     assert sorted(n for n, c in configs.items() if stop_of(c) is None) == [
         "gan_cheetah.yaml", "gan_humanoid_walk.yaml", "gan_humanoid_walk_continue.yaml",
         "gan_humanoid_walk_continue2.yaml", "gan_pendulum.yaml", "l2_pendulum.yaml"]
-    # without dm_control (the card's host) check_supported accepts all 17
+    # without dm_control (the card's host) check_supported refuses only the
+    # ensemble configs
     for name in [m for m in sys.modules if m == "dm_control" or m.startswith("dm_control.")]:
         monkeypatch.delitem(sys.modules, name)
     monkeypatch.setitem(sys.modules, "dm_control", None)
-    for cfg in configs.values():
-        common.check_supported(cfg)
     assert {name: stop_of(cfg) for name, cfg in configs.items()} == STOPS

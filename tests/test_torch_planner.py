@@ -292,25 +292,30 @@ def test_defaults_stay_on_the_ported_path():
 
 
 def test_policy_paths_outside_the_slice_raise():
-    from torch import nn
-
-    from gan_mpc_tpu_torch.models.dynamics import LearnedDynamics
+    """Goal projection and the per-instance path (ensemble, LSTM dynamics)
+    are served since the slice that ported them (``test_torch_ensemble.py``,
+    ``test_torch_lstm_dynamics.py``, ``test_torch_goal_projection.py``);
+    training such dynamics, an expert arch the JAX package lacks and the
+    associative Riccati pass still raise."""
+    from gan_mpc_tpu_torch.models.dynamics import LearnedDynamics, LSTMDynamicsNet
     from gan_mpc_tpu_torch.models.expert import ExpertPredictor
     from gan_mpc_tpu_torch.policies.mpc import MPCPolicy
+    from gan_mpc_tpu_torch.training.dynamics import multistep_prediction_loss
 
     policy = flagship(5, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="goal projection"):
-        MPCPolicy(policy.cost_model, policy.dynamics_model, policy.expert_model,
-                  goal_projection=2)
+    projected = MPCPolicy(policy.cost_model, policy.dynamics_model, policy.expert_model,
+                          goal_projection=2)
+    assert projected.goal_projection == 2 and projected.batch_native
     # both of the JAX package's expert archs are ported; another raises there as here
     with pytest.raises(ValueError, match="arch"):
         ExpertPredictor(17, 6, arch="gru")
 
-    class Recurrent(nn.Module):  # stands in for the LSTM dynamics net
-        x_size, carry_size = 17, 256
-
-    recurrent = MPCPolicy(policy.cost_model, LearnedDynamics(Recurrent()),
+    recurrent = MPCPolicy(policy.cost_model, LearnedDynamics(LSTMDynamicsNet(17, 6, 8, (8,))),
                           policy.expert_model)
     assert not recurrent.batch_native
-    with pytest.raises(NotImplementedError, match="vmapped"):
+    x, u = torch.zeros(2, 3, 17), torch.zeros(2, 3, 6)
+    with pytest.raises(NotImplementedError, match="item 5\\(b\\)"):
+        multistep_prediction_loss(recurrent.dynamics_model, x, u, x, 0.9, True)
+    recurrent.settings = SolverSettings(max_iterations=1, riccati="associative")
+    with pytest.raises(NotImplementedError, match="item 9\\(b\\)"):
         recurrent.plan_batch(torch.zeros(2, 2, 17), torch.zeros(2, 1, 6))

@@ -280,6 +280,19 @@ BLOCKED_RUN = textwrap.dedent(
         out = runner.run(cfg, log_fn=None, device="cpu")
         assert os.path.exists(os.path.join(out["run_dir"], "params.msgpack"))
         assert os.listdir(common.expert_model_dir(cfg)) == ["0"]
+
+    # the per-instance path: humanoid_stand gan/0 (8-member ensemble, H=50)
+    # loaded from its committed run and store, one solve cut to one trip
+    import dataclasses
+    from gan_mpc_tpu_torch.bench import load_checkpoint
+
+    assert "gan_mpc_tpu_torch.models.ensemble" in mods
+    ckpt = load_checkpoint("runs/trained_models/imitator/humanoid_stand/gan/0", "cpu")
+    policy = ckpt.policy
+    assert policy.dynamics_model.num_members == 8 and not policy.batch_native
+    policy.settings = dataclasses.replace(policy.settings, max_iterations=1)
+    sol = policy.plan_batch(torch.zeros(1, 2, 29), torch.zeros(1, 1, 12))
+    assert sol.U.shape == (1, 50, 12) and bool(torch.isfinite(sol.U).all())
     assert not [m for m in sys.modules if blocked(m)]
     print("imported", len(mods), "modules")
     """
@@ -293,7 +306,7 @@ def test_port_runs_without_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("imported ")[1].split()[0])
-    assert n >= 15, proc.stdout
+    assert n >= 16, proc.stdout
 
 
 ENTRY_POINTS = {
