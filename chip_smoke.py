@@ -264,11 +264,46 @@ Phases, in order; any failure raises and exits non-zero:
          held to ``mlp_calls_per_solve`` with the ensemble's members on
          every dynamics call and the projection's advances, and no
          ``fused_ls_step`` on the per-instance path.
-     After each of phases 6-14, both MLP kernels are held against their
+ 15. training with ensemble and LSTM dynamics (``ensemble_training_phase``):
+     (a) card against CPU (``check_training_against_cpu``), each group
+         of numbers (the l2 norm of its difference) within max(its base
+         times its size, twice the CPU's own spread when the dynamics'
+         weights are scaled by 1 +- 1e-6 and 1 +- 2e-6, and for the
+         implicit steps the histories by 1 +- 1e-7 and 1 +- 2e-7: trained
+         H=50 solves amplify the kernels' 3xTF32 rounding, by 0.5-0.9 of
+         that bound at 2 trips), the four nearest their bounds printed: the
+         dynamics trainer's step (the loss and each member tensor's
+         gradient, base 1e-4) of configs/humanoid_scale.yaml's 8 x
+         41->256^3->29 ensemble on 128 windows of 50 steps from the
+         committed store's 1000-step episodes (2048 of them drawn, 128
+         taken of those 5e-6 or more from every relu kink,
+         ``clear_windows``), teacher forced; one implicit generator step of its
+         policy on humanoid_stand gan/0's weights (2 expert histories,
+         H=50, CG, 2 iLQR trips; the loss and each component's gradient
+         but the expert's, base 1e-3); one implicit generator step of an
+         LSTM-dynamics policy at configs/gan_cheetah.yaml's widths under
+         bilevel dense and cg (the exact Hessian by double backward), and
+         its dynamics step open loop;
+     (b) ``runners.gan.run`` on configs/humanoid_scale.yaml from an empty
+         temporary workdir holding a copy of the committed store it
+         resolves to, with ``G15_CUTS`` (every width, H=50, 8 members; 1
+         iLQR trip, 2 fused epochs of 51-step collections, one DAgger
+         round), interrupted after fused epoch 1 and resumed: it trains
+         and saves the expert, the epochs, the round, the end;
+     (c) configs/humanoid_scale_continue.yaml continued from
+         humanoid_stand gan/0 for one epoch (``G15_CONTINUE_CUTS``).
+     Checks of (b) and (c): both MLP kernels' launches equal to what the
+     recorded solves (``mlp_calls_per_solve`` with 8 members, a cost
+     step's with its backward ``mlp_calls_per_step``) and dynamics steps
+     (8 x 50 forwards and backwards each) reckon, none of fused_ls_step;
+     the metrics rows, every value finite; the resume; the saved
+     params.msgpack's dynamics kernels stacked (8, in, out), the run
+     reloaded bitwise; (c)'s trained kernels moved from gan/0's.
+     After each of phases 6-15, both MLP kernels are held against their
      plain versions (as in phase 2) at every (stack, rows) pair that the
      phase's runs gave them and no earlier phase's check held, on the
      runs' own weights (``shapes_recorded``, ``check_recorded``); phases
-     13 and 14's new pairs are also timed as in phase 3 (``time_recorded``).
+     13-15's new pairs are also timed as in phase 3 (``time_recorded``).
      Then the script's total wall time.
 The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}. Exits 1 without a CUDA device.
@@ -539,6 +574,49 @@ G14_CHECK_ENVS, G14_CHECK_ITERS = 2, 2  # (a): the card-against-CPU plans
 G14_LSTM_CONFIG = "configs/gan_cheetah.yaml"  # (a): its widths with dynamics.use: lstm
 G14_STAND_ENVS, G14_STAND_STEPS = 4, 2  # (b): humanoid_stand gan/0, after 1 warmup step
 G14_SERVE_ENVS, G14_SERVE_STEPS = 16, 3  # (b): humanoid_walk gan/0 and cheetah gan/0
+# phase 15: training with ensemble and LSTM dynamics. (b) is
+# configs/humanoid_scale.yaml from an empty temporary workdir holding a copy
+# of the committed store it resolves to, with these cuts of depth (every
+# width, H=50, the 8 members, CG bilevel, 4 envs, the critic's plan_batch 32
+# and the cost batch 16 are the config's own):
+G15_CONFIG = "configs/humanoid_scale.yaml"
+G15_STORE = "runs/expert_trajectories/humanoid_stand/trajectories-e0c6da4a17.gmts"
+G15_CUTS = dict(
+    mpc__solver__max_iterations=1,  # of 30: iLQR trips a solve
+    mpc__train__num_epochs=2,  # of 12
+    mpc__train__trajectory_len=60,  # of 300: 8 x 9 cost windows, 8 x 10 dynamics windows
+    mpc__train__dynamics__max_interactions_per_episode=51,  # of 300: one 50-step window an env
+    mpc__train__dynamics__warm_start_updates=1,  # of 3 (the default)
+    mpc__evaluate__every_epochs=1,  # of 2
+    mpc__evaluate__max_interactions=2,  # of 1000: every evaluation and DAgger's policy episodes
+    mpc__evaluate__num_runs_for_avg=2,  # of 8
+    mpc__evaluate__candidate_pool=2,  # of 3
+    mpc__evaluate__selection_episodes=2,  # of 8
+    mpc__evaluate__fresh_eval_episodes=2,  # of 16 (the default)
+    expert_prediction__train__num_epochs=1,  # of 20
+    expert_prediction__dagger__rounds=1,  # of 2
+    expert_prediction__dagger__policy_episodes=2,  # of 4
+    expert_prediction__dagger__num_segments=4,  # of 128
+    expert_prediction__dagger__segment_steps=20,  # of 200
+    expert_prediction__dagger__finetune_epochs=1,  # of 8
+    expert_prediction__dagger__extra_epochs=0,  # of 4: the round ends in one evaluation
+)
+# (c): configs/humanoid_scale_continue.yaml (from humanoid_stand gan/0, no
+# DAgger) for one epoch, cut as (b)
+G15_CONTINUE = "configs/humanoid_scale_continue.yaml"
+G15_CONTINUE_CUTS = dict({k: v for k, v in G15_CUTS.items()
+                          if not k.startswith("expert_prediction__")},
+                         mpc__train__num_epochs=1)  # of 20
+G15_DYN_WINDOWS = 128  # (a): the dynamics minibatch, the config's batch size
+G15_CHECK_HISTORIES, G15_CHECK_ITERS = 2, 2  # (a): the implicit steps held card against CPU
+# (a): the CPU's own spread: its dynamics weights scaled (phase 14's 1e-6 and
+# twice it), and the implicit steps' histories (phase 11's nudges)
+G15_WEIGHT_NUDGES = (1 + 1e-6, 1 - 1e-6, 1 + 2e-6, 1 - 2e-6)
+G15_INPUT_NUDGES = (1 + 1e-7, 1 - 1e-7, 1 + 2e-7, 1 - 2e-7)
+G15_KINK_MARGIN = 5e-6  # (a): the dynamics steps' windows sit this far from every relu kink
+G15_EPISODE_STEPS = 1000  # (a): the committed store's episodes, the dynamics step's window pool
+G15_DYN_POOL = 2048  # (a): of whose windows this many are drawn and scanned for kinks
+G15_LSTM_CONFIG = "configs/gan_cheetah.yaml"  # (a): its widths with dynamics.use: lstm
 H50_STEPS = 10
 H50_CHECK_ENVS = 16  # the card-against-CPU plan
 # The random-weight row is chaotic at H=50: its dynamics grow every
@@ -2494,6 +2572,437 @@ def per_instance_phase(kernels, card_line, dev):
     return launches
 
 
+@contextlib.contextmanager
+def training_recorded():
+    """Inside the block: each ``batch_ilqr`` call of the policy or the
+    implicit planner appends (trips, lanes, whether a cost trainer's step
+    made it) to the yielded dict's "solves"; "dynamics" and "cost" count
+    the trainers' minibatch steps (``update_steps_recorded``)."""
+    from gan_mpc_tpu_torch.planner import bilevel
+    from gan_mpc_tpu_torch.policies import mpc
+    from gan_mpc_tpu_torch.training import cost
+
+    inside = []
+
+    def solving(original):
+        def solve(problem, x0, *args, **kwargs):
+            sol = original(problem, x0, *args, **kwargs)
+            rec["solves"].append((sol.trips, x0.shape[0], bool(inside)))
+            return sol
+        return solve
+
+    def marking(original):
+        def update_pass(*args, **kwargs):
+            inside.append(True)
+            try:
+                return original(*args, **kwargs)
+            finally:
+                inside.pop()
+        return update_pass
+
+    with update_steps_recorded() as rec, wrapped(mpc, "batch_ilqr", solving), \
+            wrapped(bilevel, "batch_ilqr", solving), wrapped(cost, "update_pass", marking):
+        rec["solves"] = []
+        yield rec
+
+
+def reckon_training(rec, policy):
+    """The launches of what ``training_recorded`` recorded, on ``policy``'s
+    horizon, state and action widths, solver settings and members: each
+    solve ``mlp_calls_per_solve`` (a cost step's, with its backward,
+    ``mlp_calls_per_step``), each dynamics step E x H forwards and as many
+    backwards."""
+    from gan_mpc_tpu_torch.planner.batch_ilqr import ls_materializes, mlp_calls_per_solve
+    from gan_mpc_tpu_torch.planner.bilevel import mlp_calls_per_step
+
+    H, members = policy.horizon, getattr(policy.dynamics_model, "num_members", 1)
+    n = policy.x_size + policy.dynamics_model.carry_size
+    m = policy.expert_model.u_size
+    expected = {"fused_mlp_fwd": members * H * rec["dynamics"], "fused_ls_step": 0,
+                "fused_mlp_bwd": members * H * rec["dynamics"]}
+    for trips, lanes, in_cost in rec["solves"]:
+        reckon = mlp_calls_per_step if in_cost else mlp_calls_per_solve
+        count = reckon(H, trips, materialize=ls_materializes(policy.settings, H, lanes, n, m),
+                       members=members)
+        for name, c in count.items():
+            expected[name] += c
+    if sum(c for _, _, c in rec["solves"]) != rec["cost"]:
+        raise SystemExit("a cost step made other than one solve")
+    return expected
+
+
+def held(label, got, ref, spreads, base, group):
+    """``got`` against ``ref`` ({name: array}) by groups of names
+    (``group(name)``): each group's difference (the l2 norm over its
+    entries) within max(its base (``base`` times the norm of its ref),
+    twice the largest move of the CPU's own result under the nudges
+    ``spreads`` ([{name: array}])). Prints the four groups nearest their
+    bounds. Returns whether every group holds and is finite."""
+    groups = {}
+    for name in ref:
+        groups.setdefault(group(name), []).append(name)
+    norm = lambda d, names: float(np.sqrt(sum(float(np.sum(np.square(
+        np.asarray(d[n], np.float64) - np.asarray(ref[n], np.float64)))) for n in names)))
+    rows, ok = [], True
+    for g, names in groups.items():
+        d = norm(got, names)
+        spread = max(norm(s, names) for s in spreads)
+        size = float(np.sqrt(sum(float(np.sum(np.square(np.asarray(ref[n], np.float64))))
+                                 for n in names)))
+        bound = max(base * size, 2.0 * spread)
+        finite = all(bool(np.all(np.isfinite(got[n]))) for n in names)
+        ok = ok and finite and d <= bound
+        rows.append((d / bound if bound else float("inf"), g, d, spread, bound, size))
+    rows.sort(reverse=True)
+    for share, g, d, spread, bound, size in rows[:4]:
+        print(f"  {label} {g}: |d| {d:.3e}, the CPU's spread {spread:.3e}, bound {bound:.3e} "
+              f"(|ref| {size:.3e}, {100 * share:.1f}% of the bound)")
+    print(f"{label}: {len(groups)} groups of {len(ref)} tensors, the worst {rows[0][1]} at "
+          f"{100 * rows[0][0]:.1f}% of its bound")
+    return ok
+
+
+@contextlib.contextmanager
+def scaled(tensors, s):
+    """Inside the block each of ``tensors`` is scaled by ``s`` in place."""
+    saved = [t.detach().clone() for t in tensors]
+    with torch.no_grad():
+        for t, t0 in zip(tensors, saved):
+            t.mul_(s)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for t, t0 in zip(tensors, saved):
+                t.copy_(t0)
+
+
+def dynamics_loss_and_grads(model, windows, teacher_forcing):
+    """{loss, every parameter's gradient} of the dynamics trainer's mean
+    multi-step loss on ``windows`` (the update pass's step before Adam),
+    numpy on the host."""
+    from gan_mpc_tpu_torch.training.dynamics import multistep_prediction_loss
+
+    model.requires_grad_(True)
+    try:
+        loss = multistep_prediction_loss(model, *windows, 0.9, teacher_forcing).mean()
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    finally:
+        model.requires_grad_(False)
+    out = {"loss": loss.detach()}
+    out.update({name: g for (name, _), g in zip(model.named_parameters(), grads)})
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def implicit_loss_and_grads(policy, hX):
+    """{loss, every gradient} of one generator step (``gan_generator_loss``
+    through the implicit gradient; every component but the expert
+    differentiated), numpy on the host."""
+    from gan_mpc_tpu_torch.policies.losses import gan_generator_loss
+    from gan_mpc_tpu_torch.training.masking import policy_components
+
+    comps = ("mpc_weights", "cost_params", "dynamics_params", "critic_params")
+    try:
+        for name in comps:
+            for p in policy_components(policy)[name]:
+                p.requires_grad_(True)
+        loss, grads = policy.batched_loss_and_grad(hX, gan_generator_loss)
+    finally:
+        policy.requires_grad_(False)
+    out = {"loss": loss.detach().cpu().numpy()}
+    out.update({f"{name}[{i}]": g.detach().cpu().numpy()
+                for name in comps for i, g in enumerate(grads[name])})
+    return out
+
+
+def clear_windows(model, windows, teacher_forcing, n, rng):
+    """``n`` of the (X, U, Y) ``windows`` (CPU tensors), taken in an order
+    drawn from ``rng``, on which every hidden pre-activation of every MLP
+    call of the CPU's multi-step loss sits ``G15_KINK_MARGIN`` or more from
+    the relu kink, as phase 2 draws its backward rows: at a kink the
+    derivative jumps, and the card's rounding, a few 1e-6, would move a
+    unit's gradient by a whole row's share. Every call has one row a
+    window."""
+    from gan_mpc_tpu_torch.ops import fused_mlp
+    from gan_mpc_tpu_torch.training.dynamics import multistep_prediction_loss
+
+    near = [torch.full((windows[0].shape[0],), float("inf"))]
+
+    def recording(plain):
+        def forward(x, layers):
+            h = x
+            for w, b in layers[:-1]:
+                pre = h @ w + b
+                near[0] = torch.minimum(near[0], pre.abs().amin(-1))
+                h = torch.relu(pre)
+            return plain(x, layers)
+        return forward
+
+    with wrapped(fused_mlp, "reference_forward", recording), torch.no_grad():
+        multistep_prediction_loss(model, *windows, 0.9, teacher_forcing)
+    keep = [i for i in rng.permutation(windows[0].shape[0])
+            if near[0][i] >= G15_KINK_MARGIN][:n]
+    print(f"  {int((near[0] >= G15_KINK_MARGIN).sum())} of {windows[0].shape[0]} windows sit "
+          f"{G15_KINK_MARGIN:.0e} or more from every relu kink; {n} of them taken")
+    if len(keep) < n:
+        raise SystemExit("too few windows clear of the relu kinks")
+    pick = torch.tensor(np.asarray(keep))
+    return tuple(t[pick] for t in windows)
+
+
+def hold_training_step(label, compute, gpu_model, cpu_model, gpu_args, cpu_args, base,
+                       group=lambda name: name, input_nudges=False):
+    """``compute(model, *args)`` on the card and on the CPU, the CPU's own
+    spread from its dynamics weights scaled by ``G15_WEIGHT_NUDGES`` (and
+    with ``input_nudges`` its first argument by ``G15_INPUT_NUDGES``);
+    ``held`` by ``group``. Returns whether every group holds."""
+    t0 = time.perf_counter()
+    got = compute(gpu_model, *gpu_args)
+    ref = compute(cpu_model, *cpu_args)
+    weights = list(getattr(cpu_model, "dynamics_model", cpu_model).parameters())
+    spreads = []
+    for s in G15_WEIGHT_NUDGES:
+        with scaled(weights, s):
+            spreads.append(compute(cpu_model, *cpu_args))
+    for s in G15_INPUT_NUDGES if input_nudges else ():
+        spreads.append(compute(cpu_model, cpu_args[0] * s, *cpu_args[1:]))
+    ok = held(label, got, ref, spreads, base, group)
+    print(f"  {label}: {time.perf_counter() - t0:.1f} s{'' if ok else ': DISAGREES'}")
+    return ok
+
+
+def check_training_against_cpu(dev):
+    """Phase 15 (a): the dynamics trainer's step and the implicit
+    generator step of humanoid_scale's policy and of an LSTM-dynamics
+    policy, card against CPU (the module's docstring)."""
+    from gan_mpc_tpu_torch.config import Config
+    from gan_mpc_tpu_torch.data.windows import cost_windows, sequence_windows
+    from gan_mpc_tpu_torch.runners import common
+
+    rng = np.random.default_rng(SEED)
+    cfg = Config.from_yaml(G15_CONFIG)
+    trajs = common.load_store(cfg, G15_STORE)
+    norm = common.build_normalizer(cfg, trajs, "cpu")
+    states = norm.normalize_state(torch.tensor(trajs.states))
+    H = cfg.mpc.horizon
+    # the dynamics step's windows from the store's whole episodes (the
+    # config trains on their first 300 steps): more of them sit clear of
+    # the relu kinks
+    whole = common.load_store(cfg.replace(mpc__train__trajectory_len=G15_EPISODE_STEPS),
+                              G15_STORE)
+    pool = sequence_windows(norm.normalize_state(torch.tensor(whole.states)),
+                            norm.normalize_action(torch.tensor(whole.dynamics_actions)), H)
+    pick = torch.from_numpy(rng.choice(pool[0].shape[0], G15_DYN_POOL, replace=False))
+    pool = tuple(t[pick] for t in pool)
+    component = lambda name: name.split("[")[0]  # the implicit steps' groups
+    failed = []
+
+    # the ensemble's dynamics step: fresh weights from the config's seed
+    gpu, cpu = (common.build_policy(cfg, 29, 12, device=d) for d in (dev, "cpu"))
+    print(f"phase 15 (a): {G15_CONFIG}'s dynamics trainer step "
+          f"({cfg.mpc.model.dynamics.ensemble.num_members} x "
+          f"{[29 + 12] + list(cfg.mpc.model.dynamics.ensemble.mlp.hidden) + [29]}, "
+          f"{G15_DYN_WINDOWS} windows of {H} steps from the committed store, teacher forced)")
+    windows = clear_windows(cpu.dynamics_model, pool, True, G15_DYN_WINDOWS, rng)
+    if not hold_training_step("ensemble dynamics step", dynamics_loss_and_grads,
+                              gpu.dynamics_model, cpu.dynamics_model,
+                              ([t.to(dev) for t in windows], True), (list(windows), True),
+                              1e-4):
+        failed.append("ensemble dynamics step")
+
+    # the implicit generator step on humanoid_stand gan/0's trained weights
+    ccfg = cfg.replace(mpc__solver__max_iterations=G15_CHECK_ITERS)
+    gpu, cpu = (common.load_saved_params(common.build_policy(ccfg, 29, 12, True, device=d),
+                                         G14_STAND) for d in (dev, "cpu"))
+    hX, _ = cost_windows(states, cfg.mpc.history, H)
+    hX = hX[torch.from_numpy(rng.choice(hX.shape[0], G15_CHECK_HISTORIES, replace=False))]
+    print(f"phase 15 (a): one implicit generator step of {G15_CONFIG}'s policy on "
+          f"humanoid_stand gan/0's weights ({G15_CHECK_HISTORIES} expert histories, H={H}, "
+          f"iLQR <= {G15_CHECK_ITERS}, bilevel {cfg.mpc.solver.bilevel})")
+    if not hold_training_step("ensemble implicit step", implicit_loss_and_grads, gpu, cpu,
+                              (hX.to(dev),), (hX,), 1e-3, component, True):
+        failed.append("ensemble implicit step")
+
+    # an LSTM-dynamics policy on random weights: both bilevel solvers, then
+    # its dynamics trainer step (open loop: the carry threads through)
+    hL = torch.tensor(0.3 * rng.standard_normal((G15_CHECK_HISTORIES, 2, 17)),
+                      dtype=torch.float32)
+    for solver in ("dense", "cg"):
+        lcfg = Config.from_yaml(G15_LSTM_CONFIG).replace(
+            mpc__model__dynamics__use="lstm", mpc__solver__max_iterations=G15_CHECK_ITERS,
+            mpc__solver__bilevel=solver)
+        gpu, cpu = (common.build_policy(lcfg, 17, 6, True, device=d) for d in (dev, "cpu"))
+        print(f"phase 15 (a): one implicit generator step of an LSTM-dynamics policy "
+              f"({G15_LSTM_CONFIG}'s widths, random weights, H={lcfg.mpc.horizon}, bilevel "
+              f"{solver}: the exact Hessian by double backward)")
+        if not hold_training_step(f"LSTM implicit step ({solver})", implicit_loss_and_grads,
+                                  gpu, cpu, (hL.to(dev),), (hL,), 1e-3, component, True):
+            failed.append(f"LSTM implicit step ({solver})")
+    T = lcfg.mpc.horizon
+    print(f"phase 15 (a): the LSTM dynamics trainer step ({G15_DYN_WINDOWS} windows of {T} "
+          "steps, open loop)")
+    lw = clear_windows(cpu.dynamics_model, tuple(torch.tensor(
+        0.5 * rng.standard_normal((4 * G15_DYN_WINDOWS, T, w)), dtype=torch.float32)
+        for w in (17, 6, 17)), False, G15_DYN_WINDOWS, rng)
+    if not hold_training_step("LSTM dynamics step", dynamics_loss_and_grads, gpu.dynamics_model,
+                              cpu.dynamics_model, ([t.to(dev) for t in lw], False),
+                              (list(lw), False), 1e-4):
+        failed.append("LSTM dynamics step")
+    if failed:
+        raise SystemExit(f"phase 15 (a): on the card {failed} disagree with the CPU path")
+
+
+def ensemble_training_run(label, config, cuts, interrupt, kernels, card_line, dev):
+    """Phase 15 (b), (c): ``runners.gan.run`` on ``config`` with ``cuts`` in
+    an empty temporary workdir holding a copy of the committed store it
+    resolves to (interrupted after fused epoch 1 and resumed where
+    ``interrupt``); the launches against the recorded solves and steps,
+    the metrics, the saved run's stacked leaves, the run reloaded bitwise.
+    Returns (the launches, the saved params)."""
+    import os
+    import shutil
+    import tempfile
+
+    from gan_mpc_tpu_torch.config import Config
+    from gan_mpc_tpu_torch.params import load_msgpack, to_jax_params
+    from gan_mpc_tpu_torch.runners import collect, common, expert, gan, l2
+    from gan_mpc_tpu_torch.training import critic, fused_epoch
+
+    class Interrupted(RuntimeError):
+        pass
+
+    def log(msg):
+        print(f"  {msg}")
+        logs.append(msg)
+
+    def log_crashing(msg):
+        log(msg)
+        if msg.startswith("[gan/fused] epoch 1 "):
+            raise Interrupted(msg)
+
+    pieces = [(common, "collect_expert_trajectories", "store collection"),
+              (expert, "train_expert", "expert training"),
+              (expert, "average_return", "expert evaluation"),
+              (fused_epoch, "collect_episode", "collection"),
+              (fused_epoch, "dynamics_steps", "dynamics"),
+              (fused_epoch, "critic_dataset", "critic dataset"),
+              (critic, "update_pass", "critic updates"),
+              (fused_epoch, "cost_steps", "generator"),
+              (fused_epoch, "gan_test_metrics", "test metrics"),
+              (collect, "policy_rollout", "DAgger rollout"),
+              (collect, "collect_expert_trajectories", "expert segments"),
+              (gan, "train_expert", "DAgger fine-tune")]
+    logs = []
+    t_run = time.perf_counter()
+    resolved = common.trajectories_path(Config.from_yaml(config))
+    if resolved != G15_STORE:
+        raise SystemExit(f"{config} resolves to {resolved}, not the committed {G15_STORE}")
+    with tempfile.TemporaryDirectory() as workdir:
+        cfg = Config.from_yaml(config).replace(runtime__workdir=workdir, **cuts)
+        store = common.trajectories_path(cfg)
+        os.makedirs(os.path.dirname(store))
+        for suffix in ("", ".exec.npz"):
+            shutil.copyfile(G15_STORE + suffix, store + suffix)
+        print(f"{label}: {config} from an empty temporary workdir with the committed store "
+              f"{G15_STORE} it resolves to (one GPU: {card_line}); cuts {cuts}")
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        with training_recorded() as rec, run_watched(pieces) as timed:
+            if interrupt:
+                try:
+                    gan.run(cfg, log_fn=log_crashing, device=dev)
+                except Interrupted:
+                    print("  (interrupted after fused epoch 1; resuming)")
+                else:
+                    raise SystemExit(f"{label}: the run was not interrupted")
+            out = gan.run(cfg, log_fn=log, device=dev)
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        counts = {name: k.launches for name, k in kernels.items()}
+        expected = reckon_training(rec, out["policy"])
+        with open(os.path.join(workdir, "metrics", cfg.env.name, "gan.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        expert_dir = common.expert_model_dir(cfg)
+        experts = sorted(os.listdir(expert_dir)) if os.path.isdir(expert_dir) else []
+        saved = load_msgpack(os.path.join(out["run_dir"], "params.msgpack"))
+        reloaded = to_jax_params(common.setup(cfg.replace(
+            mpc__train__init_from_run=out["run_dir"]), True, device=dev)["policy"])
+    kinds = {}
+    for kind, secs in timed:
+        kinds.setdefault(kind, []).append(round(secs, 3))
+    solves = rec["solves"]
+    members = cfg.mpc.model.dynamics.ensemble.num_members
+    print(f"  {label}: {run_s:.3f} s; wall s by piece: {kinds}")
+    print(f"  kernel launches {counts} (expected {expected}: {len(solves)} solves of "
+          f"{sum(t for t, _, _ in solves)} trips at {sorted(set(b for _, b, _ in solves))} "
+          f"lanes, {rec['dynamics']} dynamics and {rec['cost']} generator steps of "
+          f"{cfg.mpc.horizon} time steps, {members} members)")
+    if counts != expected:
+        raise SystemExit(f"{label} did not launch the kernels on every MLP call")
+    if interrupt and "[gan] resumed from checkpoint at epoch 1" not in logs:
+        raise SystemExit(f"{label} did not resume from its epoch-1 checkpoint")
+    if "store collection" in kinds:
+        raise SystemExit(f"{label} collected a store: the committed one was not read")
+    want_experts = [] if cfg.get_path("mpc.train.init_from_run") else ["0"]
+    fused_keys = set(k for _, k in l2.FUSED_RECORDS["gan"].values())
+    epoch_rows = [r["step"] for r in rows if fused_keys <= set(r)]
+    dagger_rows = [r for r in rows if "dagger_test_loss" in r]
+    values = [v for r in rows for k, v in r.items() if k not in ("step", "time")]
+    values += [v for vs in out["history"].values() for v in vs]
+    print(f"  gan.jsonl: {len(rows)} rows, fused epoch rows at steps {epoch_rows}, "
+          f"{len(dagger_rows)} DAgger rows; experts saved {experts}; stamped reward "
+          f"{out['avg_reward']:.2f}; history {out['history']}")
+    if epoch_rows != list(range(1, cfg.mpc.train.num_epochs + 1)) or experts != want_experts \
+            or len(dagger_rows) != cfg.get_path("expert_prediction.dagger.rounds", 0) or \
+            not np.all(np.isfinite(values)) or not np.isfinite(out["avg_reward"]):
+        raise SystemExit(f"{label} wrote unexpected metrics or experts, or values not finite")
+    shapes = {k: tuple(np.asarray(v["kernel"]).shape)
+              for k, v in saved["dynamics_params"]["params"].items()}
+    widths = [41] + list(cfg.mpc.model.dynamics.ensemble.mlp.hidden) + [29]
+    want = {f"Dense_{i}": (members, a, b) for i, (a, b) in enumerate(zip(widths[:-1],
+                                                                          widths[1:]))}
+    print(f"  params.msgpack dynamics kernels {shapes}")
+    if shapes != want:
+        raise SystemExit(f"{label} saved no stacked ({members}, ...) dynamics leaves")
+    got, want = dict(leaves_of(reloaded)), dict(leaves_of(out["params"]))
+    if sorted(got) != sorted(want) or not all(np.array_equal(v, want[k]) for k, v in got.items()):
+        raise SystemExit(f"the saved run of {label} does not reload bitwise")
+    return counts, out["params"]
+
+
+def ensemble_training_phase(kernels, card_line, dev):
+    """Phase 15: training with ensemble and LSTM dynamics (see the module's
+    docstring). Returns the launches of each run."""
+    from gan_mpc_tpu_torch.params import load_msgpack
+
+    t_phase = time.perf_counter()
+    wall, launches = {}, {}
+    t0 = time.perf_counter()
+    check_training_against_cpu(dev)
+    wall["(a) card vs CPU"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    launches["humanoid_scale run"], _ = ensemble_training_run(
+        "phase 15 (b)", G15_CONFIG, G15_CUTS, True, kernels, card_line, dev)
+    wall["(b) humanoid_scale"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    launches["humanoid_scale_continue run"], params = ensemble_training_run(
+        "phase 15 (c)", G15_CONTINUE, G15_CONTINUE_CUTS, False, kernels, card_line, dev)
+    start = dict(leaves_of(load_msgpack(G14_STAND + "/params.msgpack")))
+    moved = {k: float(np.abs(v - start[k]).max()) for k, v in leaves_of(params)
+             if k.startswith(("dynamics_params", "cost_params", "critic_params"))}
+    print(f"  (c) moved from humanoid_stand gan/0 by at most {max(moved.values()):.3e} "
+          f"(dynamics {max(v for k, v in moved.items() if k.startswith('dynamics')):.3e})")
+    if not all(v > 0 for k, v in moved.items() if k.endswith("kernel")):
+        raise SystemExit("phase 15 (c) left a trained kernel where humanoid_stand gan/0 had it")
+    wall["(c) humanoid_scale_continue"] = time.perf_counter() - t0
+    print(f"phase 15 wall s by piece: { {k: round(v, 1) for k, v in wall.items()} }; phase 15 "
+          f"wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def time_recorded(label, seen, keys, timed):
     """Time each MLP kernel and its plain version at the (stack, rows)
     pairs ``keys`` of ``seen`` (``shapes_recorded``) on the runs' own weights,
@@ -2877,6 +3386,14 @@ def main() -> int:
     check_recorded("phase 14", seen, checked, rng, dev, max_err)
     with torch.no_grad():
         time_recorded("phase 14", seen, new, timed)
+
+    # 15. training with ensemble and LSTM dynamics: humanoid_scale*.yaml
+    with shapes_recorded() as seen:
+        launches.update(ensemble_training_phase(kernels, card_line, dev))
+    new = [key for key in seen if key not in checked]
+    check_recorded("phase 15", seen, checked, rng, dev, max_err)
+    with torch.no_grad():
+        time_recorded("phase 15", seen, new, timed)
 
     # the planner's line-search call (8192 rows) leads the forward kernels'
     # entries, the trainer's call (128 rows) the backward kernel's

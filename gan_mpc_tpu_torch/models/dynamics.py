@@ -39,9 +39,11 @@ def _mlp_layers(widths):
 
 
 class ResidualMLPDynamicsNet(nn.Module):
-    """next_x = x + MLP([x, u]); carry-free (carry width 0)."""
+    """next_x = x + MLP([x, u]); carry-free (carry width 0). A relu MLP:
+    piecewise linear in (x, u)."""
 
     carry_size = 0
+    piecewise_linear = True
 
     def __init__(self, x_size: int, u_size: int,
                  hidden: Sequence[int] = (200, 200, 200)):
@@ -66,7 +68,10 @@ class ResidualMLPDynamicsNet(nn.Module):
 class LSTMDynamicsNet(nn.Module):
     """LSTM-backed residual dynamics with the carry packed into xc =
     [x (x_size), h (features), c (features)]. Parameters in flax's order:
-    the cell (``OptimizedLSTMCell_0``), then the head ``Dense_0..``."""
+    the cell (``OptimizedLSTMCell_0``), then the head ``Dense_0..``. The
+    cell's sigmoids and tanhs curve: not piecewise linear."""
+
+    piecewise_linear = False
 
     def __init__(self, x_size: int, u_size: int, features: int = 64,
                  hidden: Sequence[int] = (128, 128)):
@@ -121,6 +126,14 @@ class LearnedDynamics(nn.Module):
         """True for the plain residual relu-MLP (no recurrent carry), the
         net the fused batch-major planner path supports."""
         return isinstance(self.net, ResidualMLPDynamicsNet) and self.carry_size == 0
+
+    @property
+    def piecewise_linear(self) -> bool:
+        """Whether the next state is piecewise linear in (xc, u), so that
+        a rollout's second derivative vanishes almost everywhere and the
+        Gauss-Newton product of the planner's linearization is the exact
+        Hessian (``planner/bilevel.py``)."""
+        return self.net.piecewise_linear
 
     def batch_apply(self, X: torch.Tensor, U: torch.Tensor, compute_dtype=None,
                     twice_differentiable: bool = False):

@@ -13,7 +13,19 @@ signal of ensemble world models) serve callers outside the planner.
 
 As in the JAX package the ensemble is not batch native: the policy plans
 it through the per-instance path (``policies/mpc.py``), which reads no
-fused line-search step.
+fused line-search step. Its members are relu MLPs, so the mean is
+piecewise linear (``piecewise_linear``) and the implicit gradient keeps
+its Gauss-Newton Hessian.
+
+Training: a run from an empty workdir draws each member's weights on its
+own (``params.init_flax_like`` walks the members in turn, as the JAX
+``init`` splits one key per member). The dynamics trainer's loss is the
+multi-step error of the members' mean (``training/dynamics.py``), as the
+JAX package's code trains it; its module docstring speaks of members
+updated on bootstrapped minibatches, which no JAX code does, and the port
+follows the code. The phase optimizer clips one global norm over every
+member's tensors, as ``optax.clip_by_global_norm`` does over the stacked
+leaves.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ class EnsembleDynamics(nn.Module):
 
     is_batch_native = False
     carry_size = 0
+    piecewise_linear = True
 
     def __init__(self, nets: Sequence[nn.Module]):
         super().__init__()

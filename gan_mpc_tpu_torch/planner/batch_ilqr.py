@@ -60,7 +60,11 @@ class BatchProblem:
       argument contiguous. When set, ``batch_rollout``,
       ``_line_search_objs`` and ``_forward_best`` route through it;
     per_instance: the semantics of the JAX per-instance ``ilqr`` (the
-      module's docstring).
+      module's docstring);
+    gauss_newton_exact: whether the Gauss-Newton product of
+      ``dynamics_jac`` and ``quad`` is the objective's exact Hessian in U,
+      which holds where the dynamics are piecewise linear in (x, u); the
+      implicit gradient (``planner/bilevel.py``) reads it.
     """
 
     dynamics_step: Callable
@@ -70,6 +74,7 @@ class BatchProblem:
     quad: Callable
     ls_step: Optional[Callable] = None
     per_instance: bool = False
+    gauss_newton_exact: bool = True
 
 
 def ls_materializes(settings: SolverSettings, T: int, B: int, n: int, m: int) -> bool:

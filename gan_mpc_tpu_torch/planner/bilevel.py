@@ -24,19 +24,29 @@ Each term takes the derivative it needs and no more:
   * the mixed term d/dtheta <v, g> is a second derivative: it runs the
     problem built at ``order=2``, whose MLPs are the plain torch forward
     (``mlp_apply(..., twice_differentiable=True)``), as the JAX package
-    takes it in flax outside its kernels;
-  * H is assembled from the linearization the solver already makes
-    (``dynamics_jac`` and ``quad`` at (X*, U*)) by a Gauss-Newton
-    Hessian-vector product: a tangent rollout dx_{t+1} = A_t dx_t + B_t w_t
-    and its adjoint. Where the dynamics are piecewise linear in (x, u), as
-    the residual relu MLP and linear dynamics are, that is the exact
-    Hessian almost everywhere (the rollout's second derivative vanishes),
-    and ``quad`` holds the cost's exact second derivatives (the relu
-    terminal net's is 2 w J^T J). ``"dense"`` applies it to the T*m unit
-    directions at once and solves with ``solve_spd``; ``"cg"`` runs a
-    batched conjugate gradient with ``jax.scipy.sparse.linalg.cg``'s
-    stopping rule, per lane: |r| <= 1e-5 |b|, at most ``cg_iters`` trips,
-    converged lanes masked (the loop never syncs with the device).
+    takes it in flax outside its kernels; so do the exact Hessian's
+    products below;
+  * H is the exact Hessian, as the JAX package takes it (``jax.jacfwd``
+    of ``jax.grad`` for "dense", ``jax.jvp`` of it for "cg"), in one of
+    two ways, as the problem states (``BatchProblem.gauss_newton_exact``):
+    - where the dynamics are piecewise linear in (x, u), as the residual
+      relu MLP, an ensemble of them and linear dynamics are, from the
+      linearization the solver already makes (``dynamics_jac`` and
+      ``quad`` at (X*, U*)) by a Gauss-Newton Hessian-vector product: a
+      tangent rollout dx_{t+1} = A_t dx_t + B_t w_t and its adjoint. That
+      is the exact Hessian almost everywhere (the rollout's second
+      derivative vanishes), and ``quad`` holds the cost's exact second
+      derivatives (the relu terminal net's is 2 w J^T J);
+    - where they are not (the LSTM dynamics: the cell's sigmoids and
+      tanhs curve, and Gauss-Newton would drop that curvature), by
+      double backward through the order-2 problem: the gradient dJ/dU of
+      the plain rollout, kept differentiable, then one backward of
+      <dJ/dU, w> to U per direction w.
+    ``"dense"`` applies it to the T*m unit directions and solves with
+    ``solve_spd``; ``"cg"`` runs a batched conjugate gradient with
+    ``jax.scipy.sparse.linalg.cg``'s stopping rule, per lane: |r| <= 1e-5
+    |b|, at most ``cg_iters`` trips, converged lanes masked (the loop never
+    syncs with the device).
 
 x0 and U0 (goals, warm starts) get no gradient, as in the JAX package.
 """
@@ -82,10 +92,26 @@ def gn_hvp(lin, W: torch.Tensor) -> torch.Tensor:
 def dense_hessian(lin, T: int, m: int) -> torch.Tensor:
     """(B, T*m, T*m): ``gn_hvp`` on every unit direction at once; row and
     column index t * m + i, the JAX package's flattening of U (T, m)."""
-    B, dev = lin[0].shape[1], lin[0].device
-    eye = torch.eye(T * m, dtype=lin[0].dtype, device=dev).reshape(T, 1, m, T * m)
-    cols = gn_hvp(lin, eye.expand(T, B, m, T * m))  # (T, B, m, T*m)
+    return _dense(lambda W: gn_hvp(lin, W), lin[0].shape[1], T, m, lin[0].dtype,
+                  lin[0].device)
+
+
+def _dense(hvp: Callable, B: int, T: int, m: int, dtype, device) -> torch.Tensor:
+    """(B, T*m, T*m) from ``hvp`` on the T*m unit directions (T, B, m, T*m)."""
+    eye = torch.eye(T * m, dtype=dtype, device=device).reshape(T, 1, m, T * m)
+    cols = hvp(eye.expand(T, B, m, T * m))  # (T, B, m, T*m)
     return cols.permute(1, 0, 2, 3).reshape(B, T * m, T * m)
+
+
+def exact_hvp(g: torch.Tensor, U: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """d^2J/dU^2 applied to K directions W (T, B, m, K) by double backward:
+    ``g`` = dJ/dU (T, B, m) of a graph built with ``create_graph`` from
+    ``U``, one backward of <g, w> per direction. Lanes solve independent
+    problems, so one backward serves every lane. Returns (T, B, m, K),
+    outside any graph."""
+    cols = [torch.autograd.grad(g, U, W[..., k], retain_graph=True)[0]
+            for k in range(W.shape[-1])]
+    return torch.stack(cols, -1)
 
 
 def batched_cg(matvec: Callable, b: torch.Tensor, iters: int) -> torch.Tensor:
@@ -111,21 +137,26 @@ def batched_cg(matvec: Callable, b: torch.Tensor, iters: int) -> torch.Tensor:
 
 
 def mlp_calls_per_step(horizon: int, trips: int, fused: bool = False,
-                       steps: int = 1, materialize: bool = False) -> Dict[str, int]:
+                       steps: int = 1, materialize: bool = False, members: int = 1,
+                       projection: bool = False) -> Dict[str, int]:
     """Kernel launches of ``steps`` implicit solves that ran ``trips``
     iterations in all, and their backwards, on the card, for an outer loss
     that reads X or U and not obj (the imitation and generator losses).
 
-    The solves: ``mlp_calls_per_solve`` (``materialize`` as there). Each
-    backward's first-order rollout at (U*, theta): ``horizon`` dynamics MLP
-    forwards and one terminal-cost forward (``fused_mlp_fwd`` through ``FusedMlpFunction``), then the X
-    pullback, ``horizon`` dynamics backwards (``fused_mlp_bwd``). A loss
-    that reads obj adds the envelope's ``horizon`` dynamics backwards and
-    one of the cost net. The Hessian and the mixed term run plain torch.
+    The solves: ``mlp_calls_per_solve`` (``materialize``, ``members`` and
+    ``projection`` as there). Each backward's first-order rollout at
+    (U*, theta): ``horizon`` dynamics forwards of ``members`` MLP launches
+    each (``fused_mlp_fwd`` through ``FusedMlpFunction``; an ensemble's
+    members, 1 for a residual MLP or the LSTM dynamics' head) and one
+    terminal-cost forward, then the X pullback, the same ``members`` x
+    ``horizon`` MLP backwards (``fused_mlp_bwd``). A loss that reads obj
+    adds the envelope's dynamics backwards and one of the cost net. The
+    Hessian and the mixed term run plain torch.
     """
-    calls = dict(mlp_calls_per_solve(horizon, trips, fused, steps, materialize))
-    calls["fused_mlp_fwd"] += steps * (horizon + 1)
-    calls["fused_mlp_bwd"] = steps * horizon
+    calls = dict(mlp_calls_per_solve(horizon, trips, fused, steps, materialize, members,
+                                     projection))
+    calls["fused_mlp_fwd"] += steps * (members * horizon + 1)
+    calls["fused_mlp_bwd"] = steps * members * horizon
     return calls
 
 
@@ -218,28 +249,35 @@ class ImplicitPlanner:
         if U_bar is None and X_bar is None:
             return total  # v = 0: no implicit term
 
-        X = X.detach()
+        b = u_bar.transpose(0, 1).reshape(B, T * m)
+        with torch.enable_grad():
+            # dJ/dU of the plain rollout, kept differentiable: the mixed
+            # term's d/dtheta, and the exact Hessian's products
+            U2 = U.clone().requires_grad_()
+            _, obj2 = batch_rollout(build_problem(2), U2, x0)
+            (g,) = torch.autograd.grad(obj2.sum(), U2, create_graph=True)
+        if problem.gauss_newton_exact:
+            with torch.no_grad():
+                lin = (*problem.dynamics_jac(X.detach()[:-1], U),
+                       *problem.quad(X.detach(), U)[2:])
+            hvp = lambda W: gn_hvp(lin, W)
+        else:
+            hvp = lambda W: exact_hvp(g, U2, W)
         with torch.no_grad():
-            lin = (*problem.dynamics_jac(X[:-1], U), *problem.quad(X, U)[2:])
-            b = u_bar.transpose(0, 1).reshape(B, T * m)
             if self.solver == "dense":
-                H = dense_hessian(lin, T, m)
+                H = _dense(hvp, B, T, m, U.dtype, U.device)
                 H = (H + H.transpose(-1, -2)) / 2.0 + self.ridge * torch.eye(
                     T * m, dtype=H.dtype, device=H.device)
                 v = solve_spd(H, b[..., None])[..., 0]
             else:
                 def matvec(w):
                     Wt = w.reshape(B, T, m).transpose(0, 1)[..., None]
-                    Hw = gn_hvp(lin, Wt)[..., 0].transpose(0, 1).reshape(B, T * m)
+                    Hw = hvp(Wt)[..., 0].transpose(0, 1).reshape(B, T * m)
                     return Hw + self.ridge * w
                 v = batched_cg(matvec, b, self.cg_iters)
             v = v.reshape(B, T, m).transpose(0, 1)
 
         # the mixed second derivative -d/dtheta <v, dJ/dU> through plain MLPs
         with torch.enable_grad():
-            U2 = U.clone().requires_grad_()
-            _, obj2 = batch_rollout(build_problem(2), U2, x0)
-            (g,) = torch.autograd.grad(obj2.sum(), U2, create_graph=True)
             add(torch.autograd.grad((g * v).sum(), wrt, allow_unused=True), -1.0)
         return total
-

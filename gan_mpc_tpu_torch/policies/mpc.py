@@ -158,7 +158,9 @@ class MPCPolicy(nn.Module):
         may route the forward scans through the fused step; 1 for first
         derivatives, every MLP through ``mlp_apply`` (on the card the
         fused kernels, under autograd ``FusedMlpFunction``); 2 for second
-        derivatives, every MLP plain (``twice_differentiable``)."""
+        derivatives, every MLP plain (``twice_differentiable``). The
+        problem states whether the Gauss-Newton Hessian is exact: where the
+        dynamics are piecewise linear (``piecewise_linear``)."""
         cost, dyn = self.cost_model, self.dynamics_model
         native = self.batch_native
         cdt = self.settings.compute_dtype if native else None
@@ -205,6 +207,7 @@ class MPCPolicy(nn.Module):
             quad=lambda X, U: cost.quad_batch(X, U, goal_tm, goal_u_tm),
             ls_step=ls_step,
             per_instance=not native,
+            gauss_newton_exact=dyn.piecewise_linear,
         )
 
     # -- differentiable planning -----------------------------------------

@@ -23,8 +23,7 @@ saved expert predictor, training one where none matches the store's data
     ``runtime_setup`` manage XLA's compile caches and device meshes and
     have no counterpart; ``check_supported`` refuses the training settings
     whose paths are not ported (video, data parallel, the dm_control
-    cross-evaluation where it would run, dynamics other than "mlp", which
-    ``build_policy`` builds and the bench serves).
+    cross-evaluation where it would run).
 
 Random draws come from ``torch.Generator``s: the collection from one
 seeded with ``seed + 7`` (where JAX seeds its key), the expert trainer
@@ -88,7 +87,8 @@ def build_cost_model(config: Config, horizon: int, x_size: int) -> MPCCost:
 def build_dynamics_model(config: Config, x_size: int, u_size: int):
     """The dynamics of ``mpc.model.dynamics.use``: "mlp" (a residual MLP),
     "lstm" (``LSTMDynamicsNet``) or "ensemble" (``ensemble.num_members``
-    residual MLPs of ``ensemble.mlp.hidden``)."""
+    residual MLPs of ``ensemble.mlp.hidden``, each drawn on its own by
+    ``build_policy``); each one serves and trains."""
     mcfg = config.mpc.model.dynamics
     if mcfg.use == "mlp":
         return LearnedDynamics(ResidualMLPDynamicsNet(x_size, u_size,
@@ -335,8 +335,8 @@ def check_supported(config: Config) -> None:
     """Raise ``NotImplementedError``, before any work, for a training-run
     setting whose path is not ported, naming its ROADMAP Queue 1 item; the
     dm_control cross-evaluation where it would run (``dm_cross_eval_runs``).
-    Dynamics other than "mlp" are served (``bench.load_checkpoint``) but
-    not trained."""
+    Every dynamics ``build_dynamics_model`` builds trains: the residual
+    MLP, the LSTM net and the ensemble."""
     if dm_cross_eval_runs(config):
         raise NotImplementedError(
             "the dm_control cross-evaluation (envs/dm_eval.py) is not ported (item 8(c) of "
@@ -346,9 +346,6 @@ def check_supported(config: Config) -> None:
          "video, item 8(c)"),
         (int(config.get_path("runtime.data_parallel_devices", 1) or 1) > 1,
          "runtime.data_parallel_devices > 1", "data parallel, item 9(b)"),
-        (config.mpc.model.dynamics.use != "mlp",
-         f"training with mpc.model.dynamics.use: {config.mpc.model.dynamics.use}",
-         "ensemble and LSTM dynamics in training, item 5(b)"),
     ]
     for on, setting, item in unported:
         if on:

@@ -5,9 +5,11 @@ Counterpart of ``gan_mpc_tpu/training/dynamics.py``:
   * multi-step prediction loss: unroll the learned dynamics over a window,
     open- or closed-loop by the teacher-forcing switch, discounted squared
     error summed over time and features. Batched over the windows: each
-    time step is one ``LearnedDynamics.batch_apply`` over the minibatch,
-    so on the card its forward is the fused MLP kernel and its gradient
-    the fused backward kernel;
+    time step is one ``batch_apply`` of the dynamics over the minibatch
+    (a residual MLP, an LSTM net with its carry threaded through, or an
+    ensemble's member mean), so on the card each MLP forward is the fused
+    MLP kernel and its gradient the fused backward kernel (an ensemble's
+    E members launch E of each a step);
   * one optimizer step per row of a (steps, batch) index matrix (the JAX
     ``lax.scan`` over minibatches is a Python loop);
   * warm-start updates on the expert dataset at the first epoch, then
@@ -32,16 +34,22 @@ from gan_mpc_tpu_torch.training.common import discounted_sum
 def multistep_prediction_loss(dynamics_model, xseq, useq, next_xseq, gamma: float,
                               teacher_forcing: bool) -> torch.Tensor:
     """Discounted multi-step prediction error of each (seqlen, ·) window:
-    xseq, next_xseq (B, T, x), useq (B, T, u) -> (B,)."""
-    if not dynamics_model.is_batch_native:
-        raise NotImplementedError(
-            "training ensemble or LSTM dynamics is not ported (ensemble and LSTM dynamics in "
-            "training, item 5(b) of ROADMAP Queue 1); only carry-free residual-MLP dynamics "
-            "train")
+    xseq, next_xseq (B, T, x), useq (B, T, u) -> (B,).
+
+    The unroll runs on the planner state xc = [x, carry] from the
+    dynamics' zero carry. Teacher forcing replaces x by the window's own
+    state; the carry always threads on from the prediction. The error is
+    taken on x. For an ensemble the prediction is the members' mean (its
+    ``batch_apply``), so the loss trains the mean, as the JAX package's
+    does."""
+    xs = xseq.shape[-1]
     x = xseq[:, 0]
+    carry = dynamics_model.zero_carry(xseq.shape[0], xseq.device)
     preds = []
     for t in range(xseq.shape[1]):
-        x = dynamics_model.batch_apply(xseq[:, t] if teacher_forcing else x, useq[:, t])
+        xc = torch.cat([xseq[:, t] if teacher_forcing else x, carry], dim=-1)
+        next_xc = dynamics_model.batch_apply(xc, useq[:, t])
+        x, carry = next_xc[:, :xs], next_xc[:, xs:]
         preds.append(x)
     err = (torch.stack(preds) - next_xseq.transpose(0, 1)) ** 2  # (T, B, x)
     return discounted_sum(err, gamma).sum(-1)

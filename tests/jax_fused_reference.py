@@ -1,6 +1,7 @@
 """The JAX package's side of the port's fused-epoch and DAgger parity tests.
 
     python tests/jax_fused_reference.py epochs <out.pkl>
+    python tests/jax_fused_reference.py ensemble_epoch <out.pkl>
     python tests/jax_fused_reference.py dagger <out.pkl> <config.json>
 
 XLA:CPU aborts a process that compiles the fused epoch after many other
@@ -46,6 +47,7 @@ from gan_mpc_tpu.models import (  # noqa: E402
     ResidualMLPDynamicsNet,
     SequenceCritic,
 )
+from gan_mpc_tpu.models.ensemble import EnsembleDynamics  # noqa: E402
 from gan_mpc_tpu.planner import SolverSettings  # noqa: E402
 from gan_mpc_tpu.policies import MPCPolicy  # noqa: E402
 from gan_mpc_tpu.training.fused_epoch import (  # noqa: E402
@@ -69,20 +71,25 @@ LR = {"dynamics": 1e-3, "critic": 1e-3, "cost": 1e-4}
 # the epochs' 2 envs start 9.6 and 7.3 degrees from upright, the
 # collector's 3 policy episodes 6.4, 8.6 and 7.6
 EPOCH_RESET_SCALE, DAGGER_RESET_SCALE = 0.06, 0.07
+ENSEMBLE_MEMBERS = 3
+NUDGES = (1 + 1e-7, 1 - 1e-7)  # the ensemble epoch is rerun from its params scaled so
 
 
-def tiny_policy(with_critic, reset_scale):
+def tiny_policy(with_critic, reset_scale, members=0):
     """(env, policy, params); the env's reset angles scaled by
     ``reset_scale`` toward upright, so that some envs of the cases start
     inside the reward's 8-degree band and others outside it, and the
-    returns and the reward weighting see rewards of 0 and of 1."""
+    returns and the reward weighting see rewards of 0 and of 1. With
+    ``members`` > 0 the dynamics are an ensemble of that many of the
+    residual MLPs."""
     env = PendulumSwingup()
     reset = env.reset
     env.reset = lambda p, k: (lambda s: s.replace(qpos=reset_scale * s.qpos))(reset(p, k))
     x, u = env.obs_size, env.act_size
+    net = ResidualMLPDynamicsNet(x_size=x, hidden=(16,))
     policy = MPCPolicy(
         cost_model=MPCCost(CostFeatureNet(hidden=(8,), features_out=2), H),
-        dynamics_model=LearnedDynamics(ResidualMLPDynamicsNet(x_size=x, hidden=(16,))),
+        dynamics_model=EnsembleDynamics(net, members) if members else LearnedDynamics(net),
         expert_model=ExpertPredictor(x_size=x, u_size=u, arch="mlp", features=0, hidden=(8,)),
         critic_model=SequenceCritic(features=8, hidden=(8,)) if with_critic else None,
         horizon=H, settings=SolverSettings(max_iterations=ITERS))
@@ -126,9 +133,9 @@ def epoch_draws(key, env, kw, n_streams, replay_size, n_windows, n_dyn_windows):
     return jax.device_get(out)
 
 
-def one_epoch(family):
+def one_epoch(family, members=0):
     gan = family == "gan"
-    env, policy, params = tiny_policy(gan, EPOCH_RESET_SCALE)
+    env, policy, params = tiny_policy(gan, EPOCH_RESET_SCALE, members)
     x, u = env.obs_size, env.act_size
     names = ("dynamics", "critic", "cost") if gan else ("dynamics", "cost")
     no_grads = {k: [c for c in v if gan or c != "critic_params"] for k, v in NO_GRADS.items()}
@@ -145,10 +152,16 @@ def one_epoch(family):
     key, teacher_forcing = jax.random.PRNGKey(5), gan
     new_params, _, replay, metrics = epoch(params, opt_states, replay, key,
                                            jnp.asarray(teacher_forcing))
+    nudged = []
+    for scale in NUDGES if members else ():
+        out = epoch(jax.tree_util.tree_map(lambda a: a * np.float32(scale), params), opt_states,
+                    ReplayBuffer.create(64, H, x, u), key, jnp.asarray(teacher_forcing))
+        nudged.append(dict(params1=out[0], metrics=out[3]._asdict()))
     n_added = kw["num_envs"] * (kw["episode_steps"] - H)
     size = int(replay.size)
     return jax.device_get(dict(
-        kwargs=kw, teacher_forcing=teacher_forcing, params0=params, params1=new_params,
+        kwargs=kw, members=members, teacher_forcing=teacher_forcing, params0=params,
+        params1=new_params, nudged=nudged,
         metrics=metrics._asdict(), exp_X=exp_X, exp_Y=exp_Y, test_X=test[0], test_Y=test[1],
         dyn=dyn, replay=dict(states=replay.states[:size], actions=replay.actions[:size],
                              next_states=replay.next_states[:size], size=size),
@@ -246,6 +259,8 @@ def main():
     case, out_path = sys.argv[1], sys.argv[2]
     if case == "epochs":
         result = {"gan": one_epoch("gan"), "l2": one_epoch("l2")}
+    elif case == "ensemble_epoch":
+        result = {"gan": one_epoch("gan", members=ENSEMBLE_MEMBERS)}
     elif case == "dagger":
         result = {"collect": dagger_collect(), "round": dagger_round(sys.argv[3])}
     else:

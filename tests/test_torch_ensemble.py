@@ -252,3 +252,95 @@ def test_mlp_calls_per_solve_counts_members_and_projection(kind, projection, hor
     assert mlp_calls_per_solve(horizon, sol.trips, materialize=mat, members=members,
                                projection=projection > 0) == {
         "fused_mlp_fwd": len(calls), "fused_ls_step": 0}
+
+
+class _Counted(torch.autograd.Function):
+    """The plain MLP under autograd, counting its backwards: on the CPU, what
+    ``FusedMlpFunction`` launches on the card (one ``fused_mlp_bwd`` a
+    backward)."""
+
+    counts = None
+
+    @staticmethod
+    def forward(ctx, x, *flat):
+        ctx.save_for_backward(x, *flat)
+        return fused_mlp.reference_forward(x, list(zip(flat[0::2], flat[1::2])))
+
+    @staticmethod
+    def backward(ctx, gy):
+        _Counted.counts["fused_mlp_bwd"] += 1
+        x, *flat = ctx.saved_tensors
+        dx, grads = fused_mlp.reference_backward(x, list(zip(flat[0::2], flat[1::2])), gy)
+        return (dx, *[t for wb in grads for t in wb])
+
+
+def count_launches(monkeypatch):
+    """Route every ``mlp_apply`` of the dynamics and the cost as the card
+    routes it, counting what would launch: a forward kernel for each call
+    that is not twice differentiable, a backward kernel for each backward
+    through one recorded under autograd. Returns the live counts."""
+    from gan_mpc_tpu_torch.models import cost, dynamics
+
+    counts = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
+    monkeypatch.setattr(_Counted, "counts", counts)
+
+    def apply(x, layers, compute_dtype=None, twice_differentiable=False):
+        if twice_differentiable:
+            return fused_mlp.reference_forward(x, layers)
+        counts["fused_mlp_fwd"] += 1
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                t.requires_grad for wb in layers for t in wb)):
+            return _Counted.apply(x, *[t for wb in layers for t in wb])
+        return fused_mlp.reference_forward(x, layers)
+
+    for module in (cost, dynamics):
+        monkeypatch.setattr(module, "mlp_apply", apply)
+    return counts
+
+
+@pytest.mark.parametrize("kind,projection", [("ensemble", 0), ("ensemble", 2), ("lstm", 0),
+                                             ("mlp", 0)])
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_mlp_calls_per_step_counts_members_in_the_backward(kind, projection, solver,
+                                                           monkeypatch):
+    """The cost trainer's step (an implicit solve and its backward, the L2
+    loss, the cost phase's no_grads) and the dynamics trainer's (a window
+    of H steps, forward and backward): the launches
+    ``planner.bilevel.mlp_calls_per_step`` and E x H x 2 per dynamics step
+    reckon, against those the CPU run counts as the card would launch
+    them (``count_launches``); the LSTM's exact Hessian and every second
+    derivative run plain."""
+    from gan_mpc_tpu_torch.planner.bilevel import mlp_calls_per_step
+    from gan_mpc_tpu_torch.policies.losses import l2_imitation_loss
+    from gan_mpc_tpu_torch.training import dynamics as tdyn
+    from gan_mpc_tpu_torch.training.masking import masked_adam, policy_components
+
+    horizon = 5
+    _, _, policy = policy_pair(kind, horizon, 2, seed=3, goal_projection=projection,
+                               solver=solver)
+    members = E if kind == "ensemble" else 1
+    counts = count_launches(monkeypatch)
+    hX, _ = histories(np.random.default_rng(0), 3)
+    Y = torch.from_numpy(histories(np.random.default_rng(1), 3, h=horizon)[0])
+    comps = policy_components(policy)
+    masked_adam(comps, ("dynamics_params", "expert_params"), 1e-3)  # the cost phase's grads
+    sol = policy.plan(torch.from_numpy(hX), warm_start_carry=False)
+    l2_imitation_loss(policy, sol, Y).mean().backward()
+    n = X_SIZE + policy.dynamics_model.carry_size
+    mat = ls_materializes(policy.settings, horizon, 3, n, U_SIZE)
+    want = mlp_calls_per_step(horizon, sol.trips, materialize=mat, members=members,
+                              projection=projection > 0)
+    assert want.pop("fused_ls_step") == 0
+    assert counts == want
+    assert want["fused_mlp_bwd"] == members * horizon
+
+    policy.requires_grad_(False)
+    opt = masked_adam(comps, ("mpc_weights", "cost_params", "expert_params"), 1e-3)
+    counts.update(fused_mlp_fwd=0, fused_mlp_bwd=0)
+    rng = np.random.default_rng(2)
+    windows = [torch.from_numpy((0.3 * rng.standard_normal((4, horizon, w))).astype(np.float32))
+               for w in (X_SIZE, U_SIZE, X_SIZE)]
+    tdyn.update_pass(policy.dynamics_model, opt, windows, torch.zeros((2, 4), dtype=torch.long),
+                     0.9, False)
+    assert counts == {"fused_mlp_fwd": 2 * members * horizon,
+                      "fused_mlp_bwd": 2 * members * horizon}

@@ -43,6 +43,7 @@ from gan_mpc_tpu_torch.envs import EnvState, make_env
 from gan_mpc_tpu_torch.models.cost import CostFeatureNet, MPCCost
 from gan_mpc_tpu_torch.models.critic import SequenceCritic
 from gan_mpc_tpu_torch.models.dynamics import LearnedDynamics, ResidualMLPDynamicsNet
+from gan_mpc_tpu_torch.models.ensemble import EnsembleDynamics
 from gan_mpc_tpu_torch.models.expert import ExpertPredictor
 from gan_mpc_tpu_torch.params import from_jax_params, to_jax_params
 from gan_mpc_tpu_torch.planner.ilqr import SolverSettings
@@ -79,14 +80,17 @@ def tensor(a):
     return torch.tensor(np.asarray(a))
 
 
-def tiny_policy(tree, with_critic):
+def tiny_policy(tree, with_critic, members=0):
     """The port's counterpart of the reference's tiny policy, with the JAX
-    params ``tree``, no parameter requiring a gradient."""
+    params ``tree``, no parameter requiring a gradient; its dynamics an
+    ensemble of ``members`` residual MLPs where that is > 0."""
     env = make_env("pendulum_swingup", "cpu")
     x, u = env.obs_size, env.act_size
+    dynamics = (EnsembleDynamics([ResidualMLPDynamicsNet(x, u, (16,)) for _ in range(members)])
+                if members else LearnedDynamics(ResidualMLPDynamicsNet(x, u, (16,))))
     policy = MPCPolicy(
         MPCCost(CostFeatureNet(x, (8,), 2), H),
-        LearnedDynamics(ResidualMLPDynamicsNet(x, u, (16,))),
+        dynamics,
         ExpertPredictor(x, u, arch="mlp", features=0, hidden=(8,)),
         SequenceCritic(x, 8, (8,)) if with_critic else None,
         horizon=H, settings=SolverSettings(max_iterations=ITERS))
@@ -109,7 +113,7 @@ def reference(tmp_path_factory):
 def port_epoch(ref, plan_chunk=0, **extra):
     """(policy, replay, epoch) of the port on the reference's setup."""
     gan = "critic_loss" in ref["metrics"]
-    policy = tiny_policy(ref["params0"], gan)
+    policy = tiny_policy(ref["params0"], gan, ref.get("members", 0))
     comps = policy_components(policy)
     names = ("dynamics", "critic", "cost") if gan else ("dynamics", "cost")
     opts = {k: masked_adam(comps, [c for c in NO_GRADS[k] if c in comps], LR[k]) for k in names}

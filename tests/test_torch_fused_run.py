@@ -20,10 +20,14 @@ extra fused epoch):
     the critic's only where the policy has one);
   * over the 17 committed configs: where each one stops in the port. With
     dm_control importable (here) ``check_supported`` refuses the 9 that
-    cross-evaluate in it and 6 run; with dm_control unimportable (the
-    card's host) it refuses only the two ensemble configs, whose dynamics
-    the port serves but does not train, and 15 run (walker and cartpole
-    among them).
+    cross-evaluate in it and 8 run (the two ensemble configs
+    ``humanoid_scale*.yaml`` among them); with dm_control unimportable
+    (the card's host) it refuses none and all 17 run;
+  * an ensemble run's ``params.msgpack`` (``humanoid_scale.yaml``'s
+    8-member ensemble at narrow widths, saved by ``utils/io.save_params``)
+    reads back in JAX's ``io.load_params`` and the port's ``load_msgpack``
+    with the stacked (E, ...) dynamics leaves, bitwise, and loads into a
+    JAX policy built from the config as it loads into the port's.
 """
 
 import glob
@@ -40,6 +44,7 @@ from gan_mpc_tpu.config import Config as JaxConfig
 from gan_mpc_tpu.utils import io as jio
 from gan_mpc_tpu_torch.config import Config
 from gan_mpc_tpu_torch.envs import make_env
+from gan_mpc_tpu_torch.params import load_msgpack, to_jax_params
 from gan_mpc_tpu_torch.runners import common, gan, l2
 from test_torch_pendulum import REPO
 from test_torch_run_gan import _jax_template
@@ -139,11 +144,52 @@ def test_fused_resume_equals_uninterrupted_run(tmp_path, family):
     assert l2.checkpointer_for(cfg, family).latest_step() is None
 
 
+# humanoid_scale.yaml's dynamics section, its 8 members of 3 hidden layers
+# narrowed to 16 wide; and an LSTM dynamics section of 4 features
+DYNAMICS = {
+    "ensemble": {"use": "ensemble", "ensemble": {"num_members": 8, "mlp": {"hidden": [16] * 3}}},
+    "lstm": {"use": "lstm", "lstm": {"features": 4, "hidden": [8]}},
+}
+
+
+@pytest.mark.parametrize("use", ["ensemble", "lstm"])
+def test_run_with_ensemble_or_lstm_dynamics_saves_what_jax_loads(tmp_path, use):
+    """A fused GAN run (1 epoch, no DAgger) trains the dynamics of ``use``
+    from fresh weights; its ``params.msgpack`` reads back in JAX's
+    ``io.load_params``, into the template JAX's ``build_policy`` makes of
+    the config (for the ensemble its stacked (8, in, out) leaves), and in
+    the port's ``load_msgpack``, bitwise equal to the run's params, and a
+    run continued from it (``init_from_run``) starts from them."""
+    cfg = tiny_config(tmp_path, runtime__fused_epochs=True, mpc__train__num_epochs=1,
+                      mpc__evaluate__fresh_eval_episodes=2,
+                      expert_prediction__dagger={"rounds": 0},
+                      mpc__model__dynamics={**DYNAMICS[use], "mlp": {"hidden": [16]}})
+    logs = []
+    out = gan.run(cfg, log_fn=logs.append, device="cpu")
+    assert any(m.startswith("[gan/fused] epoch 1 ") for m in logs)
+    assert all(np.isfinite(v) for vs in out["history"].values() for v in vs)
+    path = os.path.join(out["run_dir"], "params.msgpack")
+    dyn = load_msgpack(path)["dynamics_params"]["params"]
+    if use == "ensemble":
+        assert {k: v["kernel"].shape for k, v in dyn.items()} == {
+            "Dense_0": (8, 4, 16), "Dense_1": (8, 16, 16), "Dense_2": (8, 16, 16),
+            "Dense_3": (8, 16, 3)}
+        members = [m.net.layers[0].kernel for m in out["policy"].dynamics_model.members]
+        assert not any(torch.equal(members[0], w) for w in members[1:])  # drawn one by one
+    else:
+        assert "OptimizedLSTMCell_0" in dyn
+    assert_params_equal(load_msgpack(path), out["params"])
+    jcfg = JaxConfig.from_dict(cfg.to_dict())
+    restored = jio.load_params(_jax_template(jcfg, with_critic=True), path)
+    assert_params_equal(jax.device_get(restored), out["params"])
+    cont = common.setup(cfg.replace(mpc__train__init_from_run=out["run_dir"]), True,
+                        device="cpu")
+    assert_params_equal(to_jax_params(cont["policy"]), out["params"])
+
+
 # where each committed config stops in the port on a host without
 # dm_control (the card's): None runs; else check_supported's refusal, which
-# names the ROADMAP Queue 1 item it waits on
-TRAIN_ENSEMBLE = ("training with mpc.model.dynamics.use: ensemble is not ported (ensemble and "
-                  "LSTM dynamics in training, item 5(b) of ROADMAP Queue 1)")
+# names the ROADMAP Queue 1 item it waits on (none is left there)
 STOPS = {
     "gan_cheetah.yaml": None,
     "gan_cheetah_quality.yaml": None,
@@ -157,8 +203,8 @@ STOPS = {
     "gan_pendulum_rung5.yaml": None,
     "gan_pendulum_rung5b.yaml": None,
     "gan_walker.yaml": None,
-    "humanoid_scale.yaml": TRAIN_ENSEMBLE,
-    "humanoid_scale_continue.yaml": TRAIN_ENSEMBLE,
+    "humanoid_scale.yaml": None,
+    "humanoid_scale_continue.yaml": None,
     "l2_cartpole_quality.yaml": None,
     "l2_pendulum.yaml": None,
     "l2_pendulum_quality.yaml": None,
@@ -203,10 +249,16 @@ def test_where_each_committed_config_stops(monkeypatch):
         name: DM_CROSS_EVAL if name in CROSS_EVALUATED else stop for name, stop in STOPS.items()}
     assert sorted(n for n, c in configs.items() if stop_of(c) is None) == [
         "gan_cheetah.yaml", "gan_humanoid_walk.yaml", "gan_humanoid_walk_continue.yaml",
-        "gan_humanoid_walk_continue2.yaml", "gan_pendulum.yaml", "l2_pendulum.yaml"]
-    # without dm_control (the card's host) check_supported refuses only the
-    # ensemble configs
+        "gan_humanoid_walk_continue2.yaml", "gan_pendulum.yaml", "humanoid_scale.yaml",
+        "humanoid_scale_continue.yaml", "l2_pendulum.yaml"]
+    # without dm_control (the card's host) check_supported refuses none: all
+    # 17 configs run, the ensemble ones included
     for name in [m for m in sys.modules if m == "dm_control" or m.startswith("dm_control.")]:
         monkeypatch.delitem(sys.modules, name)
     monkeypatch.setitem(sys.modules, "dm_control", None)
     assert {name: stop_of(cfg) for name, cfg in configs.items()} == STOPS
+    assert list(STOPS.values()) == [None] * 17
+    # nor does it name the dynamics at all any more
+    for use in ("mlp", "lstm", "ensemble"):
+        common.check_supported(configs["humanoid_scale.yaml"].replace(
+            mpc__model__dynamics__use=use))
