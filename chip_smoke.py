@@ -142,7 +142,7 @@ Phases, in order; any failure raises and exits non-zero:
        solves and trips and the trainers' steps give.
   9. the GAN training run: ``runners.gan.run`` on gan/9's own config,
      continued from gan/9, with ``G9_RUN_CUTS`` (phase 8's epoch cuts; 2
-     epochs; evaluation every epoch on 4 envs of 25 steps; a candidate
+     epochs; evaluation every epoch on 4 envs of 10 steps; a candidate
      pool of 2; the action-goal gain appended as a 5th weight at 1.0 and
      calibrated over 1.0 and 1.4; checkpoints every epoch; DAgger off) in
      a temporary workdir on the committed store. The first call's log
@@ -304,9 +304,40 @@ Phases, in order; any failure raises and exits non-zero:
      phase's runs gave them and no earlier phase's check held, on the
      runs' own weights (``shapes_recorded``, ``check_recorded``); phases
      13-15's new pairs are also timed as in phase 3 (``time_recorded``).
+ 16. the bf16 compute path and the associative Riccati
+     (``bf16_riccati_phase``):
+     (a) the bf16 instances of fused_ls_step (512 x 16, 512 x 1, the
+         humanoid-class 128 x 16) and fused_mlp_fwd (the dynamics stack at
+         8192 and 512 rows) against their plain bf16 versions, max|d| <=
+         1e-2 max(1, max|ref|) (a hidden activation rounded to the other
+         bfloat16 neighbour carries one ulp through the later layers) and
+         at most ``BF16_FAR_SHARE`` of the entries beyond 1e-4 (which the
+         f32 instance on the same inputs must exceed: the bound alone does
+         not tell unrounded operands apart), timed as in phase 3 beside the
+         f32 instance, the bound at 989 TFLOP/s (dense bf16) or 3.35 TB/s;
+     (b) the flagship at compute_dtype="bfloat16", fused_ls off and on: 2
+         warmup and ``G16_STEPS`` control steps, launches held to
+         ``mlp_calls_per_solve(bf16=True)`` (the dynamics on the bf16
+         instances, the terminal cost on the f32 one); one plan of 8
+         envs at 2 trips card against CPU (``hold_plan_against_cpu``, the
+         spread from the history nudges alone: a weight nudge crosses
+         bfloat16 rounding boundaries that the card never crosses);
+     (c) the humanoid-class row at bf16 with fused_ls on and the
+         materializing line search (``scripts/r5_bench_h50b.sh``'s "+ fused
+         LS kernel + materialize"): 1 warmup and ``G16_H50_STEPS`` steps,
+         launches as reckoned;
+     (d) riccati="associative": one backward pass on the warm start's
+         linearization, associative against sequential on the card (k, K,
+         the adjoints, G) at H=5 (512 envs) and H=50 (128 envs), within
+         ``G16_ASSOC_TOL`` (the passes differ by design), each pass against
+         itself in float64 on the CPU within ``G16_F64_TOL``; each pass's
+         host ms and device operations (torch.profiler); then both rows
+         served with each pass in turns (sequential, associative,
+         associative, sequential), launches as reckoned.
      Then the script's total wall time.
-The last two lines are the kernels' JSON summary and
-{"ok": true, "device": {...}}. Exits 1 without a CUDA device.
+The last two lines are the kernels' JSON summary (the bf16 instances
+beside the f32 ones) and {"ok": true, "device": {...}}. Exits 1 without a
+CUDA device.
 """
 
 import contextlib
@@ -429,8 +460,9 @@ G9_CUTS = dict(mpc__train__dynamics__max_interactions_per_episode=50,  # of 300
                mpc__train__cost__eval_windows=256)
 # phase 9's cuts of gan/9's config for runners.gan.run (the rest is the
 # run's own): 2 epochs of phase 8's epoch, evaluation every epoch on 4
-# envs of 25 steps (of 16 of 1000), a pool of 2, and the gain calibrated
-# over 2 gains from 1.0 appended to gan/9's 4 weights
+# envs of 10 steps (of 16 of 1000: the script's time stays near half its
+# limit), a pool of 2, and the gain calibrated over 2 gains from 1.0
+# appended to gan/9's 4 weights
 G9_RUN_CUTS = dict(G9_CUTS, mpc__train__num_epochs=2,  # of 9
                    mpc__evaluate__every_epochs=1,  # of 3
                    mpc__evaluate__midrun_episodes=4,  # of 16
@@ -438,7 +470,7 @@ G9_RUN_CUTS = dict(G9_CUTS, mpc__train__num_epochs=2,  # of 9
                    mpc__evaluate__selection_episodes=4,  # of 16
                    mpc__evaluate__num_runs_for_avg=4,  # of 16
                    mpc__evaluate__fresh_eval_episodes=4,  # of 16
-                   mpc__evaluate__max_interactions=25,  # of 1000
+                   mpc__evaluate__max_interactions=10,  # of 1000
                    mpc__model__cost__calibrate_action_goal_gain=True,
                    mpc__model__cost__gain_grid=[1.0, 1.4],
                    mpc__model__cost__weights__action_goal_gain=1.0,
@@ -532,7 +564,7 @@ G13_CARTPOLE_STEPS = 100  # (a): cart-pole steps (smooth: no contact)
 G13_AIRBORNE_STEPS = 20  # (a): walker steps in the air, no contact switching on
 G13_EXPERT_ENVS, G13_EXPERT_STEPS = 16, 20  # (b): each scripted expert's check
 G13_GAN4_STEPS = 3  # (c): timed control steps of the gan/4 row, after 1 warmup step
-G13_SERVE_STEPS = 30  # (d): the cut episode of walker gan/0 and cartpole l2/0
+G13_SERVE_STEPS = 15  # (d): the cut episode of walker gan/0 and cartpole l2/0
 # (e): the two configs that walker and cartpole unlock, from empty workdirs,
 # cut in the way of G12_CUTS (the rest is the config's own: widths, horizon,
 # the critic, the stores' 1000-step episodes through the reward gate, the
@@ -628,12 +660,29 @@ H50_CHECK_ENVS = 16  # the card-against-CPU plan
 # which keeps the rollouts bounded.
 H50_CHECK_ITERS = 1
 H50_DYN_SCALE = 1.0 / 32.0
+# phase 16: the bf16 compute path and the associative Riccati
+BF16_CHECKS = [  # (kernel, name, lanes or rows, step sizes, n, m, gs); the dynamics stack
+    ("fused_ls_step", "line search", 512, 16, 17, 6, 17),
+    ("fused_ls_step", "rollout", 512, 1, 17, 6, 17),
+    ("fused_ls_step", "humanoid-class", 128, 16, 29, 12, 29),
+    ("fused_mlp_fwd", "dynamics", 8192, None, 17, 6, None),
+    ("fused_mlp_fwd", "dynamics", 512, None, 17, 6, None),
+]
+BF16_TOL = 1e-2  # x max(1, max|ref|): see bf16_kernels_phase
+BF16_FAR_SHARE = 0.02  # of the entries beyond 1e-4 of plain bf16: see bf16_kernels_phase
+G16_STEPS = 3  # (b): timed flagship control steps at bf16 each way, after WARMUP_STEPS
+G16_CHECK_ENVS, G16_CHECK_ITERS = 8, 2  # (b): the plan held card against CPU
+G16_H50_STEPS = 2  # (c): timed H=50 control steps at bf16, after 1 warmup step
+G16_TURN_STEPS = {"flagship": 3, "humanoid-class": 2}  # (d): control steps of each turn
+G16_ASSOC_TOL = {5: 2e-3, 50: 2e-2}  # (d): associative against sequential, by horizon
+G16_F64_TOL = 1e-3  # (d): each pass on the card against itself in float64 on the CPU
 # one H100 SXM (NVIDIA's data sheet): dense TF32 on the tensor cores, HBM3.
 # An f32-accurate product takes three TF32 passes (hi x hi, hi x lo, lo x
 # hi), so the least time for f32 products is their operations over a third
 # of the TF32 rate; the f32 FMA pipes (67 TFLOP/s) are slower than that.
 TF32_PEAK = 495e12
 F32_PRODUCT_RATE = TF32_PEAK / 3
+BF16_PEAK = 989e12  # dense bf16 on the tensor cores: the bound of the bf16 instances
 MEM_RATE = 3.35e12
 
 
@@ -665,20 +714,21 @@ def mlp_weight_floats(widths):
     return sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
 
 
-def bound(ops, nbytes):
-    """(bound_ms, bound_by): the least time for ``ops`` f32-accurate
-    operations and ``nbytes`` of device-memory traffic."""
-    t_ops, t_bytes = ops / F32_PRODUCT_RATE * 1e3, nbytes / MEM_RATE * 1e3
+def bound(ops, nbytes, rate=F32_PRODUCT_RATE):
+    """(bound_ms, bound_by): the least time for ``ops`` operations at
+    ``rate`` (f32-accurate products unless said otherwise) and ``nbytes``
+    of device-memory traffic."""
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / MEM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def mlp_bound(rows, widths):
+def mlp_bound(rows, widths, rate=F32_PRODUCT_RATE):
     """Input rows read and output rows written once, weights read once."""
     nbytes = 4 * (rows * (widths[0] + widths[-1]) + mlp_weight_floats(widths))
-    return bound(mlp_flops(rows, widths), nbytes)
+    return bound(mlp_flops(rows, widths), nbytes, rate)
 
 
-def ls_bound(lanes, alphas, n, m, gs):
+def ls_bound(lanes, alphas, n, m, gs, rate=F32_PRODUCT_RATE):
     """The step's operations: the dynamics MLP, the control law
     (dx, K dx, u) and the stage cost (three pseudo-Huber norms, the
     action-goal difference, the weighted sum) and the residual add, per
@@ -690,7 +740,7 @@ def ls_bound(lanes, alphas, n, m, gs):
     ops = mlp_flops(rows, widths) + rows * per_row
     in_floats = rows * n + rows + lanes * (n + m + m + m * n + gs + m) + 4
     out_floats = rows * (n + m + 1)
-    return bound(ops, 4 * (in_floats + out_floats + mlp_weight_floats(widths)))
+    return bound(ops, 4 * (in_floats + out_floats + mlp_weight_floats(widths)), rate)
 
 
 def bwd_bound(rows, widths):
@@ -2466,7 +2516,7 @@ def first_histories(ckpt, num_envs, device):
     return hX, torch.zeros((num_envs, ckpt.history, env.act_size), device=device)
 
 
-def hold_plan_against_cpu(label, gpu_policy, cpu_policy, hX, hU, dev):
+def hold_plan_against_cpu(label, gpu_policy, cpu_policy, hX, hU, dev, weight_nudges=True):
     """One ``plan_batch`` on the card and on the CPU from the same histories
     (CPU tensors): the served action U[:, 0] within max(1e-3, twice the
     CPU's own spread) and equal iterations, the spread being the largest
@@ -2474,6 +2524,9 @@ def hold_plan_against_cpu(label, gpu_policy, cpu_policy, hX, hU, dev):
     dynamics' weights by 1 +- 1e-6 (phase 12's nudges: the kernel's
     arithmetic is a few 1e-6 off f32, and trained solves amplify that; at
     H=50, 2 trips move humanoid_stand gan/0's action by 3e-3 under them).
+    Without ``weight_nudges`` only hX is scaled: at bf16 a 1e-6 scaling
+    moves weights across bfloat16 rounding boundaries (a spread of 1e-2 to
+    0.13), which the card, running the CPU's weights, never crosses.
     The whole plan's difference and spread are printed, not checked: its
     later actions flip with the line search on rounding, as phase 10's
     do."""
@@ -2483,7 +2536,7 @@ def hold_plan_against_cpu(label, gpu_policy, cpu_policy, hX, hU, dev):
     weights = list(cpu_policy.dynamics_model.parameters())
     saved = [w.detach().clone() for w in weights]
     with torch.no_grad():
-        for s in (1 + 1e-6, 1 - 1e-6):
+        for s in (1 + 1e-6, 1 - 1e-6) if weight_nudges else ():
             for w, w0 in zip(weights, saved):
                 w.copy_(w0 * s)
             nudged.append(cpu_policy.plan_batch(hX, hU).U - cpu.U)
@@ -2729,13 +2782,13 @@ def clear_windows(model, windows, teacher_forcing, n, rng):
     near = [torch.full((windows[0].shape[0],), float("inf"))]
 
     def recording(plain):
-        def forward(x, layers):
+        def forward(x, layers, *bf16):
             h = x
             for w, b in layers[:-1]:
                 pre = h @ w + b
                 near[0] = torch.minimum(near[0], pre.abs().amin(-1))
                 h = torch.relu(pre)
-            return plain(x, layers)
+            return plain(x, layers, *bf16)
         return forward
 
     with wrapped(fused_mlp, "reference_forward", recording), torch.no_grad():
@@ -3003,6 +3056,327 @@ def ensemble_training_phase(kernels, card_line, dev):
     return launches
 
 
+def bf16_kernels_phase(kernels, max_err, timed, dev):
+    """Phase 16 (a): each bf16 instance against its plain bf16 version at
+    the shapes the bf16 paths give it, then timed beside the f32 instance
+    and the plain version. The bound on the difference: max|d| <= 1e-2
+    max(1, max|ref|). Both sides multiply bfloat16-rounded operands
+    exactly and sum in f32, in other orders, so a hidden activation can
+    round to the other bfloat16 neighbour (one ulp, 2^-8 relative) and
+    carry that through the later layers. That bound alone cannot tell the
+    bf16 instance from the f32 one (which stays a few 1e-3 of max|ref|
+    from plain bf16), so the share of the entries beyond 1e-4 is held to
+    ``BF16_FAR_SHARE`` as well: a flip is rare (0.2-0.4% on the card),
+    while operands left unrounded move nearly every entry, and the f32
+    instance on the same inputs must lie beyond that share (the check's
+    power on these inputs)."""
+    from gan_mpc_tpu_torch.ops.fused_ls import reference_ls_step
+    from gan_mpc_tpu_torch.ops.fused_mlp import reference_forward
+
+    rng = np.random.default_rng(SEED + 16)
+    print(f"phase 16 (a) bounds: operations over {BF16_PEAK / 1e12:.0f} TFLOP/s (dense bf16), "
+          f"bytes over {MEM_RATE / 1e12:.2f} TB/s")
+    for i, (kind, name, rows, alphas, n, m, gs) in enumerate(BF16_CHECKS):
+        bf16, f32 = kernels[f"{kind}_bf16"], kernels[kind]
+        if kind == "fused_ls_step":
+            args = ls_args(rows, alphas, n, m, gs, LS_WEIGHTS[3], 1600 + i, dev)
+            got, ref = bf16(**args), reference_ls_step(**args, bf16=True)
+            run = lambda k: k(**args)
+            plain = lambda: reference_ls_step(**args, bf16=True)
+            b_ms, b_by = ls_bound(rows, alphas, n, m, gs, BF16_PEAK)
+            key, label = (name, rows * alphas), f"{rows}x{alphas} n={n} m={m}"
+        else:
+            widths = DYNAMICS
+            layers = random_layers(widths, 1600 + i, dev)
+            x = torch.tensor(rng.standard_normal((rows, widths[0])), dtype=torch.float32,
+                             device=dev)
+            got, ref = (bf16(x, layers),), (reference_forward(x, layers, True),)
+            run = lambda k: k(x, layers)
+            plain = lambda: reference_forward(x, layers, True)
+            b_ms, b_by = mlp_bound(rows, widths, BF16_PEAK)
+            key, label = (name, rows), f"{widths} rows={rows}"
+        unrounded = run(f32)
+        unrounded = unrounded if isinstance(unrounded, tuple) else (unrounded,)
+        torch.cuda.synchronize()
+        errs, far = [], []
+        for g, r in zip(got, ref):
+            err = (g - r).abs().max().item()
+            tol = BF16_TOL * max(1.0, r.abs().max().item())
+            errs.append(err)
+            far.append(((g - r).abs() > 1e-4).float().mean().item())
+            if not (err <= tol and far[-1] <= BF16_FAR_SHARE
+                    and tuple(g.shape) == tuple(r.shape)):
+                raise SystemExit(f"{bf16.name} disagrees with its plain bf16 version: {name} "
+                                 f"{label}: max|d|={err:.3e} (bound {tol:.3e}), beyond 1e-4: "
+                                 f"{100 * far[-1]:.3f}% (bound {100 * BF16_FAR_SHARE:.0f}%)")
+        far_f32 = ((unrounded[0] - ref[0]).abs() > 1e-4).float().mean().item()
+        if not far_f32 > BF16_FAR_SHARE:
+            raise SystemExit(f"phase 16 (a) {name} {label}: the f32 instance lies within "
+                             f"{100 * BF16_FAR_SHARE:.0f}% of plain bf16 ({100 * far_f32:.3f}% "
+                             "beyond 1e-4), so the check cannot tell the instances apart")
+        max_err[bf16.name] = max(max_err.get(bf16.name, 0.0), max(errs))
+        k_ms, f_ms, p_ms = device_ms(lambda: run(bf16)), device_ms(lambda: run(f32)), \
+            device_ms(plain)
+        timed[(bf16.name, *key)] = (k_ms, p_ms, b_ms, b_by)
+        print(f"check {bf16.name} {name} {label}: max|d| {' / '.join(f'{e:.3e}' for e in errs)} "
+              f"(bound {BF16_TOL} max(1, max|ref|)), beyond 1e-4: "
+              f"{' / '.join(f'{100 * f:.3f}%' for f in far)} (bound "
+              f"{100 * BF16_FAR_SHARE:.0f}%; the f32 instance's first output "
+              f"{100 * far_f32:.2f}%); time kernel {k_ms:.4f} ms, the "
+              f"f32 instance {f_ms:.4f} ms, plain bf16 {p_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}), kernel at {100 * b_ms / k_ms:.1f}% of bound")
+
+
+def count(kernels):
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def serve_counted(policy, env, norm, steps, gen, num_envs, kernels, warmup=1):
+    """``warmup`` control steps, then ``steps`` counted and timed: (episode,
+    seconds, launches by kernel, the trips of each solve)."""
+    from gan_mpc_tpu_torch.bench import run_steps
+
+    run_steps(policy, env, norm, warmup, gen, num_envs)
+    for k in kernels.values():
+        k.launches = 0
+    with solves_recorded() as trips:
+        ep, dt = run_steps(policy, env, norm, steps, gen, num_envs)
+    return ep, dt, count(kernels), trips
+
+
+def hold_launches(label, got, horizon, trips, fused, materialize, bf16):
+    from gan_mpc_tpu_torch.planner.batch_ilqr import mlp_calls_per_solve
+
+    want = dict.fromkeys(got, 0)
+    want.update(mlp_calls_per_solve(horizon, sum(trips), fused, len(trips),
+                                    materialize=materialize, bf16=bf16))
+    print(f"  {label}: kernel launches {got} (expected {want}; trips per solve {trips})")
+    if got != want:
+        raise SystemExit(f"{label} did not launch the kernels as mlp_calls_per_solve reckons")
+
+
+def check_finite(label, ep, shapes):
+    for name, shape in shapes.items():
+        t = getattr(ep, name)
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            raise SystemExit(f"{label} output {name} is malformed or not finite")
+
+
+def bf16_serving_phase(kernels, card_line, dev):
+    """Phase 16 (b) and (c): the flagship row at bf16 with fused_ls off and
+    on, one plan held card against CPU, then the humanoid-class row at bf16
+    with fused_ls on and the materializing line search. Returns the
+    launches of each run."""
+    from gan_mpc_tpu_torch.bench import (
+        FUSED_LS, HORIZON, ILQR_ITERS, NUM_ENVS, bench_row, flagship,
+    )
+    from gan_mpc_tpu_torch.data.normalizer import Normalizer
+    from gan_mpc_tpu_torch.envs import make_env
+    from gan_mpc_tpu_torch.planner.batch_ilqr import ls_materializes
+
+    launches = {}
+    env = make_env("cheetah_run", dev)
+    norm = Normalizer.identity(env.obs_size, env.act_size, dev)
+    for fused in FUSED_LS:
+        policy = flagship(device=dev, seed=SEED, fused_ls=fused, compute_dtype="bfloat16")
+        gen = torch.Generator().manual_seed(SEED)
+        ep, dt, got, trips = serve_counted(policy, env, norm, G16_STEPS, gen, NUM_ENVS, kernels,
+                                           WARMUP_STEPS)
+        label = f"phase 16 (b) flagship bf16 fused_ls={fused}"
+        print(f"{label}: {G16_STEPS} steps x {NUM_ENVS} envs in {dt:.3f} s, "
+              f"{NUM_ENVS * G16_STEPS / dt:.2f} env steps/s (one GPU: {card_line})")
+        hold_launches(label, got, HORIZON, trips, fused == "on", False, True)
+        check_finite(label, ep, {"states": (NUM_ENVS, G16_STEPS, 17),
+                                 "actions": (NUM_ENVS, G16_STEPS, 6),
+                                 "rewards": (NUM_ENVS, G16_STEPS)})
+        print(json.dumps(bench_row(NUM_ENVS * G16_STEPS / dt, card_line, fused,
+                                   compute_dtype="bfloat16", num_steps=G16_STEPS)))
+        launches[f"bf16 flagship fused_ls={fused}"] = got
+
+    # one plan card against CPU, the bound from the history nudges alone
+    env_cpu = make_env("cheetah_run", "cpu")
+    state = env_cpu.reset(env_cpu.default_params(), G16_CHECK_ENVS,
+                          torch.Generator().manual_seed(SEED))
+    hX = torch.zeros((G16_CHECK_ENVS, 2, 17))
+    hX[:, 1] = env_cpu.observe(env_cpu.default_params(), state)
+    hU = torch.zeros((G16_CHECK_ENVS, 1, 6))
+    for fused in FUSED_LS:
+        small = lambda device: flagship(HORIZON, G16_CHECK_ITERS, device=device, seed=SEED,
+                                        fused_ls=fused, compute_dtype="bfloat16")
+        hold_plan_against_cpu(f"phase 16 (b) bf16 fused_ls={fused}", small(dev), small("cpu"),
+                              hX, hU, dev, weight_nudges=False)
+
+    # (c) the humanoid-class row at bf16, fused_ls on, the materializing line search
+    H, B, iters = H50["horizon"], H50["num_envs"], H50["iters"]
+    henv = make_env(H50["env"], dev)
+    n, m = henv.obs_size, henv.act_size
+    policy = flagship(H, iters, n, m, dev, SEED, "on", compute_dtype="bfloat16")
+    if not ls_materializes(policy.settings, H, B, n, m):
+        raise SystemExit("the bf16 humanoid-class row did not resolve to materialize")
+    gen = torch.Generator().manual_seed(SEED)
+    ep, dt, got, trips = serve_counted(policy, henv, Normalizer.identity(n, m, dev),
+                                       G16_H50_STEPS, gen, B, kernels)
+    label = "phase 16 (c) humanoid-class bf16 fused_ls=on materialize"
+    print(f"{label}: {G16_H50_STEPS} steps x {B} envs in {dt:.3f} s, {B * G16_H50_STEPS / dt:.2f} "
+          f"env steps/s, {dt / G16_H50_STEPS:.3f} s a control step (one GPU: {card_line})")
+    hold_launches(label, got, H, trips, True, True, True)
+    check_finite(label, ep, {"states": (B, G16_H50_STEPS, n), "actions": (B, G16_H50_STEPS, m),
+                             "rewards": (B, G16_H50_STEPS)})
+    print(json.dumps(bench_row(B * G16_H50_STEPS / dt, card_line, "on", H50["env"], B, iters, H,
+                               compute_dtype="bfloat16", num_steps=G16_H50_STEPS)))
+    launches["bf16 humanoid-class fused_ls=on"] = got
+    return launches
+
+
+def linearization(policy, env, B, dev):
+    """The problem's linearization at the warm start of B reset envs
+    (time-major): A, Bm, cx, cu, cxx, cuu, cux and the initial reg."""
+    from gan_mpc_tpu_torch.planner.batch_ilqr import batch_rollout
+
+    state = env.reset(env.default_params(), B, torch.Generator().manual_seed(SEED))
+    hX = torch.zeros((B, 2, env.obs_size), device=dev)
+    hX[:, 1] = env.observe(env.default_params(), state)
+    hU = torch.zeros((B, 1, env.act_size), device=dev)
+    with torch.no_grad():
+        xc0, goal_X, init_U, u_goal = policy._start(hX, hU)
+        prob = policy._problem(goal_X.transpose(0, 1), u_goal.transpose(0, 1), order=0,
+                               serving=True)
+        U = init_U.transpose(0, 1).contiguous()
+        X, _ = batch_rollout(prob, U, xc0)
+        reg = torch.full((B,), policy.settings.reg_init, device=dev)
+        return (*prob.dynamics_jac(X[:-1], U), *prob.quad(X, U), reg)
+
+
+def device_launches(fn):
+    """The device operations (kernels, copies, sets) ``fn`` queues, counted
+    by torch.profiler; None where the trace holds no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation)
+    return n or None
+
+
+def host_ms(fn, reps=5):
+    """Median wall ms of ``fn()`` to a synchronize, after one warmup call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def associative_phase(kernels, card_line, dev):
+    """Phase 16 (d): one backward pass on the same linearization,
+    associative against sequential on the card, at H=5 (the flagship, 512
+    envs) and H=50 (the humanoid-class row, 128 envs): the two differ by
+    design (the associative pass propagates the value function without the
+    Levenberg-Marquardt term and with a 1e-6 ridge), by up to
+    ``G16_ASSOC_TOL`` max(1, max|ref|) (the JAX test's 2e-3 at H=5; 6.2e-3
+    measured in float64 at H=50), and each pass on the card is held to
+    itself in float64 on the CPU within ``G16_F64_TOL`` (rounding alone).
+    Then the two rows served with each pass in turns (sequential,
+    associative, associative, sequential). Returns the launches."""
+    from gan_mpc_tpu_torch.bench import HORIZON, ILQR_ITERS, NUM_ENVS, flagship
+    from gan_mpc_tpu_torch.data.normalizer import Normalizer
+    from gan_mpc_tpu_torch.envs import make_env
+    from gan_mpc_tpu_torch.planner.batch_ilqr import (
+        _backward, _backward_associative, ls_materializes,
+    )
+    from gan_mpc_tpu_torch.planner.parallel_riccati import scan_combines
+
+    rows = {"flagship": ("cheetah_run", NUM_ENVS, HORIZON, ILQR_ITERS),
+            "humanoid-class": (H50["env"], H50["num_envs"], H50["horizon"], H50["iters"])}
+    launches = {}
+    for row, (env_name, B, H, iters) in rows.items():
+        env = make_env(env_name, dev)
+        n, m = env.obs_size, env.act_size
+        lin = linearization(flagship(H, iters, n, m, dev, SEED), env, B, dev)
+        passes = {"sequential": lambda *a: _backward(*a),
+                  "associative": lambda *a: _backward_associative(*a, 0.0)}
+        out = {name: fn(*lin) for name, fn in passes.items()}
+        lin64 = [t.cpu().double() for t in lin]
+        names = ("k", "K", "adjoints", "G")
+        worst = []
+        for name, fn in passes.items():
+            ref64 = fn(*lin64)
+            for q, got, ref in zip(names, out[name], ref64):
+                rel = (got.cpu().double() - ref).abs().max().item() / max(1.0, ref.abs().max()
+                                                                          .item())
+                worst.append(rel)
+                if not rel <= G16_F64_TOL:
+                    raise SystemExit(f"phase 16 (d) {row}: the {name} pass's {q} on the card is "
+                                     f"{rel:.3e} from float64 on the CPU (bound {G16_F64_TOL})")
+        gaps = []
+        for q, a, s in zip(names, out["associative"], out["sequential"]):
+            gaps.append((a - s).abs().max().item() / max(1.0, s.abs().max().item()))
+        tol = G16_ASSOC_TOL[H]
+        print(f"phase 16 (d) {row} (H={H}, {B} envs, one backward on the warm start's "
+              f"linearization): associative vs sequential on the card, max|d| / max(1, max|ref|) "
+              f"k {gaps[0]:.3e}, K {gaps[1]:.3e}, adjoints {gaps[2]:.3e}, G {gaps[3]:.3e} (bound "
+              f"{tol}); each pass vs itself in float64 on the CPU at most {max(worst):.3e} (bound "
+              f"{G16_F64_TOL})")
+        if not max(gaps) <= tol:
+            raise SystemExit(f"phase 16 (d) {row}: the associative pass disagrees with the "
+                             "sequential one on the card")
+        for name, fn in passes.items():
+            ms = host_ms(lambda: fn(*lin))
+            ops = device_launches(lambda: fn(*lin))
+            print(f"  {name} backward, H={H}, {B} lanes: {ms:.3f} ms (host clock to a "
+                  f"synchronize, median of 5), device operations "
+                  f"{ops if ops is not None else 'not measured'}"
+                  + (f"; {scan_combines(H + 1)} + {scan_combines(H)} batched combines (value "
+                     f"and costate scans)" if name == "associative" else f"; {H} steps"))
+
+        # served in turns
+        policies = {r: flagship(H, iters, n, m, dev, SEED, riccati=r) for r in passes}
+        mat = ls_materializes(policies["sequential"].settings, H, B, n, m)
+        norm = Normalizer.identity(n, m, dev)
+        steps = G16_TURN_STEPS[row]
+        secs = {r: [] for r in passes}
+        for turn, r in enumerate(("sequential", "associative", "associative", "sequential")):
+            gen = torch.Generator().manual_seed(SEED + turn)
+            ep, dt, got, trips = serve_counted(policies[r], env, norm, steps, gen, B, kernels)
+            check_finite(f"phase 16 (d) {row} {r}", ep, {"actions": (B, steps, m)})
+            hold_launches(f"phase 16 (d) {row} riccati={r} turn {turn + 1}", got, H, trips,
+                          False, mat, False)
+            secs[r].append(dt / steps)
+            launches[f"{row} riccati={r} turn {turn + 1}"] = got
+        print(f"phase 16 (d) {row} served (fused_ls=off, {B} envs, {steps} steps a turn, one GPU: "
+              f"{card_line}): s a control step sequential {secs['sequential']}, associative "
+              f"{secs['associative']}; associative / sequential "
+              f"{sum(secs['associative']) / sum(secs['sequential']):.3f}")
+    return launches
+
+
+def bf16_riccati_phase(kernels, card_line, dev, max_err, timed):
+    """Phase 16: the bf16 compute path and the associative Riccati (see
+    the module's docstring). Returns the launches of each run."""
+    t_phase = time.perf_counter()
+    wall = {}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        bf16_kernels_phase(kernels, max_err, timed, dev)
+    wall["(a) kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches = bf16_serving_phase(kernels, card_line, dev)
+    wall["(b, c) bf16 rows"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches.update(associative_phase(kernels, card_line, dev))
+    wall["(d) associative"] = time.perf_counter() - t0
+    print(f"phase 16 wall s by piece: { {k: round(v, 1) for k, v in wall.items()} }; phase 16 "
+          f"wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def time_recorded(label, seen, keys, timed):
     """Time each MLP kernel and its plain version at the (stack, rows)
     pairs ``keys`` of ``seen`` (``shapes_recorded``) on the runs' own weights,
@@ -3055,10 +3429,12 @@ def main() -> int:
     from gan_mpc_tpu_torch.envs import make_env
     from gan_mpc_tpu_torch.envs.base import EnvState
     from gan_mpc_tpu_torch.ops import _build
-    from gan_mpc_tpu_torch.ops.fused_ls import fused_ls_kernel, reference_ls_step
+    from gan_mpc_tpu_torch.ops.fused_ls import (
+        fused_ls_kernel, fused_ls_kernel_bf16, reference_ls_step,
+    )
     from gan_mpc_tpu_torch.ops.fused_mlp import (
-        bwd_tile_plan, fused_mlp_backward, fused_mlp_forward, mlp_apply, reference_backward,
-        reference_forward, tile_plan,
+        bwd_tile_plan, fused_mlp_backward, fused_mlp_forward, fused_mlp_forward_bf16, mlp_apply,
+        reference_backward, reference_forward, tile_plan,
     )
     from gan_mpc_tpu_torch.planner.batch_ilqr import mlp_calls_per_solve
 
@@ -3067,6 +3443,9 @@ def main() -> int:
     card_line = card()
     kernels = {"fused_mlp_fwd": fused_mlp_forward, "fused_ls_step": fused_ls_kernel,
                "fused_mlp_bwd": fused_mlp_backward}
+    # the bf16 instances live in the same libraries (phase 16)
+    instances = dict(kernels, fused_mlp_fwd_bf16=fused_mlp_forward_bf16,
+                     fused_ls_step_bf16=fused_ls_kernel_bf16)
 
     # 1. card, toolchain, build
     print(card_line)
@@ -3074,7 +3453,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     libs = _build.build_libraries(list(kernels))
-    for k in kernels.values():
+    for k in instances.values():
         k.load()
     print(f"build {', '.join(kernels)} (in parallel): {time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -3395,26 +3774,34 @@ def main() -> int:
     with torch.no_grad():
         time_recorded("phase 15", seen, new, timed)
 
+    # 16. the bf16 compute path and the associative Riccati
+    launches.update(bf16_riccati_phase(instances, card_line, dev, max_err, timed))
+
     # the planner's line-search call (8192 rows) leads the forward kernels'
-    # entries, the trainer's call (128 rows) the backward kernel's
+    # entries (at both dtypes), the trainer's call (128 rows) the backward
+    # kernel's
     lead = {"fused_mlp_fwd": ("dynamics", 8192), "fused_ls_step": ("line search", 8192),
-            "fused_mlp_bwd": ("dynamics", 128)}
+            "fused_mlp_bwd": ("dynamics", 128), "fused_mlp_fwd_bf16": ("dynamics", 8192),
+            "fused_ls_step_bf16": ("line search", 8192)}
     summary = []
-    for name, k in kernels.items():
+    for name, k in instances.items():
         k_ms, p_ms, b_ms, b_by = timed[(name, *lead[name])]
         summary.append({
             "name": name,
             "route": "cuda",
             "source": k.source,
             "replaces": k.replaces,
-            "launches": sum(launches[path][name] for path in launches),
-            "launches_by_path": {path: launches[path][name] for path in launches},
+            "launches": sum(launches[path].get(name, 0) for path in launches),
+            "launches_by_path": {path: launches[path].get(name, 0) for path in launches},
             "max_abs_err": max_err[name],
             "ms": k_ms,
             "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,  # no single PyTorch call computes this function
+            "dtype": "bfloat16" if getattr(k, "bf16", False) else "float32",
+            "bound_rate_tflops": (BF16_PEAK if getattr(k, "bf16", False) else F32_PRODUCT_RATE)
+            / 1e12,
             "by_shape": [
                 {"shape": shape, "rows": rows, "ms": t[0], "plain_ms": t[1],
                  "bound_ms": t[2], "bound_by": t[3]}

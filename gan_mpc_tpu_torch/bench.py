@@ -13,19 +13,24 @@ drawn with flax's default initializers from ``--seed``.
     python -m gan_mpc_tpu_torch.bench [--seed 0] [--profile 3]
 
 The flags ``--env``, ``--num-envs``, ``--horizon``, ``--iters``,
-``--alphas`` and ``--ls`` mirror the JAX bench's ``BENCH_ENV``,
-``BENCH_NUM_ENVS``, ``BENCH_HORIZON``, ``BENCH_ILQR_ITERS``,
-``BENCH_ALPHAS`` and ``BENCH_LS``; their defaults are the flagship's. The
-reference's humanoid-class row (planar humanoid, 29 states, 12 actions;
-dynamics 41->200->200->200->29, where "auto" resolves to the
-materializing line search):
+``--alphas``, ``--ls``, ``--dtype``, ``--riccati`` and ``--num-steps``
+mirror the JAX bench's ``BENCH_ENV``, ``BENCH_NUM_ENVS``,
+``BENCH_HORIZON``, ``BENCH_ILQR_ITERS``, ``BENCH_ALPHAS``, ``BENCH_LS``,
+``BENCH_DTYPE``, ``BENCH_RICCATI`` and ``BENCH_NUM_STEPS``; their
+defaults are the flagship's. ``BENCH_UNROLL`` (an XLA scan-unroll knob)
+has no counterpart: the eager loops have nothing to unroll. The reference's
+humanoid-class row (planar humanoid, 29 states, 12 actions; dynamics
+41->200->200->200->29, where "auto" resolves to the materializing line
+search), and the JAX H=50 matrix's bf16 rows
+(``scripts/r5_bench_h50b.sh``) and its associative backward:
 
     python -m gan_mpc_tpu_torch.bench --env humanoid_stand --num-envs 128 \
-        --horizon 50 --iters 5
+        --horizon 50 --iters 5 [--dtype bfloat16] [--riccati associative]
 
-The window is the JAX bench's: one full warmup episode of 50 control
-steps, then 3 timed episodes of 50 steps each (every episode from a fresh
-reset drawn from the run's generator), and the mean of the three.
+The window is the JAX bench's: one full warmup episode of ``--num-steps``
+(50) control steps, then 3 timed episodes of as many steps (every episode
+from a fresh reset drawn from the run's generator), and the mean of the
+three.
 
 Prints one JSON line per row, {"metric", "value", "unit", "vs_baseline"},
 with the card's name and power limit and the solver setting in the
@@ -83,6 +88,8 @@ ILQR_ITERS = 5
 NUM_ALPHAS = 16
 LS_MATERIALIZE = "auto"
 HISTORY = 1
+DTYPE = "float32"
+RICCATI = "sequential"
 FUSED_LS = ("off", "on")  # the rows, in print order
 # the committed production checkpoint, benched as the row after the flagship's
 DEFAULT_CHECKPOINT = str(Path(__file__).resolve().parent.parent
@@ -92,12 +99,14 @@ DEFAULT_CHECKPOINT = str(Path(__file__).resolve().parent.parent
 def flagship(horizon: int = HORIZON, max_iterations: int = ILQR_ITERS,
              x_size: int = 17, u_size: int = 6, device="cuda", seed=None,
              fused_ls: str = "off", num_alphas: int = NUM_ALPHAS,
-             ls_materialize: str = LS_MATERIALIZE) -> MPCPolicy:
+             ls_materialize: str = LS_MATERIALIZE, compute_dtype: str = DTYPE,
+             riccati: str = RICCATI) -> MPCPolicy:
     """The flagship policy at full width, on the card unless ``device``
     says otherwise. With ``seed`` its weights are drawn flax-style from a
     torch.Generator; without, they are zero and the caller loads them
-    (``params.from_jax_params``). ``fused_ls``, ``num_alphas`` and
-    ``ls_materialize`` as in ``SolverSettings``."""
+    (``params.from_jax_params``). ``fused_ls``, ``num_alphas``,
+    ``ls_materialize``, ``compute_dtype`` and ``riccati`` as in
+    ``SolverSettings``."""
     device = resolve_device(device)
     policy = MPCPolicy(
         cost_model=MPCCost(
@@ -113,7 +122,8 @@ def flagship(horizon: int = HORIZON, max_iterations: int = ILQR_ITERS,
         ),
         horizon=horizon,
         settings=SolverSettings(max_iterations=max_iterations, fused_ls=fused_ls,
-                                num_alphas=num_alphas, ls_materialize=ls_materialize),
+                                num_alphas=num_alphas, ls_materialize=ls_materialize,
+                                compute_dtype=compute_dtype, riccati=riccati),
     )
     if seed is not None:
         init_flax_like(policy, torch.Generator().manual_seed(seed))
@@ -196,23 +206,29 @@ def profile_steps(policy, env, norm, num_steps, generator, num_envs=NUM_ENVS, to
     print(events.table(sort_by="self_device_time_total", row_limit=top))
 
 
-def timed_episodes(policy, env, norm, generator, num_envs=NUM_ENVS, **served):
-    """The bench window: WARMUP_EPISODES full episodes, then REPS timed
-    ones; returns the mean seconds of a timed episode. ``served``:
-    ``run_steps``' ``env_params`` and ``history``."""
+def timed_episodes(policy, env, norm, generator, num_envs=NUM_ENVS, num_steps=STEPS,
+                   **served):
+    """The bench window: WARMUP_EPISODES full episodes of ``num_steps``
+    control steps, then REPS timed ones; returns the mean seconds of a
+    timed episode. ``served``: ``run_steps``' ``env_params`` and
+    ``history``."""
     for _ in range(WARMUP_EPISODES):
-        run_steps(policy, env, norm, STEPS, generator, num_envs, **served)
-    return sum(run_steps(policy, env, norm, STEPS, generator, num_envs, **served)[1]
+        run_steps(policy, env, norm, num_steps, generator, num_envs, **served)
+    return sum(run_steps(policy, env, norm, num_steps, generator, num_envs, **served)[1]
                for _ in range(REPS)) / REPS
 
 
 def bench_row(steps_per_sec, card_name, fused_ls, env_name=ENV, num_envs=NUM_ENVS,
               iters=ILQR_ITERS, horizon=HORIZON, num_alphas=NUM_ALPHAS,
-              ls_materialize=LS_MATERIALIZE):
-    """The JSON row; the step sizes and the line-search mode are named
-    where they are not the defaults."""
+              ls_materialize=LS_MATERIALIZE, compute_dtype=DTYPE, riccati=RICCATI,
+              num_steps=STEPS):
+    """The JSON row; the step sizes, the line-search mode, the compute
+    dtype, the backward pass and the episode length are named where they
+    are not the defaults."""
     extra = "".join(f", {name}={value}" for name, value, default in (
         ("alphas", num_alphas, NUM_ALPHAS), ("ls_materialize", ls_materialize, LS_MATERIALIZE),
+        ("dtype", compute_dtype, DTYPE), ("riccati", riccati, RICCATI),
+        ("steps", num_steps, STEPS),
     ) if value != default)
     return {
         "metric": f"batched env+planner steps/sec (one GPU: {card_name}; "
@@ -236,6 +252,12 @@ def main(argv=None) -> int:
     ap.add_argument("--alphas", type=int, default=NUM_ALPHAS, help="BENCH_ALPHAS")
     ap.add_argument("--ls", default=LS_MATERIALIZE, choices=("auto", "recompute", "materialize"),
                     help="the line-search strategy (BENCH_LS)")
+    ap.add_argument("--dtype", default=DTYPE, choices=("float32", "bfloat16"),
+                    help="the dynamics net's product dtype, f32 accumulation (BENCH_DTYPE)")
+    ap.add_argument("--riccati", default=RICCATI, choices=("sequential", "associative"),
+                    help="the backward pass (BENCH_RICCATI)")
+    ap.add_argument("--num-steps", type=int, default=STEPS,
+                    help="control steps per episode (BENCH_NUM_STEPS)")
     ap.add_argument("--checkpoint", metavar="DIR",
                     help="bench only this trained run (BENCH_CHECKPOINT)")
     args = ap.parse_args(argv)
@@ -252,11 +274,12 @@ def main(argv=None) -> int:
     norm = Normalizer.identity(env.obs_size, env.act_size, dev)
     for fused_ls in FUSED_LS:
         policy = flagship(args.horizon, args.iters, env.obs_size, env.act_size, dev, args.seed,
-                          fused_ls, args.alphas, args.ls)
+                          fused_ls, args.alphas, args.ls, args.dtype, args.riccati)
         gen = torch.Generator().manual_seed(args.seed)
-        dt = timed_episodes(policy, env, norm, gen, args.num_envs)
-        row = bench_row(args.num_envs * STEPS / dt, card_name, fused_ls, args.env, args.num_envs,
-                        args.iters, args.horizon, args.alphas, args.ls)
+        dt = timed_episodes(policy, env, norm, gen, args.num_envs, args.num_steps)
+        row = bench_row(args.num_envs * args.num_steps / dt, card_name, fused_ls, args.env,
+                        args.num_envs, args.iters, args.horizon, args.alphas, args.ls,
+                        args.dtype, args.riccati, args.num_steps)
         print(json.dumps(row), flush=True)
         if args.profile:
             profile_steps(policy, env, norm, args.profile, gen, args.num_envs)
@@ -271,10 +294,12 @@ def bench_checkpoint(run_dir: str, card_name: str, args) -> None:
     settings = ckpt.policy.settings
     gen = torch.Generator().manual_seed(args.seed)
     served = dict(env_params=ckpt.env_params, history=ckpt.history)
-    dt = timed_episodes(ckpt.policy, ckpt.env, ckpt.normalizer, gen, args.num_envs, **served)
-    row = bench_row(args.num_envs * STEPS / dt, card_name, settings.fused_ls, ckpt.name,
-                    args.num_envs, settings.max_iterations, ckpt.policy.horizon,
-                    settings.num_alphas, settings.ls_materialize)
+    dt = timed_episodes(ckpt.policy, ckpt.env, ckpt.normalizer, gen, args.num_envs,
+                        args.num_steps, **served)
+    row = bench_row(args.num_envs * args.num_steps / dt, card_name, settings.fused_ls,
+                    ckpt.name, args.num_envs, settings.max_iterations, ckpt.policy.horizon,
+                    settings.num_alphas, settings.ls_materialize, settings.compute_dtype,
+                    settings.riccati, args.num_steps)
     print(json.dumps(row), flush=True)
     if args.profile:
         profile_steps(ckpt.policy, ckpt.env, ckpt.normalizer, args.profile, gen, args.num_envs,

@@ -12,6 +12,13 @@
 // stays on the device. W0 comes split in two, its state rows and its
 // action rows, as the TPU kernel takes it.
 //
+// The bf16 instance (bf16 = 1) is the TPU kernel's bf16 variant: the four
+// dots of the MLP (W0's state and action rows, the hidden layers, the
+// last layer) take bfloat16 operands with f32 accumulation, the tile
+// loop's bf16 mode (one TF32 pass on bfloat16-rounded operands,
+// mlp_tile_mma.cuh); the control law, the stage cost, the residual add and
+// every output stay f32, as in the TPU kernel.
+//
 // What bounds it on an H100: at the line search's call (512 lanes x 16
 // step sizes = 8192 rows, 23->200->200->200->17 dynamics) the MLP is
 // 2 x 8192 x 88,000 = 1.44 GFLOP of products against about 2 MB of
@@ -76,7 +83,7 @@ __device__ __forceinline__ float pseudo_huber(float sq) {
   return sqrtf(sq + kHuberAlpha * kHuberAlpha) - kHuberAlpha;
 }
 
-template <int MT, int WM>
+template <int MT, int WM, bool kBf16>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 fused_ls_step_kernel(LsArgs a, MlpArgs mlp, TilePlan plan) {
   constexpr int TM = 16 * MT * WM;
@@ -122,12 +129,12 @@ fused_ls_step_kernel(LsArgs a, MlpArgs mlp, TilePlan plan) {
   }
   consumer_sync();
 
-  // 3. the MLP's input tile: [x, u], split, padded with zeros to a
-  // multiple of 8 columns
+  // 3. the MLP's input tile: [x, u], split (with kBf16 rounded), padded
+  // with zeros to a multiple of 8 columns
   const int nm8 = (nm + 7) & ~7;
   for (int idx = threadIdx.x; idx < TM * nm8; idx += kConsumers) {
     const int r = idx / nm8, c = idx - r * nm8;
-    store_split(tile, act_index(r, c, plan.sa), c < nm ? xu[r * nm + c] : 0.f);
+    store_act<kBf16>(tile, act_index(r, c, plan.sa), c < nm ? xu[r * nm + c] : 0.f);
   }
 
   consumers_start();
@@ -162,31 +169,49 @@ fused_ls_step_kernel(LsArgs a, MlpArgs mlp, TilePlan plan) {
   }
 
   // 5. nx = x + MLP([x, u])
-  mlp_consume<MT, WM, true>(tile, mlp, plan, a.nx, row0, rows, xu, nm);
+  mlp_consume<MT, WM, true, kBf16>(tile, mlp, plan, a.nx, row0, rows, xu, nm);
 }
 
 // Raise the instance's dynamic shared-memory limit to the block's
 // maximum, once per device (the attribute call costs host time).
-template <int MT, int WM>
+template <int MT, int WM, bool kBf16>
 cudaError_t allow_max_smem(int device) {
   static bool done[kMaxDevices];
   if (device < kMaxDevices && done[device]) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(fused_ls_step_kernel<MT, WM>,
+  cudaError_t e = cudaFuncSetAttribute(fused_ls_step_kernel<MT, WM, kBf16>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   if (e == cudaSuccess && device < kMaxDevices) done[device] = true;
   return e;
 }
 
-template <int MT, int WM>
+template <int MT, int WM, bool kBf16>
 cudaError_t launch(const LsArgs& a, const MlpArgs& mlp, const TilePlan& plan, int device,
                    cudaStream_t stream) {
   constexpr int TM = 16 * MT * WM;
-  cudaError_t e = allow_max_smem<MT, WM>(device);
+  cudaError_t e = allow_max_smem<MT, WM, kBf16>(device);
   if (e != cudaSuccess) return e;
   const int rows = a.B * a.A;
   const int blocks = (rows + TM - 1) / TM;
-  fused_ls_step_kernel<MT, WM><<<blocks, kBlockThreads, plan.smem, stream>>>(a, mlp, plan);
+  fused_ls_step_kernel<MT, WM, kBf16><<<blocks, kBlockThreads, plan.smem, stream>>>(a, mlp, plan);
   return cudaGetLastError();
+}
+
+template <bool kBf16>
+int dispatch(const LsArgs& a, const MlpArgs& mlp, cudaStream_t s) {
+  const int rows = a.B * a.A, nm = a.n + a.m;
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = sm_count(device, &sms);
+  if (e != cudaSuccess) return (int)e;
+  TilePlan plan;
+  // 64-row tiles once 16-row tiles would take more than two waves of
+  // blocks (where the tile with its f32 input rows fits and no layer is
+  // wider than its warps' 256 columns), else 16-row tiles
+  if (rows > 2 * sms * 16 && plan_tile(mlp, 64, 256, 64 * nm, &plan)) {
+    return (int)launch<2, 2, kBf16>(a, mlp, plan, device, s);
+  }
+  if (!plan_tile(mlp, 16, 512, 16 * nm, &plan)) return -1;
+  return (int)launch<1, 1, kBf16>(a, mlp, plan, device, s);
 }
 
 }  // namespace
@@ -197,15 +222,15 @@ extern "C" {
 // n_layers layers of widths dims (dims[0] == n + m, dims[n_layers] == n):
 // weights[0] holds W0's n state rows, w0_tail its m action rows, and
 // weights[l] (dims[l], dims[l+1]) / biases[l] (dims[l+1]) the rest. All
-// pointers are device pointers to contiguous f32. Returns 0 on a
-// successful launch, a cudaError_t value if the launch failed, or -1 for
-// arguments the kernel does not take.
+// pointers are device pointers to contiguous f32; bf16 != 0 runs the
+// bfloat16 instance. Returns 0 on a successful launch, a cudaError_t value
+// if the launch failed, or -1 for arguments the kernel does not take.
 int fused_ls_step(const float* x3, const float* xref, const float* uref, const float* alpha,
                   const float* k, const float* K, const float* goal, const float* goal_u,
                   const float* wvec, float* nx, float* u, float* cost, int B, int A, int n,
                   int m, int gs, int ag_squared, float ag_scale, int n_layers, const int* dims,
                   const float* const* weights, const float* w0_tail,
-                  const float* const* biases, void* stream) {
+                  const float* const* biases, int bf16, void* stream) {
   if (B < 0 || A < 0 || n < 1 || m < 1 || gs < 0 || gs > n) return -1;
   MlpArgs mlp;
   if (fill_mlp_args(&mlp, n_layers, dims, weights, biases) < 0) return -1;
@@ -215,22 +240,9 @@ int fused_ls_step(const float* x3, const float* xref, const float* uref, const f
   if ((long long)B * A > 0x7fffffff / (n + m)) return -1;
   const LsArgs a{x3, xref, uref, alpha, k, K, goal, goal_u, wvec, nx, u, cost,
                  B, A, n, m, gs, ag_squared, ag_scale};
-  const int rows = B * A;
-  if (rows == 0) return 0;
+  if (B * A == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  int device = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = sm_count(device, &sms);
-  if (e != cudaSuccess) return (int)e;
-  TilePlan plan;
-  // 64-row tiles once 16-row tiles would take more than two waves of
-  // blocks (where the tile with its f32 input rows fits and no layer is
-  // wider than its warps' 256 columns), else 16-row tiles
-  if (rows > 2 * sms * 16 && plan_tile(mlp, 64, 256, 64 * (n + m), &plan)) {
-    return (int)launch<2, 2>(a, mlp, plan, device, s);
-  }
-  if (!plan_tile(mlp, 16, 512, 16 * (n + m), &plan)) return -1;
-  return (int)launch<1, 1>(a, mlp, plan, device, s);
+  return bf16 ? dispatch<true>(a, mlp, s) : dispatch<false>(a, mlp, s);
 }
 
 }  // extern "C"

@@ -614,7 +614,7 @@ fused_mlp_bwd_kernel(BwdArgs a, MlpArgs mlp, BwdPlan plan, int n_tiles) {
                       out, out + TM * plan.sa[l + 1], plan.sa[l + 1]};
       const int K = mlp.dims[l], N = mlp.dims[l + 1];
       const bool last = false;
-      MLP_CONSUME_LAYER(MT, 1, false, true, plan.step[l], mlp.b[l]);
+      MLP_CONSUME_LAYER(MT, 1, false, true, false, plan.step[l], mlp.b[l]);
       BWD_STAMP();
     }
 

@@ -81,6 +81,17 @@
 //    before the others are issued, so that it does not share the SM's copy
 //    rate with them. Weights are read from device memory anew at every
 //    launch (the optimizer updates them in place).
+//  * The bf16 mode (kBf16, the TPU kernels' bfloat16 compute dtype):
+//    every operand is rounded to bfloat16, to nearest with ties to even
+//    (what astype(jnp.bfloat16) does), where it is loaded: the activations
+//    when they are written to the hi plane, the weights as they are read
+//    from the ring, which carries the f32 weights unchanged. A bfloat16
+//    value is exact in TF32 (its 7 mantissa bits under TF32's 10, the same
+//    exponent), so one m16n8k8 TF32 pass on the rounded operands is the
+//    bfloat16 product with f32 accumulation, what jnp.dot(a.astype(bf16),
+//    w.astype(bf16), preferred_element_type=f32) computes on the matrix
+//    unit. One pass and not three, and the lo plane is neither written nor
+//    read (the shared-memory plan keeps its place, so both modes share it).
 //  * Widths that are no multiple of 8 are padded in shared memory only:
 //    input columns and weight rows with zeros; columns past a layer's
 //    width compute on whatever the stage holds and are written as zeros.
@@ -89,6 +100,8 @@
 // builds into a library of its own.
 
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "mlp_tile.cuh"
 
@@ -358,6 +371,12 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) 
   lo = round_tf32(v - __uint_as_float(hi));
 }
 
+// v rounded to bfloat16, to nearest with ties to even, in the high half
+// of an f32 (TF32) register: exact in TF32.
+__device__ __forceinline__ uint32_t round_bf16(float v) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v))) << 16;
+}
+
 // v into a hi and a lo plane at `at` (an act_index).
 __device__ __forceinline__ void store_split(float* hi_plane, float* lo_plane, int at, float v) {
   uint32_t hi, lo;
@@ -368,6 +387,17 @@ __device__ __forceinline__ void store_split(float* hi_plane, float* lo_plane, in
 
 __device__ __forceinline__ void store_split(const Tile& tile, int at, float v) {
   store_split(tile.hi, tile.lo, at, v);
+}
+
+// An input activation into the tile: split into the two planes, or with
+// kBf16 rounded to bfloat16 into the hi plane alone.
+template <bool kBf16>
+__device__ __forceinline__ void store_act(const Tile& tile, int at, float v) {
+  if constexpr (kBf16) {
+    tile.hi[at] = __uint_as_float(round_bf16(v));
+  } else {
+    store_split(tile, at, v);
+  }
 }
 
 // d (16 x 8, f32) += a (16 x 8, tf32, row) b (8 x 8, tf32, col)
@@ -413,12 +443,41 @@ __device__ __forceinline__ void load_b(float (&b)[T][2], const float* __restrict
 // length N). T is a template argument so that the loop has no branch:
 // the loads of a k-step then issue together and ahead of the products that
 // need them, where a test per tile would make each tile wait for its own
-// loads in turn.
-template <int MT, int T, bool kVec>
+// loads in turn. With kBf16 the a_hi plane holds bfloat16 values, B is
+// rounded to bfloat16 and each term is one product, a_hi b.
+template <int MT, int T, bool kVec, bool kBf16>
 __device__ __forceinline__ void chunk_products(float (&acc)[MT][T][4],
                                                const float* __restrict__ a_hi,
                                                const float* __restrict__ a_lo, int sa,
                                                const float* __restrict__ w, int N, int rows) {
+  if constexpr (kBf16) {
+#pragma unroll 2
+    for (int k = 0; k < rows; k += 8) {
+      uint32_t ah[MT][4], bh[T][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float2 h0 = *reinterpret_cast<const float2*>(a_hi + i * 16 * sa);
+        const float2 h1 = *reinterpret_cast<const float2*>(a_hi + i * 16 * sa + 8);
+        ah[i][0] = __float_as_uint(h0.x), ah[i][1] = __float_as_uint(h0.y);
+        ah[i][2] = __float_as_uint(h1.x), ah[i][3] = __float_as_uint(h1.y);
+      }
+      float b[T][2];
+      load_b<T, kVec>(b, w, N);
+      a_hi += 16;
+      w += 8 * N;
+#pragma unroll
+      for (int j = 0; j < T; ++j) {
+        bh[j][0] = round_bf16(b[j][0]);
+        bh[j][1] = round_bf16(b[j][1]);
+      }
+#pragma unroll
+      for (int j = 0; j < T; ++j) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], ah[i], bh[j]);
+      }
+    }
+    return;
+  }
 #pragma unroll 2
   for (int k = 0; k < rows; k += 8) {
     uint32_t ah[MT][4], al[MT][4], bh[T][2], bl[T][2];
@@ -492,8 +551,9 @@ struct TileIo {
 // the 2 T from base + 2 t T on. The bias is fetched first and added last,
 // so its latency hides behind the products. A hidden layer's output
 // overwrites the tile once every warp has read its inputs (with kOut it
-// goes to io's planes instead), and is whole before any warp reads it.
-template <int MT, int WM, int T, bool kVec, bool kLs, bool kOut>
+// goes to io's planes instead), and is whole before any warp reads it;
+// with kBf16 it is rounded to bfloat16 into the hi plane alone.
+template <int MT, int WM, int T, bool kVec, bool kLs, bool kOut, bool kBf16>
 __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, const TileIo& io,
                                             int K, int N, int step, int base,
                                             const float* __restrict__ bias, bool last) {
@@ -524,8 +584,8 @@ __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, cons
     mbar_wait(ring.full + pos.s, pos.phase);
     if constexpr (T > 0) {
       const float* w = ring.buf + (size_t)pos.s * ring.stage_floats + t * N + base + g * T;
-      chunk_products<MT, T, kVec>(acc, tile.hi + a_at + 2 * k0, tile.lo + a_at + 2 * k0, io.sa,
-                                  w, N, (n + 7) & ~7);
+      chunk_products<MT, T, kVec, kBf16>(acc, tile.hi + a_at + 2 * k0, tile.lo + a_at + 2 * k0,
+                                         io.sa, w, N, (n + 7) & ~7);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(ring.empty + pos.s);
@@ -573,7 +633,11 @@ __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, cons
         // columns past N pad the next layer's K: zeros
         const float v = col + co < N ? fmaxf(acc[i][j][2 * (p % 2) + e] + b[j][e], 0.f) : 0.f;
         uint32_t vh, vl;
-        split_tf32(v, vh, vl);
+        if constexpr (kBf16) {
+          vh = round_bf16(v), vl = 0u;
+        } else {
+          split_tf32(v, vh, vl);
+        }
         hi[p] = __uint_as_float(vh);
         lo[p] = __uint_as_float(vl);
       }
@@ -584,8 +648,10 @@ __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, cons
       for (int p = 0; p < 4 * T; p += 4) {
         *reinterpret_cast<float4*>(o_hi + at + p) =
             make_float4(hi[p], hi[p + 1], hi[p + 2], hi[p + 3]);
-        *reinterpret_cast<float4*>(o_lo + at + p) =
-            make_float4(lo[p], lo[p + 1], lo[p + 2], lo[p + 3]);
+        if constexpr (!kBf16) {
+          *reinterpret_cast<float4*>(o_lo + at + p) =
+              make_float4(lo[p], lo[p + 1], lo[p + 2], lo[p + 3]);
+        }
       }
     }
   }
@@ -597,12 +663,13 @@ __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, cons
 // to the column groups in runs of tb = ceil(tiles / WN), so a narrow layer
 // (17 columns: 3 tiles) spreads over as many warps as it has tiles; a
 // layer is at most WN * 8 * kWarpTiles wide. Expands where tile, pos, io,
-// K, N and last are in scope; STEP (weight rows per chunk) and BIAS are
-// expressions, evaluated where a layer_tiles instance is called. (A macro
+// K, N and last are in scope; kBf16 selects the bf16 mode; STEP (weight
+// rows per chunk) and BIAS are expressions, evaluated where a layer_tiles
+// instance is called. (A macro
 // and not a function: as a function that both callers shared,
 // fused_mlp_fwd's 16-row instance compiled to 92 registers for 90 and its
 // 512-row cost call took 6% longer.)
-#define MLP_CONSUME_LAYER(MT, WM, kLs, kOut, STEP, BIAS)                                          \
+#define MLP_CONSUME_LAYER(MT, WM, kLs, kOut, kBf16, STEP, BIAS)                                   \
   do {                                                                                            \
     constexpr int WN = kConsumerWarps / (WM);                                                     \
     /* neighbouring warps, which share an SM sub-partition four warps apart, take */              \
@@ -615,32 +682,34 @@ __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, cons
     const int mine = max(0, min(tb, tiles - wn * tb));                                            \
     if (N % 4 == 0) {                                                                             \
       switch (mine) {                                                                             \
-        case 0: MLP_LAYER(MT, WM, 0, true, kLs, kOut, STEP, BIAS); break;                         \
-        case 1: MLP_LAYER(MT, WM, 1, true, kLs, kOut, STEP, BIAS); break;                         \
-        case 2: MLP_LAYER(MT, WM, 2, true, kLs, kOut, STEP, BIAS); break;                         \
-        case 3: MLP_LAYER(MT, WM, 3, true, kLs, kOut, STEP, BIAS); break;                         \
-        default: MLP_LAYER(MT, WM, kWarpTiles, true, kLs, kOut, STEP, BIAS); break;               \
+        case 0: MLP_LAYER(MT, WM, 0, true, kLs, kOut, kBf16, STEP, BIAS); break;                  \
+        case 1: MLP_LAYER(MT, WM, 1, true, kLs, kOut, kBf16, STEP, BIAS); break;                  \
+        case 2: MLP_LAYER(MT, WM, 2, true, kLs, kOut, kBf16, STEP, BIAS); break;                  \
+        case 3: MLP_LAYER(MT, WM, 3, true, kLs, kOut, kBf16, STEP, BIAS); break;                  \
+        default: MLP_LAYER(MT, WM, kWarpTiles, true, kLs, kOut, kBf16, STEP, BIAS); break;        \
       }                                                                                           \
     } else {                                                                                      \
       switch (mine) {                                                                             \
-        case 0: MLP_LAYER(MT, WM, 0, false, kLs, kOut, STEP, BIAS); break;                        \
-        case 1: MLP_LAYER(MT, WM, 1, false, kLs, kOut, STEP, BIAS); break;                        \
-        case 2: MLP_LAYER(MT, WM, 2, false, kLs, kOut, STEP, BIAS); break;                        \
-        case 3: MLP_LAYER(MT, WM, 3, false, kLs, kOut, STEP, BIAS); break;                        \
-        default: MLP_LAYER(MT, WM, kWarpTiles, false, kLs, kOut, STEP, BIAS); break;              \
+        case 0: MLP_LAYER(MT, WM, 0, false, kLs, kOut, kBf16, STEP, BIAS); break;                 \
+        case 1: MLP_LAYER(MT, WM, 1, false, kLs, kOut, kBf16, STEP, BIAS); break;                 \
+        case 2: MLP_LAYER(MT, WM, 2, false, kLs, kOut, kBf16, STEP, BIAS); break;                 \
+        case 3: MLP_LAYER(MT, WM, 3, false, kLs, kOut, kBf16, STEP, BIAS); break;                 \
+        default: MLP_LAYER(MT, WM, kWarpTiles, false, kLs, kOut, kBf16, STEP, BIAS); break;       \
       }                                                                                           \
     }                                                                                             \
   } while (0)
-#define MLP_LAYER(MT, WM, T, V, kLs, kOut, STEP, BIAS) \
-  layer_tiles<MT, WM, T, V, kLs, kOut>(tile, pos, io, K, N, STEP, base, BIAS, last)
+#define MLP_LAYER(MT, WM, T, V, kLs, kOut, kBf16, STEP, BIAS) \
+  layer_tiles<MT, WM, T, V, kLs, kOut, kBf16>(tile, pos, io, K, N, STEP, base, BIAS, last)
 
 // The consumer warps of a forward kernel: the whole stack over one row
 // tile of 16 * MT * WM rows whose input rows are split into tile.hi and
 // tile.lo (act_index's layout, columns up to the next multiple of 8
 // zeroed); both planes are overwritten by every hidden layer. The output
 // rows go to y (rows past `rows` are not stored), with kLs plus resid[r *
-// resid_stride + c]. Called by all kConsumers consumer threads.
-template <int MT, int WM, bool kLs>
+// resid_stride + c]. With kBf16 the input rows are in tile.hi alone,
+// rounded to bfloat16 (store_act), and every product is bfloat16's. Called
+// by all kConsumers consumer threads.
+template <int MT, int WM, bool kLs, bool kBf16>
 __device__ __forceinline__ void mlp_consume(const Tile& tile, const MlpArgs& args,
                                             const TilePlan& plan, float* __restrict__ y,
                                             int row0, int rows, const float* __restrict__ resid,
@@ -650,7 +719,7 @@ __device__ __forceinline__ void mlp_consume(const Tile& tile, const MlpArgs& arg
   for (int l = 0; l < args.n_layers; ++l) {
     const int K = args.dims[l], N = args.dims[l + 1];
     const bool last = l == args.n_layers - 1;
-    MLP_CONSUME_LAYER(MT, WM, kLs, false, plan.step[l], args.b[l]);
+    MLP_CONSUME_LAYER(MT, WM, kLs, false, kBf16, plan.step[l], args.b[l]);
   }
 }
 

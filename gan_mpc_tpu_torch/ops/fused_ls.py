@@ -22,6 +22,13 @@ action rows (``split_w0``, once per plan), as the TPU kernel takes it:
 launches the hand-written kernel ``csrc/fused_ls_step.cu`` (at any B and
 A; the JAX package's ``B % 128`` condition was a TPU tile rule) or
 raises. There is no fallback from the kernel to the plain version.
+
+``bf16=True`` is the TPU kernel's bf16 variant (``compute_dtype=
+"bfloat16"``): the MLP's four products (W0's state and action rows, the
+hidden layers, the last layer) take bfloat16 operands and accumulate in
+f32 (``bf16_mm``); the control law, the stage cost and the residual add
+stay f32. On CUDA tensors it launches the kernel's bf16 instance
+(``fused_ls_kernel_bf16``).
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from typing import Sequence, Tuple
 import torch
 
 from gan_mpc_tpu_torch.models.cost import pseudo_huber
-from gan_mpc_tpu_torch.ops.fused_mlp import MAX_LAYERS, MAX_WIDTH, Layers
+from gan_mpc_tpu_torch.ops.fused_mlp import MAX_LAYERS, MAX_WIDTH, Layers, bf16_mm
 
 
 def split_w0(layers: Layers, n: int) -> list:
@@ -44,22 +51,24 @@ def split_w0(layers: Layers, n: int) -> list:
 
 def reference_ls_step(x3, Xref, Uref, alphaBA, k, K, goal, goal_u, wvec,
                       layers: Sequence, *, gs: int, action_goal_squared: bool,
-                      ag_scale: float):
+                      ag_scale: float, bf16: bool = False):
     """Plain torch version of the step, the kernel's reference.
 
     x3 (B, A, n); Xref (B, n); Uref, k (B, m); alphaBA (B, A); K (B, m, n);
     goal (B, gs); goal_u (B, m); wvec (1, 4); ``layers`` as ``split_w0``
-    returns them. Returns nx (B, A, n), u (B, A, m), cost (B, A).
+    returns them. Returns nx (B, A, n), u (B, A, m), cost (B, A). With
+    ``bf16`` the MLP's products are ``bf16_mm``'s.
     """
+    mm = bf16_mm if bf16 else torch.matmul
     B, A, n = x3.shape
     m = Uref.shape[-1]
     du = torch.einsum("bmn,ban->bam", K, x3 - Xref[:, None])
     u = Uref[:, None] + alphaBA[..., None] * k[:, None] + du
 
     (w0x, w0u), b0 = layers[0]
-    h = x3.reshape(B * A, n) @ w0x + u.reshape(B * A, m) @ w0u + b0
+    h = mm(x3.reshape(B * A, n), w0x) + mm(u.reshape(B * A, m), w0u) + b0
     for w, b in layers[1:]:
-        h = torch.relu(h) @ w + b
+        h = mm(torch.relu(h), w) + b
     nx = x3 + h.reshape(B, A, n)
 
     w_u, w_x, w_ag, gain = wvec.reshape(4)
@@ -73,12 +82,15 @@ def reference_ls_step(x3, Xref, Uref, alphaBA, k, K, goal, goal_u, wvec,
 
 
 class FusedLsKernel:
-    """The CUDA step kernel: built on first use, counted per launch."""
+    """One instance of the CUDA step kernel, f32 or ``bf16``: built on
+    first use, counted per launch."""
 
     source = "gan_mpc_tpu_torch/csrc/fused_ls_step.cu"
     replaces = "gan_mpc_tpu/ops/fused_ls.py:118"
 
-    def __init__(self):
+    def __init__(self, bf16: bool = False):
+        self.bf16 = bf16
+        self.name = "fused_ls_step_bf16" if bf16 else "fused_ls_step"
         self.launches = 0
         self._lib = None
 
@@ -90,7 +102,7 @@ class FusedLsKernel:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.fused_ls_step.argtypes = (
                 [p] * 12 + [i] * 6 + [ctypes.c_float, i, ctypes.POINTER(i),
-                                      ctypes.POINTER(p), p, ctypes.POINTER(p), p]
+                                      ctypes.POINTER(p), p, ctypes.POINTER(p), i, p]
             )
             lib.fused_ls_step.restype = i
             self._lib = lib
@@ -117,11 +129,11 @@ class FusedLsKernel:
         err = lib.fused_ls_step(
             *[t.data_ptr() for t in inputs], nx.data_ptr(), u.data_ptr(), cost.data_ptr(),
             B, A, n, m, gs, int(action_goal_squared), float(ag_scale),
-            len(ws), c_dims, c_w, w0u.data_ptr(), c_b, stream,
+            len(ws), c_dims, c_w, w0u.data_ptr(), c_b, int(self.bf16), stream,
         )
         if err != 0:
             raise RuntimeError(
-                f"fused_ls_step launch failed with code {err} "
+                f"{self.name} launch failed with code {err} "
                 f"(B={B}, A={A}, n={n}, m={m}, dims={dims})"
             )
         self.launches += 1
@@ -185,6 +197,7 @@ def _check_kernel_args(inputs, layers, gs: int) -> None:
 
 
 fused_ls_kernel = FusedLsKernel()
+fused_ls_kernel_bf16 = FusedLsKernel(bf16=True)
 
 
 def fused_ls_step(x3, Xref, Uref, alphaBA, k, K, goal, goal_u, wvec, layers, *,
@@ -193,12 +206,12 @@ def fused_ls_step(x3, Xref, Uref, alphaBA, k, K, goal, goal_u, wvec, layers, *,
     """One fused line-search / rollout step; shapes as ``reference_ls_step``.
 
     CPU tensors run ``reference_ls_step``; CUDA tensors run the kernel at
-    every B and A. ``bf16=True`` (``compute_dtype="bfloat16"``) is not
-    ported.
+    every B and A, its bf16 instance where ``bf16`` (``compute_dtype=
+    "bfloat16"``).
     """
-    if bf16:
-        raise NotImplementedError("the bf16 fused line-search step is not ported")
     kw = dict(gs=gs, action_goal_squared=action_goal_squared, ag_scale=ag_scale)
     if x3.is_cuda:
-        return fused_ls_kernel(x3, Xref, Uref, alphaBA, k, K, goal, goal_u, wvec, layers, **kw)
-    return reference_ls_step(x3, Xref, Uref, alphaBA, k, K, goal, goal_u, wvec, layers, **kw)
+        kernel = fused_ls_kernel_bf16 if bf16 else fused_ls_kernel
+        return kernel(x3, Xref, Uref, alphaBA, k, K, goal, goal_u, wvec, layers, **kw)
+    return reference_ls_step(x3, Xref, Uref, alphaBA, k, K, goal, goal_u, wvec, layers, **kw,
+                             bf16=bf16)

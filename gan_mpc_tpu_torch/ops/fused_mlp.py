@@ -13,6 +13,16 @@ kernel and whose backward launches ``csrc/fused_mlp_bwd.cu`` (the JAX
 package's ``fused_mlp`` custom VJP). There is no fallback from a kernel to
 the plain version.
 
+``compute_dtype="bfloat16"`` is the JAX package's ``_mm``: both operands
+of every product rounded to bfloat16 (to nearest, ties to even), the
+product and its accumulator f32, the output f32. The plain version holds
+the rounded values in f32 and multiplies them in f32 (``bf16_mm``; a
+product of two bfloat16 values is exact in f32). Without gradients a CUDA
+tensor launches the forward kernel's bf16 instance
+(``fused_mlp_forward_bf16``); with gradients it runs the plain bf16
+function under autograd, as the JAX package differentiates its plain
+``_reference_forward`` (there is no bf16 backward kernel in either).
+
 The kernels multiply on the tensor cores with every f32 operand split
 into two TF32 parts and three products per term. ``tf32_round``,
 ``reference_forward_3xtf32`` and ``reference_backward_3xtf32`` are that
@@ -53,11 +63,38 @@ def dense_stack(layers: Iterable[Dense]) -> List[Tuple[torch.Tensor, torch.Tenso
     return [(d.kernel, d.bias) for d in layers]
 
 
-def reference_forward(x: torch.Tensor, layers: Layers) -> torch.Tensor:
-    """Plain torch relu-MLP forward: the kernel's reference."""
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (to nearest, ties to even, as
+    ``astype(jnp.bfloat16)``) and held in float32. Autograd rounds the
+    cotangent to bfloat16 on its way back through the cast, as ``jax.grad``
+    does."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` with both operands rounded to bfloat16 and the product
+    accumulated in f32 (the JAX ``_mm(a, w, bfloat16)``). Not a matmul on
+    bfloat16 tensors, which would round the output to bfloat16 too."""
+    return bf16_round(a) @ bf16_round(w)
+
+
+def compute_is_bf16(compute_dtype) -> bool:
+    """Whether ``compute_dtype`` (None, a name or a torch dtype) selects
+    the bfloat16 products; raises for a dtype that is neither."""
+    if compute_dtype in (None, "float32", torch.float32):
+        return False
+    if compute_dtype in ("bfloat16", torch.bfloat16):
+        return True
+    raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
+
+
+def reference_forward(x: torch.Tensor, layers: Layers, bf16: bool = False) -> torch.Tensor:
+    """Plain torch relu-MLP forward: the kernel's reference; with
+    ``bf16`` the products are ``bf16_mm``'s."""
+    mm = bf16_mm if bf16 else torch.matmul
     h = x
     for i, (w, b) in enumerate(layers):
-        h = h @ w + b
+        h = mm(h, w) + b
         if i < len(layers) - 1:
             h = torch.relu(h)
     return h
@@ -274,12 +311,15 @@ def reference_backward_3xtf32(x: torch.Tensor, layers: Layers, g: torch.Tensor,
 
 
 class FusedMlpKernel:
-    """The CUDA forward kernel: built on first use, counted per launch."""
+    """One instance of the CUDA forward kernel, f32 or ``bf16``: built on
+    first use, counted per launch."""
 
     source = "gan_mpc_tpu_torch/csrc/fused_mlp_fwd.cu"
     replaces = "gan_mpc_tpu/ops/fused_mlp.py:91"
 
-    def __init__(self):
+    def __init__(self, bf16: bool = False):
+        self.bf16 = bf16
+        self.name = "fused_mlp_fwd_bf16" if bf16 else "fused_mlp_fwd"
         self.launches = 0
         self._lib = None
 
@@ -293,6 +333,7 @@ class FusedMlpKernel:
                 ctypes.POINTER(ctypes.c_int),
                 ctypes.POINTER(ctypes.c_void_p),
                 ctypes.POINTER(ctypes.c_void_p),
+                ctypes.c_int,
                 ctypes.c_void_p,
             ]
             lib.fused_mlp_fwd.restype = ctypes.c_int
@@ -315,11 +356,11 @@ class FusedMlpKernel:
         c_b = (ctypes.c_void_p * n)(*[b.data_ptr() for _, b in layers])
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_mlp_fwd(
-            x.data_ptr(), y.data_ptr(), x.shape[0], n, c_dims, c_w, c_b, stream
+            x.data_ptr(), y.data_ptr(), x.shape[0], n, c_dims, c_w, c_b, int(self.bf16), stream
         )
         if err != 0:
             raise RuntimeError(
-                f"fused_mlp_fwd launch failed with code {err} "
+                f"{self.name} launch failed with code {err} "
                 f"(rows={x.shape[0]}, dims={dims})"
             )
         self.launches += 1
@@ -362,6 +403,7 @@ def _check_kernel_args(x: torch.Tensor, layers: Layers) -> None:
 
 
 fused_mlp_forward = FusedMlpKernel()
+fused_mlp_forward_bf16 = FusedMlpKernel(bf16=True)
 
 
 class FusedMlpBwdKernel:
@@ -478,8 +520,10 @@ def mlp_apply(x: torch.Tensor, layers: Layers, compute_dtype=None,
     CPU tensors run ``reference_forward`` (under autograd when it is on);
     CUDA tensors run the fused kernel at every row count (the JAX
     package's 8192-row threshold was a TPU crossover), through
-    ``FusedMlpFunction`` when a gradient is to be taken. ``compute_dtype``
-    other than float32 is not ported.
+    ``FusedMlpFunction`` when a gradient is to be taken.
+    ``compute_dtype="bfloat16"`` (``compute_is_bf16``) takes bfloat16
+    products: on CUDA tensors without a gradient the kernel's bf16
+    instance, else the plain bf16 forward (the module's docstring).
 
     ``FusedMlpFunction`` is once differentiable. A caller that will take a
     second derivative through this call (the implicit planner's mixed
@@ -488,14 +532,13 @@ def mlp_apply(x: torch.Tensor, layers: Layers, compute_dtype=None,
     differentiates any number of times. The JAX package takes those
     derivatives in flax, outside its kernels, too.
     """
-    if compute_dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError(f"compute_dtype={compute_dtype!r} is not ported")
-    if not x.is_cuda or twice_differentiable:
-        return reference_forward(x, layers)
+    bf16 = compute_is_bf16(compute_dtype)
+    if not x.is_cuda or twice_differentiable or (bf16 and _records_grad(x, layers)):
+        return reference_forward(x, layers, bf16)
     x = x.contiguous()
     if _records_grad(x, layers):
         return FusedMlpFunction.apply(x, *[t for wb in layers for t in wb])
-    return fused_mlp_forward(x, layers)
+    return (fused_mlp_forward_bf16 if bf16 else fused_mlp_forward)(x, layers)
 
 
 def mlp_value_and_jac(x: torch.Tensor, layers: Layers, compute_dtype=None):
@@ -504,16 +547,17 @@ def mlp_value_and_jac(x: torch.Tensor, layers: Layers, compute_dtype=None):
     x (N, fin) -> (y (N, fout), J (N, fout, fin)). The Jacobian chain of
     masked weight products runs from the cheaper side: output-side when
     fout < fin (the dynamics linearization), input-side otherwise. Plain
-    ``torch.matmul``, as the JAX package leaves it to XLA.
+    ``torch.matmul``, as the JAX package leaves it to XLA; with
+    ``compute_dtype="bfloat16"`` every product of the forward and of the
+    chain is ``bf16_mm``'s, the masks and the bias and relu stay f32.
     """
-    if compute_dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError(f"compute_dtype={compute_dtype!r} is not ported")
+    mm = bf16_mm if compute_is_bf16(compute_dtype) else torch.matmul
     n_layers = len(layers)
     N, fin = x.shape
     h = x
     masks = []
     for i, (w, b) in enumerate(layers):
-        h = h @ w + b
+        h = mm(h, w) + b
         if i < n_layers - 1:
             mask = (h > 0.0).to(h.dtype)
             h = h * mask
@@ -529,7 +573,7 @@ def mlp_value_and_jac(x: torch.Tensor, layers: Layers, compute_dtype=None):
         for i in range(n_layers - 2, -1, -1):
             wi = layers[i][0]
             Rt = R.transpose(1, 2).reshape(N * fout, -1)
-            R = (Rt @ wi.T).reshape(N, fout, -1).transpose(1, 2)
+            R = mm(Rt, wi.T).reshape(N, fout, -1).transpose(1, 2)
             if i > 0:
                 R = R * masks[i - 1][..., None]
         return h, R.transpose(1, 2)
@@ -540,7 +584,7 @@ def mlp_value_and_jac(x: torch.Tensor, layers: Layers, compute_dtype=None):
         J = J * masks[0][:, None, :]
     for i in range(1, n_layers):
         wi = layers[i][0]
-        J = (J.reshape(N * fin, -1) @ wi).reshape(N, fin, -1)
+        J = mm(J.reshape(N * fin, -1), wi).reshape(N, fin, -1)
         if i < n_layers - 1:
             J = J * masks[i][:, None, :]
     return h, J.transpose(1, 2)

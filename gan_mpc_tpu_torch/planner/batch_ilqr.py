@@ -15,18 +15,24 @@ sync a trip). The solution reports the trips that ran
 (``ILQRSolution.trips``), from which ``mlp_calls_per_solve`` gives the
 kernel launches.
 
-Ported: ``riccati="sequential"``, f32, both line-search strategies
-(``ls_materialize``, resolved by ``ls_materializes`` as the JAX package
-resolves it: recompute the winner, or materialize every candidate and
-gather it), and the forward scans either through the separate callbacks
-or through the fused step ``ls_step`` (``fused_ls``). The other settings
-raise ``NotImplementedError``.
+Every setting of the JAX batch solver runs: both backward passes
+(``riccati``: "sequential", the Riccati recursion, or "associative", its
+O(log T)-depth parallel form, ``_backward_associative``), both line-search
+strategies (``ls_materialize``, resolved by ``ls_materializes`` as the JAX
+package resolves it: recompute the winner, or materialize every candidate
+and gather it), and the forward scans either through the separate
+callbacks or through the fused step ``ls_step`` (``fused_ls``).
+``compute_dtype`` is read where the problem is built (``MPCPolicy``), which
+passes it to the dynamics' callbacks and the fused step; the solver's own
+arithmetic is f32 at both. What stays refused is data parallelism over
+devices (ROADMAP Queue 1, item 9(b)).
 
 A problem marked ``per_instance`` is solved as the JAX package's
 ``vmap(ilqr)`` solves it (``tests/test_batch_ilqr.py`` holds that equal
 to its ``batch_ilqr``): Quu projected onto eigenvalues >= ``psd_delta``
-in the Riccati step, and ``fused_ls`` and ``compute_dtype`` not read
-(its callbacks have no fused step and run f32). The generic ``ilqr``
+in the sequential Riccati step (the associative pass does not read it, in
+either package), and ``fused_ls`` and ``compute_dtype`` not read (its
+callbacks have no fused step and run f32). The generic ``ilqr``
 (``planner/ilqr.py``) and the policies whose dynamics are not batch
 native (ensembles, recurrent nets) build such problems.
 """
@@ -40,6 +46,7 @@ import torch
 
 from gan_mpc_tpu_torch.planner.ilqr import ILQRSolution, SolverSettings
 from gan_mpc_tpu_torch.planner.linalg import solve_spd
+from gan_mpc_tpu_torch.planner.parallel_riccati import associative_scan, parallel_backward_pass
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,17 +99,17 @@ def ls_materializes(settings: SolverSettings, T: int, B: int, n: int, m: int) ->
 
 
 def _check_settings(settings: SolverSettings, problem: BatchProblem) -> None:
-    """Raise for the settings that select paths not ported, and for
-    ``fused_ls="on"`` on a batch-native problem without the fused step."""
-    if settings.riccati != "sequential":
-        raise NotImplementedError(f"riccati={settings.riccati!r} is not ported (item 9(b) "
-                                  "of ROADMAP Queue 1)")
+    """Raise for a backward pass or compute dtype that does not exist, and
+    for ``fused_ls="on"`` on a batch-native problem without the fused
+    step."""
+    if settings.riccati not in ("sequential", "associative"):
+        raise ValueError(f"riccati must be 'sequential' or 'associative', got "
+                         f"{settings.riccati!r}")
+    if settings.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got "
+                         f"{settings.compute_dtype!r}")
     if problem.per_instance:
         return
-    if settings.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={settings.compute_dtype!r} is not ported"
-        )
     if settings.fused_ls == "on" and problem.ls_step is None:
         raise ValueError(
             "fused_ls='on' needs a problem with the fused step (ls_step); "
@@ -195,6 +202,33 @@ def _backward(A, Bm, cx, cu, cxx, cuu, cux, reg, psd_delta=0.0):
     return torch.stack(ks), torch.stack(Ks), adjoints, torch.stack(Gs)
 
 
+def _backward_associative(A, Bm, cx, cu, cxx, cuu, cux, reg, psd_delta=0.0):
+    """The O(log T)-depth backward pass (the JAX ``_backward_associative``),
+    with ``_backward``'s inputs and returns.
+
+    ``parallel_riccati.parallel_backward_pass`` on every lane at once (the
+    JAX package ``vmap``s it; here the lane axis rides between time and
+    the matrix axes), ``psd_delta`` passed and not read, as there. The
+    open-loop gradient comes from the costate lam_t = A_t^T lam_{t+1} +
+    cx_t by a second associative scan, over the affine maps' suffix
+    compositions applied to lam_T = cx_T; then g_t = cu_t + B_t^T
+    lam_{t+1}.
+    """
+    k, K, _, _, _, adjoints = parallel_backward_pass(A, Bm, cx, cu, cxx, cuu, cux, reg,
+                                                     psd_delta)
+
+    def combine(later, earlier):  # ``later``: the part already composed, nearer T
+        M2, v2 = later
+        M1, v1 = earlier
+        return M1 @ M2, (M1 @ v2[..., None])[..., 0] + v1
+
+    Mr, vr = associative_scan(combine, (A.transpose(-1, -2).flip(0), cx[:-1].flip(0)))
+    lam = (Mr.flip(0) @ cx[-1][..., None])[..., 0] + vr.flip(0)  # lam_0 .. lam_{T-1}
+    lam_next = torch.cat([lam[1:], cx[-1:]])
+    G = cu + (Bm.transpose(-1, -2) @ lam_next[..., None])[..., 0]
+    return k, K, adjoints, G
+
+
 def _line_search_objs(problem, X, U, k, K, alphas, materialize=False):
     """Objective of every (lane, alpha) closed-loop rollout: (B, A).
 
@@ -253,7 +287,7 @@ def _forward_best(problem, X, U, k, K, alpha_b):
 
 def mlp_calls_per_solve(horizon: int, trips: int, fused: bool = False,
                         solves: int = 1, materialize: bool = False, members: int = 1,
-                        projection: bool = False) -> Dict[str, int]:
+                        projection: bool = False, bf16: bool = False) -> Dict[str, int]:
     """Kernel launches on the card of ``solves`` ``batch_ilqr`` calls that
     ran ``trips`` iterations in all (``ILQRSolution.trips``, or
     ``max_iterations`` each where no lane stops early), by kernel;
@@ -271,14 +305,19 @@ def mlp_calls_per_solve(horizon: int, trips: int, fused: bool = False,
     ``goal_projection`` > 0) each solve is preceded by the goal
     projection's H dynamics advances. (The linearization, the
     quadratization and the projection's Gauss-Newton steps run plain
-    torch.)
+    torch.) With ``bf16`` (``compute_dtype="bfloat16"`` on the batch-native
+    path) the forward scans' dynamics launch the kernels' bf16 instances,
+    ``fused_mlp_fwd_bf16`` or ``fused_ls_step_bf16``, and the terminal cost
+    stays on the f32 ``fused_mlp_fwd``.
     """
     steps = horizon * (solves + (1 if materialize else 2) * trips)
     terminal = solves + trips
     advances = members * horizon * solves if projection else 0
-    if fused:
-        return {"fused_mlp_fwd": terminal + advances, "fused_ls_step": steps}
-    return {"fused_mlp_fwd": members * steps + terminal + advances, "fused_ls_step": 0}
+    scan = (0, steps) if fused else (members * steps, 0)  # (MLP, fused step) launches
+    if bf16:
+        return {"fused_mlp_fwd": terminal + advances, "fused_ls_step": 0,
+                "fused_mlp_fwd_bf16": scan[0], "fused_ls_step_bf16": scan[1]}
+    return {"fused_mlp_fwd": scan[0] + terminal + advances, "fused_ls_step": scan[1]}
 
 
 def batch_ilqr(
@@ -321,8 +360,12 @@ def batch_ilqr(
         trips += 1
         A, Bm = problem.dynamics_jac(X[:-1], U)
         cx, cu, cxx, cuu, cux = problem.quad(X, U)
-        k, K, adjoints, g = _backward(A, Bm, cx, cu, cxx, cuu, cux, reg,
-                                      settings.psd_delta if problem.per_instance else 0.0)
+        if settings.riccati == "associative":
+            k, K, adjoints, g = _backward_associative(A, Bm, cx, cu, cxx, cuu, cux, reg,
+                                                      settings.psd_delta)
+        else:
+            k, K, adjoints, g = _backward(A, Bm, cx, cu, cxx, cuu, cux, reg,
+                                          settings.psd_delta if problem.per_instance else 0.0)
         gnorm = torch.sqrt(torch.sum(g * g, dim=(0, 2)))
         grad_small = gnorm < settings.grad_norm_tol
 

@@ -1,9 +1,9 @@
 """Solver settings, the solution container, and the generic iLQR.
 
 Counterpart of ``gan_mpc_tpu/planner/ilqr.py``. ``SolverSettings`` keeps
-every field, so that configs written for the JAX package load unchanged;
-the batch solver (``planner/batch_ilqr.py``) raises
-``NotImplementedError`` for the values that select paths not ported yet.
+every field, so that configs written for the JAX package load unchanged,
+and the batch solver (``planner/batch_ilqr.py``) runs every value the JAX
+one takes.
 
 ``ilqr(cost, dynamics, x0, U0, settings, terminal_cost)`` solves a problem
 given as per-instance callables, as the JAX function does:
@@ -49,7 +49,8 @@ class SolverSettings:
     # ``ilqr``); the JAX batch solver's sequential pass ignores it, and so
     # does the port's on batch-native problems.
     psd_delta: float = 0.0
-    # "sequential" (ported) or "associative" (not ported).
+    # "sequential" (the Riccati recursion) or "associative" (its O(log T)
+    # depth form, ``planner/parallel_riccati.py``), on every path.
     riccati: str = "sequential"
     # An XLA scan-unroll knob; eager PyTorch has no counterpart. Accepted
     # so that configs load, and ignored.
@@ -58,7 +59,12 @@ class SolverSettings:
     # package: materialize when T >= 16 and the candidate block is <= 32 MiB
     # (``batch_ilqr.ls_materializes``).
     ls_materialize: str = "auto"
-    # "float32" (ported) or "bfloat16" (not ported).
+    # "float32" or "bfloat16": the dtype of the dynamics net's products on
+    # the batch-native serving path (``MPCPolicy.plan_batch``: the forward
+    # scans, the fused step and the linearization's Jacobian chain), with
+    # f32 accumulation; the solver's own arithmetic stays f32. The
+    # per-instance path and the differentiable ``plan`` do not read it, as
+    # in the JAX package.
     compute_dtype: str = "float32"
     # Fused forward-scan step (``ops/fused_ls.py``): "off", "on", or
     # "auto", on for CUDA inputs (the JAX package's "on the accelerator").

@@ -20,7 +20,13 @@ dynamics of ``models/dynamics.py``) plan as the JAX package's vmapped
 ``plan`` does: from ``xc0 = [x, carry]``, the carry warmed from the
 history (``history_U`` is read), through ``batch_ilqr`` on a problem
 marked ``per_instance`` (lanes solve independently; ``fused_ls`` and
-``compute_dtype`` are not read, so no fused line-search step launches).
+``compute_dtype`` are not read, so no fused line-search step launches;
+``riccati`` is). ``compute_dtype="bfloat16"`` reaches the dynamics net of
+the batch-native ``plan_batch`` alone: its forward scans (the forward
+kernel's or the fused step's bf16 instance on the card) and its
+linearization's Jacobian chain take bfloat16 products; the cost nets, the
+solver's arithmetic and the differentiable ``plan`` stay f32, as in the
+JAX package.
 With ``goal_projection`` > 0 both paths first project the expert's goals
 onto the learned dynamics' reachable states (``project_goals``); the
 action-goal target stays the expert's unprojected actions.
@@ -142,14 +148,15 @@ class MPCPolicy(nn.Module):
         separate dynamics and stage-cost callbacks, "auto" the fused step
         for CUDA inputs only. The per-instance path reads none."""
         xc0, goal_X, init_U, u_goal = self._start(history_X, history_U)
-        problem = self._problem(goal_X.transpose(0, 1), u_goal.transpose(0, 1), order=0)
+        problem = self._problem(goal_X.transpose(0, 1), u_goal.transpose(0, 1), order=0,
+                                serving=True)
         return batch_ilqr(problem, xc0, init_U, self.settings)
 
     def act_batch(self, history_X, history_U) -> torch.Tensor:
         """(B, u) first optimal actions of ``plan_batch``."""
         return self.plan_batch(history_X, history_U).U[:, 0]
 
-    def _problem(self, goal_tm, goal_u_tm, order: int) -> BatchProblem:
+    def _problem(self, goal_tm, goal_u_tm, order: int, serving: bool = False) -> BatchProblem:
         """The planning problem on time-major goals (T+1, B, x) and action
         goals (T, B, u), built from the modules' own parameters.
 
@@ -160,10 +167,14 @@ class MPCPolicy(nn.Module):
         fused kernels, under autograd ``FusedMlpFunction``); 2 for second
         derivatives, every MLP plain (``twice_differentiable``). The
         problem states whether the Gauss-Newton Hessian is exact: where the
-        dynamics are piecewise linear (``piecewise_linear``)."""
+        dynamics are piecewise linear (``piecewise_linear``).
+        ``settings.compute_dtype`` reaches the dynamics' callbacks and the
+        fused step where ``serving`` (``plan_batch``) on a batch-native
+        policy: the JAX package's ``plan_batch`` reads it, its ``plan``
+        (per-instance ``ilqr``) does not."""
         cost, dyn = self.cost_model, self.dynamics_model
         native = self.batch_native
-        cdt = self.settings.compute_dtype if native else None
+        cdt = self.settings.compute_dtype if native and serving else None
         twice = order == 2
 
         def dynamics_step(X, U, t):

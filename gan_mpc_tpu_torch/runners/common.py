@@ -18,7 +18,9 @@ saved expert predictor, training one where none matches the store's data
     committed pendulum store; the expert trainer then reads that store;
   * ``solver_settings`` reads every knob ``SolverSettings`` has, where the
     JAX one leaves ``fused_ls``, ``num_alphas`` and ``compute_dtype`` at
-    their defaults;
+    their defaults; every value of each runs (``riccati: associative`` and
+    ``compute_dtype: bfloat16`` included), and data parallelism alone
+    stays refused (``check_supported``, item 9(b));
   * ``maybe_clear_caches``, ``maybe_mesh`` and the runners'
     ``runtime_setup`` manage XLA's compile caches and device meshes and
     have no counterpart; ``check_supported`` refuses the training settings

@@ -241,8 +241,8 @@ def test_mlp_calls_per_solve_counts_members_and_projection(kind, projection, hor
     _, _, policy = policy_pair(kind, horizon, 2, seed=3, goal_projection=projection)
     calls = []
     plain = fused_mlp.reference_forward
-    monkeypatch.setattr(fused_mlp, "reference_forward",
-                        lambda x, layers: calls.append(x.shape[0]) or plain(x, layers))
+    monkeypatch.setattr(fused_mlp, "reference_forward", lambda x, layers, *bf16: (
+        calls.append(x.shape[0]) or plain(x, layers, *bf16)))
     hX, hU = histories(np.random.default_rng(0), 3)
     sol = policy.plan_batch(torch.from_numpy(hX), torch.from_numpy(hU))
     n = X_SIZE + policy.dynamics_model.carry_size

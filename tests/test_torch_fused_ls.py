@@ -211,12 +211,19 @@ def test_kernel_entry_refuses_what_it_does_not_take():
     wvec, ag_scale = _port_cost(_raw(5), False).stage_weights()
     args = dict(**_torch(inputs), wvec=wvec.detach(), layers=_torch_layers(layers), gs=GS,
                 action_goal_squared=False, ag_scale=ag_scale)
-    before = tfl.fused_ls_kernel.launches
+    before = tfl.fused_ls_kernel.launches, tfl.fused_ls_kernel_bf16.launches
     with pytest.raises(ValueError, match="CUDA"):
         tfl.fused_ls_kernel(**args)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fused_ls_step(**args, bf16=True)
-    assert tfl.fused_ls_kernel.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tfl.fused_ls_kernel_bf16(**args)
+    # bf16 on CPU tensors runs the plain bf16 step (the refusal this test
+    # once held is gone: tests/test_torch_bf16.py holds the step to JAX)
+    with torch.no_grad():
+        got = fused_ls_step(**args, bf16=True)
+        ref = reference_ls_step(**args, bf16=True)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert (tfl.fused_ls_kernel.launches, tfl.fused_ls_kernel_bf16.launches) == before
 
 
 H, ITERS, B_PLAN = 5, 5, 8

@@ -208,12 +208,21 @@ def test_backward_kernel_entry_refuses_cpu_tensors():
 
 
 def test_bfloat16_compute_is_not_ported():
-    layers = _torch(_layers(COST, 8))
-    x = torch.from_numpy(_inputs(4, 17, 9))
-    with pytest.raises(NotImplementedError):
-        mlp_apply(x, layers, torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        mlp_value_and_jac(x, layers, "bfloat16")
+    """Once a refusal, now the bf16 path's parity on the cost stack (the
+    dtype given as a torch dtype and as a name): ``mlp_apply`` and
+    ``mlp_value_and_jac`` against JAX at bf16, atol 1e-5 (bfloat16 products
+    are exact in f32; only the f32 sums' order differs). The dynamics-class
+    stacks and the gradient: ``tests/test_torch_bf16.py``."""
+    widths = _layers(COST, 8)
+    layers = _torch(widths)
+    x = _inputs(4, 17, 9)
+    ref = jfm.mlp_apply(jnp.asarray(x), _jax(widths), jnp.bfloat16)
+    got = mlp_apply(torch.from_numpy(x), layers, torch.bfloat16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+    y_ref, J_ref = jfm.mlp_value_and_jac(jnp.asarray(x), _jax(widths), jnp.bfloat16)
+    y, J = mlp_value_and_jac(torch.from_numpy(x), layers, "bfloat16")
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(J.numpy(), np.asarray(J_ref), rtol=0, atol=ATOL)
 
 
 def test_build_is_keyed_by_source_and_raises_when_nvcc_fails(tmp_path, monkeypatch):

@@ -256,19 +256,47 @@ def test_plan_batch_matches_jax_at_flagship_width():
 @pytest.mark.parametrize(
     "change,T,error",
     [
-        (dict(riccati="associative"), 5, NotImplementedError),
+        # runs since the associative pass was ported: on the LQR it solves as
+        # the sequential one does (tests/test_torch_parallel_riccati.py holds
+        # it to JAX's)
+        (dict(riccati="associative"), 5, None),
         # "on" is ported, but forces the fused step: a problem without one raises
         (dict(fused_ls="on"), 5, ValueError),
-        (dict(compute_dtype="bfloat16"), 5, NotImplementedError),
+        # runs since the bf16 path was ported: MPCPolicy, which builds the
+        # problem, reads the dtype; the solver's own arithmetic is f32 at
+        # either, so the LQR's solution is the same bits
+        # (tests/test_torch_bf16.py)
+        (dict(compute_dtype="bfloat16"), 5, None),
     ],
     ids=["associative", "fused_ls", "bf16"],
 )
 def test_settings_outside_the_slice_raise(change, T, error):
+    """Once three refusals; the fused_ls case still raises, and the two
+    settings ported since solve the LQR as the defaults do (rtol and atol
+    1e-5; bf16 bitwise)."""
     A, Bm, Q, R, x0 = _lqr(B=2)
     prob = BatchProblem(**_lqr_problem(TORCH_OPS, *map(torch.from_numpy, (A, Bm, Q, R))))
     settings = dataclasses.replace(SolverSettings(max_iterations=2), **change)
-    with pytest.raises(error):
-        batch_ilqr(prob, torch.from_numpy(x0), torch.zeros(2, T, 2), settings)
+    if error is not None:
+        with pytest.raises(error):
+            batch_ilqr(prob, torch.from_numpy(x0), torch.zeros(2, T, 2), settings)
+        return
+    got = batch_ilqr(prob, torch.from_numpy(x0), torch.zeros(2, T, 2), settings)
+    ref = batch_ilqr(prob, torch.from_numpy(x0), torch.zeros(2, T, 2),
+                     SolverSettings(max_iterations=2))
+    tol = 0.0 if "compute_dtype" in change else 1e-5
+    for name in ("X", "U", "obj", "grad", "adjoints"):
+        torch.testing.assert_close(getattr(got, name), getattr(ref, name), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("change", [dict(riccati="parallel"), dict(compute_dtype="float16")],
+                         ids=["riccati", "dtype"])
+def test_unknown_backward_or_dtype_raises(change):
+    A, Bm, Q, R, x0 = _lqr(B=2)
+    prob = BatchProblem(**_lqr_problem(TORCH_OPS, *map(torch.from_numpy, (A, Bm, Q, R))))
+    settings = dataclasses.replace(SolverSettings(max_iterations=2), **change)
+    with pytest.raises(ValueError, match="must be"):
+        batch_ilqr(prob, torch.from_numpy(x0), torch.zeros(2, 5, 2), settings)
 
 
 def test_defaults_stay_on_the_ported_path():
@@ -319,6 +347,24 @@ def test_policy_paths_outside_the_slice_raise():
     x, u = torch.zeros(2, 3, 17), torch.zeros(2, 3, 6)
     losses = multistep_prediction_loss(recurrent.dynamics_model, x, u, x, 0.9, True)
     assert losses.shape == (2,) and bool(torch.isfinite(losses).all())
-    recurrent.settings = SolverSettings(max_iterations=1, riccati="associative")
-    with pytest.raises(NotImplementedError, match="item 9\\(b\\)"):
-        recurrent.plan_batch(torch.zeros(2, 2, 17), torch.zeros(2, 1, 6))
+    # the associative pass, once refused here, plans on the per-instance path
+    # too: one trip from near rest, on random flax-style weights and a cost
+    # net that reads the carry, matches the sequential pass's
+    from gan_mpc_tpu_torch.models.cost import CostFeatureNet, MPCCost
+    from gan_mpc_tpu_torch.params import init_flax_like
+
+    dyn = recurrent.dynamics_model
+    recurrent = MPCPolicy(MPCCost(CostFeatureNet(17 + dyn.carry_size, hidden=(16,),
+                                                 features_out=4), 5),
+                          dyn, policy.expert_model, horizon=5)
+    init_flax_like(recurrent, torch.Generator().manual_seed(0))
+    recurrent.requires_grad_(False)
+    rng = np.random.default_rng(0)
+    hX = torch.from_numpy(0.1 * rng.standard_normal((2, 2, 17)).astype(np.float32))
+    hU = torch.from_numpy(0.1 * rng.standard_normal((2, 1, 6)).astype(np.float32))
+    plans = {}
+    for riccati in ("sequential", "associative"):
+        recurrent.settings = SolverSettings(max_iterations=1, riccati=riccati)
+        plans[riccati] = recurrent.plan_batch(hX, hU)
+    assert bool(torch.isfinite(plans["associative"].U).all())
+    torch.testing.assert_close(plans["associative"].U, plans["sequential"].U, rtol=0, atol=1e-4)
