@@ -122,19 +122,23 @@ Phases, in order; any failure raises and exits non-zero:
   8. the GAN slice on a committed run: runs.common.setup loads
      pendulum_swingup gan/9 from its own config.json and params.msgpack
      (every component, the critic included; continued from itself) and
-     fits the normalizer on the committed expert store; then
-     - serving: 16 envs closed loop on the imitator's pendulum for 50
+     fits the normalizer on its own committed expert store
+     (``trajectories-3332439a79.gmts``, the one its config's
+     ``trajectories_path`` names; 24 trajectories); then
+     - serving: 16 envs closed loop on the imitator's pendulum for 25
        control steps (2 warmup steps), H=10, iLQR <= 30 with the loop's
        early exit; prints the mean return, the mean and max trips per
        solve and steps/s; fused_mlp_fwd must have launched
        mlp_calls_per_solve(10, trips, solves) times for the trips the
        solver reported;
      - one GAN epoch (runners.gan.gan_epoch, epoch 1 of a continuation):
-       the dynamics phase with the config's updates (20 warm-start, 6
-       expert, 12 on-policy) on 1 episode cut to 50 of 300 steps at 1
-       env with the collection noise 0.2; the critic with plan_batch 256
-       and 2 updates of batch 128; the generator cut to 1 update of 4
-       minibatch steps of 128 windows (of 3 updates of 61), evaluation on
+       the dynamics phase with the config's 12 on-policy updates and its
+       warm-start and expert passes cut to 8 of 20 and 3 of 6 (a pass over
+       the 24 trajectories' windows is 149 steps), on 1 episode cut to 25
+       of 300 steps at 1 env with the collection noise 0.2; the critic
+       with plan_batch 256 and 2 updates of batch 128; the generator cut
+       to 1 update of 4 minibatch steps of 128 windows (of 3 updates of
+       148), evaluation on
        256 windows. Prints each phase's losses and wall time; every loss
        must be finite, the critic's within 0.05 of ln 2, each phase must
        move its own components and leave its no_grads bitwise unchanged,
@@ -145,7 +149,7 @@ Phases, in order; any failure raises and exits non-zero:
      epochs; evaluation every epoch on 4 envs of 10 steps; a candidate
      pool of 2; the action-goal gain appended as a 5th weight at 1.0 and
      calibrated over 1.0 and 1.4; checkpoints every epoch; DAgger off) in
-     a temporary workdir on the committed store. The first call's log
+     a temporary workdir on phase 8's store. The first call's log
      raises on the "[gan] epoch 1 " line; a second call resumes from the
      epoch-1 checkpoint, trains epoch 2 alone, evaluates, selects,
      calibrates and saves. Checks: the resume logged, the checkpoints
@@ -163,7 +167,7 @@ Phases, in order; any failure raises and exits non-zero:
      flagship's widths on 29 states and 12 actions, weights from seed 0,
      identity normalizer), where "auto" resolves to the materializing
      line search (printed with the candidates' bytes):
-     - served with fused_ls off, then on: 1 warmup and 10 timed control
+     - served with fused_ls off, then on: 1 warmup and 5 timed control
        steps (of the bench's 50-step episodes); env steps/s, trips per
        solve, mean reward; every output finite; the launches of both
        forward kernels equal to mlp_calls_per_solve(50, trips, fused,
@@ -202,7 +206,8 @@ Phases, in order; any failure raises and exits non-zero:
  12. the fused epochs and a DAgger round: ``runners.gan.run`` on
      configs/gan_pendulum_rung5b.yaml (continued from gan/9, 4 envs, H=10,
      iLQR <= 30, gan/9's widths) with ``G12_CUTS`` (2 fused epochs of 20
-     collection steps and 1 dynamics pass, evaluation every epoch on 4
+     collection steps and 1 dynamics pass, 8 warm-start and 3 expert
+     passes as phase 8's, evaluation every epoch on 4
      envs of 10 steps, one DAgger round: 4 policy episodes, 32 segments of
      50 steps, 1 fine-tune epoch, 1 extra fused epoch; checkpoints every
      epoch) in a temporary workdir on phase 8's store, interrupted on the
@@ -334,7 +339,34 @@ Phases, in order; any failure raises and exits non-zero:
          host ms and device operations (torch.profiler); then both rows
          served with each pass in turns (sequential, associative,
          associative, sequential), launches as reckoned.
-     Then the script's total wall time.
+ 17. the pendulum runs, the video and the cross-evaluation
+     (``pendulum_video_phase``):
+     (a) the committed pendulum_swingup runs gan/2, 7, 8, 9, 10 and 11,
+         each served from its own committed store as the bench serves it
+         (``serve_checkpoint``: 16 envs, 1 warmup and 2 timed steps,
+         launches as ``mlp_calls_per_solve`` reckons over the reported
+         trips), the return over the cut printed beside the reward the run
+         recorded; each one's plan of the first histories of 4 envs held
+         card against CPU (``hold_plan_against_cpu``: the served action;
+         the iterations equal on the lanes where the nudges do not move
+         the CPU's own, as a lane that stops early stops where rounding
+         puts it);
+     (b) the video of phase 12's cut configs/l2_pendulum.yaml run with
+         ``mpc.evaluate.save_video`` on and ``G17_VIDEO_STEPS`` evaluation
+         steps, on the run's own setup (the committed pendulum expert
+         copied into a temporary workdir, phase 8's store):
+         ``runners.l2.maybe_save_video``, whose one-env episode runs on
+         the card (launches as reckoned), its qpos held against the CPU's
+         from the same reset within max(1e-3, twice the CPU's own spread
+         under 1 +- 1e-7 nudges of the reset), the written file's frames
+         counted; where PIL does not import, the episode
+         (``l2.video_episode``) runs and is held, and "video: not
+         rendered, PIL absent on this host" is printed;
+     (c) where dm_control does not import (the card's host),
+         ``runners.l2.dm_cross_eval`` on configs/gan_pendulum_rung5b.yaml
+         (10 episodes asked for) gives None, as the JAX runner does.
+     Then the MLP kernels at phase 17's new (stack, rows) pairs, and the
+     script's total wall time.
 The last two lines are the kernels' JSON summary (the bf16 instances
 beside the f32 ones) and {"ok": true, "device": {...}}. Exits 1 without a
 CUDA device.
@@ -437,10 +469,12 @@ LS_WEIGHTS = [
     ((-2.0, 3.0, -3.0, 0.5, 1.3), 2.0, True),
     ((-2.0, 3.0, -3.0, 0.5, 1.3), 2.0, False),
 ]
-# the committed GAN run of phase 8 and the expert store its normalizer is
-# fitted on (the JAX runner's ensure_trajectories would collect a new one)
+# the committed GAN run of phase 8 and its own expert store, the one its
+# config's trajectories_path names, which its normalizer is fitted on
 GAN9 = "runs/trained_models/imitator/pendulum_swingup/gan/9"
-GAN9_STORE = "runs/expert_trajectories/pendulum_swingup/trajectories-f690b23776.gmts"
+GAN9_STORE = "runs/expert_trajectories/pendulum_swingup/trajectories-3332439a79.gmts"
+# the store phase 4's histories (G9_STABLE, G9_CONVERGED) are windows of
+G9_CHECK_STORE = "runs/expert_trajectories/pendulum_swingup/trajectories-f690b23776.gmts"
 # gan/9's stacks at the rows phases 8 and 12 give them: the critic's dataset
 # 256 histories x 16 step sizes and 256, a generator step 128 x 16 and 128,
 # serving 16 envs x 16 and 16, the 1-env collection 16 and 1; phase 12's
@@ -449,12 +483,19 @@ GAN9_STORE = "runs/expert_trajectories/pendulum_swingup/trajectories-f690b23776.
 G9_ROWS = (4096, 2048, 1024, 256, 128, 64, 16, 4, 1)
 G9_TIMED = [("dynamics", 256), ("dynamics", 4096), ("dynamics", 2048), ("dynamics", 128),
             ("cost", 256), ("cost", 4096)]
-# 50 of the episode's 1000 control steps (200 until phase 13 came, 100
-# until phase 14: the script's time stays near half its limit); swing-up
-# takes about 160
-SERVE_ENVS, SERVE_STEPS = 16, 50
-# phase 8's cuts of gan/9's config (the rest is the run's own)
-G9_CUTS = dict(mpc__train__dynamics__max_interactions_per_episode=50,  # of 300
+# 25 of the episode's 1000 control steps (200 until phase 13 came, 100
+# until phase 14, 50 until phase 17: the script's time stays near half its
+# limit); swing-up takes about 160
+SERVE_ENVS, SERVE_STEPS = 16, 25
+# phase 8's cuts of gan/9's config (the rest is the run's own). Its own
+# store holds 24 trajectories (the f690b23776 store phases 8-12 read
+# before holds 10), so a pass over the expert's dynamics windows is 149
+# minibatch steps, not 62: the warm-start and refresh passes are cut to
+# keep the steps near those phases' earlier count
+G9_CUTS = dict(mpc__train__dynamics__max_interactions_per_episode=25,  # of 300 (50 until
+               # phase 17: the script's time stays near half its limit)
+               mpc__train__dynamics__warm_start_updates=8,  # of 20
+               mpc__train__dynamics__expert_updates=3,  # of 6
                mpc__train__cost__num_updates=1,  # of 3
                mpc__train__cost__steps_per_update=4,  # of 61
                mpc__train__cost__eval_windows=256)
@@ -523,12 +564,13 @@ G11_WIDE_NUDGES = (1 + 5e-7, 1 - 5e-7)
 # phase 12: the fused epochs and a DAgger round. The GAN run is
 # configs/gan_pendulum_rung5b.yaml (continued from gan/9, on phase 8's store)
 # with these cuts (the rest is the config's own: 4 envs, H=10, iLQR <= 30,
-# gan/9's widths, 20 warm-start and 6 expert-refresh dynamics passes, 3
-# generator steps of 128 histories, the critic on 64):
+# gan/9's widths, 3 generator steps of 128 histories, the critic on 64; its
+# 10 dm_control episodes give None where dm_control does not import):
 G12_CONFIG = "configs/gan_pendulum_rung5b.yaml"
 G12_CUTS = dict(
-    mpc__evaluate__dm_control_episodes=0,  # of 10: the cross-evaluation is not ported
     mpc__train__num_epochs=2,  # of 9
+    mpc__train__dynamics__warm_start_updates=8,  # of 20 passes (see G9_CUTS)
+    mpc__train__dynamics__expert_updates=3,  # of 6
     mpc__train__dynamics__max_interactions_per_episode=20,  # of 300
     mpc__train__dynamics__num_updates=1,  # of 12 passes of 61 minibatch steps
     mpc__evaluate__every_epochs=1,  # of 3
@@ -564,7 +606,7 @@ G13_CARTPOLE_STEPS = 100  # (a): cart-pole steps (smooth: no contact)
 G13_AIRBORNE_STEPS = 20  # (a): walker steps in the air, no contact switching on
 G13_EXPERT_ENVS, G13_EXPERT_STEPS = 16, 20  # (b): each scripted expert's check
 G13_GAN4_STEPS = 3  # (c): timed control steps of the gan/4 row, after 1 warmup step
-G13_SERVE_STEPS = 15  # (d): the cut episode of walker gan/0 and cartpole l2/0
+G13_SERVE_STEPS = 8  # (d): the cut episode of walker gan/0 and cartpole l2/0 (15 until phase 17)
 # (e): the two configs that walker and cartpole unlock, from empty workdirs,
 # cut in the way of G12_CUTS (the rest is the config's own: widths, horizon,
 # the critic, the stores' 1000-step episodes through the reward gate, the
@@ -649,7 +691,7 @@ G15_KINK_MARGIN = 5e-6  # (a): the dynamics steps' windows sit this far from eve
 G15_EPISODE_STEPS = 1000  # (a): the committed store's episodes, the dynamics step's window pool
 G15_DYN_POOL = 2048  # (a): of whose windows this many are drawn and scanned for kinks
 G15_LSTM_CONFIG = "configs/gan_cheetah.yaml"  # (a): its widths with dynamics.use: lstm
-H50_STEPS = 10
+H50_STEPS = 5  # (10 until phase 17 came: the script's time stays near half its limit)
 H50_CHECK_ENVS = 16  # the card-against-CPU plan
 # The random-weight row is chaotic at H=50: its dynamics grow every
 # rollout (|X| ~ 5e4) and 1e-7 nudges of the input move the CPU's own plan
@@ -660,6 +702,15 @@ H50_CHECK_ENVS = 16  # the card-against-CPU plan
 # which keeps the rollouts bounded.
 H50_CHECK_ITERS = 1
 H50_DYN_SCALE = 1.0 / 32.0
+# phase 17: the committed pendulum runs served on their own stores (after 1
+# warmup step; the card-against-CPU plan on the first histories of 4 envs),
+# the video of phase 12's cut L2 run (its setup reading the committed
+# pendulum expert), the cross-evaluation without dm_control
+G17_RUNS = [f"runs/trained_models/imitator/pendulum_swingup/gan/{n}" for n in (2, 7, 8, 9, 10, 11)]
+G17_SERVE_ENVS, G17_SERVE_STEPS = 16, 2
+G17_CHECK_ENVS = 4
+G17_EXPERT = "runs/trained_models/expert/pendulum_swingup/0"
+G17_VIDEO_STEPS = 40  # (b): of G12_L2_CUTS' 10, so that the rendered pendulum moves
 # phase 16: the bf16 compute path and the associative Riccati
 BF16_CHECKS = [  # (kernel, name, lanes or rows, step sizes, n, m, gs); the dynamics stack
     ("fused_ls_step", "line search", 512, 16, 17, 6, 17),
@@ -1144,14 +1195,14 @@ def gan9_policy(device):
 
 
 def gan9_windows():
-    """Every cost window (history 1, H=10) of the committed store, on the
-    CPU, normalized by the normalizer fitted on the store."""
+    """Every cost window (history 1, H=10) of ``G9_CHECK_STORE``, on the
+    CPU, normalized by the normalizer fitted on that store."""
     from gan_mpc_tpu_torch.data.trajectories import load_trajectories
     from gan_mpc_tpu_torch.data.windows import cost_windows
     from gan_mpc_tpu_torch.runners import common
 
     cfg = gan9_config()
-    trajs = load_trajectories(GAN9_STORE, cfg.mpc.train.num_trajectories,
+    trajs = load_trajectories(G9_CHECK_STORE, cfg.mpc.train.num_trajectories,
                               cfg.mpc.train.trajectory_len)
     norm = common.build_normalizer(cfg, trajs, "cpu")
     return cost_windows(norm.normalize_state(torch.tensor(trajs.states)), 1, cfg.mpc.horizon)
@@ -2516,7 +2567,8 @@ def first_histories(ckpt, num_envs, device):
     return hX, torch.zeros((num_envs, ckpt.history, env.act_size), device=device)
 
 
-def hold_plan_against_cpu(label, gpu_policy, cpu_policy, hX, hU, dev, weight_nudges=True):
+def hold_plan_against_cpu(label, gpu_policy, cpu_policy, hX, hU, dev, weight_nudges=True,
+                          iterations_where_stable=False):
     """One ``plan_batch`` on the card and on the CPU from the same histories
     (CPU tensors): the served action U[:, 0] within max(1e-3, twice the
     CPU's own spread) and equal iterations, the spread being the largest
@@ -2529,31 +2581,41 @@ def hold_plan_against_cpu(label, gpu_policy, cpu_policy, hX, hU, dev, weight_nud
     0.13), which the card, running the CPU's weights, never crosses.
     The whole plan's difference and spread are printed, not checked: its
     later actions flip with the line search on rounding, as phase 10's
-    do."""
+    do. With ``iterations_where_stable`` the iterations are held equal on
+    the lanes where the nudges do not move the CPU's own, and printed on
+    the others: a lane that stops early stops where its gradient's norm
+    crosses the solver's tolerance, which rounding moves (phase 17: gan/9's
+    lanes stop anywhere in 22-30 under 1e-7 nudges on the CPU)."""
     cpu = cpu_policy.plan_batch(hX, hU)
     gpu = gpu_policy.plan_batch(hX.to(dev), hU.to(dev))
-    nudged = [cpu_policy.plan_batch(hX * s, hU).U - cpu.U for s in (1 + 1e-7, 1 - 1e-7)]
+    sols = [cpu_policy.plan_batch(hX * s, hU) for s in (1 + 1e-7, 1 - 1e-7)]
     weights = list(cpu_policy.dynamics_model.parameters())
     saved = [w.detach().clone() for w in weights]
     with torch.no_grad():
         for s in (1 + 1e-6, 1 - 1e-6) if weight_nudges else ():
             for w, w0 in zip(weights, saved):
                 w.copy_(w0 * s)
-            nudged.append(cpu_policy.plan_batch(hX, hU).U - cpu.U)
+            sols.append(cpu_policy.plan_batch(hX, hU))
         for w, w0 in zip(weights, saved):
             w.copy_(w0)
+    nudged = [sol.U - cpu.U for sol in sols]
     spread0 = max(dU[:, 0].abs().max().item() for dU in nudged)
     spread = max(dU.abs().max().item() for dU in nudged)
     d0 = (gpu.U[:, 0].cpu() - cpu.U[:, 0]).abs().max().item()
     d = (gpu.U.cpu() - cpu.U).abs().max().item()
     tol = max(1e-3, 2.0 * spread0)
-    same_it = torch.equal(gpu.iterations.cpu(), cpu.iterations)
+    its = torch.stack([cpu.iterations] + [sol.iterations for sol in sols])
+    lo, hi = its.min(0).values, its.max(0).values
+    held = lo == hi if iterations_where_stable else torch.ones_like(lo, dtype=torch.bool)
+    same_it = torch.equal(gpu.iterations.cpu()[held], cpu.iterations[held])
     print(f"{label} plan_batch ({hX.shape[0]} envs, iLQR <= "
           f"{gpu_policy.settings.max_iterations}, H={gpu_policy.horizon}) GPU vs CPU: served "
           f"action max|dU[:, 0]|={d0:.3e} (atol {tol:.3e}: max(1e-3, twice the CPU's own "
           f"{spread0:.3e} under the nudges)); whole plan max|dU|={d:.3e} of max|U| "
           f"{cpu.U.abs().max().item():.4g} (the CPU's own {spread:.3e}); iterations GPU "
-          f"{gpu.iterations.tolist()} CPU {cpu.iterations.tolist()}")
+          f"{gpu.iterations.tolist()} CPU {cpu.iterations.tolist()} (under the nudges "
+          f"{lo.tolist()} to {hi.tolist()}; held equal on {int(held.sum())} of {len(held)} "
+          "lanes)")
     if not (d0 <= tol and same_it and bool(torch.isfinite(gpu.U).all())):
         raise SystemExit(f"the {label} plan on the card disagrees with the CPU path")
 
@@ -3377,6 +3439,187 @@ def bf16_riccati_phase(kernels, card_line, dev, max_err, timed):
     return launches
 
 
+def pendulum_runs_phase(kernels, card_line, dev):
+    """Phase 17 (a): the committed pendulum runs, each served from its own
+    store (``serve_checkpoint``: launches as reckoned over the trips the
+    solver reported), the return over the cut printed beside the reward
+    the run recorded over 1000 steps; each one's plan of
+    ``G17_CHECK_ENVS`` first histories held card against CPU
+    (``hold_plan_against_cpu``: the served action; the iterations on the
+    lanes where the nudges do not move the CPU's own)."""
+    from gan_mpc_tpu_torch.bench import load_checkpoint
+    from gan_mpc_tpu_torch.runners import common
+
+    launches = {}
+    for run in G17_RUNS:
+        got, ep, dt, trips, ckpt = serve_checkpoint(run, G17_SERVE_ENVS, G17_SERVE_STEPS,
+                                                    kernels, card_line, dev)
+        with open(f"{run}/config.json") as f:
+            recorded = json.load(f)["reward"]
+        returns = ep.rewards.sum(1)
+        print(f"  {run} on {common.trajectories_path(common.load_run_config(run))}: return over "
+              f"the {G17_SERVE_STEPS} steps mean {returns.mean().item():.4f} (per env "
+              f"{[round(r, 3) for r in returns.tolist()]}); the run recorded {recorded} over "
+              "1000 steps")
+        cpu = load_checkpoint(run, "cpu")
+        hX, hU = first_histories(cpu, G17_CHECK_ENVS, "cpu")
+        hold_plan_against_cpu(run.split("imitator/")[1], ckpt.policy, cpu.policy, hX, hU, dev,
+                              iterations_where_stable=True)
+        launches[run.split("imitator/")[1]] = got
+    return launches
+
+
+def video_phase(kernels, card_line, dev):
+    """Phase 17 (b): the video of phase 12's cut ``configs/l2_pendulum.yaml``
+    run with ``mpc.evaluate.save_video`` on and ``G17_VIDEO_STEPS``
+    evaluation steps, on the run's own setup (the
+    committed pendulum expert copied into a temporary workdir, gan/9's
+    store): ``runners.l2.maybe_save_video``, whose one-env episode runs
+    on the card, launches as reckoned; its qpos held against the CPU's
+    from the same reset on the same weights and normalizer, within
+    max(1e-3, twice the CPU's own spread under 1 +- 1e-7 nudges of the
+    reset); the written file's frames. Where PIL does not import, the
+    episode (``l2.video_episode``) runs and is held all the same, and the
+    rendering is left to the CPU tests. Returns the episode's launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from gan_mpc_tpu_torch.config import Config
+    from gan_mpc_tpu_torch.data.normalizer import Normalizer
+    from gan_mpc_tpu_torch.envs.base import EnvState
+    from gan_mpc_tpu_torch.planner.batch_ilqr import ls_materializes
+    from gan_mpc_tpu_torch.runners import common, l2
+    from gan_mpc_tpu_torch.training.masking import load_policy_state, policy_state
+    from gan_mpc_tpu_torch.utils import video
+
+    present = {}
+    for module in ("PIL", "imageio"):
+        try:
+            __import__(module)
+            present[module] = True
+        except ImportError:
+            present[module] = False
+    print(f"phase 17 (b): on this host PIL {'imports' if present['PIL'] else 'is absent'}, "
+          f"imageio {'imports' if present['imageio'] else 'is absent'}")
+    with tempfile.TemporaryDirectory() as workdir:
+        shutil.copytree(G17_EXPERT, os.path.join(workdir, "trained_models", "expert",
+                                                 "pendulum_swingup", "0"))
+        cfg = Config.from_yaml(G12_L2_CONFIG).replace(
+            runtime__workdir=workdir, env__trajectories_path=GAN9_STORE,
+            **dict(G12_L2_CUTS, mpc__evaluate__save_video=True,
+                   mpc__evaluate__max_interactions=G17_VIDEO_STEPS))
+        ctx = common.setup(cfg, False, device=dev, generator=torch.Generator().manual_seed(SEED))
+        policy, s = ctx["policy"], ctx["policy"].settings
+        episodes = []
+
+        def capture(original):
+            def call(*args, **kwargs):
+                episodes.append(original(*args, **kwargs))
+                return episodes[-1]
+            return call
+
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with solves_recorded() as trips, wrapped(l2, "video_episode", capture):
+            if present["PIL"]:
+                path = l2.maybe_save_video(cfg, ctx, os.path.join(workdir, "run"),
+                                           torch.Generator().manual_seed(SEED))
+            else:
+                l2.video_episode(cfg, ctx, torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = count(kernels)
+        ep = episodes[0]
+        steps = ep.qpos.shape[1]
+        H, n, m = policy.horizon, ctx["env_im"].obs_size, ctx["env_im"].act_size
+        print(f"  the video's episode: 1 env x {steps} control steps on the card in {dt:.3f} s "
+              f"(one GPU: {card_line}), H={H}, iLQR <= {s.max_iterations}")
+        hold_launches("the video's episode", got, H, trips,
+                      policy.batch_native and s.fused_ls in ("on", "auto"),
+                      ls_materializes(s, H, 1, n, m), False)
+        # the same episode on the CPU: the card's weights and normalizer
+        cpu = common.setup(cfg, False, device="cpu",
+                           generator=torch.Generator().manual_seed(SEED))
+        load_policy_state(cpu["policy"], policy_state(policy))
+        norm = ctx["normalizer"]
+        cpu["normalizer"] = Normalizer(norm.state_mean.cpu(), norm.state_std.cpu(),
+                                       norm.action_mean.cpu(), norm.action_std.cpu())
+        q0, v0 = ep.qpos[:, 0].cpu(), ep.qvel[:, 0].cpu()
+
+        def cpu_qpos(scale):
+            init = EnvState(q0 * scale, v0, torch.zeros(1, dtype=torch.int32))
+            return l2.video_episode(cfg, cpu, init_state=init).qpos
+
+        ref = cpu_qpos(1.0)
+        spread = max((cpu_qpos(sc) - ref).abs().max().item() for sc in (1 + 1e-7, 1 - 1e-7))
+        d, tol = (ep.qpos.cpu() - ref).abs().max().item(), max(1e-3, 2.0 * spread)
+        print(f"  its qpos card vs CPU from the same reset: max|d|={d:.3e} (atol {tol:.3e}: "
+              f"max(1e-3, twice the CPU's own {spread:.3e} under 1 +- 1e-7 nudges of the reset))")
+        if not (d <= tol and bool(torch.isfinite(ep.qpos).all())):
+            raise SystemExit("the video's episode on the card disagrees with the CPU path")
+        if not present["PIL"]:
+            print("  video: not rendered, PIL absent on this host")
+            return {"video episode": got}
+        frames = video.render_episode(cfg.env.imitator.name, ep.qpos[0].cpu().numpy())
+        if path.endswith(".gif"):  # PIL's GIF writer merges a frame equal to the one before
+            from PIL import Image
+
+            want = 1 + sum(not np.array_equal(a, b) for a, b in zip(frames[1:], frames[:-1]))
+            with Image.open(path) as gif:
+                written = gif.n_frames
+        else:
+            import imageio.v2 as imageio
+
+            want, written = len(frames), len(imageio.mimread(path))
+        print(f"  video: {os.path.basename(path)} of {os.path.getsize(path)} bytes, {written} "
+              f"frames (expected {want} of the {steps} rendered)")
+        if written != want:
+            raise SystemExit("the video does not hold the episode's frames")
+    return {"video episode": got}
+
+
+def dm_absent_phase():
+    """Phase 17 (c): where dm_control does not import (the card's host),
+    ``runners.l2.dm_cross_eval`` gives None for a config that asks for the
+    cross-evaluation, as the JAX runner does."""
+    from gan_mpc_tpu_torch.config import Config
+    from gan_mpc_tpu_torch.envs import dm_eval
+    from gan_mpc_tpu_torch.runners import l2
+
+    cfg = Config.from_yaml(G12_CONFIG)
+    episodes = cfg.mpc.evaluate.dm_control_episodes
+    if dm_eval.dm_control_available():
+        print(f"phase 17 (c): dm_control imports on this host: {G12_CONFIG}'s {episodes} "
+              "cross-evaluation episodes would run (not run here)")
+        return
+    got = l2.dm_cross_eval(cfg, {})
+    print(f"phase 17 (c): dm_control does not import on this host; dm_cross_eval on "
+          f"{G12_CONFIG} ({episodes} episodes asked for): {got}, as the JAX runner gives")
+    if got is not None:
+        raise SystemExit("dm_cross_eval ran without dm_control")
+
+
+def pendulum_video_phase(kernels, card_line, dev):
+    """Phase 17: (a) the committed pendulum runs on their own stores, (b)
+    the video path, (c) the cross-evaluation without dm_control. Returns
+    the launches of each run."""
+    t_phase = time.perf_counter()
+    wall = {}
+    print("phase 17 (a): the committed pendulum runs served on their own stores")
+    launches = pendulum_runs_phase(kernels, card_line, dev)
+    wall["(a) pendulum runs"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    launches.update(video_phase(kernels, card_line, dev))
+    wall["(b) video"] = time.perf_counter() - t0
+    dm_absent_phase()
+    print(f"phase 17 wall s by piece: { {k: round(v, 1) for k, v in wall.items()} }; phase 17 "
+          f"wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def time_recorded(label, seen, keys, timed):
     """Time each MLP kernel and its plain version at the (stack, rows)
     pairs ``keys`` of ``seen`` (``shapes_recorded``) on the runs' own weights,
@@ -3776,6 +4019,11 @@ def main() -> int:
 
     # 16. the bf16 compute path and the associative Riccati
     launches.update(bf16_riccati_phase(instances, card_line, dev, max_err, timed))
+
+    # 17. the pendulum runs on their own stores, the video, dm_control absent
+    with shapes_recorded() as seen:
+        launches.update(pendulum_video_phase(kernels, card_line, dev))
+    check_recorded("phase 17", seen, checked, rng, dev, max_err)
 
     # the planner's line-search call (8192 rows) leads the forward kernels'
     # entries (at both dtypes), the trainer's call (128 rows) the backward

@@ -15,6 +15,13 @@ executed action, which the episode records (the dynamics trainer learns
 from the executed transitions). The standard normal draws come from the
 generator, one (B, act) draw per step, or from ``noise`` (T, B, act),
 which parity tests fill with the JAX package's draws.
+
+JAX's ``episode_rollout`` (one env under ``jit``), ``batched_rollout``
+(its ``vmap``) and ``chunked_batched_rollout`` (the same episode cut into
+jitted chunks, defined to give the same numbers) are the shapes XLA needs
+for what ``batch_policy_rollout`` does in one loop, so they have no
+counterparts: the evaluation video's one-env episode is
+``policy_rollout`` with ``num_envs=1`` (``runners/l2.video_episode``).
 """
 
 from __future__ import annotations

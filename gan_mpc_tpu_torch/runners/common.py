@@ -23,9 +23,8 @@ saved expert predictor, training one where none matches the store's data
     stays refused (``check_supported``, item 9(b));
   * ``maybe_clear_caches``, ``maybe_mesh`` and the runners'
     ``runtime_setup`` manage XLA's compile caches and device meshes and
-    have no counterpart; ``check_supported`` refuses the training settings
-    whose paths are not ported (video, data parallel, the dm_control
-    cross-evaluation where it would run).
+    have no counterpart; ``check_supported`` refuses the training setting
+    whose path is not ported (data parallel).
 
 Random draws come from ``torch.Generator``s: the collection from one
 seeded with ``seed + 7`` (where JAX seeds its key), the expert trainer
@@ -316,42 +315,14 @@ def ensure_trajectories(config: Config, device="cuda") -> TrajectorySet:
     return load_store(config, path)
 
 
-# dm_control's suite tasks of the repo's envs (``gan_mpc_tpu/envs/dm_eval.py``)
-DM_SUITE_NAMES = ("pendulum_swingup", "cartpole_balance", "cheetah_run", "walker_walk")
-
-
-def dm_cross_eval_runs(config: Config) -> bool:
-    """Whether the JAX run would cross-evaluate in real dm_control:
-    ``mpc.evaluate.dm_control_episodes`` > 0, dm_control importable and the
-    imitator env a suite task."""
-    if not config.get_path("mpc.evaluate.dm_control_episodes", 0):
-        return False
-    try:
-        import dm_control.suite  # noqa: F401
-    except Exception:
-        return False
-    return config.env.imitator.name in DM_SUITE_NAMES
-
-
 def check_supported(config: Config) -> None:
     """Raise ``NotImplementedError``, before any work, for a training-run
-    setting whose path is not ported, naming its ROADMAP Queue 1 item; the
-    dm_control cross-evaluation where it would run (``dm_cross_eval_runs``).
-    Every dynamics ``build_dynamics_model`` builds trains: the residual
-    MLP, the LSTM net and the ensemble."""
-    if dm_cross_eval_runs(config):
-        raise NotImplementedError(
-            "the dm_control cross-evaluation (envs/dm_eval.py) is not ported (item 8(c) of "
-            "ROADMAP Queue 1); set mpc.evaluate.dm_control_episodes: 0")
-    unported = [
-        (config.get_path("mpc.evaluate.save_video", False), "mpc.evaluate.save_video: true",
-         "video, item 8(c)"),
-        (int(config.get_path("runtime.data_parallel_devices", 1) or 1) > 1,
-         "runtime.data_parallel_devices > 1", "data parallel, item 9(b)"),
-    ]
-    for on, setting, item in unported:
-        if on:
-            raise NotImplementedError(f"{setting} is not ported ({item} of ROADMAP Queue 1)")
+    setting whose path is not ported, naming its ROADMAP Queue 1 item:
+    data parallelism (item 9(b)). Every dynamics ``build_dynamics_model``
+    builds trains, the dm_control cross-evaluation and the video run."""
+    if int(config.get_path("runtime.data_parallel_devices", 1) or 1) > 1:
+        raise NotImplementedError("runtime.data_parallel_devices > 1 is not ported (data "
+                                  "parallel, item 9(b) of ROADMAP Queue 1)")
 
 
 def phase_optimizers(ctx: dict) -> dict:

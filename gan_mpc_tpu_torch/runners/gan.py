@@ -23,9 +23,9 @@ With ``runtime.fused_epochs`` the epochs are the fused ones
 ``expert_prediction.dagger`` (``dagger_rounds``), as in JAX, where they
 run in the fused branch only: the modular run ignores them.
 
-Not ported here, and refused by ``common.check_supported``: video and
-data-parallel runs; the dm_control cross-evaluation raises where JAX
-would run it (``l2.dm_cross_eval``).
+The end (``l2.finish_run``) is the L2 run's: the dm_control
+cross-evaluation and the video included. Not ported here, and refused by
+``common.check_supported``: data-parallel runs.
 """
 
 from __future__ import annotations

@@ -30,12 +30,16 @@ in place of the modular loop: the same checkpoints, evaluation and end,
 the metrics under JAX's fused names and the ``[l2/fused]`` log lines. The
 L2 run ignores ``expert_prediction.dagger``, as JAX's does.
 
+At the end, ``dm_cross_eval`` rolls the policy in the real dm_control
+task (``envs/dm_eval.py``; None where dm_control does not import) and,
+with ``mpc.evaluate.save_video``, ``maybe_save_video`` renders one
+evaluation episode into ``<run_dir>/video.mp4`` (a GIF where imageio has
+no ffmpeg), as the JAX run does.
+
 Differences from the JAX run: ``runtime.eval_chunk_steps`` is accepted and
 the episode runs whole (JAX's chunked rollout is defined to be
-bit-identical to the whole one); ``dm_cross_eval`` returns None where JAX
-does, and where JAX would roll in dm_control (``envs/dm_eval.py`` is not
-ported) the run raises before it starts, as for the other settings of
-``common.check_supported``.
+bit-identical to the whole one); data-parallel runs are refused
+(``common.check_supported``).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import torch
 
 from gan_mpc_tpu_torch import resolve_device
 from gan_mpc_tpu_torch.config import Config
+from gan_mpc_tpu_torch.envs import dm_eval
 from gan_mpc_tpu_torch.envs.rollout import policy_rollout
 from gan_mpc_tpu_torch.params import to_jax_params
 from gan_mpc_tpu_torch.policies.losses import l2_imitation_loss
@@ -58,7 +63,7 @@ from gan_mpc_tpu_torch.training.cost import train_cost
 from gan_mpc_tpu_torch.training.dynamics import _run_updates, train_dynamics
 from gan_mpc_tpu_torch.training.fused_epoch import make_fused_gan_epoch, make_fused_l2_epoch
 from gan_mpc_tpu_torch.training.masking import load_policy_state, policy_state
-from gan_mpc_tpu_torch.utils import io
+from gan_mpc_tpu_torch.utils import io, video
 from gan_mpc_tpu_torch.utils.checkpoint import TrainCheckpointer
 from gan_mpc_tpu_torch.utils.metrics import MetricsRecorder, profiler_trace
 
@@ -153,14 +158,58 @@ def select_best_params(config: Config, ctx: dict, params: dict, generator: torch
 
 
 def dm_cross_eval(config: Config, ctx: dict, log_fn=None):
-    """The cross-check inside real dm_control: None where the JAX run
-    gives None (``mpc.evaluate.dm_control_episodes`` 0, dm_control not
-    importable, or an env without a suite task); where JAX would roll the
-    policy in dm_control, raises ``NotImplementedError`` (as ``run`` does
-    before it starts)."""
-    if not common.dm_cross_eval_runs(config):
+    """The final cross-check inside real dm_control (the reference's reward
+    protocol): ``mpc.evaluate.dm_control_episodes`` episodes of
+    ``mpc.evaluate.max_interactions`` steps of the policy's ``act`` in the
+    suite task, the imitator's physics shift applied. Returns ``{"mean":
+    ..., "episodes": [...]}`` rounded to 2 places, or None where the JAX
+    run gives None: 0 episodes, dm_control not importable, or an env
+    without a suite task."""
+    episodes = config.get_path("mpc.evaluate.dm_control_episodes", 0)
+    if not episodes:
         return None
-    common.check_supported(config)
+    name = config.env.imitator.name
+    if not dm_eval.dm_control_available() or not dm_eval.has_dm_counterpart(name):
+        return None
+    policy = ctx["policy"]
+
+    @torch.no_grad()
+    def act(hx, hu):
+        return policy.act(hx[None], hu[None])[0]
+
+    shifts = [dict(kv) for kv in (config.env.imitator.get_path("physics") or [])]
+    mean_ret, per = dm_eval.evaluate_in_dm_control(
+        name, act, ctx["normalizer"], history=config.mpc.history, num_episodes=episodes,
+        max_steps=config.get_path("mpc.evaluate.max_interactions", 1000),
+        physics_shifts=shifts)
+    if log_fn is not None:
+        log_fn(f"[dm_control] {name} mean {mean_ret:.1f} over {episodes} eps: "
+               f"{[round(r, 1) for r in sorted(per)]}")
+    return {"mean": round(mean_ret, 2), "episodes": [round(r, 2) for r in per]}
+
+
+def video_episode(config: Config, ctx: dict, generator: Optional[torch.Generator] = None,
+                  init_state=None):
+    """The video's episode: one env for ``min(mpc.evaluate.max_interactions,
+    300)`` control steps of the closed loop, from ``init_state`` where given,
+    else a reset drawn from ``generator``."""
+    steps = min(config.get_path("mpc.evaluate.max_interactions", 1000), 300)
+    return policy_rollout(ctx["env_im"], ctx["env_im_params"], ctx["policy"], ctx["normalizer"],
+                          num_steps=steps, history=config.mpc.history, num_envs=1,
+                          init_state=init_state, generator=generator)
+
+
+def maybe_save_video(config: Config, ctx: dict, run_dir: str,
+                     generator: torch.Generator) -> Optional[str]:
+    """With ``mpc.evaluate.save_video``: ``video_episode`` on the policy's
+    device, its qpos rendered on the host (``utils/video.py``) into
+    ``<run_dir>/video.mp4``, or a GIF beside it where imageio cannot write
+    mp4. Returns the path written (None without the setting)."""
+    if not config.get_path("mpc.evaluate.save_video", False):
+        return None
+    ep = video_episode(config, ctx, generator)
+    frames = video.render_episode(ctx["env_im"].name, ep.qpos[0].cpu().numpy())
+    return video.save_video(frames, os.path.join(run_dir, "video.mp4"))
 
 
 def episode_returns(config: Config, ctx: dict, generator: Optional[torch.Generator],
@@ -351,8 +400,8 @@ def fused_epochs(config: Config, ctx: dict, opts: dict, generator: torch.Generat
 def finish_run(config: Config, ctx: dict, generator: torch.Generator, history: dict, metrics,
                ckpt, family: str, log_fn=None) -> dict:
     """The end of a run: selection, calibration, the final, fresh and
-    dm_control evaluations, the saved run; then the checkpoints are
-    cleared. Returns the run's result."""
+    dm_control evaluations, the saved run and its video; then the
+    checkpoints are cleared. Returns the run's result."""
     policy = ctx["policy"]
     select_best_params(config, ctx, policy_state(policy), split(generator), log_fn)
     calibrate_gain(config, ctx, split(generator), log_fn)
@@ -385,6 +434,7 @@ def finish_run(config: Config, ctx: dict, generator: torch.Generator, history: d
     }, os.path.join(run_dir, "config.json"))
     for name, values in history.items():
         io.save_json(values, os.path.join(run_dir, f"{name}.json"))
+    maybe_save_video(config, ctx, run_dir, split(generator))
     metrics.close()
     if ckpt is not None:
         # a completed run leaves no resume state behind

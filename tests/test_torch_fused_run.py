@@ -18,11 +18,11 @@ extra fused epoch):
     params and histories, the DAgger round and its extra epoch included;
   * an L2 config without a critic section runs (the phase optimizers read
     the critic's only where the policy has one);
-  * over the 17 committed configs: where each one stops in the port. With
-    dm_control importable (here) ``check_supported`` refuses the 9 that
-    cross-evaluate in it and 8 run (the two ensemble configs
-    ``humanoid_scale*.yaml`` among them); with dm_control unimportable
-    (the card's host) it refuses none and all 17 run;
+  * over the 17 committed configs: where each one stops in the port.
+    ``check_supported`` refuses none, with dm_control importable (here,
+    where the 9 that cross-evaluate in it do so) and unimportable (the
+    card's host): all 17 run, the two ensemble configs
+    ``humanoid_scale*.yaml`` among them;
   * an ensemble run's ``params.msgpack`` (``humanoid_scale.yaml``'s
     8-member ensemble at narrow widths, saved by ``utils/io.save_params``)
     reads back in JAX's ``io.load_params`` and the port's ``load_msgpack``
@@ -43,7 +43,7 @@ import torch
 from gan_mpc_tpu.config import Config as JaxConfig
 from gan_mpc_tpu.utils import io as jio
 from gan_mpc_tpu_torch.config import Config
-from gan_mpc_tpu_torch.envs import make_env
+from gan_mpc_tpu_torch.envs import dm_eval, make_env
 from gan_mpc_tpu_torch.params import load_msgpack, to_jax_params
 from gan_mpc_tpu_torch.runners import common, gan, l2
 from test_torch_pendulum import REPO
@@ -187,9 +187,9 @@ def test_run_with_ensemble_or_lstm_dynamics_saves_what_jax_loads(tmp_path, use):
     assert_params_equal(to_jax_params(cont["policy"]), out["params"])
 
 
-# where each committed config stops in the port on a host without
-# dm_control (the card's): None runs; else check_supported's refusal, which
-# names the ROADMAP Queue 1 item it waits on (none is left there)
+# where each committed config stops in the port, with dm_control or
+# without it (the card's host): None runs; else check_supported's refusal,
+# which names the ROADMAP Queue 1 item it waits on (none is left there)
 STOPS = {
     "gan_cheetah.yaml": None,
     "gan_cheetah_quality.yaml": None,
@@ -209,9 +209,7 @@ STOPS = {
     "l2_pendulum.yaml": None,
     "l2_pendulum_quality.yaml": None,
 }
-# where dm_control imports (here), check_supported first refuses these: they
-# cross-evaluate in dm_control
-DM_CROSS_EVAL = "check_supported: dm_control cross-evaluation, item 8(c)"
+# the configs that cross-evaluate in dm_control where it imports (here)
 CROSS_EVALUATED = {"gan_cheetah_quality.yaml", "gan_pendulum_continue.yaml",
                    "gan_pendulum_quality.yaml", "gan_pendulum_rung4.yaml",
                    "gan_pendulum_rung5.yaml", "gan_pendulum_rung5b.yaml", "gan_walker.yaml",
@@ -226,7 +224,7 @@ def stop_of(config: Config):
         common.check_supported(config)
     except NotImplementedError as e:
         assert "ROADMAP Queue 1" in str(e)
-        return DM_CROSS_EVAL if "dm_control" in str(e) else str(e)
+        return str(e)
     make_env(config.env.name, "cpu")
     common.build_dynamics_model(config, 3, 1)
     return None
@@ -244,13 +242,13 @@ def test_where_each_committed_config_stops(monkeypatch):
     dagger = [n for n, c in configs.items()
               if c.get_path("expert_prediction.dagger.rounds", 0) > 0]
     assert len(fused) == 16 and len(dagger) == 10
-    # dm_control imports here: the cross-evaluation refuses its 9 configs first
-    assert {name: stop_of(cfg) for name, cfg in configs.items()} == {
-        name: DM_CROSS_EVAL if name in CROSS_EVALUATED else stop for name, stop in STOPS.items()}
-    assert sorted(n for n, c in configs.items() if stop_of(c) is None) == [
-        "gan_cheetah.yaml", "gan_humanoid_walk.yaml", "gan_humanoid_walk_continue.yaml",
-        "gan_humanoid_walk_continue2.yaml", "gan_pendulum.yaml", "humanoid_scale.yaml",
-        "humanoid_scale_continue.yaml", "l2_pendulum.yaml"]
+    # dm_control imports here: the 9 configs that cross-evaluate in it run too
+    assert dm_eval.dm_control_available()
+    assert sorted(n for n, c in configs.items()
+                  if c.get_path("mpc.evaluate.dm_control_episodes", 0) > 0) == sorted(
+        CROSS_EVALUATED)
+    assert {name: stop_of(cfg) for name, cfg in configs.items()} == STOPS
+    assert sorted(n for n, c in configs.items() if stop_of(c) is None) == sorted(STOPS)
     # without dm_control (the card's host) check_supported refuses none: all
     # 17 configs run, the ensemble ones included
     for name in [m for m in sys.modules if m == "dm_control" or m.startswith("dm_control.")]:
@@ -258,7 +256,8 @@ def test_where_each_committed_config_stops(monkeypatch):
     monkeypatch.setitem(sys.modules, "dm_control", None)
     assert {name: stop_of(cfg) for name, cfg in configs.items()} == STOPS
     assert list(STOPS.values()) == [None] * 17
-    # nor does it name the dynamics at all any more
+    # nor does it name the dynamics or the video at all any more
     for use in ("mlp", "lstm", "ensemble"):
         common.check_supported(configs["humanoid_scale.yaml"].replace(
             mpc__model__dynamics__use=use))
+    common.check_supported(configs["l2_pendulum.yaml"].replace(mpc__evaluate__save_video=True))

@@ -15,11 +15,14 @@ repo's ``runs/``):
     its checkpoints are cleared at the end (the JAX
     ``test_l2_checkpoint_resume``, with periodic evaluation off: the
     checkpoint is taken before an epoch's evaluation, as in JAX);
-  * each setting whose path is not ported raises ``NotImplementedError``
-    before the run does any work; the fused epochs run, and DAgger rounds
-    leave the L2 and the modular GAN runs as they are, as in JAX;
-  * ``dm_cross_eval`` gives None with 0 episodes and where dm_control does
-    not import, and raises here, where it does.
+  * the setting whose path is not ported (data parallel) raises
+    ``NotImplementedError`` before the run does any work; the fused epochs
+    run, DAgger rounds leave the L2 and the modular GAN runs as they are,
+    as in JAX, the video is written at the end of the run and the
+    dm_control cross-evaluation (here, where dm_control imports) stamps
+    its one episode into ``config.json``;
+  * ``dm_cross_eval`` gives None with 0 episodes, for an env without a
+    suite task and where dm_control does not import.
 """
 
 import os
@@ -128,10 +131,8 @@ def test_l2_resume_equals_uninterrupted_run(tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    {"mpc__evaluate__save_video": True},
     {"runtime__data_parallel_devices": 2},
-    {"mpc__evaluate__dm_control_episodes": 2},  # dm_control imports here
-], ids=["video", "data_parallel", "dm_control"])
+], ids=["data_parallel"])
 @pytest.mark.parametrize("family", ["l2", "gan"])
 def test_unported_settings_raise(tmp_path, override, family):
     from gan_mpc_tpu_torch.runners import gan
@@ -146,17 +147,41 @@ DAGGER = {"rounds": 1, "num_segments": 4, "segment_steps": 12, "policy_episodes"
           "finetune_epochs": 1, "extra_epochs": 1}
 
 
-@pytest.mark.parametrize("setting", ["fused_epochs", "dagger"])
+@pytest.mark.parametrize("setting", ["fused_epochs", "dagger", "video", "dm_control"])
 @pytest.mark.parametrize("family", ["l2", "gan"])
 def test_settings_that_now_run(tmp_path, setting, family):
     """The fused epochs run, through the fused loop; DAgger rounds are left
     alone by the L2 run and the modular GAN run, which train as without
-    them (JAX runs DAgger in the GAN run's fused branch only)."""
+    them (JAX runs DAgger in the GAN run's fused branch only);
+    ``save_video`` writes the video of 15 steps into the run (a GIF where
+    imageio has no ffmpeg, as here); ``dm_control_episodes`` (dm_control
+    imports here) stamps the cross-evaluation's one episode, JAX's dict,
+    and logs JAX's ``[dm_control]`` line."""
     from gan_mpc_tpu_torch.runners import gan
 
     run = {"l2": l2, "gan": gan}[family].run
     cut = dict(mpc__evaluate__fresh_eval_episodes=2)
     logs = []
+    if setting == "video":
+        out = run(tiny_config(tmp_path, mpc__evaluate__save_video=True, **cut), log_fn=None,
+                  device="cpu")
+        written = [f for f in os.listdir(out["run_dir"]) if f.startswith("video.")]
+        assert written in (["video.mp4"], ["video.gif"])
+        if written == ["video.gif"]:  # whose writer merges a frame equal to the one before
+            from PIL import Image
+
+            with Image.open(os.path.join(out["run_dir"], "video.gif")) as gif:
+                assert 8 <= gif.n_frames <= 15 and gif.size == (320, 240)
+        return
+    if setting == "dm_control":
+        out = run(tiny_config(tmp_path, mpc__evaluate__dm_control_episodes=1, **cut),
+                  log_fn=logs.append, device="cpu")
+        stamp = l2.io.load_json(os.path.join(out["run_dir"], "config.json"))["dm_control_reward"]
+        assert sorted(stamp) == ["episodes", "mean"] and len(stamp["episodes"]) == 1
+        assert stamp["mean"] == round(stamp["episodes"][0], 2)
+        assert sum(m.startswith("[dm_control] pendulum_swingup mean ") and m.endswith(
+            "over 1 eps: " + str([round(stamp["episodes"][0], 1)])) for m in logs) == 1
+        return
     if setting == "fused_epochs":
         out = run(tiny_config(tmp_path, runtime__fused_epochs=True, **cut), log_fn=logs.append,
                   device="cpu")
@@ -175,8 +200,7 @@ def test_dm_cross_eval(tmp_path, monkeypatch):
     cfg = tiny_config(tmp_path)
     assert l2.dm_cross_eval(cfg, {}) is None  # 0 episodes
     on = cfg.replace(mpc__evaluate__dm_control_episodes=2)
-    with pytest.raises(NotImplementedError, match="dm_control"):
-        l2.dm_cross_eval(on, {})
+    assert l2.dm_cross_eval(on.replace(env__imitator__name="humanoid_walk"), {}) is None
     for name in [m for m in sys.modules if m == "dm_control" or m.startswith("dm_control.")]:
         monkeypatch.delitem(sys.modules, name)
     monkeypatch.setitem(sys.modules, "dm_control", None)  # import fails

@@ -22,7 +22,8 @@ where JAX's own nudges move them by 1.40e-3.
 
 Also: the port (the control path, the dynamics trainer, a cost-trainer
 step, the committed run gan/9 loaded and continued by a cut GAN epoch, a
-tiny L2 training run from config to saved run, a tiny fused GAN run with
+tiny L2 training run from config to saved run (and again with its video
+and a 1-episode dm_control cross-evaluation), a tiny fused GAN run with
 a DAgger round, a tiny GAN run from an empty workdir, which collects
 its expert store and trains its expert, and configs/gan_walker.yaml and
 configs/l2_cartpole_quality.yaml cut tiny, from empty workdirs)
@@ -238,6 +239,20 @@ BLOCKED_RUN = textwrap.dedent(
     out = l2.run(cfg, log_fn=None, device="cpu")
     assert sorted(load_params(os.path.join(out["run_dir"], "params.msgpack"))) == [
         "cost_params", "dynamics_params", "expert_params", "mpc_weights"]
+
+    # the same run with its video and a 1-episode dm_control cross-evaluation
+    from gan_mpc_tpu_torch.envs import dm_eval
+    from gan_mpc_tpu_torch.utils.io import load_json
+
+    out = l2.run(cfg.replace(mpc__evaluate__save_video=True,
+                             mpc__evaluate__dm_control_episodes=1), log_fn=None, device="cpu")
+    files = os.listdir(out["run_dir"])
+    assert "video.mp4" in files or "video.gif" in files, files
+    stamp = load_json(os.path.join(out["run_dir"], "config.json"))["dm_control_reward"]
+    if dm_eval.dm_control_available():
+        assert len(stamp["episodes"]) == 1 and stamp["mean"] == stamp["episodes"][0], stamp
+    else:
+        assert stamp is None
 
     # the fused epochs and a DAgger round with its extra fused epoch
     assert "gan_mpc_tpu_torch.training.fused_epoch" in mods

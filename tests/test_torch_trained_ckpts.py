@@ -81,9 +81,17 @@ def _repo_cwd(monkeypatch):
 
 @pytest.mark.parametrize("run", sorted(STORES))
 def test_committed_store_loads_in_both_packages(run, monkeypatch):
+    check_committed_store(run, STORES[run], monkeypatch)
+
+
+def check_committed_store(run, store, monkeypatch):
+    """``run``'s store is ``store`` under ``runs/expert_trajectories/`` in
+    both packages' ``trajectories_path``; each package's
+    ``ensure_trajectories`` finds it (collects nothing) and loads it
+    bitwise equal to the other's, and each reader reads it whole."""
     jcfg, pcfg = jcommon.load_run_config(run_dir(run)), common.load_run_config(run_dir(run))
     path = common.trajectories_path(pcfg)
-    assert path == jcommon.trajectories_path(jcfg) == f"runs/expert_trajectories/{STORES[run]}"
+    assert path == jcommon.trajectories_path(jcfg) == f"runs/expert_trajectories/{store}"
 
     def refuse(*args, **kwargs):
         raise AssertionError("collected: the committed store was not found")

@@ -22,6 +22,8 @@ cheetah gan/0 (goal projection), which this file leaves out to stay under
 a minute.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -85,12 +87,18 @@ def test_committed_store_loads_in_both_packages(run, monkeypatch):
     np.testing.assert_array_equal(raw.states, jax_load_trajectories(path, 100, 1000, -1.0).states)
 
 
-def check_served_steps(served, B, T, nudges, nudge_mean=True):
+def check_served_steps(served, B, T, nudges, nudge_mean=True, jax_normalizer=False):
     """JAX's batch policy closes the loop over B envs for T steps from its
-    resets (key 0); the port acts on the same observation histories; each
-    action within max(1e-3, 2 x JAX's spread under ``nudges`` of the raw
-    observations and (``nudge_mean``) of the normalizer's mean)."""
+    resets (key 0); the port acts on the same observation histories,
+    normalized by its own normalizer (by JAX's where ``jax_normalizer``);
+    each action within max(1e-3, 2 x JAX's spread under ``nudges`` of the
+    raw observations and (``nudge_mean``) of the normalizer's mean)."""
     _, ((jenv, jenv_params, _, _, _, jnorm, jpolicy, params, history), ckpt) = served
+    norm = ckpt.normalizer
+    if jax_normalizer:
+        norm = dataclasses.replace(norm, **{
+            f.name: torch.tensor(np.asarray(getattr(jnorm, f.name)))
+            for f in dataclasses.fields(norm)})
     assert history == 1
     act = jax.jit(jpolicy.act_batch)
     step = jax.jit(jax.vmap(jenv.step, in_axes=(None, 0, 0)))
@@ -112,7 +120,7 @@ def check_served_steps(served, B, T, nudges, nudge_mean=True):
                    + [dict(mean_scale=s) for s in nudges if nudge_mean]):
             nudged = np.asarray(act(params, *_windows(jnorm, O, A, t, **kw)))
             spread = np.maximum(spread, np.abs(nudged - want).max(-1))
-        got = ckpt.policy.act_batch(*_windows(ckpt.normalizer, O_t, A_t, t)).numpy()
+        got = ckpt.policy.act_batch(*_windows(norm, O_t, A_t, t)).numpy()
         dev, atol = np.abs(got - want).max(-1), np.maximum(1e-3, 2.0 * spread)
         assert (dev <= atol).all(), f"step {t}: |d| {dev} > {atol} (JAX's own spread {spread})"
 
