@@ -365,7 +365,39 @@ Phases, in order; any failure raises and exits non-zero:
      (c) where dm_control does not import (the card's host),
          ``runners.l2.dm_cross_eval`` on configs/gan_pendulum_rung5b.yaml
          (10 episodes asked for) gives None, as the JAX runner does.
-     Then the MLP kernels at phase 17's new (stack, rows) pairs, and the
+     Then the MLP kernels at phase 17's new (stack, rows) pairs.
+ 18. data parallelism over torch.distributed (``data_parallel_phase``; one
+     process per rank, ``parallel/launch.py``). The host has one card, so
+     the mesh is two gloo ranks sharing it (``G18_RANKS``), and a
+     one-rank NCCL group:
+     (a) ``dryrun_multichip(2)`` on the shared card and ``(1)`` on NCCL:
+         the sharded collection, the dynamics, critic and generator steps,
+         the ensemble over "ep", dp x tp and the fused GAN epoch in mesh
+         mode at the JAX dryrun's tiny shapes; JAX's line printed, every
+         loss finite;
+     (b) one fused GAN epoch of phase 12's configs/gan_pendulum_rung5b.yaml
+         at its full widths (gan/9's setup on its own store, ``G18_CUTS``)
+         from one snapshot and one set of global draws
+         (``parallel.checks.fused_epoch_case``), in mesh mode on the two
+         ranks and in one process on the card: the parameters (by
+         component), the metrics and the replay within max(base, twice
+         the single-process epoch's own spread under 1 +- 1e-7 and
+         1 +- 2e-7 nudges of its parameters and its collection's start
+         states, the nudged epochs run at once in processes of their own); each rank's launches against
+         ``mlp_calls_per_solve`` over its own solves and update steps,
+         then summed; both wall times printed (no speed claim: the ranks
+         share one card and the host);
+     (c) ``runners.gan.run`` of the same cut config with
+         ``runtime.data_parallel_devices: 2`` on the two ranks,
+         interrupted at its epoch-1 log line and resumed, and the same run
+         on one rank: rank 0 alone wrote the workdir (one saved run, one
+         metrics row, checkpoints cleared), the saved run loads with
+         ``bench.load_checkpoint``, and its served action on held-out
+         histories is within max(1e-3, twice the spread that (b)'s nudged
+         epochs give the served action) of the one-rank run's;
+     (d) where the host has two or more cards, (b)'s mesh epoch over NCCL
+         across up to four of them, held as in (b); else a line saying so.
+     Then the MLP kernels at phase 18's new (stack, rows) pairs, and the
      script's total wall time.
 The last two lines are the kernels' JSON summary (the bf16 instances
 beside the f32 ones) and {"ok": true, "device": {...}}. Exits 1 without a
@@ -483,18 +515,18 @@ G9_CHECK_STORE = "runs/expert_trajectories/pendulum_swingup/trajectories-f690b23
 G9_ROWS = (4096, 2048, 1024, 256, 128, 64, 16, 4, 1)
 G9_TIMED = [("dynamics", 256), ("dynamics", 4096), ("dynamics", 2048), ("dynamics", 128),
             ("cost", 256), ("cost", 4096)]
-# 25 of the episode's 1000 control steps (200 until phase 13 came, 100
-# until phase 14, 50 until phase 17: the script's time stays near half its
-# limit); swing-up takes about 160
-SERVE_ENVS, SERVE_STEPS = 16, 25
+# 12 of the episode's 1000 control steps (200 until phase 13 came, 100
+# until phase 14, 50 until phase 17, 25 until phase 18: the script's time
+# stays near half its limit); swing-up takes about 160
+SERVE_ENVS, SERVE_STEPS = 16, 12
 # phase 8's cuts of gan/9's config (the rest is the run's own). Its own
 # store holds 24 trajectories (the f690b23776 store phases 8-12 read
 # before holds 10), so a pass over the expert's dynamics windows is 149
 # minibatch steps, not 62: the warm-start and refresh passes are cut to
 # keep the steps near those phases' earlier count
-G9_CUTS = dict(mpc__train__dynamics__max_interactions_per_episode=25,  # of 300 (50 until
-               # phase 17: the script's time stays near half its limit)
-               mpc__train__dynamics__warm_start_updates=8,  # of 20
+G9_CUTS = dict(mpc__train__dynamics__max_interactions_per_episode=15,  # of 300 (50 until
+               # phase 17, 25 until phase 18: the script's time stays near half its limit)
+               mpc__train__dynamics__warm_start_updates=4,  # of 20 (8 until phase 18)
                mpc__train__dynamics__expert_updates=3,  # of 6
                mpc__train__cost__num_updates=1,  # of 3
                mpc__train__cost__steps_per_update=4,  # of 61
@@ -511,7 +543,7 @@ G9_RUN_CUTS = dict(G9_CUTS, mpc__train__num_epochs=2,  # of 9
                    mpc__evaluate__selection_episodes=4,  # of 16
                    mpc__evaluate__num_runs_for_avg=4,  # of 16
                    mpc__evaluate__fresh_eval_episodes=4,  # of 16
-                   mpc__evaluate__max_interactions=10,  # of 1000
+                   mpc__evaluate__max_interactions=5,  # of 1000 (10 until phase 18)
                    mpc__model__cost__calibrate_action_goal_gain=True,
                    mpc__model__cost__gain_grid=[1.0, 1.4],
                    mpc__model__cost__weights__action_goal_gain=1.0,
@@ -574,7 +606,8 @@ G12_CUTS = dict(
     mpc__train__dynamics__max_interactions_per_episode=20,  # of 300
     mpc__train__dynamics__num_updates=1,  # of 12 passes of 61 minibatch steps
     mpc__evaluate__every_epochs=1,  # of 3
-    mpc__evaluate__max_interactions=10,  # of 1000: evaluations and DAgger's policy episodes
+    # of 1000: evaluations and DAgger's policy episodes (10 until phase 18)
+    mpc__evaluate__max_interactions=5,
     mpc__evaluate__midrun_episodes=4,  # of 16
     mpc__evaluate__candidate_pool=2,  # of 6
     mpc__evaluate__selection_episodes=4,  # of 16
@@ -582,7 +615,8 @@ G12_CUTS = dict(
     mpc__evaluate__fresh_eval_episodes=4,  # of 16 (the default)
     expert_prediction__dagger__rounds=1,  # of 2
     expert_prediction__dagger__policy_episodes=4,  # of 8
-    expert_prediction__dagger__num_segments=32,  # of 384
+    # of 384 (32 until phase 18: 4 policy episodes of 5 steps give 20 states)
+    expert_prediction__dagger__num_segments=16,
     expert_prediction__dagger__segment_steps=50,  # of 200
     expert_prediction__dagger__finetune_epochs=1,  # of 8
     expert_prediction__dagger__extra_epochs=1,  # of 15
@@ -617,7 +651,8 @@ G13_CUTS = dict(
     mpc__train__dynamics__max_interactions_per_episode=20,  # of 300
     mpc__train__dynamics__num_updates=1,  # of 12 / 5 passes
     mpc__evaluate__every_epochs=1,  # of 2 / 5
-    mpc__evaluate__max_interactions=10,  # of 1000: evaluations and DAgger's policy episodes
+    # of 1000: evaluations and DAgger's policy episodes (10 until phase 18)
+    mpc__evaluate__max_interactions=5,
     mpc__evaluate__midrun_episodes=4,  # of 6 / 16
     mpc__evaluate__candidate_pool=2,  # of 4 / 6
     mpc__evaluate__selection_episodes=4,  # of 12 / 16
@@ -629,10 +664,11 @@ G13_CUTS = dict(
 G13_RUNS = [
     ("gan", "configs/gan_walker.yaml", dict(
         G13_CUTS,
-        mpc__train__num_epochs=2,  # of 16
+        mpc__train__num_epochs=1,  # of 16 (2 until phase 18)
         expert_prediction__dagger__rounds=1,  # of 2
         expert_prediction__dagger__policy_episodes=4,  # of 8
-        expert_prediction__dagger__num_segments=32,  # of 256
+        # of 256 (32 until phase 18: 4 policy episodes of 5 steps give 20 states)
+        expert_prediction__dagger__num_segments=16,
         expert_prediction__dagger__segment_steps=50,  # of 200
         expert_prediction__dagger__finetune_epochs=1,  # of 8
         expert_prediction__dagger__extra_epochs=0,  # of 8: the round ends in one evaluation
@@ -711,6 +747,42 @@ G17_SERVE_ENVS, G17_SERVE_STEPS = 16, 2
 G17_CHECK_ENVS = 4
 G17_EXPERT = "runs/trained_models/expert/pendulum_swingup/0"
 G17_VIDEO_STEPS = 40  # (b): of G12_L2_CUTS' 10, so that the rendered pendulum moves
+# phase 18: data parallelism. (b) and (c) run phase 12's config at its full
+# widths (4 envs, H=10, iLQR <= 30, gan/9's stacks, 3 generator steps of 128
+# histories, the critic and the test split on 64) with these cuts; the
+# runners' periodic evaluation is off, so the saved params are the epoch's
+G18_CUTS = dict(
+    mpc__train__num_epochs=1,  # of 9
+    mpc__train__num_trajectories=8,  # of the store's 24: a pass is 49 minibatch steps, not 149
+    mpc__train__dynamics__warm_start_updates=1,  # of 20 passes
+    mpc__train__dynamics__expert_updates=3,  # of 6
+    mpc__train__dynamics__max_interactions_per_episode=11,  # of 300: 1 window an env at H=10
+    mpc__train__dynamics__num_updates=1,  # of 12 passes
+    mpc__train__cost__num_updates=1,  # of 3 generator steps
+    mpc__evaluate__every_epochs=0,  # of 3
+    mpc__evaluate__max_interactions=5,  # of 1000
+    mpc__evaluate__num_runs_for_avg=1,  # of 16
+    mpc__evaluate__fresh_eval_episodes=0,  # of 16 (the default): none
+    expert_prediction__dagger__rounds=0,  # of 2 (phase 12 runs one)
+    runtime__checkpoint={"every_epochs": 1, "keep": 2},  # of every 10
+)
+G18_RANKS = ["cuda:0", "cuda:0"]  # two gloo ranks sharing the card
+G18_NCCL = ["cuda:0"]  # (a): a one-rank NCCL group
+# (b): the single-process epoch's own spread, as phases 11 and 15 take theirs;
+# the spread of the generator losses is heavy-tailed (on the CPU 3.5e-6 to
+# 1.2e-4 over these and 1 +- 5e-7), so two nudges can miss it
+G18_NUDGES = (1 + 1e-7, 1 - 1e-7, 1 + 2e-7, 1 - 2e-7)
+# (b): the bounds' floors, the metrics' relative to max(1, |value|). The
+# critic's and the generator's losses are means over 64-128 planned lanes of
+# gan/9's solves, which rounding-sized nudges move by up to 4.6e-2 a lane
+# (scripts/diag_gan9_conditioning.py): their spread under a few nudges is
+# heavy-tailed (1.2e-4 against 3.5e-6 from one nudge to the next on the CPU),
+# so they have a floor of their own
+G18_BASE = {"params": 1e-7, "metrics": 1e-5, "planned": 1e-3, "replay": 1e-5,
+            "action": 1e-3}
+G18_PLANNED = ("critic_loss", "generator_loss", "critic_test_loss", "generator_test_loss")
+G18_SERVE = 16  # (b), (c): held-out histories served by each epoch's or run's policy
+G18_TIMEOUT = 600.0  # seconds a rank waits on a collective before it raises
 # phase 16: the bf16 compute path and the associative Riccati
 BF16_CHECKS = [  # (kernel, name, lanes or rows, step sizes, n, m, gs); the dynamics stack
     ("fused_ls_step", "line search", 512, 16, 17, 6, 17),
@@ -3620,6 +3692,349 @@ def pendulum_video_phase(kernels, card_line, dev):
     return launches
 
 
+class Stop(RuntimeError):
+    """18 (c): the data-parallel run stopped at its epoch-1 log line."""
+
+
+class StopAt:
+    """18 (c): a log function the ranks can be sent: prints each line (rank
+    0 alone calls it), raises ``Stop`` after the one that starts with
+    ``prefix``."""
+
+    def __init__(self, prefix=None):
+        self.prefix = prefix
+
+    def __call__(self, msg):
+        print(f"  {msg}", flush=True)
+        if self.prefix is not None and msg.startswith(self.prefix):
+            raise Stop(msg)
+
+
+def mesh_ranks(device, case, n):
+    """18 (a) and (b) on each rank of one group of ``n``: ``dryrun_rank``,
+    then ``case``'s fused epoch in mesh mode with its MLP calls, solves and
+    update steps recorded. Rank 0 returns the epoch's result, the dryrun's
+    losses and every rank's launches, records and epoch seconds."""
+    import torch.distributed as dist
+
+    from gan_mpc_tpu_torch.parallel.checks import fused_epoch_case
+    from gan_mpc_tpu_torch.parallel.dryrun import dryrun_rank
+
+    losses = dryrun_rank(device, n)
+    synchronize(device)
+    t0 = time.perf_counter()
+    with shapes_recorded() as seen, solves_recorded() as trips, \
+            update_steps_recorded() as steps:
+        out = fused_epoch_case(device, case, n)
+    synchronize(device)
+    mine = dict(launches=out["launches"], trips=list(trips), steps=dict(steps),
+                seconds=time.perf_counter() - t0,
+                seen={k: [(w.cpu(), b.cpu()) for w, b in v] for k, v in seen.items()})
+    every = [None] * n
+    dist.all_gather_object(every, mine)
+    return dict(out, losses=losses, ranks=every)
+
+
+def nudged_ranks(device, case, nudges):
+    """18 (b): rank r's epoch of ``case`` in one process (no mesh), its
+    parameters and its collection's start states scaled by ``nudges[r]``
+    (the mesh moves the collection's rounding at every step, as a nudged
+    start does); rank 0 returns every rank's."""
+    import torch.distributed as dist
+
+    from gan_mpc_tpu_torch.parallel.checks import fused_epoch_case
+
+    s = nudges[dist.get_rank()]
+    draws = dict(case["draws"], reset_qpos=case["draws"]["reset_qpos"] * np.float32(s))
+    out = fused_epoch_case(device, dict(case, params=scaled_tree(case["params"], s),
+                                        draws=draws))
+    every = [None] * len(nudges)
+    dist.all_gather_object(every, out)
+    return every
+
+
+def synchronize(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def reckon_epoch(trips, steps, horizon):
+    """The MLP kernels' launches of a fused GAN epoch (phase 12's count): the
+    solves' forwards over their trips, H a dynamics step and H + 1 a
+    generator step forwards, H a step backwards."""
+    from gan_mpc_tpu_torch.planner.batch_ilqr import mlp_calls_per_solve
+
+    solves = dict(mlp_calls_per_solve(horizon, sum(trips), solves=len(trips),
+                                      materialize=False))
+    return {"fused_mlp_fwd": solves["fused_mlp_fwd"] + horizon * steps["dynamics"]
+            + (horizon + 1) * steps["cost"], "fused_ls_step": 0,
+            "fused_mlp_bwd": horizon * (steps["dynamics"] + steps["cost"])}
+
+
+def epoch_snapshot(cfg, dev):
+    """18 (b): gan/9's run set up from ``cfg`` on the card, as plain data for
+    ``fused_epoch_case``, with one set of global draws from a seeded
+    generator; and the held-out histories (normalized) the policies serve."""
+    from gan_mpc_tpu_torch.params import to_jax_params
+    from gan_mpc_tpu_torch.runners import common, l2
+
+    ctx = common.setup(cfg, True, device=dev, generator=torch.Generator().manual_seed(cfg.seed))
+    kw = l2.fused_epoch_kwargs(cfg, ctx, "gan")
+    kw.pop("chunk_updates")
+    (X, Y), (tX, tY) = ctx["cost_data"]
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    H, n, T, B = cfg.mpc.horizon, kw["num_envs"], kw["episode_steps"], kw["batch_size"]
+    k = kw["critic_plan_batch"]
+    g = torch.Generator().manual_seed(SEED)
+    reset = ctx["env_im"].reset(ctx["env_im_params"], n, g)
+    draws = dict(
+        reset_qpos=host(reset.qpos), reset_qvel=host(reset.qvel), reset_t=host(reset.t),
+        noise=host(torch.randn((T, n, ctx["env_im"].act_size), generator=g)),
+        dyn_perm=host(torch.randint(n * (T - H), (kw["dynamics_updates"]
+                                                   * max(X.shape[0] // B, 1), B), generator=g)),
+        exp_perm=host(torch.randint(ctx["dyn_train"][0].shape[0], (kw["expert_dyn_updates"], B),
+                                    generator=g)),
+        plan_idx=host(torch.randperm(X.shape[0], generator=g)[:k]),
+        shuffle=host(torch.randperm(2 * k, generator=g)),
+        crit_perm=host(torch.randint(2 * k, (kw["critic_updates"], B), generator=g)),
+        cost_perm=host(torch.randint(X.shape[0], (kw["cost_updates"], B), generator=g)))
+    norm = ctx["normalizer"]
+    case = {"family": "gan", "config": cfg.to_dict(), "sizes": (3, 1),
+            "params": to_jax_params(ctx["policy"]),
+            "normalizer": {f: host(getattr(norm, f)) for f in
+                           ("state_mean", "state_std", "action_mean", "action_std")},
+            "data": {"exp_X": host(X), "exp_Y": host(Y), "test_X": host(tX), "test_Y": host(tY),
+                     "dyn": tuple(host(t) for t in ctx["dyn_train"])},
+            "replay_capacity": cfg.mpc.train.dynamics.replay_buffer_size, "kwargs": kw,
+            "draws": draws, "teacher_forcing": True}
+    return case, tX[:G18_SERVE]
+
+
+def served_action(cfg, tree, hX, dev):
+    """The first action the policy of ``tree`` plans on histories ``hX``."""
+    from gan_mpc_tpu_torch.params import from_jax_params
+    from gan_mpc_tpu_torch.runners import common
+
+    policy = from_jax_params(tree, common.build_policy(cfg, 3, 1, True, dev))
+    with torch.no_grad():
+        return policy.plan_batch(hX, hX.new_zeros((hX.shape[0], 1, 1))).U[:, 0].cpu()
+
+
+def by_component(tree):
+    out = {}
+    for name, leaf in leaves_of(tree):
+        out.setdefault(name.split("/")[0], []).append((name, leaf))
+    return out
+
+
+def hold_epoch(label, got, single, nudged):
+    """18 (b), (d): ``got``'s parameters (by component), metrics and replay
+    against ``single``'s within max(base, twice the spread of ``nudged``
+    against ``single``)."""
+    def held(what, d, spread, base):
+        tol = max(base, 2 * spread)
+        print(f"    {label} {what}: max|d| {d:.3e} (tol {tol:.3e}, the single process's own "
+              f"spread {spread:.3e})")
+        if not d <= tol:
+            raise SystemExit(f"phase 18 {label}: {what} is beyond the single-process epoch's "
+                             "own spread")
+
+    comps = by_component(single["params"])
+    got_leaves = dict(leaves_of(got["params"]))
+    nudged_leaves = [dict(leaves_of(n["params"])) for n in nudged]
+    for comp, items in comps.items():
+        d = max(np.abs(got_leaves[name] - leaf).max() for name, leaf in items)
+        spread = max(np.abs(n[name] - leaf).max() for n in nudged_leaves for name, leaf in items)
+        held(f"params {comp}", d, spread, G18_BASE["params"])
+    for name, value in single["metrics"].items():
+        spread = max(abs(n["metrics"][name] - value) for n in nudged)
+        base = G18_BASE["planned" if name in G18_PLANNED else "metrics"]
+        held(f"metric {name} ({value:.6g})", abs(got["metrics"][name] - value), spread,
+             base * max(1.0, abs(value)))
+    if got["replay"]["size"] != single["replay"]["size"]:
+        raise SystemExit(f"phase 18 {label}: the replay holds {got['replay']['size']} windows, "
+                         f"the single process's {single['replay']['size']}")
+    for name in ("states", "actions", "next_states"):
+        ref = single["replay"][name]
+        spread = max(np.abs(n["replay"][name] - ref).max() for n in nudged)
+        held(f"replay {name}", np.abs(got["replay"][name] - ref).max(), spread,
+             G18_BASE["replay"])
+
+
+def epoch_reference(cfg, dev, label):
+    """18 (b), (d): ``epoch_snapshot`` of ``cfg``, its fused epoch in one
+    process on the card (launches against the reckoning, (stack, rows)
+    pairs recorded) and under ``G18_NUDGES``, and the spread the nudges give
+    the served action on the held-out histories."""
+    from gan_mpc_tpu_torch.parallel.checks import fused_epoch_case
+
+    case, hX = epoch_snapshot(cfg, dev)
+    synchronize(dev)
+    t0 = time.perf_counter()
+    with shapes_recorded() as seen, solves_recorded() as trips, \
+            update_steps_recorded() as steps:
+        single = fused_epoch_case(dev, case)
+    synchronize(dev)
+    seconds = time.perf_counter() - t0
+    want = reckon_epoch(trips, steps, cfg.mpc.horizon)
+    if single["launches"] != want:
+        raise SystemExit(f"{label}: the single-process epoch launched {single['launches']}, "
+                         f"reckoned {want}")
+    from gan_mpc_tpu_torch.parallel import launch
+
+    # the nudged epochs are independent: one process each, at once
+    nudged = launch.spawn(nudged_ranks, [str(dev)] * len(G18_NUDGES), (case, G18_NUDGES),
+                          G18_TIMEOUT)
+    a_single = served_action(cfg, single["params"], hX, dev)
+    serve_spread = max((served_action(cfg, n["params"], hX, dev) - a_single).abs().max().item()
+                       for n in nudged)
+    return dict(case=case, hX=hX, single=single, nudged=nudged, serve_spread=serve_spread,
+                seen=seen, seconds=seconds)
+
+
+def dp_run_check(cfg, devices, ref, dev, workdir, label):
+    """18 (c): ``runners.gan.run`` of ``cfg`` on one rank per entry of
+    ``devices``, interrupted at its epoch-1 log line and resumed, and on one
+    rank: rank 0 alone wrote the workdir, both saved runs load with
+    ``bench.load_checkpoint``, and the served action on ``ref``'s histories
+    is within max(1e-3, twice ``ref``'s nudged epochs' spread)."""
+    import os
+
+    from gan_mpc_tpu_torch.bench import load_checkpoint
+    from gan_mpc_tpu_torch.runners import gan, l2
+
+    dp_cfg = cfg.replace(runtime__data_parallel_devices=len(devices))
+    t0 = time.perf_counter()
+    try:
+        gan.run(dp_cfg, log_fn=StopAt("[gan/fused] epoch 1 "), device=dev, devices=devices)
+        raise SystemExit(f"{label}: the data-parallel run was not interrupted")
+    except Stop:
+        pass
+    if l2.checkpointer_for(dp_cfg, "gan").latest_step() != 1:
+        raise SystemExit(f"{label}: the interrupted run left no epoch-1 checkpoint")
+    out = gan.run(dp_cfg, log_fn=StopAt(), device=dev, devices=devices)
+    dp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = gan.run(cfg.replace(runtime__workdir=os.path.join(workdir, "one")), log_fn=None,
+                  device=dev)
+    one_s = time.perf_counter() - t0
+    family_dir = os.path.dirname(out["run_dir"])
+    with open(os.path.join(cfg.runtime.workdir, "metrics", cfg.env.name, "gan.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    epoch_rows = [r["step"] for r in rows if "episode_return" in r]
+    left = os.listdir(os.path.join(cfg.runtime.workdir, "checkpoints", cfg.env.name, "gan"))
+    print(f"  {label} the data-parallel run on {devices}, interrupted and resumed: {dp_s:.1f} s "
+          f"(two spawns); the one-rank run {one_s:.1f} s; the workdir holds "
+          f"{os.listdir(family_dir)} under {family_dir}, metrics epoch rows {epoch_rows}, "
+          f"checkpoints left {left}")
+    if os.listdir(family_dir) != [os.path.basename(out["run_dir"])] or epoch_rows != [1] or left:
+        raise SystemExit(f"{label}: the workdir holds more than rank 0's files")
+    served = {}
+    hX = ref["hX"]
+    for name, run in (("data parallel", out), ("one rank", one)):
+        ckpt = load_checkpoint(run["run_dir"], dev)
+        with torch.no_grad():
+            served[name] = ckpt.policy.plan_batch(
+                hX, hX.new_zeros((hX.shape[0], 1, 1))).U[:, 0].cpu()
+    d = (served["data parallel"] - served["one rank"]).abs().max().item()
+    tol = max(G18_BASE["action"], 2 * ref["serve_spread"])
+    params_d = max(np.abs(a - dict(leaves_of(one["params"]))[n]).max()
+                   for n, a in leaves_of(out["params"]))
+    print(f"  {label} both saved runs load with bench.load_checkpoint; served action on "
+          f"{G18_SERVE} held-out histories: max|d| {d:.3e} (tol {tol:.3e}: twice the nudged "
+          f"epochs' {ref['serve_spread']:.3e}); saved params max|d| {params_d:.3e}")
+    if not d <= tol:
+        raise SystemExit(f"{label}: the data-parallel run serves beyond the bound")
+
+
+def g18_config(workdir):
+    """Phase 12's config continued from gan/9 on its own store, cut by
+    ``G18_CUTS``, in ``workdir``."""
+    import os
+
+    from gan_mpc_tpu_torch.config import Config
+
+    return Config.from_yaml(G12_CONFIG).replace(
+        runtime__workdir=os.path.join(workdir, "dp"), env__trajectories_path=GAN9_STORE,
+        **G18_CUTS)
+
+
+def data_parallel_phase(kernels, card_line, dev):
+    """Phase 18 (module docstring): (a)-(d). Returns (launches by path, the
+    (stack, rows) pairs the ranks' and the single process's epochs gave
+    the MLP kernels)."""
+    import tempfile
+
+    from gan_mpc_tpu_torch.parallel import launch
+    from gan_mpc_tpu_torch.parallel.checks import fused_epoch_on_ranks
+    from gan_mpc_tpu_torch.parallel.dryrun import dryrun_line, dryrun_multichip
+
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        cfg = g18_config(workdir)
+        print(f"phase 18: data parallelism ({G12_CONFIG} continued from gan/9 on "
+              f"{GAN9_STORE}; cuts {G18_CUTS}); ranks {G18_RANKS} over gloo (one GPU: "
+              f"{card_line})")
+        # (b) in one process on the card, then under the nudges
+        ref = epoch_reference(cfg, dev, "phase 18 (b)")
+        case, single, nudged, seen = ref["case"], ref["single"], ref["nudged"], ref["seen"]
+        launches["phase 18 single-process epoch"] = single["launches"]
+
+        # (a) and (b) on the two ranks in one group, then (a) on NCCL
+        t0 = time.perf_counter()
+        mesh = launch.spawn(mesh_ranks, G18_RANKS, (case, len(G18_RANKS)), G18_TIMEOUT)
+        mesh_s = time.perf_counter() - t0
+        print(dryrun_line(len(G18_RANKS), mesh["losses"]))
+        t0 = time.perf_counter()
+        dryrun_multichip(len(G18_NCCL), G18_NCCL, G18_TIMEOUT)
+        print(f"  (a) the one-rank NCCL dryrun {time.perf_counter() - t0:.1f} s (spawn included)")
+        total = {}
+        for rank, rec in enumerate(mesh["ranks"]):
+            want = reckon_epoch(rec["trips"], rec["steps"], cfg.mpc.horizon)
+            print(f"  (b) rank {rank}: {len(rec['trips'])} solves of {sum(rec['trips'])} trips, "
+                  f"{rec['steps']['dynamics']} dynamics and {rec['steps']['cost']} generator "
+                  f"steps at its rows; launches {rec['launches']} (reckoned {want}); epoch "
+                  f"{rec['seconds']:.3f} s")
+            if rec["launches"] != want:
+                raise SystemExit(f"phase 18 (b): rank {rank}'s launches are not as reckoned")
+            for name, count in rec["launches"].items():
+                total[name] = total.get(name, 0) + count
+            for key, layers in rec["seen"].items():
+                seen.setdefault(key, [(w.to(dev), b.to(dev)) for w, b in layers])
+        launches[f"phase 18 mesh epoch ({len(G18_RANKS)} ranks, summed)"] = total
+        print(f"  (b) the fused GAN epoch: one process {ref['seconds']:.3f} s; mesh mode on "
+              f"{len(G18_RANKS)} ranks sharing the card {max(r['seconds'] for r in mesh['ranks']):.3f}"
+              f" s ({mesh_s:.1f} s with the spawn and (a)'s dryrun); launches summed {total}, "
+              f"one process {single['launches']}; the ranks share one card and the host, so "
+              "this is no speed figure")
+        hold_epoch("(b) mesh against one process", mesh, single, nudged)
+
+        # (c) the data-parallel run, interrupted and resumed, and the one-rank run
+        dp_run_check(cfg, G18_RANKS, ref, dev, workdir, "(c)")
+
+    # (d) NCCL across cards
+    count = torch.cuda.device_count()
+    if count >= 2:
+        devices = [f"cuda:{i}" for i in range(min(count, 4))]
+        t0 = time.perf_counter()
+        across = fused_epoch_on_ranks(case, devices, G18_TIMEOUT)
+        print(f"  (d) the mesh epoch over NCCL on {devices}: {time.perf_counter() - t0:.1f} s")
+        hold_epoch("(d) NCCL across cards against one process", across, single, nudged)
+    else:
+        print("  (d) the host has one card: NCCL across cards not run")
+    print(f"phase 18 wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches, seen
+
+
+def scaled_tree(tree, s):
+    """Every leaf of a parameter tree scaled by ``s`` (float32)."""
+    if isinstance(tree, dict):
+        return {k: scaled_tree(v, s) for k, v in tree.items()}
+    return (np.asarray(tree) * np.float32(s)).astype(np.float32)
+
+
+
 def time_recorded(label, seen, keys, timed):
     """Time each MLP kernel and its plain version at the (stack, rows)
     pairs ``keys`` of ``seen`` (``shapes_recorded``) on the runs' own weights,
@@ -4024,6 +4439,12 @@ def main() -> int:
     with shapes_recorded() as seen:
         launches.update(pendulum_video_phase(kernels, card_line, dev))
     check_recorded("phase 17", seen, checked, rng, dev, max_err)
+
+    # 18. data parallelism: the mesh, the sharded steps, the fused epoch's mesh
+    # mode and the data-parallel run over torch.distributed
+    phase18, seen = data_parallel_phase(kernels, card_line, dev)
+    launches.update(phase18)
+    check_recorded("phase 18", seen, checked, rng, dev, max_err)
 
     # the planner's line-search call (8192 rows) leads the forward kernels'
     # entries (at both dtypes), the trainer's call (128 rows) the backward

@@ -125,12 +125,14 @@ class FusedLsKernel:
         c_dims = (ctypes.c_int * len(dims))(*dims)
         c_w = (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws])
         c_b = (ctypes.c_void_p * len(bs))(*[b.data_ptr() for b in bs])
-        stream = torch.cuda.current_stream(x3.device).cuda_stream
-        err = lib.fused_ls_step(
-            *[t.data_ptr() for t in inputs], nx.data_ptr(), u.data_ptr(), cost.data_ptr(),
-            B, A, n, m, gs, int(action_goal_squared), float(ag_scale),
-            len(ws), c_dims, c_w, w0u.data_ptr(), c_b, int(self.bf16), stream,
-        )
+        # the library launches on the current device: make it the operands'
+        with torch.cuda.device(x3.device):
+            stream = torch.cuda.current_stream(x3.device).cuda_stream
+            err = lib.fused_ls_step(
+                *[t.data_ptr() for t in inputs], nx.data_ptr(), u.data_ptr(), cost.data_ptr(),
+                B, A, n, m, gs, int(action_goal_squared), float(ag_scale),
+                len(ws), c_dims, c_w, w0u.data_ptr(), c_b, int(self.bf16), stream,
+            )
         if err != 0:
             raise RuntimeError(
                 f"{self.name} launch failed with code {err} "

@@ -354,10 +354,13 @@ class FusedMlpKernel:
         c_dims = (ctypes.c_int * (n + 1))(*dims)
         c_w = (ctypes.c_void_p * n)(*[w.data_ptr() for w, _ in layers])
         c_b = (ctypes.c_void_p * n)(*[b.data_ptr() for _, b in layers])
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_mlp_fwd(
-            x.data_ptr(), y.data_ptr(), x.shape[0], n, c_dims, c_w, c_b, int(self.bf16), stream
-        )
+        # the library launches on the current device: make it the operands'
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.fused_mlp_fwd(
+                x.data_ptr(), y.data_ptr(), x.shape[0], n, c_dims, c_w, c_b, int(self.bf16),
+                stream
+            )
         if err != 0:
             raise RuntimeError(
                 f"{self.name} launch failed with code {err} "
@@ -464,11 +467,13 @@ class FusedMlpBwdKernel:
         dx = torch.empty_like(x)
         c_w = (ctypes.c_void_p * n)(*[w.data_ptr() for w, _ in layers])
         c_b = (ctypes.c_void_p * n)(*[b.data_ptr() for _, b in layers])
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_mlp_bwd(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr(), grads.data_ptr(), work.data_ptr(),
-            parts, rows, n, c_dims, c_w, c_b, stream,
-        )
+        # the library launches on the current device: make it the operands'
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.fused_mlp_bwd(
+                x.data_ptr(), g.data_ptr(), dx.data_ptr(), grads.data_ptr(), work.data_ptr(),
+                parts, rows, n, c_dims, c_w, c_b, stream,
+            )
         if err == -1 and bwd_tile_plan(dims) is None:
             raise RuntimeError(
                 f"fused_mlp_bwd does not take the stack {dims}: the planes of every layer's "

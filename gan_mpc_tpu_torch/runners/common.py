@@ -19,12 +19,14 @@ saved expert predictor, training one where none matches the store's data
   * ``solver_settings`` reads every knob ``SolverSettings`` has, where the
     JAX one leaves ``fused_ls``, ``num_alphas`` and ``compute_dtype`` at
     their defaults; every value of each runs (``riccati: associative`` and
-    ``compute_dtype: bfloat16`` included), and data parallelism alone
-    stays refused (``check_supported``, item 9(b));
-  * ``maybe_clear_caches``, ``maybe_mesh`` and the runners'
-    ``runtime_setup`` manage XLA's compile caches and device meshes and
-    have no counterpart; ``check_supported`` refuses the training setting
-    whose path is not ported (data parallel).
+    ``compute_dtype: bfloat16`` included);
+  * ``maybe_mesh`` makes the mesh inside the ranks that
+    ``data_parallel_devices`` names (``parallel/launch.py`` spawns one
+    process per device); ``maybe_clear_caches`` and ``runtime_setup``
+    manage XLA's compile caches and have no counterpart (``runtime_setup``
+    is a documented no-op: the kernels' keyed ``ops/_build.py`` directory
+    is the port's compile cache, and ``runtime.compile_cache_dir`` is
+    accepted and ignored).
 
 Random draws come from ``torch.Generator``s: the collection from one
 seeded with ``seed + 7`` (where JAX seeds its key), the expert trainer
@@ -317,12 +319,50 @@ def ensure_trajectories(config: Config, device="cuda") -> TrajectorySet:
 
 def check_supported(config: Config) -> None:
     """Raise ``NotImplementedError``, before any work, for a training-run
-    setting whose path is not ported, naming its ROADMAP Queue 1 item:
-    data parallelism (item 9(b)). Every dynamics ``build_dynamics_model``
-    builds trains, the dm_control cross-evaluation and the video run."""
-    if int(config.get_path("runtime.data_parallel_devices", 1) or 1) > 1:
-        raise NotImplementedError("runtime.data_parallel_devices > 1 is not ported (data "
-                                  "parallel, item 9(b) of ROADMAP Queue 1)")
+    setting whose path is not ported, naming its ROADMAP Queue 1 item.
+    None is left: every dynamics ``build_dynamics_model`` builds trains,
+    the dm_control cross-evaluation, the video and data parallelism
+    (``runtime.data_parallel_devices``, ``data_parallel_devices``) run."""
+    del config
+
+
+def runtime_setup(config: Optional[Config] = None) -> None:
+    """The JAX runners' ``runtime_setup.setup``, a no-op here: it points
+    XLA's persistent compile cache at ``runtime.compile_cache_dir``; the
+    port compiles its kernels once per source into ``ops/_build.py``'s
+    keyed directory, which is its compile cache, and ignores the key."""
+    del config
+
+
+def data_parallel_devices(config: Config, devices=None) -> Optional[list]:
+    """The devices of the ranks a run spawns: None where
+    ``runtime.data_parallel_devices`` <= 1 or the run's epochs are not
+    the fused ones (the modular path ignores the mesh, as JAX's does:
+    its ``maybe_mesh`` is called in ``_run_fused_epochs`` only); else
+    ``devices`` (one per rank) or ``cuda:0..N-1``, which raises where
+    fewer cards are attached."""
+    n = int(config.get_path("runtime.data_parallel_devices", 1) or 1)
+    if n <= 1 or not config.get_path("runtime.fused_epochs", False):
+        return None
+    from gan_mpc_tpu_torch.parallel.mesh import default_devices
+
+    devices = default_devices(n) if devices is None else [str(d) for d in devices]
+    if len(devices) != n:
+        raise ValueError(f"runtime.data_parallel_devices={n} but {len(devices)} devices given")
+    return devices
+
+
+def maybe_mesh(config: Config, devices=None):
+    """A data-parallel mesh when ``runtime.data_parallel_devices`` > 1,
+    else None (JAX's ``maybe_mesh``). It raises where fewer CUDA devices
+    are attached than asked for (``devices`` names them otherwise), and
+    outside the ranks of that many (``parallel/launch.py``)."""
+    n = int(config.get_path("runtime.data_parallel_devices", 1) or 1)
+    if n <= 1:
+        return None
+    from gan_mpc_tpu_torch.parallel.mesh import default_devices, make_mesh
+
+    return make_mesh(n, devices=default_devices(n) if devices is None else devices)
 
 
 def phase_optimizers(ctx: dict) -> dict:

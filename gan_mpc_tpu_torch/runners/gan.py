@@ -24,8 +24,10 @@ With ``runtime.fused_epochs`` the epochs are the fused ones
 run in the fused branch only: the modular run ignores them.
 
 The end (``l2.finish_run``) is the L2 run's: the dm_control
-cross-evaluation and the video included. Not ported here, and refused by
-``common.check_supported``: data-parallel runs.
+cross-evaluation and the video included. So is data parallelism
+(``runtime.data_parallel_devices`` > 1 with the fused epochs: one rank per
+device, the fused epochs and their DAgger continuations in mesh mode;
+``runners/l2.py``'s docstring).
 """
 
 from __future__ import annotations
@@ -34,13 +36,12 @@ from typing import Dict, List
 
 import torch
 
-from gan_mpc_tpu_torch import resolve_device
 from gan_mpc_tpu_torch.config import Config
 from gan_mpc_tpu_torch.data.windows import split_sequence_windows
 from gan_mpc_tpu_torch.policies.losses import gan_generator_loss
 from gan_mpc_tpu_torch.runners import common, l2
 from gan_mpc_tpu_torch.runners.collect import collect_dagger_trajectories
-from gan_mpc_tpu_torch.runners.common import phase_optimizers
+from gan_mpc_tpu_torch.runners.common import phase_optimizers  # noqa: F401 (callers use gan.phase_optimizers)
 from gan_mpc_tpu_torch.training.common import split
 from gan_mpc_tpu_torch.training.cost import train_cost
 from gan_mpc_tpu_torch.training.critic import train_critic
@@ -175,18 +176,23 @@ def dagger_rounds(config: Config, ctx: dict, opts: dict, generator: torch.Genera
     return best
 
 
-def run(config: Config, log_fn=print, device="cuda") -> dict:
+def run(config: Config, log_fn=print, device="cuda", devices=None) -> dict:
     """Train a GAN-MPC imitator from ``config`` and save the run, on the
-    card unless ``device`` says otherwise."""
+    card unless ``device`` says otherwise; on one rank per device where
+    ``runtime.data_parallel_devices`` > 1 (``runners/l2.py``'s docstring;
+    ``devices`` names them, default ``cuda:0..N-1``)."""
     common.check_supported(config)
-    device = resolve_device(device)
-    generator = torch.Generator().manual_seed(config.seed)
-    ctx = common.setup(config, with_critic=True, device=device, generator=generator)
-    opts = phase_optimizers(ctx)
-    history = {name: [] for name in GAN_HISTORY}
-    metrics = l2.metrics_recorder(config, "gan")
-    ckpt = l2.checkpointer_for(config, "gan")
-    start_epoch = l2.maybe_resume(ckpt, ctx, opts, generator, "gan", log_fn)
+    ranks = common.data_parallel_devices(config, devices)
+    if ranks is not None:
+        return l2.spawn_run("gan", config, log_fn, ranks)
+    return train(config, log_fn, device)
+
+
+def train(config: Config, log_fn=print, device="cuda", mesh=None):
+    """The GAN run in this process, its fused epochs under ``mesh`` where
+    given (a rank's; ``l2.run_rank``)."""
+    ctx, opts, generator, history, metrics, ckpt, log_fn, start_epoch = l2.start_run(
+        config, "gan", GAN_HISTORY, log_fn, device, mesh)
     best = l2.NO_BEST
     if config.get_path("runtime.fused_epochs", False):
         best = l2.fused_epochs(config, ctx, opts, generator, history, metrics, "gan", log_fn,

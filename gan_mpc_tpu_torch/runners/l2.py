@@ -36,10 +36,24 @@ with ``mpc.evaluate.save_video``, ``maybe_save_video`` renders one
 evaluation episode into ``<run_dir>/video.mp4`` (a GIF where imageio has
 no ffmpeg), as the JAX run does.
 
+Data parallelism: with ``runtime.data_parallel_devices`` N > 1 and the
+fused epochs, ``run`` (and the CLI) spawns one rank per device
+(``parallel/launch.py``; ``cuda:0..N-1`` unless ``devices`` names them,
+NCCL where each rank has a card of its own) and every rank runs the same
+run (``run_rank``). The fused epochs run in mesh mode
+(``training/fused_epoch.py``); the work outside them (warm start,
+evaluations, selection, calibration, DAgger) is replicated, as JAX runs
+its programs on replicated arrays. At the start of each fused epoch rank
+0 broadcasts the run's state (``train_state``: every component, the
+optimizers, the replay, the generator), so that no drift outside the
+epochs can split the ranks; a resumed run reads its checkpoint on rank 0
+alone. Only rank 0 logs and writes files (checkpoints, metrics, the
+saved run, the video). The modular (non-fused) epochs ignore the mesh, as
+JAX's do. ``run`` returns rank 0's result without the live ``policy``.
+
 Differences from the JAX run: ``runtime.eval_chunk_steps`` is accepted and
 the episode runs whole (JAX's chunked rollout is defined to be
-bit-identical to the whole one); data-parallel runs are refused
-(``common.check_supported``).
+bit-identical to the whole one).
 """
 
 from __future__ import annotations
@@ -55,6 +69,7 @@ from gan_mpc_tpu_torch.config import Config
 from gan_mpc_tpu_torch.envs import dm_eval
 from gan_mpc_tpu_torch.envs.rollout import policy_rollout
 from gan_mpc_tpu_torch.params import to_jax_params
+from gan_mpc_tpu_torch.parallel import launch
 from gan_mpc_tpu_torch.policies.losses import l2_imitation_loss
 from gan_mpc_tpu_torch.runners import common
 from gan_mpc_tpu_torch.training.common import split
@@ -109,14 +124,42 @@ def restore_train_state(state: dict, ctx: dict, opts: dict, generator: torch.Gen
 def maybe_resume(ckpt, ctx: dict, opts: dict, generator: torch.Generator, tag: str,
                  log_fn=None) -> int:
     """The first epoch to train: 1, or the one after the latest checkpoint,
-    whose state is then loaded."""
-    if ckpt is None or ckpt.latest_step() is None:
+    whose state is then loaded. Under a mesh (``ctx["mesh"]``) rank 0
+    alone holds the checkpointer and reads; the epoch goes to every rank,
+    the state at the next fused epoch's start (``sync_train_state``)."""
+    step = None if ckpt is None else ckpt.latest_step()
+    mesh = ctx.get("mesh")
+    if mesh is not None:
+        step = mesh.broadcast_object(step)
+    if step is None:
         return 1
-    step = ckpt.latest_step()
-    restore_train_state(ckpt.restore(step), ctx, opts, generator)
+    if ckpt is not None:
+        restore_train_state(ckpt.restore(step), ctx, opts, generator)
     if log_fn is not None:
         log_fn(f"[{tag}] resumed from checkpoint at epoch {step}")
     return step + 1
+
+
+def _host(tree):
+    if torch.is_tensor(tree):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host(v) for v in tree)
+    return tree
+
+
+def sync_train_state(ctx: dict, opts: dict, generator: torch.Generator) -> None:
+    """Under a mesh, rank 0's ``train_state`` loaded on every rank (JAX's
+    replicated ``in_specs=P()``); nothing without one."""
+    mesh = ctx.get("mesh")
+    if mesh is None or mesh.size == 1:
+        return
+    state = _host(train_state(ctx, opts, generator)) if mesh.rank == 0 else None
+    state = mesh.broadcast_object(state)
+    if mesh.rank != 0:
+        restore_train_state(state, ctx, opts, generator)
 
 
 def note_candidate(ctx: dict, score: float, params: dict, k: int = 4,
@@ -328,35 +371,40 @@ FUSED_RECORDS = {
 }
 
 
-def make_fused_epoch(config: Config, ctx: dict, opts: dict, family: str):
-    """The config's fused epoch (``training/fused_epoch.py``) on the live
-    run: the GAN epoch for ``family`` "gan", else the L2 epoch. Every minibatch has the cost phase's batch size; the critic
-    plans ``min(critic.plan_batch or 64, N)`` of the N train histories."""
+def fused_epoch_kwargs(config: Config, ctx: dict, family: str) -> dict:
+    """The keyword arguments of the config's fused epoch: every minibatch
+    has the cost phase's batch size; the GAN critic plans
+    ``min(critic.plan_batch or 64, N)`` of the N train histories."""
     tcfg = config.mpc.train
     ccfg, dcfg = tcfg.cost, tcfg.dynamics
-    cost_train, cost_test = ctx["cost_data"]
-    args = (ctx["policy"], ctx["env_im"], ctx["env_im_params"], ctx["normalizer"], opts,
-            cost_train[0], cost_train[1])
     kwargs = dict(
         num_envs=config.get_path("runtime.num_parallel_envs", 1),
         episode_steps=dcfg.max_interactions_per_episode, history=config.mpc.history,
         dynamics_updates=dcfg.num_updates, cost_updates=ccfg.num_updates,
         batch_size=ccfg.batch_size, gamma=dcfg.discount_factor,
-        polyak_factor=ccfg.polyak_factor, expert_history_X_test=cost_test[0],
-        expert_future_Y_test=cost_test[1], expert_dyn_windows=ctx["dyn_train"],
+        polyak_factor=ccfg.polyak_factor,
         expert_dyn_updates=dcfg.get_path("expert_updates", 0),
         chunk_updates=config.get_path("runtime.fused_chunk_updates", 0),
         plan_chunk=config.get_path("runtime.fused_plan_chunk", 0),
         collect_noise=dcfg.get_path("collection_noise", 0.0),
         collect_chunk_steps=config.get_path("runtime.fused_collect_chunk", 0),
     )
-    if family != "gan":
-        return make_fused_l2_epoch(*args, **kwargs)
-    qcfg = tcfg.critic
-    return make_fused_gan_epoch(
-        *args, critic_updates=qcfg.num_updates,
-        critic_plan_batch=min(qcfg.get_path("plan_batch", 64), cost_train[0].shape[0]),
-        **kwargs)
+    if family == "gan":
+        kwargs.update(critic_updates=tcfg.critic.num_updates, critic_plan_batch=min(
+            tcfg.critic.get_path("plan_batch", 64), ctx["cost_data"][0][0].shape[0]))
+    return kwargs
+
+
+def make_fused_epoch(config: Config, ctx: dict, opts: dict, family: str):
+    """The config's fused epoch (``training/fused_epoch.py``) on the live
+    run (``fused_epoch_kwargs``): the GAN epoch for ``family`` "gan", else
+    the L2 epoch, in mesh mode under ``ctx["mesh"]``."""
+    cost_train, cost_test = ctx["cost_data"]
+    make = make_fused_gan_epoch if family == "gan" else make_fused_l2_epoch
+    return make(ctx["policy"], ctx["env_im"], ctx["env_im_params"], ctx["normalizer"], opts,
+                cost_train[0], cost_train[1], expert_history_X_test=cost_test[0],
+                expert_future_Y_test=cost_test[1], expert_dyn_windows=ctx["dyn_train"],
+                mesh=ctx.get("mesh"), **fused_epoch_kwargs(config, ctx, family))
 
 
 def fused_epochs(config: Config, ctx: dict, opts: dict, generator: torch.Generator,
@@ -380,6 +428,7 @@ def fused_epochs(config: Config, ctx: dict, opts: dict, generator: torch.Generat
     records, tag = FUSED_RECORDS[family], f"{family}/fused"
     best = NO_BEST
     for epoch in range(start_epoch, tcfg.num_epochs + 1):
+        sync_train_state(ctx, opts, generator)
         teacher_forcing = epoch <= tcfg.num_epochs * dcfg.teacher_forcing_factor
         m = epoch_fn(ctx["replay"], split(generator), teacher_forcing)._asdict()
         for field, (name, _) in records.items():
@@ -394,6 +443,7 @@ def fused_epochs(config: Config, ctx: dict, opts: dict, generator: torch.Generat
             log_fn(f"[{tag}] epoch {epoch} return {m['episode_return']:.1f} "
                    f"{dyn} {m['dynamics_loss']:.5f} {losses}")
         best = midrun_eval(config, ctx, generator, epoch, metrics, best, tag, log_fn)
+    sync_train_state(ctx, opts, generator)
     return best
 
 
@@ -401,14 +451,34 @@ def finish_run(config: Config, ctx: dict, generator: torch.Generator, history: d
                ckpt, family: str, log_fn=None) -> dict:
     """The end of a run: selection, calibration, the final, fresh and
     dm_control evaluations, the saved run and its video; then the
-    checkpoints are cleared. Returns the run's result."""
+    checkpoints are cleared. Returns the run's result. Under a mesh every
+    rank evaluates, and rank 0 alone writes (the others return None)."""
     policy = ctx["policy"]
     select_best_params(config, ctx, policy_state(policy), split(generator), log_fn)
     calibrate_gain(config, ctx, split(generator), log_fn)
     avg_reward = evaluate(config, ctx, split(generator))
     fresh_result = fresh_seed_eval(config, ctx, log_fn)
     dm_result = dm_cross_eval(config, ctx, log_fn)
+    mesh = ctx.get("mesh")
+    run_dir = None
+    if mesh is None or mesh.rank == 0:
+        run_dir = save_run(config, ctx, generator, history, metrics, ckpt, family, avg_reward,
+                           fresh_result, dm_result)
+    if log_fn is not None:
+        log_fn(f"[{family}] avg_reward {avg_reward:.2f} saved to {run_dir}")
+    if run_dir is None:
+        return None
+    out = {"params": to_jax_params(policy), "run_dir": run_dir, "avg_reward": avg_reward,
+           "history": history}
+    return out if mesh is not None else dict(out, policy=policy)
 
+
+def save_run(config: Config, ctx: dict, generator: torch.Generator, history: dict, metrics,
+             ckpt, family: str, avg_reward: float, fresh_result, dm_result) -> str:
+    """The saved run (``params.msgpack``, ``config.json``, the curves, the
+    video), the metrics file closed and the checkpoints cleared; its
+    directory."""
+    policy = ctx["policy"]
     run_dir = io.new_run_dir(common.imitator_model_dir(config, family))
     io.save_params(policy, os.path.join(run_dir, "params.msgpack"))
 
@@ -440,10 +510,7 @@ def finish_run(config: Config, ctx: dict, generator: torch.Generator, history: d
         # a completed run leaves no resume state behind
         ckpt.clear()
         ckpt.close()
-    if log_fn is not None:
-        log_fn(f"[{family}] avg_reward {avg_reward:.2f} saved to {run_dir}")
-    return {"params": to_jax_params(policy), "policy": policy, "run_dir": run_dir,
-            "avg_reward": avg_reward, "history": history}
+    return run_dir
 
 
 def metrics_recorder(config: Config, family: str) -> MetricsRecorder:
@@ -451,21 +518,69 @@ def metrics_recorder(config: Config, family: str) -> MetricsRecorder:
                                         config.env.name, f"{family}.jsonl"))
 
 
-def run(config: Config, log_fn=print, device="cuda") -> dict:
-    """Train an L2-MPC imitator from ``config`` and save the run, on the
-    card unless ``device`` says otherwise."""
-    common.check_supported(config)
+def start_run(config: Config, family: str, history_names, log_fn, device, mesh=None) -> tuple:
+    """The start both runs share: (ctx, opts, generator, history,
+    metrics, ckpt, log_fn, start_epoch). Under a mesh rank 0 sets up
+    first (it may collect the store and train the expert, which the
+    others then read), rank 0 alone records metrics and checkpoints, and
+    ``log_fn`` becomes ``launch.rank_log``'s."""
     device = resolve_device(device)
     generator = torch.Generator().manual_seed(config.seed)
-    ctx = common.setup(config, with_critic=False, device=device, generator=generator)
+    writer = mesh is None or mesh.rank == 0
+    ctx = common.setup(config, with_critic=family == "gan", device=device,
+                       generator=generator) if writer else None
+    if mesh is not None:
+        mesh.barrier()
+        if not writer:
+            ctx = common.setup(config, with_critic=family == "gan", device=device,
+                               generator=generator)
+        ctx["mesh"] = mesh
+        log_fn = launch.rank_log(log_fn, mesh)
+    opts = common.phase_optimizers(ctx)
+    history = {name: [] for name in history_names}
+    metrics = metrics_recorder(config, family) if writer else MetricsRecorder()
+    ckpt = checkpointer_for(config, family) if writer else None
+    start_epoch = maybe_resume(ckpt, ctx, opts, generator, family, log_fn)
+    return ctx, opts, generator, history, metrics, ckpt, log_fn, start_epoch
+
+
+def run(config: Config, log_fn=print, device="cuda", devices=None) -> dict:
+    """Train an L2-MPC imitator from ``config`` and save the run, on the
+    card unless ``device`` says otherwise; on one rank per device where
+    ``runtime.data_parallel_devices`` > 1 (module docstring; ``devices``
+    names them, default ``cuda:0..N-1``)."""
+    common.check_supported(config)
+    ranks = common.data_parallel_devices(config, devices)
+    if ranks is not None:
+        return spawn_run("l2", config, log_fn, ranks)
+    return train(config, log_fn, device)
+
+
+def spawn_run(family: str, config: Config, log_fn, devices) -> dict:
+    """``run_rank`` on one rank per device: rank 0's result."""
+    from gan_mpc_tpu_torch.runners import l2 as entry  # by its import path, also under -m
+
+    return launch.spawn(entry.run_rank, devices, (family, config.to_dict(), log_fn, devices))
+
+
+def run_rank(device, family: str, config_dict: dict, log_fn, devices) -> Optional[dict]:
+    """A rank of a data-parallel run (``parallel/launch.py`` calls it on
+    every rank): the run of ``family`` under the mesh of ``devices``."""
+    from gan_mpc_tpu_torch.runners import gan
+
+    config = Config.from_dict(config_dict)
+    mesh = common.maybe_mesh(config, devices)
+    return (gan.train if family == "gan" else train)(config, log_fn, device, mesh)
+
+
+def train(config: Config, log_fn=print, device="cuda", mesh=None) -> Optional[dict]:
+    """The L2 run in this process, its fused epochs under ``mesh`` where
+    given (a rank's; ``run_rank``)."""
+    ctx, opts, generator, history, metrics, ckpt, log_fn, start_epoch = start_run(
+        config, "l2", L2_HISTORY, log_fn, device, mesh)
     policy = ctx["policy"]
     tcfg = config.mpc.train
     ccfg, dcfg = tcfg.cost, tcfg.dynamics
-    opts = common.phase_optimizers(ctx)
-    history = {name: [] for name in L2_HISTORY}
-    metrics = metrics_recorder(config, "l2")
-    ckpt = checkpointer_for(config, "l2")
-    start_epoch = maybe_resume(ckpt, ctx, opts, generator, "l2", log_fn)
     best = NO_BEST
     if config.get_path("runtime.fused_epochs", False):
         fused_epochs(config, ctx, opts, generator, history, metrics, "l2", log_fn, ckpt,

@@ -22,25 +22,27 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from gan_mpc_tpu_torch.data.windows import minibatch_indices
+from gan_mpc_tpu_torch.parallel.mesh import data_parallel_step
 from gan_mpc_tpu_torch.training.masking import policy_components, polyak_blend
 
 MAX_EVAL_WINDOWS = 256
 
 
 def update_pass(policy, optimizer, loss_fn: Callable, dataset, indices: torch.Tensor,
-                has_targets: bool = True) -> torch.Tensor:
+                has_targets: bool = True, mesh=None) -> torch.Tensor:
     """One optimizer step per row of ``indices`` (steps, batch) on the
     history windows it picks from ``dataset`` = (X, Y) (Y the targets);
-    the mean loss (the JAX ``_update_scan``), as a device scalar."""
+    the mean loss (the JAX ``_update_scan``), as a device scalar. With a
+    ``mesh`` each rank takes its rows of every index row and the gradients
+    and losses are averaged over the mesh (``data_parallel_step``)."""
     X = dataset[0]
     losses = []
     for p in indices.to(X.device):
+        if mesh is not None:
+            p = mesh.rows(p)
         args = (dataset[1][p],) if has_targets else ()
-        optimizer.zero_grad()
-        loss = policy.batched_loss(X[p], loss_fn, args)
-        loss.backward()
-        optimizer.step()
-        losses.append(loss.detach())
+        losses.append(data_parallel_step(
+            optimizer, lambda: policy.batched_loss(X[p], loss_fn, args), mesh))
     return torch.stack(losses).mean()
 
 

@@ -21,6 +21,7 @@ from typing import List, Tuple
 import torch
 
 from gan_mpc_tpu_torch.data.windows import minibatch_indices
+from gan_mpc_tpu_torch.parallel.mesh import data_parallel_step
 from gan_mpc_tpu_torch.policies.losses import critic_bce_loss
 
 
@@ -49,16 +50,17 @@ def build_critic_dataset(policy, X: torch.Tensor, Y: torch.Tensor,
 
 
 def update_pass(critic_model, optimizer, seqs: torch.Tensor, labels: torch.Tensor,
-                indices: torch.Tensor) -> torch.Tensor:
+                indices: torch.Tensor, mesh=None) -> torch.Tensor:
     """One optimizer step per row of ``indices`` (steps, batch); the mean
-    loss (the JAX ``_update_scan``), as a device scalar."""
+    loss (the JAX ``_update_scan``), as a device scalar. With a ``mesh``
+    each rank takes its rows of every index row and the gradients and
+    losses are averaged over the mesh (``data_parallel_step``)."""
     losses = []
     for p in indices.to(seqs.device):
-        optimizer.zero_grad()
-        loss = critic_bce_loss(critic_model, seqs[p], labels[p]).mean()
-        loss.backward()
-        optimizer.step()
-        losses.append(loss.detach())
+        if mesh is not None:
+            p = mesh.rows(p)
+        losses.append(data_parallel_step(
+            optimizer, lambda: critic_bce_loss(critic_model, seqs[p], labels[p]).mean(), mesh))
     return torch.stack(losses).mean()
 
 

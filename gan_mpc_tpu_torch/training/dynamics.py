@@ -28,6 +28,7 @@ import torch
 
 from gan_mpc_tpu_torch.data.buffers import ReplayBuffer
 from gan_mpc_tpu_torch.data.windows import minibatch_indices
+from gan_mpc_tpu_torch.parallel.mesh import data_parallel_step
 from gan_mpc_tpu_torch.training.common import discounted_sum
 
 
@@ -56,20 +57,20 @@ def multistep_prediction_loss(dynamics_model, xseq, useq, next_xseq, gamma: floa
 
 
 def update_pass(dynamics_model, optimizer, dataset, indices: torch.Tensor, gamma: float,
-                teacher_forcing: bool) -> torch.Tensor:
+                teacher_forcing: bool, mesh=None) -> torch.Tensor:
     """One optimizer step per row of ``indices`` (steps, batch) on the
     windows it picks from ``dataset`` = (X, U, Y); the mean loss (the JAX
-    ``_update_scan``), as a device scalar."""
+    ``_update_scan``), as a device scalar. With a ``mesh``
+    (``parallel/mesh.py``) each rank takes its rows of every index row
+    and the gradients and losses are averaged over the mesh
+    (``data_parallel_step``)."""
     X, U, Y = dataset
     losses = []
     for p in indices.to(X.device):
-        optimizer.zero_grad()
-        loss = multistep_prediction_loss(
-            dynamics_model, X[p], U[p], Y[p], gamma, teacher_forcing
-        ).mean()
-        loss.backward()
-        optimizer.step()
-        losses.append(loss.detach())
+        if mesh is not None:
+            p = mesh.rows(p)
+        losses.append(data_parallel_step(optimizer, lambda: multistep_prediction_loss(
+            dynamics_model, X[p], U[p], Y[p], gamma, teacher_forcing).mean(), mesh))
     return torch.stack(losses).mean()
 
 

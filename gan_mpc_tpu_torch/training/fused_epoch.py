@@ -50,7 +50,25 @@ Differences from the JAX module:
     chunked mode). The batch planner's lanes are independent, each with
     its own convergence mask and Levenberg-Marquardt damping, so the
     sub-batches give the same plans up to float32 rounding.
-  * There is no mesh mode (``runtime.data_parallel_devices > 1``).
+
+Mesh mode (``mesh``, ``parallel/mesh.py``; the runners pass it where
+``runtime.data_parallel_devices`` > 1): the same epoch on every rank of
+the mesh's ``dp_axis``, as JAX's ``shard_map`` runs its one program
+(``training/fused_epoch.py:104-173`` there). Every draw stays global and
+the same on every rank (the generators are seeded alike, or ``draws``
+passes them in), and each rank takes its rows (``mesh.rows``): of the
+collection's start states and noise (drawn as the single-process epoch
+draws them), of each minibatch row of ``dyn_perm``, ``exp_perm``,
+``crit_perm`` and ``cost_perm``, and of the critic's and the GAN test
+split's planning fan-outs. The collected windows and the planned states
+are gathered, so the replay and the critic's dataset stay identical on
+every rank; the episode return, every update's loss and its gradients are
+averaged over the axis before the optimizer's step. The L2 test metric
+plans the whole test split on every rank, as JAX's does. So the sharded
+epoch computes the single-process epoch up to float reduction order.
+``num_envs``, ``batch_size``, ``critic_plan_batch`` and the GAN test
+split must divide the axis size, and mesh mode excludes
+``chunk_updates``, with JAX's messages.
 """
 
 from __future__ import annotations
@@ -114,29 +132,47 @@ def _randint(generator: torch.Generator, high: int, shape) -> torch.Tensor:
 def collect_episode(policy, env, env_params, normalizer, replay, num_envs: int,
                     episode_steps: int, history: int, noise_sigma: float,
                     generator: Optional[torch.Generator], reset: Optional[EnvState] = None,
-                    noise: Optional[torch.Tensor] = None) -> float:
+                    noise: Optional[torch.Tensor] = None, mesh=None) -> float:
     """One batched on-policy episode into ``replay`` (normalized); its
-    return, the mean over envs of the summed rewards."""
+    return, the mean over envs of the summed rewards. With a ``mesh`` the
+    start states and the noise are drawn for all ``num_envs`` envs, as
+    the rollout draws them, each rank rolls its rows, and the windows are
+    gathered into every rank's replay."""
+    if mesh is not None:
+        if reset is None:
+            reset = env.reset(env_params, num_envs, generator)
+        if noise is None and noise_sigma > 0.0:
+            noise = torch.stack([torch.randn((num_envs, env.act_size), generator=generator,
+                                             device=generator.device)
+                                 for _ in range(episode_steps)])
+        reset = EnvState(*(mesh.rows(t) for t in (reset.qpos, reset.qvel, reset.t)))
+        noise = None if noise is None else mesh.rows(noise.transpose(0, 1)).transpose(0, 1)
+        num_envs = num_envs // mesh.size
     episode = policy_rollout(env, env_params, policy, normalizer, num_steps=episode_steps,
                              history=history, num_envs=num_envs, init_state=reset,
                              generator=generator, action_noise=noise_sigma, noise=noise)
-    replay.add_trajectories(normalizer.normalize_state(episode.states),
-                            normalizer.normalize_action(episode.actions))
-    return float(episode.rewards.sum(-1).mean())
+    states = normalizer.normalize_state(episode.states)
+    actions = normalizer.normalize_action(episode.actions)
+    ep_return = episode.rewards.sum(-1).mean()
+    if mesh is not None:
+        states, actions = mesh.gather(states), mesh.gather(actions)
+        ep_return = mesh.pmean(ep_return)
+    replay.add_trajectories(states, actions)
+    return float(ep_return)
 
 
 def dynamics_steps(policy, optimizer, replay, dyn_perm: torch.Tensor, gamma: float,
                    teacher_forcing: bool, expert_windows=None,
-                   exp_perm: Optional[torch.Tensor] = None) -> float:
+                   exp_perm: Optional[torch.Tensor] = None, mesh=None) -> float:
     """One step per row of ``dyn_perm`` on the replay's windows at the
     caller's teacher forcing, then (where given) one teacher-forced step
     per row of ``exp_perm`` on ``expert_windows``; the replay steps' mean
-    loss."""
+    loss. With a ``mesh``, data parallel (``update_pass``)."""
     model = policy.dynamics_model
     loss = tdyn.update_pass(model, optimizer, (replay.states, replay.actions, replay.next_states),
-                            dyn_perm, gamma, teacher_forcing)
+                            dyn_perm, gamma, teacher_forcing, mesh)
     if exp_perm is not None:
-        tdyn.update_pass(model, optimizer, expert_windows, exp_perm, gamma, True)
+        tdyn.update_pass(model, optimizer, expert_windows, exp_perm, gamma, True, mesh)
     return float(loss)
 
 
@@ -151,13 +187,18 @@ def _solutions(policy, X: torch.Tensor, plan_chunk: int) -> list:
 
 
 def critic_dataset(policy, exp_X: torch.Tensor, exp_Y: torch.Tensor, plan_idx: torch.Tensor,
-                   shuffle: torch.Tensor, plan_chunk: int = 0):
+                   shuffle: torch.Tensor, plan_chunk: int = 0, mesh=None):
     """The critic's labelled sequences: the expert futures of the
     histories ``plan_idx`` (+1) and their planned states (-1), in the
-    order ``shuffle``. Returns (sequences (2k, H+1, x), labels (2k,))."""
+    order ``shuffle``. Returns (sequences (2k, H+1, x), labels (2k,)).
+    With a ``mesh`` each rank plans its rows of ``plan_idx`` and the
+    planned states are gathered."""
     plan_idx = plan_idx.to(exp_X.device)
+    mine = plan_idx if mesh is None else mesh.rows(plan_idx)
     fakes = torch.cat([policy.planned_states(sol)
-                       for _, sol in _solutions(policy, exp_X[plan_idx], plan_chunk)])
+                       for _, sol in _solutions(policy, exp_X[mine], plan_chunk)])
+    if mesh is not None:
+        fakes = mesh.gather(fakes)
     k = plan_idx.shape[0]
     seqs = torch.cat([exp_Y[plan_idx], fakes])
     labels = torch.cat([torch.ones(k, device=seqs.device), -torch.ones(k, device=seqs.device)])
@@ -166,30 +207,35 @@ def critic_dataset(policy, exp_X: torch.Tensor, exp_Y: torch.Tensor, plan_idx: t
 
 
 def cost_steps(policy, optimizer, loss_fn, dataset, cost_perm: torch.Tensor,
-               has_targets: bool, polyak_factor: float) -> float:
+               has_targets: bool, polyak_factor: float, mesh=None) -> float:
     """One step per row of ``cost_perm`` through the planner's implicit
     gradient on ``dataset`` = (X[, Y]), then the Polyak blend of every
-    parameter; the steps' mean loss."""
+    parameter; the steps' mean loss. With a ``mesh``, data parallel
+    (``update_pass``)."""
     params: List[torch.Tensor] = [p for ps in policy_components(policy).values() for p in ps]
     prev = [p.detach().clone() for p in params]
-    loss = tcost.update_pass(policy, optimizer, loss_fn, dataset, cost_perm, has_targets)
+    loss = tcost.update_pass(policy, optimizer, loss_fn, dataset, cost_perm, has_targets, mesh)
     tcost.blend_back(params, prev, polyak_factor)
     return float(loss)
 
 
 @torch.no_grad()
-def gan_test_metrics(policy, tX: torch.Tensor, tY: torch.Tensor, plan_chunk: int = 0):
+def gan_test_metrics(policy, tX: torch.Tensor, tY: torch.Tensor, plan_chunk: int = 0,
+                     mesh=None):
     """(critic BCE, generator loss) on held-out histories, from one
     planning pass: the critic on the expert futures (+1) and the planned
     states (-1), the generator loss -log(p + 1e-6) + log(1 - p + 1e-6) of
-    the critic's p on the planned states."""
-    sols = _solutions(policy, tX, plan_chunk)
+    the critic's p on the planned states. With a ``mesh`` each rank plans
+    its rows and the planned states and generator losses are gathered."""
+    sols = _solutions(policy, tX if mesh is None else mesh.rows(tX), plan_chunk)
     fakes = torch.cat([policy.planned_states(sol) for _, sol in sols])
+    gen = torch.cat([gan_generator_loss(policy, sol) for _, sol in sols])
+    if mesh is not None:
+        fakes, gen = mesh.gather(fakes), mesh.gather(gen)
     n = tX.shape[0]
     labels = torch.cat([torch.ones(n, device=tX.device), -torch.ones(n, device=tX.device)])
     crit = critic_bce_loss(policy.critic_model, torch.cat([tY, fakes]), labels).mean()
-    gen = torch.cat([gan_generator_loss(policy, sol) for _, sol in sols]).mean()
-    return float(crit), float(gen)
+    return float(crit), float(gen.mean())
 
 
 @torch.no_grad()
@@ -199,6 +245,24 @@ def l2_test_metric(policy, tX: torch.Tensor, tY: torch.Tensor, plan_chunk: int =
     losses = [l2_imitation_loss(policy, sol, tY[rows])
               for rows, sol in _solutions(policy, tX, plan_chunk)]
     return float(torch.cat(losses).mean())
+
+
+def _check_mesh(mesh, dp_axis: str, chunk_updates: int, sizes: dict):
+    """JAX's refusals of mesh mode; the mesh's ``dp_axis`` must be all of
+    it. None without a mesh."""
+    if mesh is None:
+        return None
+    if chunk_updates:
+        raise ValueError("fused epoch: mesh mode and chunk_updates are exclusive")
+    num_dev = mesh.shape[dp_axis]
+    if mesh.size != num_dev:
+        raise ValueError(f"fused epoch mesh mode runs over one axis; the mesh is "
+                         f"{mesh.shape}")
+    for name, v in sizes.items():
+        if v % num_dev:
+            raise ValueError(f"fused epoch mesh mode: {name}={v} must divide the "
+                             f"{dp_axis} axis size {num_dev}")
+    return mesh
 
 
 class _EpochData:
@@ -263,15 +327,22 @@ def make_fused_gan_epoch(
     plan_chunk: int = 0,
     collect_noise: float = 0.0,
     collect_chunk_steps: int = 0,
+    mesh=None,
+    dp_axis: str = "dp",
 ):
     """The fused GAN epoch. Returns ``epoch(replay, generator,
     teacher_forcing, draws=None) -> FusedEpochMetrics``, which trains the
     policy and fills ``replay`` in place. Without the test split the test
-    metrics are 0."""
-    del chunk_updates, collect_chunk_steps  # nothing to bound (module docstring)
+    metrics are 0. ``mesh``: mesh mode over ``dp_axis`` (module
+    docstring)."""
     data = _EpochData(expert_history_X, expert_future_Y, expert_history_X_test,
                       expert_future_Y_test, test_plan_batch, expert_dyn_windows,
                       expert_dyn_updates, batch_size, dynamics_updates)
+    sizes = dict(num_envs=num_envs, batch_size=batch_size, critic_plan_batch=critic_plan_batch)
+    if data.have_test:
+        sizes["test_plan_batch"] = data.tX.shape[0]
+    mesh = _check_mesh(mesh, dp_axis, chunk_updates, sizes)
+    del chunk_updates, collect_chunk_steps  # nothing to bound (module docstring)
 
     def epoch(replay, generator: torch.Generator, teacher_forcing: bool,
               draws: Optional[FusedDraws] = None) -> FusedEpochMetrics:
@@ -279,25 +350,27 @@ def make_fused_gan_epoch(
         streams = {name: split(generator) for name in GAN_STREAMS}
         ep_return = collect_episode(policy, env, env_params, normalizer, replay, num_envs,
                                     episode_steps, history, collect_noise, streams["collect"],
-                                    draws.reset, draws.noise)
+                                    draws.reset, draws.noise, mesh)
 
         dyn_perm, exp_perm = data.dynamics_draws(streams, replay, draws)
         dyn_loss = dynamics_steps(policy, optimizers["dynamics"], replay, dyn_perm, gamma,
-                                  teacher_forcing, data.exp_windows, exp_perm)
+                                  teacher_forcing, data.exp_windows, exp_perm, mesh)
 
         plan_idx = draws.plan_idx if draws.plan_idx is not None else tcritic.subset_indices(
             streams["critic_subset"], data.X.shape[0], critic_plan_batch)
         shuffle = draws.shuffle if draws.shuffle is not None else tcritic.permutation(
             streams["shuffle"], 2 * critic_plan_batch)
-        seqs, labels = critic_dataset(policy, data.X, data.Y, plan_idx, shuffle, plan_chunk)
+        seqs, labels = critic_dataset(policy, data.X, data.Y, plan_idx, shuffle, plan_chunk,
+                                      mesh)
         crit_perm = draws.crit_perm if draws.crit_perm is not None else _randint(
             streams["critic_minibatches"], 2 * critic_plan_batch, (critic_updates, batch_size))
         crit_loss = float(tcritic.update_pass(policy.critic_model, optimizers["critic"], seqs,
-                                              labels, crit_perm))
+                                              labels, crit_perm, mesh))
 
         gen_loss = cost_steps(policy, optimizers["cost"], gan_generator_loss, (data.X,),
-                              data.cost_perm(streams, draws, cost_updates), False, polyak_factor)
-        crit_test, gen_test = gan_test_metrics(policy, data.tX, data.tY, plan_chunk) \
+                              data.cost_perm(streams, draws, cost_updates), False, polyak_factor,
+                              mesh)
+        crit_test, gen_test = gan_test_metrics(policy, data.tX, data.tY, plan_chunk, mesh) \
             if data.have_test else (0.0, 0.0)
         return FusedEpochMetrics(episode_return=ep_return, dynamics_loss=dyn_loss,
                                  critic_loss=crit_loss, generator_loss=gen_loss,
@@ -332,12 +405,16 @@ def make_fused_l2_epoch(
     plan_chunk: int = 0,
     collect_noise: float = 0.0,
     collect_chunk_steps: int = 0,
+    mesh=None,
+    dp_axis: str = "dp",
 ):
     """The fused L2-MPC epoch: collection, dynamics updates, L2 cost
     updates with the Polyak blend, the held-out L2 loss. Returns
     ``epoch(replay, generator, teacher_forcing, draws=None) ->
     FusedL2Metrics`` (``draws`` reads reset, noise, dyn_perm, exp_perm and
-    cost_perm)."""
+    cost_perm). ``mesh``: mesh mode over ``dp_axis`` (module docstring)."""
+    mesh = _check_mesh(mesh, dp_axis, chunk_updates,
+                       dict(num_envs=num_envs, batch_size=batch_size))
     del chunk_updates, collect_chunk_steps  # nothing to bound (module docstring)
     data = _EpochData(expert_history_X, expert_future_Y, expert_history_X_test,
                       expert_future_Y_test, test_plan_batch, expert_dyn_windows,
@@ -349,12 +426,13 @@ def make_fused_l2_epoch(
         streams = {name: split(generator) for name in L2_STREAMS}
         ep_return = collect_episode(policy, env, env_params, normalizer, replay, num_envs,
                                     episode_steps, history, collect_noise, streams["collect"],
-                                    draws.reset, draws.noise)
+                                    draws.reset, draws.noise, mesh)
         dyn_perm, exp_perm = data.dynamics_draws(streams, replay, draws)
         dyn_loss = dynamics_steps(policy, optimizers["dynamics"], replay, dyn_perm, gamma,
-                                  teacher_forcing, data.exp_windows, exp_perm)
+                                  teacher_forcing, data.exp_windows, exp_perm, mesh)
         cost_loss = cost_steps(policy, optimizers["cost"], l2_imitation_loss, (data.X, data.Y),
-                               data.cost_perm(streams, draws, cost_updates), True, polyak_factor)
+                               data.cost_perm(streams, draws, cost_updates), True, polyak_factor,
+                               mesh)
         cost_test = l2_test_metric(policy, data.tX, data.tY, plan_chunk) \
             if data.have_test else 0.0
         return FusedL2Metrics(episode_return=ep_return, dynamics_loss=dyn_loss,

@@ -1,6 +1,7 @@
 """The JAX package's side of the port's fused-epoch and DAgger parity tests.
 
     python tests/jax_fused_reference.py epochs <out.pkl>
+    python tests/jax_fused_reference.py mesh_epochs <out.pkl> [gan|l2]
     python tests/jax_fused_reference.py ensemble_epoch <out.pkl>
     python tests/jax_fused_reference.py dagger <out.pkl> <config.json>
 
@@ -16,6 +17,10 @@ pickle of numpy trees:
     expert windows, a test split, an expert refresh): the params before
     and after, the metrics, the replay's windows, and every draw of the
     epoch recomputed from its key;
+  * ``mesh_epochs``: the same two epochs in mesh mode (``mesh=make_mesh(2)``
+    over two virtual CPU devices: the single program, since mesh mode
+    excludes ``chunk_updates``), the GAN test split 4 histories so that it
+    divides the mesh; one family where it is named;
   * ``dagger``: ``collect_dagger_trajectories`` on the tiny GAN policy,
     uniform and reward-weighted, with its draws recorded; then one round
     of ``runners/gan._dagger_rounds`` on the run config given (no extra
@@ -34,6 +39,8 @@ import numpy as np
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_default_matmul_precision", "highest")
+if __name__ == "__main__" and sys.argv[1:2] == ["mesh_epochs"]:
+    jax.config.update("jax_num_cpu_devices", 2)  # before the first backend call
 
 from gan_mpc_tpu.data.buffers import ReplayBuffer  # noqa: E402
 from gan_mpc_tpu.data.normalizer import Normalizer  # noqa: E402
@@ -133,7 +140,7 @@ def epoch_draws(key, env, kw, n_streams, replay_size, n_windows, n_dyn_windows):
     return jax.device_get(out)
 
 
-def one_epoch(family, members=0):
+def one_epoch(family, members=0, mesh=False):
     gan = family == "gan"
     env, policy, params = tiny_policy(gan, EPOCH_RESET_SCALE, members)
     x, u = env.obs_size, env.act_size
@@ -143,11 +150,17 @@ def one_epoch(family, members=0):
     opt_states = {k: opt.init(params) for k, opt in opts.items()}
     exp_X, exp_Y, dyn = expert_data(x, u)
     kw = dict(GAN if gan else L2)
-    test = (exp_X[:3], exp_Y[:3]) if gan else (exp_X[:4], exp_Y[:4])
+    test = (exp_X[:3], exp_Y[:3]) if gan and not mesh else (exp_X[:4], exp_Y[:4])
     make = make_fused_gan_epoch if gan else make_fused_l2_epoch
+    extra = {}
+    if mesh:
+        from gan_mpc_tpu.parallel import make_mesh
+
+        kw["chunk_updates"] = 0
+        extra["mesh"] = make_mesh(2)
     epoch = make(policy, env, env.default_params(), Normalizer.identity(x, u), opts, exp_X,
                  exp_Y, expert_history_X_test=test[0], expert_future_Y_test=test[1],
-                 expert_dyn_windows=dyn, **kw)
+                 expert_dyn_windows=dyn, **kw, **extra)
     replay = ReplayBuffer.create(64, H, x, u)
     key, teacher_forcing = jax.random.PRNGKey(5), gan
     new_params, _, replay, metrics = epoch(params, opt_states, replay, key,
@@ -259,6 +272,8 @@ def main():
     case, out_path = sys.argv[1], sys.argv[2]
     if case == "epochs":
         result = {"gan": one_epoch("gan"), "l2": one_epoch("l2")}
+    elif case == "mesh_epochs":
+        result = {f: one_epoch(f, mesh=True) for f in (sys.argv[3:] or ["gan", "l2"])}
     elif case == "ensemble_epoch":
         result = {"gan": one_epoch("gan", members=ENSEMBLE_MEMBERS)}
     elif case == "dagger":

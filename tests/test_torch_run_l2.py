@@ -15,8 +15,9 @@ repo's ``runs/``):
     its checkpoints are cleared at the end (the JAX
     ``test_l2_checkpoint_resume``, with periodic evaluation off: the
     checkpoint is taken before an epoch's evaluation, as in JAX);
-  * the setting whose path is not ported (data parallel) raises
-    ``NotImplementedError`` before the run does any work; the fused epochs
+  * a data-parallel run asking for more cards than are attached raises
+    before the run does any work (``tests/test_torch_run_dp.py`` runs
+    one on CPU ranks); the fused epochs
     run, DAgger rounds leave the L2 and the modular GAN runs as they are,
     as in JAX, the video is written at the end of the run and the
     dm_control cross-evaluation (here, where dm_control imports) stamps
@@ -131,15 +132,23 @@ def test_l2_resume_equals_uninterrupted_run(tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    {"runtime__data_parallel_devices": 2},
+    {"runtime__data_parallel_devices": 2, "runtime__fused_epochs": True},
 ], ids=["data_parallel"])
 @pytest.mark.parametrize("family", ["l2", "gan"])
-def test_unported_settings_raise(tmp_path, override, family):
+def test_unported_settings_raise(tmp_path, monkeypatch, override, family):
+    """No setting is refused as unported any more (``check_supported``
+    passes data parallelism, ``tests/test_torch_run_dp.py`` runs it); a
+    data-parallel run that asks for more cards than are attached raises
+    before any work, as JAX's ``maybe_mesh`` does, rather than doubling
+    ranks up on a card or dropping to the CPU."""
     from gan_mpc_tpu_torch.runners import gan
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        {"l2": l2, "gan": gan}[family].run(tiny_config(tmp_path, **override), log_fn=None,
-                                           device="cpu")
+    cfg = tiny_config(tmp_path, **override)
+    common.check_supported(cfg)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="only 1 CUDA devices are attached"):
+        {"l2": l2, "gan": gan}[family].run(cfg, log_fn=None, device="cpu")
     assert not os.path.exists(os.path.join(tmp_path, "metrics"))
 
 
