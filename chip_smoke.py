@@ -313,13 +313,18 @@ Phases, in order; any failure raises and exits non-zero:
      (``bf16_riccati_phase``):
      (a) the bf16 instances of fused_ls_step (512 x 16, 512 x 1, the
          humanoid-class 128 x 16) and fused_mlp_fwd (the dynamics stack at
-         8192 and 512 rows) against their plain bf16 versions, max|d| <=
-         1e-2 max(1, max|ref|) (a hidden activation rounded to the other
-         bfloat16 neighbour carries one ulp through the later layers) and
-         at most ``BF16_FAR_SHARE`` of the entries beyond 1e-4 (which the
-         f32 instance on the same inputs must exceed: the bound alone does
-         not tell unrounded operands apart), timed as in phase 3 beside the
-         f32 instance, the bound at 989 TFLOP/s (dense bf16) or 3.35 TB/s;
+         8192 and 512 rows), and at ``BF16_CHECKS``' shapes that the bf16
+         products' edge cases meet (K 41 -> 48 and 256 columns on the
+         64-row tile, 512 columns on the 16-row tile, 1 row, ragged tiles,
+         weights not 16-byte aligned), against their plain bf16 versions,
+         max|d| <= 1e-2 max(1, max|ref|) (a hidden activation rounded to
+         the other bfloat16 neighbour carries one ulp through the later
+         layers) and at most ``BF16_FAR_SHARE`` of the entries beyond 1e-4
+         (which the f32 instance on the same inputs must exceed: the bound
+         alone does not tell unrounded operands apart); the first five
+         timed as in phase 3 beside the f32 instance and, for reference,
+         the stack's bf16 chain on cuBLAS; the bound at 989 TFLOP/s (dense
+         bf16) or 3.35 TB/s;
      (b) the flagship at compute_dtype="bfloat16", fused_ls off and on: 2
          warmup and ``G16_STEPS`` control steps, launches held to
          ``mlp_calls_per_solve(bf16=True)`` (the dynamics on the bf16
@@ -370,7 +375,8 @@ Phases, in order; any failure raises and exits non-zero:
      process per rank, ``parallel/launch.py``). The host has one card, so
      the mesh is two gloo ranks sharing it (``G18_RANKS``), and a
      one-rank NCCL group:
-     (a) ``dryrun_multichip(2)`` on the shared card and ``(1)`` on NCCL:
+     (a) ``dryrun_multichip(2)``'s ranks on the shared card (inside
+         (b)'s group) and ``dryrun_multichip(1)`` on NCCL:
          the sharded collection, the dynamics, critic and generator steps,
          the ensemble over "ep", dp x tp and the fused GAN epoch in mesh
          mode at the JAX dryrun's tiny shapes; JAX's line printed, every
@@ -383,7 +389,8 @@ Phases, in order; any failure raises and exits non-zero:
          component), the metrics and the replay within max(base, twice
          the single-process epoch's own spread under 1 +- 1e-7 and
          1 +- 2e-7 nudges of its parameters and its collection's start
-         states, the nudged epochs run at once in processes of their own); each rank's launches against
+         states, the nudged epochs run on (b)'s two ranks after the mesh
+         epoch, two each); each rank's launches against
          ``mlp_calls_per_solve`` over its own solves and update steps,
          then summed; both wall times printed (no speed claim: the ranks
          share one card and the host);
@@ -784,13 +791,37 @@ G18_PLANNED = ("critic_loss", "generator_loss", "critic_test_loss", "generator_t
 G18_SERVE = 16  # (b), (c): held-out histories served by each epoch's or run's policy
 G18_TIMEOUT = 600.0  # seconds a rank waits on a collective before it raises
 # phase 16: the bf16 compute path and the associative Riccati
-BF16_CHECKS = [  # (kernel, name, lanes or rows, step sizes, n, m, gs); the dynamics stack
-    ("fused_ls_step", "line search", 512, 16, 17, 6, 17),
-    ("fused_ls_step", "rollout", 512, 1, 17, 6, 17),
-    ("fused_ls_step", "humanoid-class", 128, 16, 29, 12, 29),
-    ("fused_mlp_fwd", "dynamics", 8192, None, 17, 6, None),
-    ("fused_mlp_fwd", "dynamics", 512, None, 17, 6, None),
+# (a): the step as (kernel, name, lanes, step sizes, n, m, gs, offset) on the
+# dynamics stack [n + m, 200, 200, 200, n], the forward as (kernel, name, rows,
+# widths, offset); offset 1 puts every weight tensor one float into its buffer,
+# so that no weight view is 16-byte aligned. The first BF16_TIMED are the bf16
+# paths' own calls, also timed; the rest are the edge cases of the bf16
+# products: K 41 -> 48 on the 64-row tile, 256 columns on it (the ensemble
+# member and gan/4's stacks), a 512-wide stack on the 16-row tile, 1 row,
+# ragged last tiles of both tile heights, unaligned weights on both
+ENSEMBLE_MEMBER = [41, 256, 256, 256, 29]
+WIDEST = [23, 512, 512, 17]
+BF16_CHECKS = [
+    ("fused_ls_step", "line search", 512, 16, 17, 6, 17, 0),
+    ("fused_ls_step", "rollout", 512, 1, 17, 6, 17, 0),
+    ("fused_ls_step", "humanoid-class", 128, 16, 29, 12, 29, 0),
+    ("fused_mlp_fwd", "dynamics", 8192, DYNAMICS, 0),
+    ("fused_mlp_fwd", "dynamics", 512, DYNAMICS, 0),
+    ("fused_ls_step", "humanoid-class line search", 512, 16, 29, 12, 29, 0),
+    ("fused_ls_step", "one row", 1, 1, 17, 6, 17, 0),
+    ("fused_ls_step", "ragged", 513, 16, 17, 6, 12, 0),
+    ("fused_ls_step", "unaligned", 512, 16, 17, 6, 17, 1),
+    ("fused_ls_step", "unaligned rollout", 512, 1, 17, 6, 17, 1),
+    ("fused_mlp_fwd", "ensemble member", 8192, ENSEMBLE_MEMBER, 0),
+    ("fused_mlp_fwd", "wide", 8192, WIDE, 0),
+    ("fused_mlp_fwd", "widest", 512, WIDEST, 0),
+    ("fused_mlp_fwd", "dynamics", 1, DYNAMICS, 0),
+    ("fused_mlp_fwd", "dynamics ragged", 8200, DYNAMICS, 0),
+    ("fused_mlp_fwd", "dynamics ragged", 37, DYNAMICS, 0),
+    ("fused_mlp_fwd", "dynamics unaligned", 8192, DYNAMICS, 1),
+    ("fused_mlp_fwd", "dynamics unaligned", 512, DYNAMICS, 1),
 ]
+BF16_TIMED = 5
 BF16_TOL = 1e-2  # x max(1, max|ref|): see bf16_kernels_phase
 BF16_FAR_SHARE = 0.02  # of the entries beyond 1e-4 of plain bf16: see bf16_kernels_phase
 G16_STEPS = 3  # (b): timed flagship control steps at bf16 each way, after WARMUP_STEPS
@@ -908,6 +939,24 @@ def random_layers(widths, seed, device):
     ]
 
 
+def offset_copy(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into a buffer
+    of its own (offset 1 of a float32 tensor: no longer 16-byte aligned)."""
+    buf = t.new_empty(t.numel() + offset)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def offset_layers(layers, offset):
+    """``layers`` (a split W0 as a pair) with every tensor ``offset_copy``'d."""
+    if not offset:
+        return layers
+    copy = lambda t: offset_copy(t, offset)  # noqa: E731
+    return [(tuple(map(copy, w)) if isinstance(w, tuple) else copy(w), copy(b))
+            for w, b in layers]
+
+
 def trained_layers(device):
     """The dynamics stack of CHECKPOINT, loaded as a user would: the
     msgpack tree into a LearnedDynamics. A missing file raises."""
@@ -959,9 +1008,10 @@ def check_backward(name, layers, rows, rng, dev):
     return worst
 
 
-def ls_args(lanes, alphas, n, m, gs, weights, seed, device):
+def ls_args(lanes, alphas, n, m, gs, weights, seed, device, offset=0):
     """Inputs of one line-search step, drawn from ``seed``, with the stage
-    weights from ``MPCCost.stage_weights`` and W0 split once."""
+    weights from ``MPCCost.stage_weights`` and W0 split once (every weight
+    tensor ``offset`` floats into a buffer of its own: ``offset_layers``)."""
     from gan_mpc_tpu_torch.models.cost import CostFeatureNet, MPCCost
     from gan_mpc_tpu_torch.ops.fused_ls import split_w0
 
@@ -980,7 +1030,8 @@ def ls_args(lanes, alphas, n, m, gs, weights, seed, device):
                              dtype=torch.float32, device=device),
         k=f((lanes, m), 0.3), K=f((lanes, m, n), 0.2), goal=f((lanes, gs)),
         goal_u=f((lanes, m), 0.3), wvec=wvec.detach(),
-        layers=split_w0(random_layers([n + m, 200, 200, 200, n], seed, device), n),
+        layers=offset_layers(split_w0(random_layers([n + m, 200, 200, 200, n], seed, device),
+                                      n), offset),
         gs=gs, action_goal_squared=squared, ag_scale=ag_scale,
     )
 
@@ -3190,11 +3241,25 @@ def ensemble_training_phase(kernels, card_line, dev):
     return launches
 
 
+def bf16_chain(x, layers):
+    """The stack as bf16 tensors through ``torch.nn.functional.linear`` and
+    relu (cuBLAS bf16 GEMMs, the counterpart of JAX's plain-XLA bf16
+    route): a yardstick of time only. It rounds every output to bfloat16,
+    so it is not the kernels' function, and the port never calls it."""
+    h = x
+    for i, (wt, b) in enumerate(layers):
+        h = torch.nn.functional.linear(h, wt, b)
+        if i < len(layers) - 1:
+            h = torch.relu(h)
+    return h
+
+
 def bf16_kernels_phase(kernels, max_err, timed, dev):
     """Phase 16 (a): each bf16 instance against its plain bf16 version at
-    the shapes the bf16 paths give it, then timed beside the f32 instance
-    and the plain version. The bound on the difference: max|d| <= 1e-2
-    max(1, max|ref|). Both sides multiply bfloat16-rounded operands
+    ``BF16_CHECKS``, the first ``BF16_TIMED`` then timed beside the f32
+    instance, the plain version and the stack's bf16 chain on cuBLAS
+    (``bf16_chain``, for reference). The bound on the difference: max|d| <=
+    1e-2 max(1, max|ref|). Both sides multiply bfloat16-rounded operands
     exactly and sum in f32, in other orders, so a hidden activation can
     round to the other bfloat16 neighbour (one ulp, 2^-8 relative) and
     carry that through the later layers. That bound alone cannot tell the
@@ -3210,25 +3275,29 @@ def bf16_kernels_phase(kernels, max_err, timed, dev):
     rng = np.random.default_rng(SEED + 16)
     print(f"phase 16 (a) bounds: operations over {BF16_PEAK / 1e12:.0f} TFLOP/s (dense bf16), "
           f"bytes over {MEM_RATE / 1e12:.2f} TB/s")
-    for i, (kind, name, rows, alphas, n, m, gs) in enumerate(BF16_CHECKS):
+    for i, (kind, name, rows, *shape) in enumerate(BF16_CHECKS):
         bf16, f32 = kernels[f"{kind}_bf16"], kernels[kind]
         if kind == "fused_ls_step":
-            args = ls_args(rows, alphas, n, m, gs, LS_WEIGHTS[3], 1600 + i, dev)
+            alphas, n, m, gs, offset = shape
+            args = ls_args(rows, alphas, n, m, gs, LS_WEIGHTS[3], 1600 + i, dev, offset)
             got, ref = bf16(**args), reference_ls_step(**args, bf16=True)
-            run = lambda k: k(**args)
-            plain = lambda: reference_ls_step(**args, bf16=True)
-            b_ms, b_by = ls_bound(rows, alphas, n, m, gs, BF16_PEAK)
+            run = lambda k: k(**args)  # noqa: E731
+            plain = lambda: reference_ls_step(**args, bf16=True)  # noqa: E731
+            widths = [n + m, 200, 200, 200, n]
+            # the chain's input rows: the MLP's [x, u]
+            x = torch.tensor(rng.standard_normal((rows * alphas, n + m)), dtype=torch.float32,
+                             device=dev)
             key, label = (name, rows * alphas), f"{rows}x{alphas} n={n} m={m}"
         else:
-            widths = DYNAMICS
-            layers = random_layers(widths, 1600 + i, dev)
+            widths, offset = shape
+            layers = offset_layers(random_layers(widths, 1600 + i, dev), offset)
             x = torch.tensor(rng.standard_normal((rows, widths[0])), dtype=torch.float32,
                              device=dev)
             got, ref = (bf16(x, layers),), (reference_forward(x, layers, True),)
-            run = lambda k: k(x, layers)
-            plain = lambda: reference_forward(x, layers, True)
-            b_ms, b_by = mlp_bound(rows, widths, BF16_PEAK)
+            run = lambda k: k(x, layers)  # noqa: E731
+            plain = lambda: reference_forward(x, layers, True)  # noqa: E731
             key, label = (name, rows), f"{widths} rows={rows}"
+        label += " (weights not 16-byte aligned)" if offset else ""
         unrounded = run(f32)
         unrounded = unrounded if isinstance(unrounded, tuple) else (unrounded,)
         torch.cuda.synchronize()
@@ -3249,16 +3318,26 @@ def bf16_kernels_phase(kernels, max_err, timed, dev):
                              f"{100 * BF16_FAR_SHARE:.0f}% of plain bf16 ({100 * far_f32:.3f}% "
                              "beyond 1e-4), so the check cannot tell the instances apart")
         max_err[bf16.name] = max(max_err.get(bf16.name, 0.0), max(errs))
-        k_ms, f_ms, p_ms = device_ms(lambda: run(bf16)), device_ms(lambda: run(f32)), \
-            device_ms(plain)
-        timed[(bf16.name, *key)] = (k_ms, p_ms, b_ms, b_by)
-        print(f"check {bf16.name} {name} {label}: max|d| {' / '.join(f'{e:.3e}' for e in errs)} "
-              f"(bound {BF16_TOL} max(1, max|ref|)), beyond 1e-4: "
-              f"{' / '.join(f'{100 * f:.3f}%' for f in far)} (bound "
-              f"{100 * BF16_FAR_SHARE:.0f}%; the f32 instance's first output "
-              f"{100 * far_f32:.2f}%); time kernel {k_ms:.4f} ms, the "
-              f"f32 instance {f_ms:.4f} ms, plain bf16 {p_ms:.4f} ms, bound {b_ms:.5f} ms "
-              f"({b_by}), kernel at {100 * b_ms / k_ms:.1f}% of bound")
+        line = (f"check {bf16.name} {name} {label}: max|d| "
+                f"{' / '.join(f'{e:.3e}' for e in errs)} (bound {BF16_TOL} max(1, max|ref|)), "
+                f"beyond 1e-4: {' / '.join(f'{100 * f:.3f}%' for f in far)} (bound "
+                f"{100 * BF16_FAR_SHARE:.0f}%; the f32 instance's first output "
+                f"{100 * far_f32:.2f}%)")
+        if i < BF16_TIMED:
+            b_ms, b_by = (ls_bound(rows, alphas, n, m, gs, BF16_PEAK) if kind == "fused_ls_step"
+                          else mlp_bound(rows, widths, BF16_PEAK))
+            k_ms, f_ms, p_ms = device_ms(lambda: run(bf16)), device_ms(lambda: run(f32)), \
+                device_ms(plain)
+            xb = x.to(torch.bfloat16)
+            lb = [(w.T.contiguous().to(torch.bfloat16), b.to(torch.bfloat16))
+                  for w, b in random_layers(widths, 1600 + i, dev)]
+            c_ms = device_ms(lambda: bf16_chain(xb, lb))
+            timed[(bf16.name, *key)] = (k_ms, p_ms, b_ms, b_by)
+            line += (f"; time kernel {k_ms:.4f} ms, the f32 instance {f_ms:.4f} ms, plain bf16 "
+                     f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), kernel at "
+                     f"{100 * b_ms / k_ms:.1f}% of bound; the stack's bf16 chain on cuBLAS "
+                     f"(F.linear + relu, bf16 outputs: not this function, no gate) {c_ms:.4f} ms")
+        print(line)
 
 
 def count(kernels):
@@ -3710,11 +3789,14 @@ class StopAt:
             raise Stop(msg)
 
 
-def mesh_ranks(device, case, n):
+def mesh_ranks(device, case, n, nudges):
     """18 (a) and (b) on each rank of one group of ``n``: ``dryrun_rank``,
     then ``case``'s fused epoch in mesh mode with its MLP calls, solves and
-    update steps recorded. Rank 0 returns the epoch's result, the dryrun's
-    losses and every rank's launches, records and epoch seconds."""
+    update steps recorded, then the rank's share of the single-process
+    epochs under ``nudges`` (``nudged_epoch``: nudges r, r + n, ... on rank
+    r). Rank 0 returns the epoch's result, the dryrun's losses, every
+    rank's launches, records and epoch seconds, and the nudged epochs in
+    the order of ``nudges``."""
     import torch.distributed as dist
 
     from gan_mpc_tpu_torch.parallel.checks import fused_epoch_case
@@ -3730,27 +3812,24 @@ def mesh_ranks(device, case, n):
     mine = dict(launches=out["launches"], trips=list(trips), steps=dict(steps),
                 seconds=time.perf_counter() - t0,
                 seen={k: [(w.cpu(), b.cpu()) for w, b in v] for k, v in seen.items()})
+    rank = dist.get_rank()
+    mine["nudged"] = [(i, nudged_epoch(device, case, nudges[i]))
+                      for i in range(rank, len(nudges), n)]
     every = [None] * n
     dist.all_gather_object(every, mine)
-    return dict(out, losses=losses, ranks=every)
+    nudged = [epoch for _, epoch in sorted(p for r in every for p in r.pop("nudged"))]
+    return dict(out, losses=losses, ranks=every, nudged=nudged)
 
 
-def nudged_ranks(device, case, nudges):
-    """18 (b): rank r's epoch of ``case`` in one process (no mesh), its
-    parameters and its collection's start states scaled by ``nudges[r]``
-    (the mesh moves the collection's rounding at every step, as a nudged
-    start does); rank 0 returns every rank's."""
-    import torch.distributed as dist
-
+def nudged_epoch(device, case, s):
+    """18 (b): ``case``'s epoch in one process (no mesh), its parameters and
+    its collection's start states scaled by ``s`` (the mesh moves the
+    collection's rounding at every step, as a nudged start does)."""
     from gan_mpc_tpu_torch.parallel.checks import fused_epoch_case
 
-    s = nudges[dist.get_rank()]
     draws = dict(case["draws"], reset_qpos=case["draws"]["reset_qpos"] * np.float32(s))
-    out = fused_epoch_case(device, dict(case, params=scaled_tree(case["params"], s),
-                                        draws=draws))
-    every = [None] * len(nudges)
-    dist.all_gather_object(every, out)
-    return every
+    return fused_epoch_case(device, dict(case, params=scaled_tree(case["params"], s),
+                                         draws=draws))
 
 
 def synchronize(device):
@@ -3862,10 +3941,9 @@ def hold_epoch(label, got, single, nudged):
 
 
 def epoch_reference(cfg, dev, label):
-    """18 (b), (d): ``epoch_snapshot`` of ``cfg``, its fused epoch in one
+    """18 (b), (d): ``epoch_snapshot`` of ``cfg`` and its fused epoch in one
     process on the card (launches against the reckoning, (stack, rows)
-    pairs recorded) and under ``G18_NUDGES``, and the spread the nudges give
-    the served action on the held-out histories."""
+    pairs recorded)."""
     from gan_mpc_tpu_torch.parallel.checks import fused_epoch_case
 
     case, hX = epoch_snapshot(cfg, dev)
@@ -3880,16 +3958,17 @@ def epoch_reference(cfg, dev, label):
     if single["launches"] != want:
         raise SystemExit(f"{label}: the single-process epoch launched {single['launches']}, "
                          f"reckoned {want}")
-    from gan_mpc_tpu_torch.parallel import launch
+    return dict(case=case, hX=hX, single=single, seen=seen, seconds=seconds)
 
-    # the nudged epochs are independent: one process each, at once
-    nudged = launch.spawn(nudged_ranks, [str(dev)] * len(G18_NUDGES), (case, G18_NUDGES),
-                          G18_TIMEOUT)
-    a_single = served_action(cfg, single["params"], hX, dev)
-    serve_spread = max((served_action(cfg, n["params"], hX, dev) - a_single).abs().max().item()
-                       for n in nudged)
-    return dict(case=case, hX=hX, single=single, nudged=nudged, serve_spread=serve_spread,
-                seen=seen, seconds=seconds)
+
+def nudged_spread(cfg, ref, nudged, dev):
+    """18 (b): ``ref`` with the nudged epochs and the spread they give the
+    served action on the held-out histories."""
+    hX = ref["hX"]
+    a_single = served_action(cfg, ref["single"]["params"], hX, dev)
+    spread = max((served_action(cfg, n["params"], hX, dev) - a_single).abs().max().item()
+                 for n in nudged)
+    return dict(ref, nudged=nudged, serve_spread=spread)
 
 
 def dp_run_check(cfg, devices, ref, dev, workdir, label):
@@ -3976,15 +4055,19 @@ def data_parallel_phase(kernels, card_line, dev):
         print(f"phase 18: data parallelism ({G12_CONFIG} continued from gan/9 on "
               f"{GAN9_STORE}; cuts {G18_CUTS}); ranks {G18_RANKS} over gloo (one GPU: "
               f"{card_line})")
-        # (b) in one process on the card, then under the nudges
+        # (b) in one process on the card
         ref = epoch_reference(cfg, dev, "phase 18 (b)")
-        case, single, nudged, seen = ref["case"], ref["single"], ref["nudged"], ref["seen"]
+        case, single, seen = ref["case"], ref["single"], ref["seen"]
         launches["phase 18 single-process epoch"] = single["launches"]
 
-        # (a) and (b) on the two ranks in one group, then (a) on NCCL
+        # (a) and (b) on the two ranks in one group, the nudged epochs after
+        # the mesh epoch on the same ranks; then (a) on NCCL
         t0 = time.perf_counter()
-        mesh = launch.spawn(mesh_ranks, G18_RANKS, (case, len(G18_RANKS)), G18_TIMEOUT)
+        mesh = launch.spawn(mesh_ranks, G18_RANKS, (case, len(G18_RANKS), G18_NUDGES),
+                            G18_TIMEOUT)
         mesh_s = time.perf_counter() - t0
+        ref = nudged_spread(cfg, ref, mesh.pop("nudged"), dev)
+        nudged = ref["nudged"]
         print(dryrun_line(len(G18_RANKS), mesh["losses"]))
         t0 = time.perf_counter()
         dryrun_multichip(len(G18_NCCL), G18_NCCL, G18_TIMEOUT)
@@ -4005,7 +4088,8 @@ def data_parallel_phase(kernels, card_line, dev):
         launches[f"phase 18 mesh epoch ({len(G18_RANKS)} ranks, summed)"] = total
         print(f"  (b) the fused GAN epoch: one process {ref['seconds']:.3f} s; mesh mode on "
               f"{len(G18_RANKS)} ranks sharing the card {max(r['seconds'] for r in mesh['ranks']):.3f}"
-              f" s ({mesh_s:.1f} s with the spawn and (a)'s dryrun); launches summed {total}, "
+              f" s ({mesh_s:.1f} s with the spawn, (a)'s dryrun and the {len(G18_NUDGES)} nudged "
+              f"epochs); launches summed {total}, "
               f"one process {single['launches']}; the ranks share one card and the host, so "
               "this is no speed figure")
         hold_epoch("(b) mesh against one process", mesh, single, nudged)

@@ -84,14 +84,30 @@
 //  * The bf16 mode (kBf16, the TPU kernels' bfloat16 compute dtype):
 //    every operand is rounded to bfloat16, to nearest with ties to even
 //    (what astype(jnp.bfloat16) does), where it is loaded: the activations
-//    when they are written to the hi plane, the weights as they are read
-//    from the ring, which carries the f32 weights unchanged. A bfloat16
-//    value is exact in TF32 (its 7 mantissa bits under TF32's 10, the same
-//    exponent), so one m16n8k8 TF32 pass on the rounded operands is the
-//    bfloat16 product with f32 accumulation, what jnp.dot(a.astype(bf16),
-//    w.astype(bf16), preferred_element_type=f32) computes on the matrix
-//    unit. One pass and not three, and the lo plane is neither written nor
-//    read (the shared-memory plan keeps its place, so both modes share it).
+//    when they are written to the hi plane (an f32 whose low half is
+//    zero), the weights as they are read from the ring, which carries the
+//    f32 weights unchanged. The products are bf16 tensor-core products,
+//    mma.sync.aligned.m16n8k16 (bf16 in, f32 accumulate): what
+//    jnp.dot(a.astype(bf16), w.astype(bf16), preferred_element_type=f32)
+//    computes on the matrix unit. One product covers two of the f32
+//    mode's k-steps: the fragment's k pairs (2t, 2t + 1) and (2t + 8,
+//    2t + 9) are taken to be the columns (t, t + 8) and (t + 4, t + 12)
+//    of the two steps, the same permutation of k on both operands (a sum
+//    over k does not see it), so a lane loads from the hi plane and the
+//    ring exactly what it loads for two TF32 steps and packs pairs into
+//    bf16x2 words: the activations by a byte permute, the weights by one
+//    cvt.rn.bf16x2.f32. An odd last step of 8 takes zeros for its second
+//    half. The lo plane is neither written nor read (the shared-memory plan
+//    keeps its place, so both modes share it). Designs that stored the
+//    operands as bfloat16 in shared memory, with the weights rounded once
+//    per block, lost to this one on the 200-wide stacks that the bf16 paths
+//    run: the block's f32 weight stream through shared memory bounds the
+//    loop, not its products (PERF.md, section 6). Measured against the one
+//    TF32 pass this replaces (NVIDIA H100 80GB HBM3, 700 W;
+//    scripts/time_torch_kernels.py --trees): the dynamics stack at 8192
+//    rows 0.0190 ms for 0.0220 (its bound at 989 TFLOP/s dense bf16 is
+//    0.00146 ms, 7.7% of it), at 512 rows 0.0107 for 0.0124, the line-search
+//    step at 512 x 16 0.0231 for 0.0249, at 512 x 1 0.0131 for 0.0145.
 //  * Widths that are no multiple of 8 are padded in shared memory only:
 //    input columns and weight rows with zeros; columns past a layer's
 //    width compute on whatever the stage holds and are written as zeros.
@@ -400,6 +416,29 @@ __device__ __forceinline__ void store_act(const Tile& tile, int at, float v) {
   }
 }
 
+// d (16 x 8, f32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A bf16x2 word of two f32 values that are bfloat16 already (their high
+// halves): lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// A bf16x2 word of two f32 values rounded to bfloat16, to nearest with ties
+// to even (one cvt.rn.bf16x2.f32): lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // d (16 x 8, f32) += a (16 x 8, tf32, row) b (8 x 8, tf32, col)
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -437,6 +476,43 @@ __device__ __forceinline__ void load_b(float (&b)[T][2], const float* __restrict
   }
 }
 
+// The bf16 mode's product of two k-steps of 8 (kFull; else of one, the
+// second half zeros), in chunk_products' layout: a lane's A values are
+// columns t, t + 4 of each step, its B rows t, t + 4 of each step, and
+// column t of the first step pairs with column t of the second (the
+// header's permutation of k).
+template <int MT, int T, bool kVec, bool kFull>
+__device__ __forceinline__ void bf16_products(float (&acc)[MT][T][4],
+                                              const float* __restrict__ a_hi, int sa,
+                                              const float* __restrict__ w, int N) {
+  uint32_t ah[MT][4], bh[T][2];
+  float b0[T][2], b1[T][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const float2 h0 = *reinterpret_cast<const float2*>(a_hi + i * 16 * sa);
+    const float2 h1 = *reinterpret_cast<const float2*>(a_hi + i * 16 * sa + 8);
+    float2 h2 = make_float2(0.f, 0.f), h3 = h2;
+    if constexpr (kFull) {
+      h2 = *reinterpret_cast<const float2*>(a_hi + i * 16 * sa + 16);
+      h3 = *reinterpret_cast<const float2*>(a_hi + i * 16 * sa + 24);
+    }
+    ah[i][0] = pack_bf16_exact(h0.x, h2.x), ah[i][1] = pack_bf16_exact(h0.y, h2.y);
+    ah[i][2] = pack_bf16_exact(h1.x, h3.x), ah[i][3] = pack_bf16_exact(h1.y, h3.y);
+  }
+  load_b<T, kVec>(b0, w, N);
+  if constexpr (kFull) load_b<T, kVec>(b1, w + 8 * N, N);
+#pragma unroll
+  for (int j = 0; j < T; ++j) {
+    bh[j][0] = pack_bf16(b0[j][0], kFull ? b1[j][0] : 0.f);
+    bh[j][1] = pack_bf16(b0[j][1], kFull ? b1[j][1] : 0.f);
+  }
+#pragma unroll
+  for (int j = 0; j < T; ++j) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) mma_bf16(acc[i][j], ah[i], bh[j]);
+  }
+}
+
 // One chunk's products for a warp that owns T 8-column tiles: acc[i][j] +=
 // a (MT 16-row blocks; the fragment's first pair at a_hi / a_lo, 2 * sa
 // floats per row pair) times B (load_b's layout, `rows` weight rows of
@@ -444,38 +520,33 @@ __device__ __forceinline__ void load_b(float (&b)[T][2], const float* __restrict
 // the loads of a k-step then issue together and ahead of the products that
 // need them, where a test per tile would make each tile wait for its own
 // loads in turn. With kBf16 the a_hi plane holds bfloat16 values, B is
-// rounded to bfloat16 and each term is one product, a_hi b.
+// rounded to bfloat16 and each pair of k-steps is one bf16 product
+// (bf16_products).
 template <int MT, int T, bool kVec, bool kBf16>
 __device__ __forceinline__ void chunk_products(float (&acc)[MT][T][4],
                                                const float* __restrict__ a_hi,
                                                const float* __restrict__ a_lo, int sa,
                                                const float* __restrict__ w, int N, int rows) {
   if constexpr (kBf16) {
+    // the 16-row tile's loop unrolled twice, the 64-row tile's not: each
+    // the faster on the card (PERF.md, section 6)
+    int k = 0;
+    if constexpr (MT == 1) {
 #pragma unroll 2
-    for (int k = 0; k < rows; k += 8) {
-      uint32_t ah[MT][4], bh[T][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const float2 h0 = *reinterpret_cast<const float2*>(a_hi + i * 16 * sa);
-        const float2 h1 = *reinterpret_cast<const float2*>(a_hi + i * 16 * sa + 8);
-        ah[i][0] = __float_as_uint(h0.x), ah[i][1] = __float_as_uint(h0.y);
-        ah[i][2] = __float_as_uint(h1.x), ah[i][3] = __float_as_uint(h1.y);
+      for (; k + 16 <= rows; k += 16) {
+        bf16_products<MT, T, kVec, true>(acc, a_hi, sa, w, N);
+        a_hi += 32;
+        w += 16 * N;
       }
-      float b[T][2];
-      load_b<T, kVec>(b, w, N);
-      a_hi += 16;
-      w += 8 * N;
-#pragma unroll
-      for (int j = 0; j < T; ++j) {
-        bh[j][0] = round_bf16(b[j][0]);
-        bh[j][1] = round_bf16(b[j][1]);
-      }
-#pragma unroll
-      for (int j = 0; j < T; ++j) {
-#pragma unroll
-        for (int i = 0; i < MT; ++i) mma_tf32(acc[i][j], ah[i], bh[j]);
+    } else {
+#pragma unroll 1
+      for (; k + 16 <= rows; k += 16) {
+        bf16_products<MT, T, kVec, true>(acc, a_hi, sa, w, N);
+        a_hi += 32;
+        w += 16 * N;
       }
     }
+    if (k < rows) bf16_products<MT, T, kVec, false>(acc, a_hi, sa, w, N);
     return;
   }
 #pragma unroll 2

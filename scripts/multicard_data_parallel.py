@@ -7,9 +7,10 @@ and what it is held against.
 On a host with N >= 2 cards (up to 4 used):
   1. phase 18 (b)'s fused GAN epoch of configs/gan_pendulum_rung5b.yaml
      (``chip_smoke.G18_CUTS``) in one process on cuda:0 and under the
-     parameter nudges (``chip_smoke.epoch_reference``), then in mesh mode
-     on one rank per card over NCCL, held within twice the single
-     process's spread (``chip_smoke.hold_epoch``); each rank's wall time;
+     parameter nudges (``chip_smoke.epoch_reference`` and
+     ``nudged_epoch``), then in mesh mode on one rank per card over NCCL,
+     held within twice the single process's spread
+     (``chip_smoke.hold_epoch``); each rank's wall time;
   2. the data-parallel run of that config on cuda:0..N-1 (the runners'
      default devices, NCCL), interrupted and resumed, against the one-rank
      run (``chip_smoke.dp_run_check``);
@@ -50,6 +51,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         cfg = cs.g18_config(workdir)
         ref = cs.epoch_reference(cfg, dev, "one process")
+        ref = cs.nudged_spread(cfg, ref, [cs.nudged_epoch(dev, ref["case"], s)
+                                          for s in cs.G18_NUDGES], dev)
         print(f"the fused GAN epoch in one process on {dev}: {ref['seconds']:.3f} s; launches "
               f"{ref['single']['launches']}")
         t0 = time.perf_counter()

@@ -322,9 +322,28 @@ def _far_share(got, ref):
     return ((got - ref).abs() > 1e-4).float().mean().item()
 
 
+def _on_card(t, offset, dev):
+    """``t`` on ``dev``, ``offset`` floats into a buffer of its own (1: not
+    16-byte aligned)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+DYNAMICS = [23, 200, 200, 200, 17]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [8192, 512, 37])
-def test_fused_mlp_fwd_bf16_matches_plain_on_the_card(rows):
+@pytest.mark.parametrize("widths,rows,offset", [
+    (DYNAMICS, 8192, 0), (DYNAMICS, 512, 0), (DYNAMICS, 37, 0),
+    # chip_smoke.py phase 16 (a)'s edge cases of the bf16 products: 256
+    # columns on the 64-row tile (the ensemble member, gan/4),
+    # 512 on the 16-row tile, 1 row, a ragged 64-row tile, unaligned weights
+    ([41, 256, 256, 256, 29], 8192, 0), ([23, 256, 256, 256, 17], 8192, 0),
+    ([23, 512, 512, 17], 512, 0), (DYNAMICS, 1, 0), (DYNAMICS, 8200, 0),
+    (DYNAMICS, 8192, 1), (DYNAMICS, 512, 1)])
+def test_fused_mlp_fwd_bf16_matches_plain_on_the_card(widths, rows, offset):
     """The forward kernel's bf16 instance against the plain bf16 forward:
     max|d| <= 1e-2 max(1, max|ref|) (an f32 sum in another order can flip
     a hidden activation's bfloat16 rounding by one ulp), and at most 2% of
@@ -333,8 +352,9 @@ def test_fused_mlp_fwd_bf16_matches_plain_on_the_card(rows):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
-    layers = [(w.to(dev), b.to(dev)) for w, b in _tl(_layers([23, 200, 200, 200, 17], 11))]
-    x = torch.from_numpy(_inputs(rows, 23, 12)).to(dev)
+    layers = [(_on_card(w, offset, dev), _on_card(b, offset, dev))
+              for w, b in _tl(_layers(widths, 11))]
+    x = torch.from_numpy(_inputs(rows, widths[0], 12)).to(dev)
     with torch.no_grad():
         got = mlp_apply(x, layers, "bfloat16")
         ref = reference_forward(x, layers, True)
@@ -344,16 +364,20 @@ def test_fused_mlp_fwd_bf16_matches_plain_on_the_card(rows):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("lanes,alphas", [(512, 16), (512, 1), (128, 16)])
-def test_fused_ls_step_bf16_matches_plain_on_the_card(lanes, alphas):
+@pytest.mark.parametrize("lanes,alphas,offset", [
+    (512, 16, 0), (512, 1, 0), (128, 16, 0),
+    # phase 16 (a)'s risky shapes: 1 row, a ragged 64-row tile, unaligned weights
+    (1, 1, 0), (513, 16, 0), (512, 16, 1), (512, 1, 1)])
+def test_fused_ls_step_bf16_matches_plain_on_the_card(lanes, alphas, offset):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     inputs, layers = _draw(lanes, alphas, 71)
     wvec, ag_scale = _port_cost(_raw(5), False).stage_weights()
+    card = lambda t: _on_card(t, offset, dev)  # noqa: E731
     args = dict(**{k: v.to(dev) for k, v in _torch(inputs).items()}, wvec=wvec.to(dev),
-                layers=[(tuple(t.to(dev) for t in w) if isinstance(w, tuple) else w.to(dev),
-                         b.to(dev)) for w, b in _torch_layers(layers)],
+                layers=[(tuple(map(card, w)) if isinstance(w, tuple) else card(w), card(b))
+                        for w, b in _torch_layers(layers)],
                 gs=GS, action_goal_squared=False, ag_scale=ag_scale)
     with torch.no_grad():
         got = tfl.fused_ls_kernel_bf16(**args)
