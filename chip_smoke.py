@@ -205,7 +205,7 @@ Phases, in order; any failure raises and exits non-zero:
      evaluation, the epoch and the phase.
  12. the fused epochs and a DAgger round: ``runners.gan.run`` on
      configs/gan_pendulum_rung5b.yaml (continued from gan/9, 4 envs, H=10,
-     iLQR <= 30, gan/9's widths) with ``G12_CUTS`` (2 fused epochs of 20
+     gan/9's widths) with ``G12_CUTS`` (iLQR <= 10 of 30, 2 fused epochs of 20
      collection steps and 1 dynamics pass, 8 warm-start and 3 expert
      passes as phase 8's, evaluation every epoch on 4
      envs of 10 steps, one DAgger round: 4 policy episodes, 32 segments of
@@ -404,8 +404,45 @@ Phases, in order; any failure raises and exits non-zero:
          epochs give the served action) of the one-rank run's;
      (d) where the host has two or more cards, (b)'s mesh epoch over NCCL
          across up to four of them, held as in (b); else a line saying so.
-     Then the MLP kernels at phase 18's new (stack, rows) pairs, and the
-     script's total wall time.
+     Then the MLP kernels at phase 18's new (stack, rows) pairs.
+ 19. stacks of any depth and width (the kernels' wide path: passes of
+     512 or 256 columns, activations in a device workspace where shared
+     memory does not hold them, the layers read from a table in device
+     memory):
+     (a) every kernel instance against its plain version on stacks the
+         shared-memory tile does not take (``G19_FWD``: 23->1024^3->17,
+         23->2048^2->17, 23->4096->17, 23->1000->777->17, 23->200^8->17,
+         23->64^30->17 forward at f32 and bf16 at 0, 1, 37, 512 and 8192
+         rows, and the step (n = 17, m = 6, the same hidden widths) at
+         512 x 16 and 512 x 1; ``G19_BWD``: 23->512^3->17, 23->256^6->17,
+         23->200^8->17, 23->1024^3->17 and the 32-layer stack backward at
+         128, 512 and 8192 rows, as phase 2's ``check_backward``): each call
+         on the wide path (``fwd_route``, ``bwd_route``) and counting one
+         launch, the f32 instances within 1e-4 max(1, max|ref|), the bf16
+         ones within phase 16's ``BF16_TOL`` and ``BF16_FAR_SHARE``; the
+         worst case per stack printed; then kernel, plain and the stack's
+         cuBLAS chain in f32 and in TF32 (``linear_chain``, no gate) timed
+         at ``G19_TIMED_ROWS`` with their bounds;
+     (b) the flagship served with ``G19_SERVE_HIDDEN`` dynamics (cheetah_run,
+         512 envs, H=5, 16 step sizes), fused_ls off and on: one plan of 8
+         envs at 2 trips card against CPU (U atol 1e-3, as phase 4), then
+         1 warmup and ``G19_SERVE_STEPS`` steps with launches as
+         ``mlp_calls_per_solve`` reckons (61 a step off, 55 + 6 on);
+     (c) configs/gan_cheetah.yaml with its dynamics' hidden widths set to
+         each of ``G19_TRAIN_HIDDEN``: a dynamics update pass of 3
+         minibatches of 128 windows (drawn clear of the relu kinks by
+         phase 15's ``clear_windows``) held card against CPU within
+         ``check_update_pass``'s bounds, and one cost-trainer minibatch's
+         implicit gradient (iLQR cut to 2 trips) on 16 cost windows whose
+         plan is stable (``stable_windows``: a random-weight line search
+         flips its argmin on perturbations the size of the kernels' error),
+         within max(``check_implicit_step``'s bounds, twice the CPU's own
+         spread under such perturbations, ``perturbed_dynamics``: at [512]
+         * 3 the CPU's implicit gradient moves by a few 1e-3 under them);
+         launches 5
+         forward and 5 backward a dynamics step, and
+         ``mlp_calls_per_step`` over the reported trips for the cost step;
+     then the script's total wall time.
 The last two lines are the kernels' JSON summary (the bf16 instances
 beside the f32 ones) and {"ok": true, "device": {...}}. Exits 1 without a
 CUDA device.
@@ -608,6 +645,8 @@ G11_WIDE_NUDGES = (1 + 5e-7, 1 - 5e-7)
 G12_CONFIG = "configs/gan_pendulum_rung5b.yaml"
 G12_CUTS = dict(
     mpc__train__num_epochs=2,  # of 9
+    # of 30 (until phase 19 came: the script's time stays near 900 s on slower hosts)
+    mpc__solver__max_iterations=10,
     mpc__train__dynamics__warm_start_updates=8,  # of 20 passes (see G9_CUTS)
     mpc__train__dynamics__expert_updates=3,  # of 6
     mpc__train__dynamics__max_interactions_per_episode=20,  # of 300
@@ -830,6 +869,34 @@ G16_H50_STEPS = 2  # (c): timed H=50 control steps at bf16, after 1 warmup step
 G16_TURN_STEPS = {"flagship": 3, "humanoid-class": 2}  # (d): control steps of each turn
 G16_ASSOC_TOL = {5: 2e-3, 50: 2e-2}  # (d): associative against sequential, by horizon
 G16_F64_TOL = 1e-3  # (d): each pass on the card against itself in float64 on the CPU
+# phase 19: stacks the shared-memory tile does not take
+G19_FWD = [
+    ("1024^3", [23, 1024, 1024, 1024, 17]),
+    ("2048^2", [23, 2048, 2048, 17]),
+    ("4096", [23, 4096, 17]),
+    ("1000-777", [23, 1000, 777, 17]),
+    ("200^8", [23] + [200] * 8 + [17]),
+    ("64^30", [23] + [64] * 30 + [17]),
+]
+G19_FWD_ROWS = (0, 1, 37, 512, 8192)
+G19_LS = ((512, 16), (512, 1))  # lanes x step sizes; n = 17, m = 6: G19_FWD's stacks
+G19_BWD = [
+    ("512^3", [23, 512, 512, 512, 17]),
+    ("256^6", [23] + [256] * 6 + [17]),
+    ("200^8", [23] + [200] * 8 + [17]),
+    ("1024^3", [23, 1024, 1024, 1024, 17]),
+    ("64^30", [23] + [64] * 30 + [17]),
+]
+G19_BWD_ROWS = (128, 512, 8192)
+G19_SHARE_ROWS = 512  # (a): the bf16 instances' share beyond 1e-4 is held from here on
+G19_TIMED_ROWS = {"fwd": (8192, 512), "ls": ((512, 16),), "bwd": (8192, 128)}
+G19_SERVE_HIDDEN = (1024, 1024, 1024)  # (b)
+G19_SERVE_STEPS = 3  # (b): timed control steps each way, after 1 warmup step
+G19_TRAIN_HIDDEN = ([512, 512, 512], [256] * 6)  # (c)
+G19_FLIP_POOL = 128  # (c): cost windows drawn, of which the first stable ones are taken
+G19_FLIP_NOISE = 1e-5  # (c): x max|y| on the dynamics' outputs: the kernels' error at 512 wide
+G19_FLIP_DRAWS = 4
+G19_FLIP_TOL = 1e-3  # (c): phase 4's plan tolerance; a window whose plan moves further is left
 # one H100 SXM (NVIDIA's data sheet): dense TF32 on the tensor cores, HBM3.
 # An f32-accurate product takes three TF32 passes (hi x hi, hi x lo, lo x
 # hi), so the least time for f32 products is their operations over a third
@@ -882,14 +949,14 @@ def mlp_bound(rows, widths, rate=F32_PRODUCT_RATE):
     return bound(mlp_flops(rows, widths), nbytes, rate)
 
 
-def ls_bound(lanes, alphas, n, m, gs, rate=F32_PRODUCT_RATE):
+def ls_bound(lanes, alphas, n, m, gs, rate=F32_PRODUCT_RATE, hidden=(200, 200, 200)):
     """The step's operations: the dynamics MLP, the control law
     (dx, K dx, u) and the stage cost (three pseudo-Huber norms, the
     action-goal difference, the weighted sum) and the residual add, per
     row. Bytes: every input read once (per-lane rows once per lane, the
     weights once), every output written once."""
     rows = lanes * alphas
-    widths = [n + m, 200, 200, 200, n]
+    widths = [n + m, *hidden, n]
     per_row = n + 2 * m * n + 3 * m + (2 * m + 4 * m + 3 * gs + 12) + n
     ops = mlp_flops(rows, widths) + rows * per_row
     in_floats = rows * n + rows + lanes * (n + m + m + m * n + gs + m) + 4
@@ -1008,10 +1075,11 @@ def check_backward(name, layers, rows, rng, dev):
     return worst
 
 
-def ls_args(lanes, alphas, n, m, gs, weights, seed, device, offset=0):
+def ls_args(lanes, alphas, n, m, gs, weights, seed, device, offset=0, hidden=(200, 200, 200)):
     """Inputs of one line-search step, drawn from ``seed``, with the stage
-    weights from ``MPCCost.stage_weights`` and W0 split once (every weight
-    tensor ``offset`` floats into a buffer of its own: ``offset_layers``)."""
+    weights from ``MPCCost.stage_weights``, the dynamics' ``hidden`` widths
+    and W0 split once (every weight tensor ``offset`` floats into a buffer
+    of its own: ``offset_layers``)."""
     from gan_mpc_tpu_torch.models.cost import CostFeatureNet, MPCCost
     from gan_mpc_tpu_torch.ops.fused_ls import split_w0
 
@@ -1030,8 +1098,8 @@ def ls_args(lanes, alphas, n, m, gs, weights, seed, device, offset=0):
                              dtype=torch.float32, device=device),
         k=f((lanes, m), 0.3), K=f((lanes, m, n), 0.2), goal=f((lanes, gs)),
         goal_u=f((lanes, m), 0.3), wvec=wvec.detach(),
-        layers=offset_layers(split_w0(random_layers([n + m, 200, 200, 200, n], seed, device),
-                                      n), offset),
+        layers=offset_layers(split_w0(random_layers([n + m, *hidden, n], seed, device), n),
+                             offset),
         gs=gs, action_goal_squared=squared, ag_scale=ag_scale,
     )
 
@@ -3241,11 +3309,13 @@ def ensemble_training_phase(kernels, card_line, dev):
     return launches
 
 
-def bf16_chain(x, layers):
-    """The stack as bf16 tensors through ``torch.nn.functional.linear`` and
-    relu (cuBLAS bf16 GEMMs, the counterpart of JAX's plain-XLA bf16
-    route): a yardstick of time only. It rounds every output to bfloat16,
-    so it is not the kernels' function, and the port never calls it."""
+def linear_chain(x, layers):
+    """The stack through ``torch.nn.functional.linear`` and relu, W given
+    (out, in): cuBLAS GEMMs, a yardstick of time only, which the port never
+    calls. On bf16 tensors (the counterpart of JAX's plain-XLA bf16 route)
+    it rounds every output to bfloat16, so it is not the bf16 kernels'
+    function; on f32 tensors it is the plain version, in TF32 where
+    ``torch.backends.cuda.matmul.allow_tf32`` is set."""
     h = x
     for i, (wt, b) in enumerate(layers):
         h = torch.nn.functional.linear(h, wt, b)
@@ -3258,7 +3328,7 @@ def bf16_kernels_phase(kernels, max_err, timed, dev):
     """Phase 16 (a): each bf16 instance against its plain bf16 version at
     ``BF16_CHECKS``, the first ``BF16_TIMED`` then timed beside the f32
     instance, the plain version and the stack's bf16 chain on cuBLAS
-    (``bf16_chain``, for reference). The bound on the difference: max|d| <=
+    (``linear_chain``, for reference). The bound on the difference: max|d| <=
     1e-2 max(1, max|ref|). Both sides multiply bfloat16-rounded operands
     exactly and sum in f32, in other orders, so a hidden activation can
     round to the other bfloat16 neighbour (one ulp, 2^-8 relative) and
@@ -3331,7 +3401,7 @@ def bf16_kernels_phase(kernels, max_err, timed, dev):
             xb = x.to(torch.bfloat16)
             lb = [(w.T.contiguous().to(torch.bfloat16), b.to(torch.bfloat16))
                   for w, b in random_layers(widths, 1600 + i, dev)]
-            c_ms = device_ms(lambda: bf16_chain(xb, lb))
+            c_ms = device_ms(lambda: linear_chain(xb, lb))
             timed[(bf16.name, *key)] = (k_ms, p_ms, b_ms, b_by)
             line += (f"; time kernel {k_ms:.4f} ms, the f32 instance {f_ms:.4f} ms, plain bf16 "
                      f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), kernel at "
@@ -4158,6 +4228,429 @@ def leaves_of(tree, prefix=""):
             yield f"{prefix}{k}", np.asarray(tree[k])
 
 
+@contextlib.contextmanager
+def tensor_core_products():
+    """The plain bf16 versions (``reference_forward(..., bf16=True)``,
+    ``reference_ls_step(..., bf16=True)``) with each product of bfloat16
+    operands taken by cuBLAS on the tensor cores, f32 accumulation and
+    output (``torch.mm(..., out_dtype=torch.float32)``), inside the block:
+    the bf16 instances' function on the units they use, the yardstick of
+    their rounding spread (phase 19 (a)). The port never calls it."""
+    from gan_mpc_tpu_torch.ops import fused_ls, fused_mlp
+
+    def on_tensor_cores(a, w):
+        return torch.mm(a.to(torch.bfloat16), w.to(torch.bfloat16), out_dtype=torch.float32)
+
+    saved = fused_mlp.bf16_mm, fused_ls.bf16_mm
+    fused_mlp.bf16_mm = fused_ls.bf16_mm = on_tensor_cores
+    try:
+        yield
+    finally:
+        fused_mlp.bf16_mm, fused_ls.bf16_mm = saved
+
+
+@contextlib.contextmanager
+def tf32_products():
+    """cuBLAS float32 products in TF32 inside the block (the script pins
+    full f32 elsewhere)."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def wide_kernels_phase(instances, max_err, timed, dev):
+    """Phase 19 (a): every kernel instance against its plain version at
+    ``G19_FWD`` / ``G19_LS`` / ``G19_BWD``, each call on the wide path and
+    counting one launch; the worst case per stack; then the times at
+    ``G19_TIMED_ROWS`` (the module's docstring).
+
+    The bf16 instances: max|d| <= ``BF16_TOL`` max(1, max|ref|) at every
+    shape, and the share of entries beyond 1e-4 within max(
+    ``BF16_FAR_SHARE``, twice the share by which the same function on the
+    tensor cores (cuBLAS, ``tensor_core_products``) lies from the plain
+    version) at ``G19_SHARE_ROWS`` rows and more. Wherever two f32 sums of
+    one row differ, a hidden activation can round to the other bfloat16
+    neighbour (2^-8 relative, carried through the later layers); a stack
+    of thousands of roundings a row flips more rows, and tensor-core sums
+    (the kernels' m16n8k16 and cuBLAS's) lie further from the plain
+    version's FMA sums than another FMA order would. Under 512 rows one
+    flipped row is already 2-3% of the entries (37 rows x 17), so there
+    the share is printed and max|d| alone is held. The f32 instance must
+    lie beyond the share's bound on the same inputs."""
+    from gan_mpc_tpu_torch.ops.fused_ls import reference_ls_step
+    from gan_mpc_tpu_torch.ops.fused_mlp import (
+        bwd_route, fwd_route, reference_backward, reference_forward,
+    )
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(SEED + 19)
+    worst = {}  # (instance, stack) -> (share of the bound, max|d|, share beyond 1e-4, shape)
+
+    share = lambda a, b: ((a - b).abs() > 1e-4).float().mean().item() if b.numel() else 0.0
+
+    def hold(kernel, stack, shape, got, ref, plain=None, unrounded=None, rows=0):
+        """``got`` against ``ref``; for a bf16 instance ``plain`` (the
+        plain version's outputs on the tensor cores) and ``unrounded`` (the
+        f32 instance's) give the share's bound and its power."""
+        bound = None
+        if plain is not None:
+            bound = max(BF16_FAR_SHARE, 2 * max(share(r, p) for r, p in zip(ref, plain)))
+        for i, (g, r) in enumerate(zip(got, ref)):
+            if tuple(g.shape) != tuple(r.shape):
+                raise SystemExit(f"{kernel.name} {stack} {shape}: shape {tuple(g.shape)}, "
+                                 f"plain version's {tuple(r.shape)}")
+            err = (g - r).abs().max().item() if r.numel() else 0.0
+            tol = (1e-4 if bound is None else BF16_TOL) * max(
+                1.0, r.abs().max().item() if r.numel() else 0.0)
+            far = share(g, r) if bound is not None else 0.0
+            held_far = bound is None or rows < G19_SHARE_ROWS or far <= bound
+            if not (err <= tol and held_far):
+                raise SystemExit(f"{kernel.name} disagrees with its plain version on the {stack} "
+                                 f"stack at {shape}: max|d|={err:.3e} (bound {tol:.3e}), beyond "
+                                 f"1e-4 {100 * far:.3f}% (bound {100 * (bound or 0):.2f}%)")
+            if bound is not None and i == 0 and rows >= G19_SHARE_ROWS \
+                    and not share(unrounded[0], r) > bound:
+                raise SystemExit(f"phase 19 (a) {stack} {shape}: the f32 instance lies within "
+                                 f"{100 * bound:.2f}% of plain bf16, so the check cannot tell "
+                                 "the instances apart")
+            max_err[kernel.name] = max(max_err.get(kernel.name, 0.0), err)
+            if err / tol >= worst.get((kernel.name, stack), (-1.0,))[0]:
+                worst[(kernel.name, stack)] = (err / tol, err, far, shape, bound)
+
+    def launched(kernel, fn, times=1):
+        before = kernel.launches
+        out = fn()
+        if kernel.launches != before + times:
+            raise SystemExit(f"{kernel.name} counted {kernel.launches - before} launches for "
+                             f"{times} calls")
+        return out
+
+    def on_wide_path(route, what):
+        if route[0] != "wide":
+            raise SystemExit(f"phase 19 (a): {what} takes the {route[0]} path, not the wide one")
+        return f"wide path, {route[1]}-row tiles, workspace {route[3] / 2**20:.1f} MiB"
+
+    f32, bf16 = instances["fused_mlp_fwd"], instances["fused_mlp_fwd_bf16"]
+    ls32, ls16 = instances["fused_ls_step"], instances["fused_ls_step_bf16"]
+    bwd = instances["fused_mlp_bwd"]
+    for i, (stack, widths) in enumerate(G19_FWD):
+        layers = random_layers(widths, 1900 + i, dev)
+        routes = []
+        for rows in G19_FWD_ROWS:
+            x = torch.tensor(rng.standard_normal((rows, widths[0])), dtype=torch.float32,
+                             device=dev)
+            if rows:
+                routes.append(f"{rows}: {on_wide_path(fwd_route(rows, widths, sms), stack)}")
+            unrounded = launched(f32, lambda: f32(x, layers))
+            hold(f32, stack, f"rows={rows}", (unrounded,), (reference_forward(x, layers),))
+            got = launched(bf16, lambda: bf16(x, layers))
+            with tensor_core_products():
+                plain = reference_forward(x, layers, True)
+            hold(bf16, stack, f"rows={rows}", (got,), (reference_forward(x, layers, True),),
+                 (plain,), (unrounded,), rows)
+        for lanes, alphas in G19_LS:
+            args = ls_args(lanes, alphas, 17, 6, 17, LS_WEIGHTS[3], 1950 + i, dev,
+                           hidden=widths[1:-1])
+            on_wide_path(fwd_route(lanes * alphas, widths, sms, 23), f"the step on {stack}")
+            unrounded = launched(ls32, lambda: ls32(**args))
+            hold(ls32, stack, f"{lanes}x{alphas}", unrounded, reference_ls_step(**args))
+            got = launched(ls16, lambda: ls16(**args))
+            with tensor_core_products():
+                plain = reference_ls_step(**args, bf16=True)
+            hold(ls16, stack, f"{lanes}x{alphas}", got, reference_ls_step(**args, bf16=True),
+                 plain, unrounded, lanes * alphas)
+        torch.cuda.synchronize()
+        print(f"phase 19 (a) {stack} {widths[:3]}...{widths[-1]} ({len(widths) - 1} layers): "
+              + "; ".join(routes))
+    for i, (stack, widths) in enumerate(G19_BWD):
+        layers = random_layers(widths, 1980 + i, dev)
+        for rows in G19_BWD_ROWS:
+            print(f"  backward {stack} rows={rows}: "
+                  f"{on_wide_path(bwd_route(rows, widths, sms), stack)}")
+            # check_backward calls the kernel twice: the second call must give the same bits
+            err = launched(bwd, lambda: check_backward(stack, layers, rows, rng, dev), 2)
+            if err >= worst.get((bwd.name, stack), (-1.0,))[0]:
+                worst[(bwd.name, stack)] = (err, err, 0.0, f"rows={rows}", None)
+            max_err[bwd.name] = max(max_err[bwd.name], err)
+    for (name, stack), (of_bound, err, far, shape, bound) in worst.items():
+        print(f"phase 19 (a) worst {name} {stack}: max|d| {err:.3e} at {shape}"
+              + ("" if name == bwd.name else f", {100 * of_bound:.1f}% of its bound")
+              + ("" if bound is None else f", beyond 1e-4 {100 * far:.3f}% (bound "
+                 f"{100 * bound:.2f}% from {G19_SHARE_ROWS} rows)"))
+
+    # times: kernel, plain and the cuBLAS chain in f32 and TF32; no gate
+    ms = lambda fn: device_ms(fn, launches=5, reps=5)  # noqa: E731
+    for i, (stack, widths) in enumerate(G19_FWD):
+        layers = random_layers(widths, 1900 + i, dev)
+        lt = [(w.T.contiguous(), b) for w, b in layers]
+        for rows in G19_TIMED_ROWS["fwd"]:
+            x = torch.tensor(rng.standard_normal((rows, widths[0])), dtype=torch.float32,
+                             device=dev)
+            k32, k16 = ms(lambda: f32(x, layers)), ms(lambda: bf16(x, layers))
+            p32 = ms(lambda: reference_forward(x, layers))
+            c32 = ms(lambda: linear_chain(x, lt))
+            with tf32_products():
+                ctf = ms(lambda: linear_chain(x, lt))
+            b32, by32 = mlp_bound(rows, widths)
+            b16, by16 = mlp_bound(rows, widths, BF16_PEAK)
+            timed[(f32.name, stack, rows)] = (k32, p32, b32, by32)
+            timed[(bf16.name, stack, rows)] = (k16, None, b16, by16)
+            print(f"time phase 19 fused_mlp_fwd {stack} rows={rows}: kernel {k32:.4f} ms "
+                  f"(bound {b32:.5f} ms, {by32}, {100 * b32 / k32:.1f}%), bf16 instance "
+                  f"{k16:.4f} ms (bound {b16:.5f} ms, {100 * b16 / k16:.1f}%), plain {p32:.4f} "
+                  f"ms; cuBLAS chain f32 {c32:.4f} ms, TF32 {ctf:.4f} ms")
+        for lanes, alphas in G19_TIMED_ROWS["ls"]:
+            args = ls_args(lanes, alphas, 17, 6, 17, LS_WEIGHTS[0], 1950 + i, dev,
+                           hidden=widths[1:-1])
+            k32, k16 = ms(lambda: ls32(**args)), ms(lambda: ls16(**args))
+            p32 = ms(lambda: reference_ls_step(**args))
+            b32, by32 = ls_bound(lanes, alphas, 17, 6, 17, hidden=widths[1:-1])
+            timed[(ls32.name, stack, lanes * alphas)] = (k32, p32, b32, by32)
+            print(f"time phase 19 fused_ls_step {stack} {lanes}x{alphas}: kernel {k32:.4f} ms "
+                  f"(bound {b32:.5f} ms, {by32}, {100 * b32 / k32:.1f}%), bf16 instance "
+                  f"{k16:.4f} ms, plain {p32:.4f} ms")
+    for i, (stack, widths) in enumerate(G19_BWD):
+        layers = random_layers(widths, 1980 + i, dev)
+        for rows in G19_TIMED_ROWS["bwd"]:
+            x = torch.tensor(rng.standard_normal((rows, widths[0])), dtype=torch.float32,
+                             device=dev)
+            g = torch.tensor(rng.standard_normal((rows, widths[-1])), dtype=torch.float32,
+                             device=dev)
+            k = ms(lambda: bwd(x, layers, g))
+            p = ms(lambda: reference_backward(x, layers, g))
+            with tf32_products():
+                ptf = ms(lambda: reference_backward(x, layers, g))
+            b_ms, b_by = bwd_bound(rows, widths)
+            timed[(bwd.name, stack, rows)] = (k, p, b_ms, b_by)
+            print(f"time phase 19 fused_mlp_bwd {stack} rows={rows}: kernel {k:.4f} ms (bound "
+                  f"{b_ms:.5f} ms, {b_by}, {100 * b_ms / k:.1f}%), plain (cuBLAS f32) {p:.4f} "
+                  f"ms, in TF32 {ptf:.4f} ms")
+
+
+def wide_serving_phase(kernels, card_line, dev):
+    """Phase 19 (b): the flagship with ``G19_SERVE_HIDDEN`` dynamics served
+    both ways (the module's docstring); returns the launches by path."""
+    from gan_mpc_tpu_torch.bench import FUSED_LS, HORIZON, ILQR_ITERS, NUM_ENVS, flagship, run_steps
+    from gan_mpc_tpu_torch.data.normalizer import Normalizer
+    from gan_mpc_tpu_torch.envs import make_env
+    from gan_mpc_tpu_torch.planner.batch_ilqr import mlp_calls_per_solve
+
+    env_cpu, env = make_env("cheetah_run", "cpu"), make_env("cheetah_run", dev)
+    state = env_cpu.reset(env_cpu.default_params(), 8, torch.Generator().manual_seed(SEED))
+    hX = torch.zeros((8, 2, 17))
+    hX[:, 1] = env_cpu.observe(env_cpu.default_params(), state)
+    hU = torch.zeros((8, 1, 6))
+    norm = Normalizer.identity(env.obs_size, env.act_size, dev)
+    out = {}
+    for fused_ls in FUSED_LS:
+        kw = dict(seed=SEED, fused_ls=fused_ls, hidden=G19_SERVE_HIDDEN)
+        U_cpu = flagship(HORIZON, 2, device="cpu", **kw).plan_batch(hX, hU).U
+        U_gpu = flagship(HORIZON, 2, device=dev, **kw).plan_batch(hX.to(dev), hU.to(dev)).U.cpu()
+        d_plan = (U_gpu - U_cpu).abs().max().item()
+        print(f"phase 19 (b) plan_batch (8 envs, 2 iters, dynamics hidden {G19_SERVE_HIDDEN}, "
+              f"fused_ls={fused_ls}) GPU vs CPU: max|dU|={d_plan:.3e} (atol 1e-3)")
+        if not d_plan <= 1e-3:
+            raise SystemExit(f"phase 19 (b): the plan (fused_ls={fused_ls}) on the card "
+                             "disagrees with the CPU path")
+        policy = flagship(device=dev, **kw)
+        gen = torch.Generator().manual_seed(SEED)
+        _, t_warm = run_steps(policy, env, norm, 1, gen)
+        for k in kernels.values():
+            k.launches = 0
+        ep, dt = run_steps(policy, env, norm, G19_SERVE_STEPS, gen)
+        counts = count(kernels)
+        per_step = mlp_calls_per_solve(HORIZON, ILQR_ITERS, fused=fused_ls == "on",
+                                       materialize=False)
+        expected = {name: G19_SERVE_STEPS * per_step.get(name, 0) for name in kernels}
+        print(f"phase 19 (b) flagship, dynamics hidden {G19_SERVE_HIDDEN}, fused_ls={fused_ls} "
+              f"({card_line}): {G19_SERVE_STEPS} steps x {NUM_ENVS} envs in {dt:.3f} s "
+              f"({NUM_ENVS * G19_SERVE_STEPS / dt:.1f} steps/s; warmup step {t_warm:.3f} s); "
+              f"launches {counts} (expected {expected})")
+        if counts != expected:
+            raise SystemExit(f"phase 19 (b): the 1024-wide flagship (fused_ls={fused_ls}) did not "
+                             "launch the kernels on every call")
+        check_finite(f"phase 19 (b) fused_ls={fused_ls}", ep,
+                     {"states": (NUM_ENVS, G19_SERVE_STEPS, 17),
+                      "actions": (NUM_ENVS, G19_SERVE_STEPS, 6),
+                      "rewards": (NUM_ENVS, G19_SERVE_STEPS)})
+        out[f"dynamics {'x'.join(map(str, G19_SERVE_HIDDEN))} fused_ls={fused_ls}"] = counts
+    return out
+
+
+def perturbed_dynamics(draw):
+    """Inside the block every dynamics MLP output is perturbed by
+    ``G19_FLIP_NOISE`` of its max, normal draws from seed ``draw``: the size
+    of the kernels' 3xTF32 error on the 512-wide stacks (phase 19 (c))."""
+    from gan_mpc_tpu_torch.models import dynamics
+
+    gen = torch.Generator().manual_seed(draw)
+
+    def wrap(plain):
+        def forward(x, layers, *args, **kwargs):
+            y = plain(x, layers, *args, **kwargs)
+            return y + G19_FLIP_NOISE * y.detach().abs().amax() * torch.randn(
+                y.shape, generator=gen).to(y.device)
+        return forward
+    return wrapped(dynamics, "mlp_apply", wrap)
+
+
+def stable_windows(cfg, hX, Y, n):
+    """The first ``n`` of the cost windows (hX, Y) on which the policy of
+    ``cfg`` (2 trips) plans stably on the CPU: each lane's plan moves by
+    ``G19_FLIP_TOL`` or less under ``perturbed_dynamics`` (``G19_FLIP_DRAWS``
+    draws). A random-weight line search flips its argmin on perturbations of
+    that size (on configs/gan_cheetah.yaml at [512] * 3 a lane's plan moved
+    by up to 0.13 here and 0.18 on the card's host, whose CPU moved the
+    others by a median 2.7e-4 where this one moved them by 2.4e-5), and a
+    flipped lane moves the implicit gradient by a whole step; the
+    selection reads the CPU alone."""
+    from gan_mpc_tpu_torch.runners.common import build_policy
+
+    policy = build_policy(cfg, 17, 6, device="cpu")
+    hU = torch.zeros((hX.shape[0], hX.shape[1] - 1, 6))
+    with torch.no_grad():
+        base = policy.plan_batch(hX, hU).U
+        moved = torch.zeros(hX.shape[0])
+        for draw in range(G19_FLIP_DRAWS):
+            with perturbed_dynamics(draw):
+                U = policy.plan_batch(hX, hU).U
+            moved = torch.maximum(moved, (U - base).abs().amax(dim=(1, 2)))
+    keep = (moved <= G19_FLIP_TOL).nonzero().flatten()[:n]
+    print(f"  {int((moved <= G19_FLIP_TOL).sum())} of {hX.shape[0]} cost windows plan stably "
+          f"under {G19_FLIP_NOISE:.0e} perturbations of the dynamics (the largest move "
+          f"{moved.max().item():.2e}); {n} of them taken")
+    if len(keep) < n:
+        raise SystemExit("too few cost windows plan stably")
+    return hX[keep], Y[keep]
+
+
+def wide_training_phase(kernels, dev):
+    """Phase 19 (c): dynamics-trainer and cost-trainer steps of
+    configs/gan_cheetah.yaml at each of ``G19_TRAIN_HIDDEN`` (the module's
+    docstring); returns the launches by path."""
+    from gan_mpc_tpu_torch.config import Config
+    from gan_mpc_tpu_torch.planner.bilevel import mlp_calls_per_step
+    from gan_mpc_tpu_torch.policies.losses import l2_imitation_loss
+    from gan_mpc_tpu_torch.runners.common import build_policy
+    from gan_mpc_tpu_torch.training.dynamics import multistep_prediction_loss, update_pass
+    from gan_mpc_tpu_torch.training.masking import masked_adam, policy_components
+
+    cpu = torch.device("cpu")
+    out = {}
+    for hidden in G19_TRAIN_HIDDEN:
+        cfg = Config.from_yaml(G11_CONFIG).replace(
+            mpc__model__dynamics__mlp__hidden=list(hidden),
+            mpc__solver__max_iterations=GRAD_CHECK["iters"])
+        dcfg, horizon = cfg.mpc.train.dynamics, cfg.mpc.horizon
+        label = f"phase 19 (c) {G11_CONFIG} dynamics hidden {hidden}"
+
+        # the dynamics trainer: the first minibatch's gradients, then an
+        # update pass of 3 minibatches on the same windows, indices and
+        # weights, as check_update_pass, on windows clear of the relu kinks
+        # (phase 15's clear_windows: a 512-wide unit's kink crossed on one
+        # side moves its gradient by a whole window's share)
+        rng = np.random.default_rng(SEED)
+        batch = dcfg.batch_size
+        pool = tuple(torch.tensor(rng.standard_normal((12 * batch, horizon, w)),
+                                  dtype=torch.float32) for w in (17, 6, 17))
+        clear = clear_windows(build_policy(cfg, 17, 6, device=cpu).dynamics_model, pool, False,
+                              3 * batch, rng)
+        rows = np.concatenate([np.arange(batch)[None], rng.integers(0, 3 * batch, (2, batch))])
+        results = []
+        for device in (dev, cpu):
+            policy = build_policy(cfg, 17, 6, with_critic=True, device=device)
+            model = policy.dynamics_model
+            opt = masked_adam(policy_components(policy), dcfg.no_grads, dcfg.learning_rate)
+            X, U, Y = windows = tuple(t.to(device) for t in clear)
+            idx = torch.tensor(rows, device=device)
+            for k in kernels.values():
+                k.launches = 0
+            multistep_prediction_loss(model, X[idx[0]], U[idx[0]], Y[idx[0]],
+                                      dcfg.discount_factor, teacher_forcing=False).mean().backward()
+            grads = {name: p.grad.detach().cpu().clone() for name, p in model.named_parameters()}
+            opt.zero_grad()
+            losses = [update_pass(model, opt, windows, row[None], dcfg.discount_factor,
+                                  teacher_forcing=False).item() for row in idx]
+            results.append((grads, losses, [p.detach().cpu() for p in model.parameters()],
+                            count(kernels)))
+        (g_gpu, l_gpu, p_gpu, counts), (g_cpu, l_cpu, p_cpu, _) = results
+        expected = {"fused_mlp_fwd": 4 * horizon, "fused_ls_step": 0,
+                    "fused_mlp_bwd": 4 * horizon}
+        d_grad = max((g_gpu[name] - ref).abs().max().item()
+                     / (1e-4 * max(1.0, ref.abs().max().item())) for name, ref in g_cpu.items())
+        d_loss = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+        d_par = max((a - b).abs().max().item() for a, b in zip(p_gpu, p_cpu))
+        lr = dcfg.learning_rate
+        print(f"{label}: dynamics update pass (3 x {dcfg.batch_size} windows, open loop) GPU vs "
+              f"CPU: first-minibatch gradients at most {100 * d_grad:.1f}% of 1e-4 max(1, "
+              f"max|ref|), max rel d loss {d_loss:.3e} (rtol 1e-4), max|d| params {d_par:.3e} "
+              f"(atol {2 * 3 * lr:.0e}); launches {counts} (expected {expected}: {horizon} "
+              "forward and backward a step, 4 steps)")
+        if not (d_grad <= 1.0 and d_loss <= 1e-4 and d_par <= 2 * 3 * lr):
+            raise SystemExit(f"{label}: the dynamics update pass on the card disagrees with the "
+                             "CPU path")
+        if counts != expected:
+            raise SystemExit(f"{label}: the dynamics trainer did not launch the kernels on every "
+                             "MLP call")
+        out[f"dynamics trainer {hidden}"] = counts
+
+        # the cost trainer: one minibatch's implicit gradient, as
+        # check_implicit_step, on windows whose plan is stable, within
+        # max(its bounds, twice the CPU's own spread under perturbations of
+        # the dynamics' outputs the size of the kernels' error)
+        hX, Yc = stable_windows(cfg, *grad_check_inputs(G19_FLIP_POOL, GRAD_CHECK["seed"]),
+                                GRAD_CHECK["windows"])
+        comps = ("mpc_weights", "cost_params", "dynamics_params")
+
+        def implicit(device, draw=None):
+            policy = build_policy(cfg, 17, 6, device=device)
+            for name in comps:
+                for p in policy_components(policy)[name]:
+                    p.requires_grad_(True)
+            for k in kernels.values():
+                k.launches = 0
+            with solves_recorded() as trips, contextlib.ExitStack() as stack:
+                if draw is not None:
+                    stack.enter_context(perturbed_dynamics(draw))
+                loss, grads = policy.batched_loss_and_grad(hX.to(device), l2_imitation_loss,
+                                                           (Yc.to(device),))
+            return (loss.item(), {k: [g.cpu() for g in v] for k, v in grads.items()},
+                    count(kernels), list(trips))
+
+        rel = lambda g, ref: {k: max((a - b).abs().max().item()  # noqa: E731
+                                     / max(b.abs().max().item(), 1e-30)
+                                     for a, b in zip(g[k], ref[k])) for k in comps}
+        l_gpu, g_gpu, counts, trips = implicit(dev)
+        l_cpu, g_cpu, _, _ = implicit(cpu)
+        d, d_loss = rel(g_gpu, g_cpu), abs(l_gpu - l_cpu) / abs(l_cpu)
+        spread, s_loss = dict.fromkeys(comps, 0.0), 0.0
+        for draw in range(G19_FLIP_DRAWS):
+            l_n, g_n, _, _ = implicit(cpu, draw)
+            s_loss = max(s_loss, abs(l_n - l_cpu) / abs(l_cpu))
+            spread = {k: max(v, rel(g_n, g_cpu)[k]) for k, v in spread.items()}
+        tol_loss = max(1e-4, 2 * s_loss)
+        tol = {k: max(1e-3, 2 * v) for k, v in spread.items()}
+        expected = dict(mlp_calls_per_step(horizon, sum(trips), steps=len(trips),
+                                           materialize=False))
+        fmt = lambda m: ", ".join(f"{k} {v:.2e}" for k, v in m.items())  # noqa: E731
+        print(f"{label}: cost-trainer implicit gradient ({GRAD_CHECK['windows']} stable windows, "
+              f"trips {trips}) GPU vs CPU: loss {l_gpu:.7g} vs {l_cpu:.7g} (rel {d_loss:.2e}, tol "
+              f"{tol_loss:.2e} = max(1e-4, twice the CPU's own {s_loss:.2e})); max|d| / max|ref| "
+              f"{fmt(d)} (tol max(1e-3, twice the CPU's own): {fmt(tol)}); launches {counts} "
+              f"(expected {expected})")
+        if not (d_loss <= tol_loss and all(d[k] <= tol[k] for k in comps)):
+            raise SystemExit(f"{label}: the implicit gradient on the card disagrees with the CPU "
+                             "path")
+        if counts != expected:
+            raise SystemExit(f"{label}: the cost step did not launch the kernels on every MLP "
+                             "call")
+        out[f"cost trainer {hidden}"] = counts
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4529,6 +5022,14 @@ def main() -> int:
     phase18, seen = data_parallel_phase(kernels, card_line, dev)
     launches.update(phase18)
     check_recorded("phase 18", seen, checked, rng, dev, max_err)
+
+    # 19. stacks of any depth and width: the kernels' wide path
+    t19 = time.perf_counter()
+    with torch.no_grad():
+        wide_kernels_phase(instances, max_err, timed, dev)
+    launches.update(wide_serving_phase(kernels, card_line, dev))
+    launches.update(wide_training_phase(kernels, dev))
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s")
 
     # the planner's line-search call (8192 rows) leads the forward kernels'
     # entries (at both dtypes), the trainer's call (128 rows) the backward

@@ -100,13 +100,13 @@ def flagship(horizon: int = HORIZON, max_iterations: int = ILQR_ITERS,
              x_size: int = 17, u_size: int = 6, device="cuda", seed=None,
              fused_ls: str = "off", num_alphas: int = NUM_ALPHAS,
              ls_materialize: str = LS_MATERIALIZE, compute_dtype: str = DTYPE,
-             riccati: str = RICCATI) -> MPCPolicy:
+             riccati: str = RICCATI, hidden: tuple = (200, 200, 200)) -> MPCPolicy:
     """The flagship policy at full width, on the card unless ``device``
     says otherwise. With ``seed`` its weights are drawn flax-style from a
     torch.Generator; without, they are zero and the caller loads them
     (``params.from_jax_params``). ``fused_ls``, ``num_alphas``,
     ``ls_materialize``, ``compute_dtype`` and ``riccati`` as in
-    ``SolverSettings``."""
+    ``SolverSettings``; ``hidden``: the dynamics MLP's hidden widths."""
     device = resolve_device(device)
     policy = MPCPolicy(
         cost_model=MPCCost(
@@ -115,7 +115,7 @@ def flagship(horizon: int = HORIZON, max_iterations: int = ILQR_ITERS,
             mpc_weights=(-2.0, 3.0, -3.0),
         ),
         dynamics_model=LearnedDynamics(
-            ResidualMLPDynamicsNet(x_size, u_size, hidden=(200, 200, 200))
+            ResidualMLPDynamicsNet(x_size, u_size, hidden=tuple(hidden))
         ),
         expert_model=ExpertPredictor(
             x_size, u_size, arch="lstm", features=128, hidden=(128, 128)

@@ -84,14 +84,27 @@
 //    Widths that are no multiple of 8 are padded with zeros in shared
 //    memory only; padded rows and columns of dW, db and dx are never
 //    stored.
-//  * Accepted stacks: all layers' planes plus a ring of at least 3 stages
-//    of 8 rows of the widest hidden layer must fit in 232,448 bytes
-//    (plan_bwd). The dynamics (23->200^3->17), 256-wide (23->256^3->17),
-//    cost (17->128->128->10) and humanoid-class (41->200^3->29) stacks
-//    fit, 23->512->512->17 and up to seven 200-wide hidden layers too; six
-//    256-wide or four 512-wide hidden layers do not, and are refused (-1).
-//    Spilling the earliest planes to device memory would take them; not
-//    built.
+//  * The shared-memory path above takes a stack of at most kInlineLayers
+//    layers, each at most kChainCols (512) wide, whose planes and a ring
+//    of at least 3 stages of 8 rows of the widest hidden layer fit in
+//    232,448 bytes (plan_bwd): the dynamics (23->200^3->17), 256-wide
+//    (23->256^3->17), cost (17->128->128->10) and humanoid-class
+//    (41->200^3->29) stacks, 23->512->512->17 and up to seven 200-wide
+//    hidden layers.
+//  * Any other stack (three 512-wide or six 256-wide hidden layers, 1024
+//    wide, 32 layers) takes the wide path (fused_mlp_bwd_wide_kernel,
+//    plan_bwd_wide): the same walk, products and reduction, with every
+//    layer's planes laid out as above but in the block's slot of a device
+//    workspace (2 x tile rows x the sum of the padded widths floats, plus
+//    kSlotSlack for dW's reads past the last plane) unless they fit in
+//    shared memory beside the ring; the recompute and the dx chain in
+//    passes of kChainCols columns (the recompute's weights through the
+//    ring as column slabs, the forward's wide path); and the layers'
+//    widths, plane offsets and gradient offsets read from a table in
+//    device memory, so no constant bounds the depth. The workspace and
+//    the table are the caller's (fused_mlp_bwd returns -2 with the bytes
+//    it needs); the slices and their fixed-order sum stay as above, so the
+//    wide path too gives the same bits on every run.
 //
 // The launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() (or -1 for arguments it refuses).
@@ -105,6 +118,8 @@ namespace {
 constexpr int kSumThreads = 256;
 constexpr int kMaxShares = 4;  // thread blocks that share a tile's dW, at most
 constexpr int kStageRows[] = {64, 48, 32, 24, 16, 8};  // ring stage depths, deepest first
+constexpr int kChainCols = kConsumerWarps * 8 * kWarpTiles;  // a chain pass's columns
+constexpr int kSlotSlack = 256;  // floats past a slot's planes that dW's reads may touch
 
 // With -DBWD_CLOCKS the first consumer thread of block 0 stamps the SM's
 // clock after each phase of each of its tiles (scripts/diag_torch_bwd_phases.py
@@ -134,20 +149,20 @@ struct BwdArgs {
   int stride;               // floats from one slice to the next: total padded to 4, so that
                             // every slice is aligned like the first
   int shares;               // blocks that share a slice's tiles, each with a part of dW
-  int offset[kMaxLayers];   // where dW_l starts in a set; db_l follows it
+  int offset[kInlineLayers];  // where dW_l starts in a set; db_l follows it (MlpArgs' path)
 };
 
 // A block's shared memory: [mbarriers][layer 0's hi, lo planes] ...
 // [layer L-1's][the output cotangent's][ring + 8].
 struct BwdPlan {
-  int sa[kMaxLayers + 1];   // row stride of layer l's input planes (l = L: of the output
-                            // cotangent's): the width padded to 16, plus 4
-  int at[kMaxLayers + 1];   // where the hi plane starts, floats; the lo plane follows it
+  int sa[kInlineLayers + 1];  // row stride of layer l's input planes (l = L: of the output
+                              // cotangent's): the width padded to 16, plus 4
+  int at[kInlineLayers + 1];  // where the hi plane starts, floats; the lo plane follows it
   int ring_at;
   int stage_floats;
   int stages;
-  int step[kMaxLayers];     // recompute: weight rows per chunk of layer l
-  size_t smem;              // bytes
+  int step[kInlineLayers];    // recompute: weight rows per chunk of layer l
+  size_t smem;                // bytes
 };
 
 // Lay the stack out for tiles of tile_rows (16 or 32) rows: the deepest of
@@ -155,11 +170,13 @@ struct BwdPlan {
 // recompute streams) of which at least kMinStages fit beside the planes.
 // A plane's row holds its layer's width padded to 16 columns (the chain
 // contracts 16 at a time; the pad stays zero), plus 4 for the bank rule
-// of act_index.
+// of act_index. Every width must be one pass of the warps' columns
+// (kChainCols): the recompute and the chain deal a layer out once.
 inline bool plan_bwd(const MlpArgs& a, int tile_rows, BwdPlan* p) {
   const int L = a.n_layers;
   int floats = 0, widest_out = 4;
   for (int l = 0; l <= L; ++l) {
+    if (a.dims[l] > kChainCols) return false;
     p->sa[l] = ((a.dims[l] + 15) & ~15) + 4;
     p->at[l] = floats;
     floats += 2 * tile_rows * p->sa[l];
@@ -189,6 +206,55 @@ __device__ __forceinline__ void bwd_produce(const Ring& ring, const MlpArgs& mlp
     for (int l = 0; l + 1 < mlp.n_layers; ++l) {
       const int K = mlp.dims[l];
       produce_rows<false>(ring, pp, mlp.w[l], nullptr, K, K, mlp.dims[l + 1], plan.step[l]);
+    }
+  }
+}
+
+// The wide path's layout, for a stack the path above does not take (deeper
+// than kInlineLayers, or whose planes and ring do not fit in shared
+// memory): the ring in shared memory, of the deepest 64-, 48-, ..., 8-row
+// stages (of the widest recompute pass, at most kChainCols floats a row) of
+// which kMinStages fit; every layer's planes, laid out as plan_bwd lays
+// them (LayerDesc sa and at; the output cotangent's in entry L), in shared
+// memory where they fit beside such a ring, else in the block's slot of the
+// workspace. Sets each layer's sa, at, offset and recompute step.
+struct WideBwdPlan {
+  int stage_floats;
+  int stages;
+  int planes_smem;     // 1: the planes in shared memory; 0: in the block's slot
+  int plane_floats;    // all layers' planes
+  size_t slot_floats;  // the block's slot: the planes and kSlotSlack, where not in shared memory
+  size_t smem;         // bytes
+};
+
+inline void plan_bwd_wide(LayerDesc* t, int L, int tile_rows, WideBwdPlan* p) {
+  int floats = 0, offset = 0, widest_out = 4;
+  for (int l = 0; l <= L; ++l) {
+    const int d = l < L ? t[l].K : t[L - 1].N;
+    t[l].sa = ((d + 15) & ~15) + 4;
+    t[l].at = floats;
+    floats += 2 * tile_rows * t[l].sa;
+    if (l < L) {
+      t[l].offset = offset;
+      offset += t[l].K * t[l].N + t[l].N;
+    }
+    if (l > 0 && l < L) widest_out = max(widest_out, d);
+  }
+  p->plane_floats = floats;
+  const int stride = min((widest_out + 3) & ~3, kChainCols);
+  for (int place = 0; place < 2; ++place) {
+    p->planes_smem = place == 0;
+    const size_t fixed =
+        kBarrierBytes + ((p->planes_smem ? (size_t)floats : 0) + 8) * sizeof(float);
+    for (int rows : kStageRows) {
+      p->stage_floats = rows * stride;
+      const size_t stage = p->stage_floats * sizeof(float);
+      if (fixed + kMinStages * stage > kMaxSmem) continue;
+      p->stages = (int)min((size_t)kMaxStages, (kMaxSmem - fixed) / stage);
+      p->smem = fixed + p->stages * stage;
+      p->slot_floats = p->planes_smem ? 0 : (size_t)floats + kSlotSlack;
+      for (int l = 0; l + 1 < L; ++l) t[l].step = (p->stage_floats / min(t[l].N, kChainCols)) & ~7;
+      return;
     }
   }
 }
@@ -508,19 +574,20 @@ __device__ __forceinline__ void chain_tiles(const float* __restrict__ g_hi,
   consumer_sync();
 }
 
-// The chain step of one layer for the 16 consumer warps: the result's
+// The chain step of one layer, or of the `cols` columns of its result from
+// c0 on (at most kChainCols), for the 16 consumer warps: the result's
 // 8-column tiles are dealt to them in runs, as a layer's are in
-// consume_layer (a warp without tiles only joins the two barriers).
+// MLP_CONSUME_LAYER (a warp without tiles only joins the two barriers).
 template <int MT>
 __device__ __forceinline__ void chain_layer(const float* __restrict__ g_hi,
                                             const float* __restrict__ g_lo, int sg, float* a_hi,
                                             float* a_lo, int sa, const float* __restrict__ W,
-                                            int K, int N, float* __restrict__ dx, int row0,
-                                            int rows) {
+                                            int K, int N, int c0, int cols,
+                                            float* __restrict__ dx, int row0, int rows) {
   const int wn = threadIdx.x / kWarp;
-  const int tiles = (K + 7) / 8;
+  const int tiles = (cols + 7) / 8;
   const int tb = (tiles + kConsumerWarps - 1) / kConsumerWarps;
-  const int base = wn * tb * 8;
+  const int base = c0 + wn * tb * 8;
   const int mine = max(0, min(tb, tiles - wn * tb));
 #define CHAIN(T) \
   chain_tiles<MT, T>(g_hi, g_lo, sg, a_hi, a_lo, sa, W, K, N, base, dx, row0, rows)
@@ -630,9 +697,98 @@ fused_mlp_bwd_kernel(BwdArgs a, MlpArgs mlp, BwdPlan plan, int n_tiles) {
                first, share, a.shares);
       BWD_STAMP();
       if (l == 0 && share != 0) break;  // dx is the slice's first block's
-      chain_layer<MT>(g_hi, g_lo, plan.sa[l + 1], a_hi, a_lo, plan.sa[l], mlp.w[l], K, N,
-                  l == 0 ? a.dx : nullptr, row0, a.rows);
+      chain_layer<MT>(g_hi, g_lo, plan.sa[l + 1], a_hi, a_lo, plan.sa[l], mlp.w[l], K, N, 0, K,
+                      l == 0 ? a.dx : nullptr, row0, a.rows);
       BWD_STAMP();
+    }
+  }
+}
+
+// The wide path's kernel: fused_mlp_bwd_kernel's walk with the layers from
+// a table, each recompute layer and chain step in passes of kChainCols
+// columns, and the planes in the block's slot of the workspace unless the
+// plan put them in shared memory.
+template <int MT>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+fused_mlp_bwd_wide_kernel(BwdArgs a, MlpTable mlp, WideBwdPlan plan, int n_tiles, float* slots) {
+  constexpr int TM = 16 * MT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* f = reinterpret_cast<float*>(smem + kBarrierBytes);
+  float* planes = opaque(plan.planes_smem ? f : slots + blockIdx.x * plan.slot_floats);
+  const int L = mlp.n_layers;
+  Ring ring;
+  ring.full = reinterpret_cast<uint64_t*>(smem);
+  ring.empty = ring.full + kMaxStages;
+  ring.buf = f + (plan.planes_smem ? plan.plane_floats : 0);
+  ring.stage_floats = plan.stage_floats;
+  ring.stages = plan.stages;
+  if (threadIdx.x >= kConsumers) {
+    producer_start(ring);
+    ProducerPos pp;
+    for (int tile = blockIdx.x / a.shares; tile < n_tiles; tile += gridDim.x / a.shares) {
+      for (int l = 0; l + 1 < L; ++l) {
+        const LayerDesc d = mlp.layer[l];
+        produce_layer_wide<false>(ring, pp, d, nullptr, d.K, kChainCols);
+      }
+    }
+    return;
+  }
+
+  const int slice = blockIdx.x / a.shares, share = blockIdx.x % a.shares;
+  float* part = a.part + (size_t)slice * a.stride;
+  RingPos pos;
+  // the planes' pad columns stay zero from here on: nothing writes them
+  for (int i = threadIdx.x * 4; i < plan.plane_floats; i += kConsumers * 4) {
+    *reinterpret_cast<float4*>(planes + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  consumer_sync();
+  for (int tile = slice; tile < n_tiles; tile += gridDim.x / a.shares) {
+    const int row0 = tile * TM;
+    const bool first = tile == slice;
+    if (!first) consumer_sync();  // the last tile's readers of these planes are done
+    const LayerDesc in = mlp.layer[0], out = mlp.layer[L];
+    load_rows(planes + in.at, planes + in.at + TM * in.sa, in.sa, TM, a.x, in.K, row0, a.rows);
+    load_rows(planes + out.at, planes + out.at + TM * out.sa, out.sa, TM, a.g,
+              mlp.layer[L - 1].N, row0, a.rows);
+    if (first) {
+      consumers_start();
+    } else {
+      consumer_sync();
+    }
+
+    // forward recompute: a_{l+1} = relu(a_l W_l + b_l), l < L - 1
+    for (int l = 0; l + 1 < L; ++l) {
+      const LayerDesc d = mlp.layer[l], e = mlp.layer[l + 1];
+      Tile tile;  // the layer's input planes
+      tile.hi = planes + d.at;
+      tile.lo = tile.hi + TM * d.sa;
+      tile.extra = nullptr;
+      tile.ring = ring;
+      float* o = planes + e.at;
+      const TileIo io{d.sa, nullptr, row0, a.rows, nullptr, 0, o, o + TM * e.sa, e.sa};
+      const int K = d.K, N = d.N, S = min(N, kChainCols);
+      const bool last = false;
+      for (int c0 = 0; c0 < N; c0 += kChainCols) {
+        const int cols = min(kChainCols, N - c0);
+        MLP_CONSUME_COLS(MT, 1, false, true, false, d.step, d.b, cols, S, c0, N);
+      }
+    }
+
+    // backward: layer l + 1's planes hold g_{l+1}, the cotangent of layer
+    // l's output (l = L - 1: the planes of the kernel's input g)
+    for (int l = L - 1; l >= 0; --l) {
+      const LayerDesc d = mlp.layer[l], e = mlp.layer[l + 1];
+      float* a_hi = planes + d.at;
+      float* a_lo = a_hi + TM * d.sa;
+      const float* g_hi = planes + e.at;
+      const float* g_lo = g_hi + TM * e.sa;
+      dw_tiles<MT>(a_hi, a_lo, d.sa, g_hi, g_lo, e.sa, d.K, d.N, part + d.offset, first, share,
+                   a.shares);
+      if (l == 0 && share != 0) break;  // dx is the slice's first block's
+      for (int c0 = 0; c0 < d.K; c0 += kChainCols) {
+        chain_layer<MT>(g_hi, g_lo, e.sa, a_hi, a_lo, d.sa, d.w, d.K, d.N, c0,
+                        min(kChainCols, d.K - c0), l == 0 ? a.dx : nullptr, row0, a.rows);
+      }
     }
   }
 }
@@ -648,41 +804,63 @@ sum_parts_kernel(const float* __restrict__ part, int parts, int stride, int tota
   }
 }
 
-// Raise the kernel's dynamic shared-memory limit to the block's maximum,
-// once per device (the attribute call costs host time).
+// Blocks and shares of a launch over tiles of 16 MT rows: at most one block
+// per SM and as few slices as that takes: a slice is the sum of the tiles
+// slice, slice + slices, ..., so the order of the sums depends on (rows, SM
+// count) alone. Where the slices leave SMs idle (128 rows are 8 tiles), up
+// to four blocks share a slice: each repeats the tile's recompute and chain
+// and takes a share of its dW, the largest part of a tile's time.
 template <int MT>
-cudaError_t allow_max_smem(int device) {
-  static bool done[kMaxDevices];
-  if (device < kMaxDevices && done[device]) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_mlp_bwd_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
-  if (e == cudaSuccess && device < kMaxDevices) done[device] = true;
-  return e;
+void grid(int rows, int sms, int* tiles, int* slices, int* shares) {
+  *tiles = (rows + 16 * MT - 1) / (16 * MT);
+  const int per_block = (*tiles + sms - 1) / sms;
+  *slices = (*tiles + per_block - 1) / per_block;
+  *shares = max(1, min(kMaxShares, sms / *slices));
 }
 
-// Launch over tiles of 16 MT rows, at most one block per SM and as few
-// slices as that takes: a slice is the sum of the tiles slice, slice +
-// slices, ..., so the order of the sums depends on (rows, SM count) alone.
-// Where the slices leave SMs idle (128 rows are 8 tiles), up to four
-// blocks share a slice: each repeats the tile's recompute and chain and
-// takes a share of its dW, the largest part of a tile's time. Sets
-// *slices; with one slice its blocks write grads.
+// Launch the kernel over the stack in MlpArgs. Sets *slices; with one
+// slice its blocks write grads.
 template <int MT>
 cudaError_t launch(BwdArgs a, const MlpArgs& mlp, const BwdPlan& plan, float* grads,
                    float* work, int work_parts, int device, int sms, cudaStream_t stream,
                    int* slices) {
-  const int tiles = (a.rows + 16 * MT - 1) / (16 * MT);
-  const int per_block = (tiles + sms - 1) / sms;
-  const int blocks = (tiles + per_block - 1) / per_block;
-  *slices = blocks;
-  if (blocks > 1 && (work == nullptr || work_parts < blocks)) return cudaErrorInvalidValue;
-  a.part = blocks > 1 ? work : grads;
-  a.shares = max(1, min(kMaxShares, sms / blocks));
-  cudaError_t e = allow_max_smem<MT>(device);
+  int tiles;
+  grid<MT>(a.rows, sms, &tiles, slices, &a.shares);
+  if (*slices > 1 && (work == nullptr || work_parts < *slices)) return cudaErrorInvalidValue;
+  a.part = *slices > 1 ? work : grads;
+  static bool done[kMaxDevices];
+  cudaError_t e = allow_max_smem(fused_mlp_bwd_kernel<MT>, device, done);
   if (e != cudaSuccess) return e;
-  fused_mlp_bwd_kernel<MT><<<blocks * a.shares, kBlockThreads, plan.smem, stream>>>(a, mlp, plan,
-                                                                                   tiles);
+  fused_mlp_bwd_kernel<MT><<<*slices * a.shares, kBlockThreads, plan.smem, stream>>>(a, mlp, plan,
+                                                                                    tiles);
   return cudaGetLastError();
+}
+
+// Launch the wide path, its layer table and the blocks' slots in `scratch`
+// (wide_workspace). Sets *slices as launch does.
+template <int MT>
+int launch_wide(BwdArgs a, int n_layers, const int* dims, const float* const* weights,
+                const float* const* biases, float* grads, float* work, int work_parts,
+                void* scratch, size_t scratch_bytes, size_t* scratch_needed, int device, int sms,
+                cudaStream_t stream, int* slices) {
+  std::vector<LayerDesc> table = layer_table(n_layers, dims, weights, biases, 1);
+  WideBwdPlan plan;
+  plan_bwd_wide(table.data(), n_layers, 16 * MT, &plan);
+  int tiles;
+  grid<MT>(a.rows, sms, &tiles, slices, &a.shares);
+  if (*slices > 1 && (work == nullptr || work_parts < *slices)) return -1;
+  a.part = *slices > 1 ? work : grads;
+  float* slots = nullptr;
+  const int err = wide_workspace(table, (size_t)*slices * a.shares, plan.slot_floats, scratch,
+                                 scratch_bytes, scratch_needed, stream, &slots);
+  if (err != 0) return err;
+  static bool done[kMaxDevices];
+  const cudaError_t e = allow_max_smem(fused_mlp_bwd_wide_kernel<MT>, device, done);
+  if (e != cudaSuccess) return (int)e;
+  const MlpTable mlp{n_layers, static_cast<const LayerDesc*>(scratch), nullptr, dims[0]};
+  fused_mlp_bwd_wide_kernel<MT><<<*slices * a.shares, kBlockThreads, plan.smem, stream>>>(
+      a, mlp, plan, tiles, slots);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -692,20 +870,22 @@ extern "C" {
 // x (rows, dims[0]), g (rows, dims[n_layers]) -> dx (rows, dims[0]) and
 // grads, one flat set dW_0 (dims[0], dims[1]), db_0 (dims[1]), dW_1, ...
 // Weights[l] (dims[l], dims[l+1]) and biases[l] (dims[l+1]) as in the
-// forward. `work` holds work_parts gradient sets, each padded to a
-// multiple of 4 floats, one per slice of a launch over several tiles;
-// there are at most as many slices as SMs, so work_parts = the device's
-// SM count always suffices. All pointers are
-// device pointers to contiguous f32. Returns 0 on a successful launch, a
-// cudaError_t value if a launch failed, or -1 for arguments the kernel
-// does not take (a stack whose planes and ring do not fit in a block's
-// shared memory, or a workspace too small for the launch, among them).
+// forward: any depth and widths of at least 1. `work` holds work_parts
+// gradient sets, each padded to a multiple of 4 floats, one per slice of a
+// launch over several tiles; there are at most as many slices as SMs, so
+// work_parts = the device's SM count always suffices. A stack that takes
+// the wide path needs a scratch workspace too: where scratch_bytes is less
+// than it takes, nothing is launched and the call returns -2 with the
+// bytes in *scratch_needed. All pointers are device pointers to contiguous
+// f32. Returns 0 on a successful launch, a cudaError_t value if a launch
+// failed, or -1 for arguments it refuses (no stack, a gradient set past
+// 2^31 floats, or a workspace too small for the launch).
 int fused_mlp_bwd(const float* x, const float* g, float* dx, float* grads, float* work,
                   int work_parts, int rows, int n_layers, const int* dims,
-                  const float* const* weights, const float* const* biases, void* stream) {
-  MlpArgs mlp;
+                  const float* const* weights, const float* const* biases, void* scratch,
+                  size_t scratch_bytes, size_t* scratch_needed, void* stream) {
   if (rows < 0) return -1;
-  const int stride = fill_mlp_args(&mlp, n_layers, dims, weights, biases);
+  const int stride = stack_width(n_layers, dims);
   if (stride < 0 || rows > INT_MAX / stride) return -1;
   BwdArgs a;
   a.x = x;
@@ -715,28 +895,48 @@ int fused_mlp_bwd(const float* x, const float* g, float* dx, float* grads, float
   a.rows = rows;
   long long total = 0;
   for (int l = 0; l < n_layers; ++l) {
-    a.offset[l] = (int)total;
+    if (l < kInlineLayers) a.offset[l] = (int)total;
     total += (long long)dims[l] * dims[l + 1] + dims[l + 1];
   }
+  if (total > INT_MAX - 3) return -1;
   a.total = (int)total;
   a.stride = (a.total + 3) & ~3;
   a.shares = 1;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (rows == 0) return (int)cudaMemsetAsync(grads, 0, total * sizeof(float), s);
   int device = 0, sms = 0, slices = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess) e = sm_count(device, &sms);
   if (e != cudaSuccess) return (int)e;
   // 32-row tiles once 16-row tiles would take more than two waves of blocks
-  // and the stack's planes fit twice (half the read-add-writes of dW, and
-  // each weight fragment serves two row blocks), else 16-row tiles
-  BwdPlan plan;
-  const bool big = rows > 2 * sms * 16 && plan_bwd(mlp, 32, &plan);
-  if (!big && !plan_bwd(mlp, 16, &plan)) return -1;
-  if (rows == 0) return (int)cudaMemsetAsync(grads, 0, total * sizeof(float), s);
-  e = big ? launch<2>(a, mlp, plan, grads, work, work_parts, device, sms, s, &slices)
-          : launch<1>(a, mlp, plan, grads, work, work_parts, device, sms, s, &slices);
-  if (e == cudaErrorInvalidValue) return -1;
-  if (e != cudaSuccess || slices == 1) return (int)e;
+  // (on MlpArgs' path where the stack's planes fit twice: half the
+  // read-add-writes of dW, and each weight fragment serves two row blocks),
+  // else 16-row tiles; a stack whose 16-row planes do not fit, or deeper
+  // than kInlineLayers, goes the wide path, at the tile height the same rule
+  // picks
+  const bool big = rows > 2 * sms * 16;
+  int err = -1;
+  bool inline_path = false;
+  if (n_layers <= kInlineLayers) {
+    MlpArgs mlp;
+    fill_mlp_args(&mlp, n_layers, dims, weights, biases);
+    BwdPlan plan;
+    if (rows > 2 * sms * 16 && plan_bwd(mlp, 32, &plan)) {
+      inline_path = true;
+      e = launch<2>(a, mlp, plan, grads, work, work_parts, device, sms, s, &slices);
+    } else if (plan_bwd(mlp, 16, &plan)) {
+      inline_path = true;
+      e = launch<1>(a, mlp, plan, grads, work, work_parts, device, sms, s, &slices);
+    }
+    if (inline_path) err = e == cudaErrorInvalidValue ? -1 : (int)e;
+  }
+  if (!inline_path) {
+    err = big ? launch_wide<2>(a, n_layers, dims, weights, biases, grads, work, work_parts,
+                               scratch, scratch_bytes, scratch_needed, device, sms, s, &slices)
+              : launch_wide<1>(a, n_layers, dims, weights, biases, grads, work, work_parts,
+                               scratch, scratch_bytes, scratch_needed, device, sms, s, &slices);
+  }
+  if (err != 0 || slices == 1) return err;
   sum_parts_kernel<<<(a.total + kSumThreads - 1) / kSumThreads, kSumThreads, 0, s>>>(
       work, slices, a.stride, a.total, grads);
   return (int)cudaGetLastError();

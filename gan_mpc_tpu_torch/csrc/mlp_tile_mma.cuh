@@ -46,9 +46,10 @@
 //    accumulators in registers. A layer's tiles are dealt to the column
 //    groups in runs of ceil(tiles / WN): 200 columns are runs of 4 on 7 of
 //    the 8 groups of the 64-row tile, and the 17-column last layer one
-//    tile each on 3 groups, not 3 tiles on one. So a layer is at most
-//    32 * WN columns wide: 256 for the 64-row tile (2 x 8 warps), 512 for
-//    the 16-row tile (1 x 16).
+//    tile each on 3 groups, not 3 tiles on one. So one pass of the loop
+//    covers at most 32 * WN columns: 256 for the 64-row tile (2 x 8
+//    warps), 512 for the 16-row tile (1 x 16). A wider layer takes the wide
+//    path, in passes of that many columns (below).
 //  * Fragment layout, chosen so that loads are wide and land in the
 //    registers the product reads them from. A warp's tiles lie side by
 //    side and share their columns out by lane (column n of tile j is
@@ -133,14 +134,26 @@ constexpr int kMinStages = 3;
 constexpr size_t kMaxSmem = 232448;                 // a Hopper block's dynamic shared memory
 constexpr size_t kBarrierBytes = 128;               // 2 * kMaxStages mbarriers, padded
 
+// Raise a kernel's dynamic shared-memory limit to the block's maximum, once
+// per device (`done`: the instance's flags): the attribute call costs host
+// time, and the planner's launches are bound by host time.
+template <typename Kernel>
+cudaError_t allow_max_smem(Kernel kernel, int device, bool* done) {
+  if (device < kMaxDevices && done[device]) return cudaSuccess;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  if (e == cudaSuccess && device < kMaxDevices) done[device] = true;
+  return e;
+}
+
 // A block's shared memory: [mbarriers][hi plane][lo plane][extra][ring + 8].
 struct TilePlan {
   int sa;                // activation row stride, floats: = 4 (mod 8)
   int extra_floats;      // the caller's own buffer
   int stage_floats;      // floats per ring stage
   int stages;
-  int step[kMaxLayers];  // weight rows per chunk of layer l: what a stage holds, in whole
-                         // k-steps of 8
+  int step[kInlineLayers];  // weight rows per chunk of layer l: what a stage holds, in whole
+                           // k-steps of 8
   size_t smem;           // bytes
 };
 
@@ -615,19 +628,23 @@ struct TileIo {
   int so;
 };
 
-// One layer for a warp that owns T 8-column tiles from column `base` on
-// (T == 0: the warp only keeps the ring's pace): the chunks' products as
-// they land, then the epilogue. Accumulator j holds rows r, r + 8 and the
-// columns base + (2 t + e) * T + j, e = 0, 1: over j a lane's columns are
-// the 2 T from base + 2 t T on. The bias is fetched first and added last,
-// so its latency hides behind the products. A hidden layer's output
+// One layer, or one pass of a wide layer's columns, for a warp that owns
+// T 8-column tiles from column `base` on (T == 0: the warp only keeps the
+// ring's pace): the chunks' products as they land, then the epilogue. The
+// pass covers the N columns from c0 on of a layer ld columns wide, and a
+// ring stage holds its weight rows S floats apart (a whole layer: c0 = 0,
+// S = N = ld). Accumulator j holds rows r, r + 8 and the columns base +
+// (2 t + e) * T + j of the pass, e = 0, 1: over j a lane's columns are the
+// 2 T from base + 2 t T on. The bias is fetched first and added last, so
+// its latency hides behind the products. A hidden layer's output
 // overwrites the tile once every warp has read its inputs (with kOut it
 // goes to io's planes instead), and is whole before any warp reads it;
 // with kBf16 it is rounded to bfloat16 into the hi plane alone.
 template <int MT, int WM, int T, bool kVec, bool kLs, bool kOut, bool kBf16>
 __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, const TileIo& io,
-                                            int K, int N, int step, int base,
-                                            const float* __restrict__ bias, bool last) {
+                                            int K, int N, int S, int c0, int ld, int step,
+                                            int base, const float* __restrict__ bias,
+                                            bool last) {
   constexpr int TT = T > 0 ? T : 1;
   const Ring& ring = tile.ring;
   const int lane = threadIdx.x % kWarp;
@@ -640,7 +657,7 @@ __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, cons
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int c = col + e * T + j;
-      b[j][e] = T > 0 && c < N ? __ldg(bias + c) : 0.f;
+      b[j][e] = T > 0 && c < N ? __ldg(bias + c0 + c) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
@@ -654,9 +671,9 @@ __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, cons
     const int n = min(step, K - k0);
     mbar_wait(ring.full + pos.s, pos.phase);
     if constexpr (T > 0) {
-      const float* w = ring.buf + (size_t)pos.s * ring.stage_floats + t * N + base + g * T;
+      const float* w = ring.buf + (size_t)pos.s * ring.stage_floats + t * S + base + g * T;
       chunk_products<MT, T, kVec, kBf16>(acc, tile.hi + a_at + 2 * k0, tile.lo + a_at + 2 * k0,
-                                         io.sa, w, N, (n + 7) & ~7);
+                                         io.sa, w, S, (n + 7) & ~7);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(ring.empty + pos.s);
@@ -674,7 +691,7 @@ __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, cons
         for (int h = 0; h < 2; ++h) {
           const int r = (wm * MT + i) * 16 + g + 8 * h;
           if (io.row0 + r >= io.rows) continue;
-          float* yr = io.y + (size_t)(io.row0 + r) * N;
+          float* yr = io.y + (size_t)(io.row0 + r) * ld + c0;
 #pragma unroll
           for (int j = 0; j < T; ++j) {
 #pragma unroll
@@ -682,7 +699,7 @@ __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, cons
               const int c = col + e * T + j;
               if (c >= N) continue;
               float v = acc[i][j][2 * h + e] + b[j][e];
-              if constexpr (kLs) v += io.resid[r * io.resid_stride + c];
+              if constexpr (kLs) v += io.resid[r * io.resid_stride + c0 + c];
               yr[c] = v;
             }
           }
@@ -712,7 +729,7 @@ __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, cons
         hi[p] = __uint_as_float(vh);
         lo[p] = __uint_as_float(vl);
       }
-      const int at = act_index((wm * MT + i) * 16 + g, col, kOut ? io.so : io.sa);
+      const int at = act_index((wm * MT + i) * 16 + g, c0 + col, kOut ? io.so : io.sa);
       float* o_hi = kOut ? io.o_hi : tile.hi;
       float* o_lo = kOut ? io.o_lo : tile.lo;
 #pragma unroll
@@ -739,38 +756,47 @@ __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, cons
 // instance is called. (A macro
 // and not a function: as a function that both callers shared,
 // fused_mlp_fwd's 16-row instance compiled to 92 registers for 90 and its
-// 512-row cost call took 6% longer.)
-#define MLP_CONSUME_LAYER(MT, WM, kLs, kOut, kBf16, STEP, BIAS)                                   \
+// 512-row cost call took 6% longer.) MLP_CONSUME_COLS is the same for one
+// pass of a wide layer: NP columns from C0 on of a layer LD wide, whose
+// weight rows lie S floats apart in a stage.
+#define MLP_CONSUME_LAYER(MT, WM, kLs, kOut, kBf16, STEP, BIAS) \
+  MLP_CONSUME_COLS(MT, WM, kLs, kOut, kBf16, STEP, BIAS, N, N, 0, N)
+#define MLP_CONSUME_COLS(MT, WM, kLs, kOut, kBf16, STEP, BIAS, NP, S, C0, LD)                      \
   do {                                                                                            \
     constexpr int WN = kConsumerWarps / (WM);                                                     \
     /* neighbouring warps, which share an SM sub-partition four warps apart, take */              \
     /* different column groups, so a layer's last, narrower groups spread over the */             \
     /* sub-partitions */                                                                          \
     const int wn = threadIdx.x / kWarp / (WM);                                                    \
-    const int tiles = (N + 7) / 8;                                                                \
+    const int tiles = ((NP) + 7) / 8;                                                             \
     const int tb = (tiles + WN - 1) / WN;                                                         \
     const int base = wn * tb * 8;                                                                 \
     const int mine = max(0, min(tb, tiles - wn * tb));                                            \
-    if (N % 4 == 0) {                                                                             \
+    if ((S) % 4 == 0) {                                                                           \
       switch (mine) {                                                                             \
-        case 0: MLP_LAYER(MT, WM, 0, true, kLs, kOut, kBf16, STEP, BIAS); break;                  \
-        case 1: MLP_LAYER(MT, WM, 1, true, kLs, kOut, kBf16, STEP, BIAS); break;                  \
-        case 2: MLP_LAYER(MT, WM, 2, true, kLs, kOut, kBf16, STEP, BIAS); break;                  \
-        case 3: MLP_LAYER(MT, WM, 3, true, kLs, kOut, kBf16, STEP, BIAS); break;                  \
-        default: MLP_LAYER(MT, WM, kWarpTiles, true, kLs, kOut, kBf16, STEP, BIAS); break;        \
+        case 0: MLP_LAYER(MT, WM, 0, true, kLs, kOut, kBf16, STEP, BIAS, NP, S, C0, LD); break;   \
+        case 1: MLP_LAYER(MT, WM, 1, true, kLs, kOut, kBf16, STEP, BIAS, NP, S, C0, LD); break;   \
+        case 2: MLP_LAYER(MT, WM, 2, true, kLs, kOut, kBf16, STEP, BIAS, NP, S, C0, LD); break;   \
+        case 3: MLP_LAYER(MT, WM, 3, true, kLs, kOut, kBf16, STEP, BIAS, NP, S, C0, LD); break;   \
+        default:                                                                                  \
+          MLP_LAYER(MT, WM, kWarpTiles, true, kLs, kOut, kBf16, STEP, BIAS, NP, S, C0, LD);       \
+          break;                                                                                  \
       }                                                                                           \
     } else {                                                                                      \
       switch (mine) {                                                                             \
-        case 0: MLP_LAYER(MT, WM, 0, false, kLs, kOut, kBf16, STEP, BIAS); break;                 \
-        case 1: MLP_LAYER(MT, WM, 1, false, kLs, kOut, kBf16, STEP, BIAS); break;                 \
-        case 2: MLP_LAYER(MT, WM, 2, false, kLs, kOut, kBf16, STEP, BIAS); break;                 \
-        case 3: MLP_LAYER(MT, WM, 3, false, kLs, kOut, kBf16, STEP, BIAS); break;                 \
-        default: MLP_LAYER(MT, WM, kWarpTiles, false, kLs, kOut, kBf16, STEP, BIAS); break;       \
+        case 0: MLP_LAYER(MT, WM, 0, false, kLs, kOut, kBf16, STEP, BIAS, NP, S, C0, LD); break;  \
+        case 1: MLP_LAYER(MT, WM, 1, false, kLs, kOut, kBf16, STEP, BIAS, NP, S, C0, LD); break;  \
+        case 2: MLP_LAYER(MT, WM, 2, false, kLs, kOut, kBf16, STEP, BIAS, NP, S, C0, LD); break;  \
+        case 3: MLP_LAYER(MT, WM, 3, false, kLs, kOut, kBf16, STEP, BIAS, NP, S, C0, LD); break;  \
+        default:                                                                                  \
+          MLP_LAYER(MT, WM, kWarpTiles, false, kLs, kOut, kBf16, STEP, BIAS, NP, S, C0, LD);      \
+          break;                                                                                  \
       }                                                                                           \
     }                                                                                             \
   } while (0)
-#define MLP_LAYER(MT, WM, T, V, kLs, kOut, kBf16, STEP, BIAS) \
-  layer_tiles<MT, WM, T, V, kLs, kOut, kBf16>(tile, pos, io, K, N, STEP, base, BIAS, last)
+#define MLP_LAYER(MT, WM, T, V, kLs, kOut, kBf16, STEP, BIAS, NP, S, C0, LD)                     \
+  layer_tiles<MT, WM, T, V, kLs, kOut, kBf16>(tile, pos, io, K, NP, S, C0, LD, STEP, base, BIAS, \
+                                              last)
 
 // The consumer warps of a forward kernel: the whole stack over one row
 // tile of 16 * MT * WM rows whose input rows are split into tile.hi and
@@ -791,6 +817,252 @@ __device__ __forceinline__ void mlp_consume(const Tile& tile, const MlpArgs& arg
     const int K = args.dims[l], N = args.dims[l + 1];
     const bool last = l == args.n_layers - 1;
     MLP_CONSUME_LAYER(MT, WM, kLs, false, kBf16, plan.step[l], args.b[l]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The wide path: stacks of any depth and width.
+//
+// A stack deeper than kInlineLayers, or one the path above does not take (a
+// layer wider than one pass of the warps' columns, or planes that do not
+// fit beside the ring in a block's shared memory), runs through the same
+// products, fragments, epilogue and ring, with three differences.
+//  * Passes. A layer wider than P = 32 * WN columns (512 on the 16-row
+//    tile, 256 on the 64-row tile) is computed in passes of P columns, each
+//    a run of layer_tiles over all K rows. The ring then carries column
+//    slabs: a chunk of weight rows [k0, k0 + n) x columns [c0, c0 + P) is n
+//    spans of one row each, laid P floats apart in the stage (a bulk copy
+//    a row). A layer of at most P columns keeps whole rows, one span a
+//    chunk, as above.
+//  * Two pairs of planes. A pass writes its columns while later passes
+//    still read the whole input, so a layer's output goes to a second pair
+//    of planes (kOut), and the pairs swap at every layer.
+//  * Where the planes live. Both pairs (and the line-search step's f32
+//    input rows) sit in shared memory where they fit beside a ring of
+//    kMinStages stages; else in the block's slot of a device workspace that
+//    the caller allocates (the TPU kernel kept its whole tile in VMEM,
+//    megabytes; here a slot is read by one SM, mostly from L1 and L2). The
+//    planes' pointer is made opaque to the compiler, so every access is a
+//    generic load or store and none goes through the read-only cache, which
+//    does not see what the block itself wrote.
+// A block walks row tiles gridDim.x apart, at most one block an SM, so the
+// workspace holds as many slots as blocks; its producer warp streams the
+// weights again for each tile. The layers come from a table in device
+// memory (MlpTable), any number of them. The arithmetic is the path
+// above's: the same products in the same k order, epilogue and rounding.
+
+struct WidePlan {
+  int sa;              // the planes' row stride, floats: = 4 (mod 8)
+  int pass_cols;       // P
+  int extra_floats;    // the caller's own buffer
+  int stage_floats;    // floats per ring stage
+  int stages;
+  int planes_smem;     // 1: both pairs of planes in shared memory; 0: in the block's slot
+  int extra_smem;      // the same for the caller's buffer
+  size_t slot_floats;  // the block's slot of the workspace
+  size_t smem;         // bytes
+};
+
+// Lay out a stack (layers[l].K, .N) for the wide path at tile_rows rows
+// and pass_cols columns a pass, and set each layer's step. Places tried in
+// order: the planes and the caller's buffer in shared memory, the buffer
+// alone, neither; at each, the deepest ring of 64-, 32-, 16- or 8-row
+// stages (of the widest pass) of which kMinStages fit. The last place
+// always fits: a ring of 3 stages of 8 rows of 512 floats is 48 KB.
+inline void plan_wide(LayerDesc* layers, int n_layers, int tile_rows, int pass_cols,
+                      int extra_floats, WidePlan* p) {
+  int widest = layers[0].K, widest_out = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    widest = max(widest, layers[l].N);
+    widest_out = max(widest_out, layers[l].N);
+  }
+  p->sa = ((widest + 7) & ~7) + 4;
+  p->pass_cols = pass_cols;
+  p->extra_floats = (extra_floats + 3) & ~3;
+  const int stride = min((widest_out + 3) & ~3, pass_cols);
+  const size_t planes = 4ull * tile_rows * p->sa;
+  for (int place = 0; place < 3; ++place) {
+    p->planes_smem = place == 0;
+    p->extra_smem = place < 2;
+    const size_t fixed =
+        kBarrierBytes + ((p->planes_smem ? planes : 0) + (p->extra_smem ? p->extra_floats : 0) + 8) *
+                            sizeof(float);
+    for (int rows = 64; rows >= 8; rows /= 2) {
+      p->stage_floats = rows * stride;
+      const size_t stage = p->stage_floats * sizeof(float);
+      if (fixed + kMinStages * stage > kMaxSmem) continue;
+      p->stages = (int)min((size_t)kMaxStages, (kMaxSmem - fixed) / stage);
+      p->smem = fixed + p->stages * stage;
+      p->slot_floats = (p->planes_smem ? 0 : planes) + (p->extra_smem ? 0 : p->extra_floats);
+      for (int l = 0; l < n_layers; ++l) {
+        layers[l].step = (p->stage_floats / min(layers[l].N, pass_cols)) & ~7;
+      }
+      return;
+    }
+  }
+}
+
+// The wide path's workspace: the layer table at its head, then `blocks`
+// slots of `slot_floats`. Where `work_bytes` is less than that, sets
+// *work_needed and returns -2, launching nothing; else copies the table in
+// on `stream` (from pageable memory: staged before the call returns) and
+// returns 0 with the first slot in *slots, or a cudaError_t value.
+inline int wide_workspace(const std::vector<LayerDesc>& table, size_t blocks, size_t slot_floats,
+                          void* work, size_t work_bytes, size_t* work_needed,
+                          cudaStream_t stream, float** slots) {
+  const size_t head = table_bytes(table.size());
+  const size_t need = head + blocks * slot_floats * sizeof(float);
+  if (work_bytes < need) {
+    *work_needed = need;
+    return -2;
+  }
+  *slots = reinterpret_cast<float*>(static_cast<unsigned char*>(work) + head);
+  return (int)cudaMemcpyAsync(work, table.data(), table.size() * sizeof(LayerDesc),
+                              cudaMemcpyHostToDevice, stream);
+}
+
+// The generic pointer p, of which the compiler knows nothing more.
+__device__ __forceinline__ float* opaque(float* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
+// A wide-path block's tile: the layer's input planes (in.hi, in.lo), the
+// caller's buffer and the ring, and the output planes.
+struct WideTile {
+  Tile in;
+  float* o_hi;
+  float* o_lo;
+};
+
+// Shared memory: [mbarriers][planes, if there][buffer, if there][ring + 8];
+// the block's slot of the workspace: [planes, if there][buffer, if there].
+__device__ __forceinline__ WideTile carve_wide(unsigned char* smem, const WidePlan& p,
+                                               int tile_rows, float* slot) {
+  WideTile t;
+  t.in.ring.full = reinterpret_cast<uint64_t*>(smem);
+  t.in.ring.empty = t.in.ring.full + kMaxStages;
+  float* f = reinterpret_cast<float*>(smem + kBarrierBytes);
+  const size_t plane = (size_t)tile_rows * p.sa;
+  float* planes;
+  if (p.planes_smem) {
+    planes = f;
+    f += 4 * plane;
+  } else {
+    planes = slot;
+    slot += 4 * plane;
+  }
+  float* extra;
+  if (p.extra_smem) {
+    extra = f;
+    f += p.extra_floats;
+  } else {
+    extra = slot;
+  }
+  planes = opaque(planes);
+  t.in.hi = planes;
+  t.in.lo = planes + plane;
+  t.o_hi = planes + 2 * plane;
+  t.o_lo = planes + 3 * plane;
+  t.in.extra = opaque(extra);
+  t.in.ring.buf = f;
+  t.in.ring.stage_floats = p.stage_floats;
+  t.in.ring.stages = p.stages;
+  return t;
+}
+
+// Weight rows [k0, k0 + n) x columns [c0, c0 + cols) of a row-major (K, N)
+// matrix into a stage, a row every `stride` floats: one span a row; with
+// kLs the first layer's rows from `split` on come from Wtail. Returns the
+// bytes the bulk copies count on `bar` (copy_span).
+template <bool kLs, bool kBulk>
+__device__ __forceinline__ uint32_t copy_chunk_slab(float* dst, const float* __restrict__ W,
+                                                    const float* __restrict__ Wtail, int split,
+                                                    int k0, int n, int N, int c0, int cols,
+                                                    int stride, uint64_t* bar, int lane) {
+  uint32_t bytes = 0;
+  for (int r = 0; r < n; ++r) {
+    const int k = k0 + r;
+    const float* src = (kLs && k >= split ? Wtail + (size_t)(k - split) * N : W + (size_t)k * N);
+    bytes += copy_span<kBulk>(dst + (size_t)r * stride, src + c0, cols, bar, lane);
+  }
+  return bytes;
+}
+
+// One layer into the ring in the order the wide consumers read it: a layer
+// of at most pass_cols columns as produce_rows streams it, a wider one pass
+// by pass, each chunk a column slab pass_cols floats a row (the last
+// pass's narrower slab too; its rows' tails are never read into an output).
+template <bool kLs>
+__device__ __forceinline__ void produce_layer_wide(const Ring& ring, ProducerPos& pp,
+                                                   const LayerDesc& d,
+                                                   const float* __restrict__ Wtail, int split,
+                                                   int pass_cols) {
+  if (d.N <= pass_cols) {
+    produce_rows<kLs>(ring, pp, d.w, Wtail, split, d.K, d.N, d.step);
+    return;
+  }
+  const int lane = threadIdx.x % kWarp;
+  for (int c0 = 0; c0 < d.N; c0 += pass_cols) {
+    const int cols = min(pass_cols, d.N - c0);
+    for (int k0 = 0; k0 < d.K; k0 += d.step) {
+      const int n = min(d.step, d.K - k0);
+      float* dst = ring.buf + (size_t)pp.s * ring.stage_floats;
+      uint64_t* full = ring.full + pp.s;
+      mbar_wait(ring.empty + pp.s, pp.phase ^ 1);  // passes at once on the first round
+      const uint32_t bytes = copy_chunk_slab<kLs, true>(dst, d.w, Wtail, split, k0, n, d.N, c0,
+                                                        cols, pass_cols, full, lane);
+      if (lane == 0) mbar_arrive_expect_tx(full, bytes);
+      copy_chunk_slab<kLs, false>(dst, d.w, Wtail, split, k0, n, d.N, c0, cols, pass_cols, full,
+                                  lane);
+      // zero rows up to the k-step, as produce_rows does
+      for (int e = n * pass_cols + lane; e < ((n + 7) & ~7) * pass_cols; e += kWarp) dst[e] = 0.f;
+      producer_advance(ring, pp, lane);
+    }
+  }
+}
+
+// The producer warp of a wide-path forward, for one row tile: every
+// layer's weights in the order wide_consume reads them.
+template <bool kLs>
+__device__ __forceinline__ void wide_produce(const Ring& ring, ProducerPos& pp,
+                                             const MlpTable& args, int pass_cols) {
+  for (int l = 0; l < args.n_layers; ++l) {
+    const LayerDesc d = args.layer[l];
+    produce_layer_wide<kLs>(ring, pp, d, kLs && l == 0 ? args.w0_tail : nullptr,
+                            kLs && l == 0 ? args.split : d.K, pass_cols);
+  }
+}
+
+// The consumer warps of a wide-path forward, for one row tile whose input
+// rows are in t.in's planes (as mlp_consume takes them): each layer pass by
+// pass into the other pair of planes, which then becomes the input; the
+// last layer's rows to y as in mlp_consume. `pos` carries over from tile to
+// tile, as the producer's ring does.
+template <int MT, int WM, bool kLs, bool kBf16>
+__device__ __forceinline__ void wide_consume(const WideTile& t, RingPos& pos, const MlpTable& args,
+                                             const WidePlan& plan, float* __restrict__ y,
+                                             int row0, int rows, const float* resid,
+                                             int resid_stride) {
+  Tile tile = t.in;
+  float* o_hi = t.o_hi;
+  float* o_lo = t.o_lo;
+  for (int l = 0; l < args.n_layers; ++l) {
+    const LayerDesc d = args.layer[l];
+    const int K = d.K, N = d.N;
+    const bool last = l == args.n_layers - 1;
+    const TileIo io{plan.sa, y, row0, rows, resid, resid_stride, o_hi, o_lo, plan.sa};
+    const int S = min(N, plan.pass_cols);
+    for (int c0 = 0; c0 < N; c0 += plan.pass_cols) {
+      const int cols = min(plan.pass_cols, N - c0);
+      MLP_CONSUME_COLS(MT, WM, kLs, true, kBf16, d.step, d.b, cols, S, c0, N);
+    }
+    float* h = tile.hi;
+    tile.hi = o_hi;
+    o_hi = h;
+    h = tile.lo;
+    tile.lo = o_lo;
+    o_lo = h;
   }
 }
 

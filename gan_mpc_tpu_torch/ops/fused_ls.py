@@ -20,8 +20,10 @@ action rows (``split_w0``, once per plan), as the TPU kernel takes it:
 ``fused_ls_step`` dispatches by device: a CPU tensor runs
 ``reference_ls_step`` (plain torch, the tests' path); a CUDA tensor always
 launches the hand-written kernel ``csrc/fused_ls_step.cu`` (at any B and
-A; the JAX package's ``B % 128`` condition was a TPU tile rule) or
-raises. There is no fallback from the kernel to the plain version.
+A, the JAX package's ``B % 128`` condition being a TPU tile rule, and any
+dynamics stack: one the shared-memory tile does not take runs the
+kernel's wide path, ``ops.fused_mlp.fwd_route``) or raises. There is no
+fallback from the kernel to the plain version.
 
 ``bf16=True`` is the TPU kernel's bf16 variant (``compute_dtype=
 "bfloat16"``): the MLP's four products (W0's state and action rows, the
@@ -39,7 +41,7 @@ from typing import Sequence, Tuple
 import torch
 
 from gan_mpc_tpu_torch.models.cost import pseudo_huber
-from gan_mpc_tpu_torch.ops.fused_mlp import MAX_LAYERS, MAX_WIDTH, Layers, bf16_mm
+from gan_mpc_tpu_torch.ops.fused_mlp import WORKSPACE_ARGS, Layers, bf16_mm, call_with_workspace
 
 
 def split_w0(layers: Layers, n: int) -> list:
@@ -102,7 +104,8 @@ class FusedLsKernel:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.fused_ls_step.argtypes = (
                 [p] * 12 + [i] * 6 + [ctypes.c_float, i, ctypes.POINTER(i),
-                                      ctypes.POINTER(p), p, ctypes.POINTER(p), i, p]
+                                      ctypes.POINTER(p), p, ctypes.POINTER(p), i,
+                                      *WORKSPACE_ARGS, p]
             )
             lib.fused_ls_step.restype = i
             self._lib = lib
@@ -128,11 +131,12 @@ class FusedLsKernel:
         # the library launches on the current device: make it the operands'
         with torch.cuda.device(x3.device):
             stream = torch.cuda.current_stream(x3.device).cuda_stream
-            err = lib.fused_ls_step(
-                *[t.data_ptr() for t in inputs], nx.data_ptr(), u.data_ptr(), cost.data_ptr(),
-                B, A, n, m, gs, int(action_goal_squared), float(ag_scale),
-                len(ws), c_dims, c_w, w0u.data_ptr(), c_b, int(self.bf16), stream,
-            )
+            err = call_with_workspace(
+                lib.fused_ls_step,
+                (*[t.data_ptr() for t in inputs], nx.data_ptr(), u.data_ptr(), cost.data_ptr(),
+                 B, A, n, m, gs, int(action_goal_squared), float(ag_scale),
+                 len(ws), c_dims, c_w, w0u.data_ptr(), c_b, int(self.bf16)),
+                x3.device, stream)
         if err != 0:
             raise RuntimeError(
                 f"{self.name} launch failed with code {err} "
@@ -170,8 +174,6 @@ def _check_kernel_args(inputs, layers, gs: int) -> None:
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}, "
                 f"contiguous={t.is_contiguous()}"
             )
-    if not 1 <= len(layers) <= MAX_LAYERS:
-        raise ValueError(f"1 to {MAX_LAYERS} layers, got {len(layers)}")
     h = w0x.shape[1]
     if w0x.shape != (n, h) or w0u.shape != (m, h) or b0.shape != (h,):
         raise ValueError(
@@ -188,9 +190,8 @@ def _check_kernel_args(inputs, layers, gs: int) -> None:
         width = w.shape[1]
     if width != n:
         raise ValueError(f"the stack ends at width {width}, not the state's {n}")
-    widths = [n + m, h] + [w.shape[1] for w, _ in layers[1:]]
-    if max(widths) > MAX_WIDTH:
-        raise ValueError(f"layer widths {widths} exceed {MAX_WIDTH}")
+    if min([h] + [w.shape[1] for w, _ in layers[1:]]) < 1:
+        raise ValueError("every layer must be at least 1 wide")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (*inputs, *ws, *bs)):
         raise NotImplementedError(
             "the fused line-search step has no backward (neither has the TPU "

@@ -32,6 +32,17 @@ shared memory (padded widths, ring stages, chunk starts, the two spans of
 a split W0, the columns of each warp), ``bwd_tile_plan`` how
 ``csrc/fused_mlp_bwd.cu`` does, so that the CPU tests can hold them to
 what the kernels rely on. Nothing on a successful launch calls them.
+
+The kernels take any stack: any depth, any widths, any row count. The
+committed stacks (at most ``INLINE_LAYERS`` layers, each layer one pass of
+the warps' columns, activations in shared memory) take the path the
+mirrors above describe; any other stack takes the kernels' wide path
+(``wide_plan``, ``bwd_wide_plan``, ``column_passes``): layers in passes of
+512 or 256 columns, activations in a device workspace where they do not
+fit in shared memory, the layers read from a table in device memory.
+``fwd_route`` and ``bwd_route`` say which path and tile height a call
+takes. The wrappers allocate the wide path's workspace with
+``torch.empty`` when the kernel asks for it.
 """
 
 from __future__ import annotations
@@ -44,9 +55,6 @@ from torch import nn
 from torch.autograd.function import once_differentiable
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
-
-MAX_LAYERS = 8
-MAX_WIDTH = 512
 
 
 class Dense(nn.Module):
@@ -134,6 +142,9 @@ WARP_TILES = 4
 MAX_STAGES, MIN_STAGES = 4, 3
 MAX_SMEM = 232448
 BARRIER_BYTES = 128
+INLINE_LAYERS = 8  # csrc/mlp_tile.cuh's kInlineLayers: the depth a launch's parameters carry
+LAYER_DESC_BYTES = 40  # sizeof(LayerDesc): two pointers and six ints
+NEED_WORKSPACE = -2  # the kernels' return value: call again with the workspace they ask for
 
 
 def _up(n: int, m: int) -> int:
@@ -199,8 +210,83 @@ def column_runs(n: int, col_groups: int):
     return [(g * tb * 8, max(0, min(tb, tiles - g * tb))) for g in range(col_groups)]
 
 
+def pass_cols(tile_rows: int) -> int:
+    """Columns one pass of the forward tile loop covers: 8 * WARP_TILES per
+    column group, 16 groups on the 16-row tile, 8 on the 64-row tile."""
+    return 8 * WARP_TILES * CONSUMER_WARPS // {64: 2, 16: 1}[tile_rows]
+
+
+def column_passes(n: int, cols: int):
+    """``(c0, width)`` of each pass over a layer's ``n`` columns, ``cols``
+    at a time: the wide path's passes (one pass where ``n <= cols``)."""
+    return [(c0, min(cols, n - c0)) for c0 in range(0, n, cols)]
+
+
+def wide_plan(dims: Sequence[int], tile_rows: int, extra_floats: int = 0):
+    """``plan_wide`` of ``csrc/mlp_tile_mma.cuh``: how a wide-path block
+    of ``tile_rows`` (64 or 16) rows lays the stack ``dims`` out.
+
+    ``sa``: the planes' row stride; ``pass_cols``: columns a pass; the
+    ring (``stage_floats``, ``stages``) holds whole weight rows of a layer
+    of at most ``pass_cols`` columns and column slabs ``pass_cols`` floats
+    a row of a wider one; ``step[l]``: weight rows per chunk of layer l;
+    ``planes_smem`` / ``extra_smem``: whether the two pairs of planes and
+    the caller's buffer (the step's f32 input rows) sit in shared memory,
+    else in the block's slot of the workspace, of ``slot_floats`` floats;
+    ``smem``: bytes. The places are tried in that order, each with the
+    deepest ring of 64-, 32-, 16- or 8-row stages of which MIN_STAGES fit;
+    the last always fits."""
+    cols = pass_cols(tile_rows)
+    sa = _up(max(dims), 8) + 4
+    extra = _up(extra_floats, 4)
+    stride = min(_up(max(dims[1:]), 4), cols)
+    planes = 4 * tile_rows * sa
+    for planes_smem, extra_smem in ((True, True), (False, True), (False, False)):
+        fixed = BARRIER_BYTES + 4 * (planes * planes_smem + extra * extra_smem + 8)
+        for rows in (64, 32, 16, 8):
+            stage_floats = rows * stride
+            if fixed + MIN_STAGES * 4 * stage_floats > MAX_SMEM:
+                continue
+            stages = min(MAX_STAGES, (MAX_SMEM - fixed) // (4 * stage_floats))
+            return dict(sa=sa, pass_cols=cols, extra_floats=extra, stage_floats=stage_floats,
+                        stages=stages, planes_smem=planes_smem, extra_smem=extra_smem,
+                        slot_floats=planes * (not planes_smem) + extra * (not extra_smem),
+                        step=[stage_floats // min(n, cols) // 8 * 8 for n in dims[1:]],
+                        smem=fixed + stages * 4 * stage_floats)
+    raise AssertionError("unreachable: three stages of 8 rows always fit")
+
+
+def table_bytes(entries: int) -> int:
+    """Bytes of the layer table at the head of a wide-path workspace."""
+    return _up(entries * LAYER_DESC_BYTES, 256)
+
+
+def fwd_route(rows: int, dims: Sequence[int], sms: int, extra_per_row: int = 0):
+    """The path ``fused_mlp_fwd`` (and, with ``extra_per_row = n + m``,
+    ``fused_ls_step``) takes for ``rows`` rows on ``sms`` SMs, as
+    ``(path, tile_rows, plan, workspace_bytes)``: ``"tile"`` with the
+    64-row tile once 16-row tiles would take more than two waves and
+    ``tile_plan`` takes the stack there, else the 16-row tile where it
+    takes it; else ``"wide"`` (``wide_plan``) at the tile height the same
+    rule picks, with one slot a block and a block an SM at most."""
+    big = rows > 2 * sms * 16
+    if len(dims) - 1 <= INLINE_LAYERS:
+        for tile_rows in ((64, 16) if big else (16,)):
+            plan = tile_plan(dims, tile_rows, tile_rows * extra_per_row)
+            if plan is not None:
+                return "tile", tile_rows, plan, 0
+    tile_rows = 64 if big else 16
+    plan = wide_plan(dims, tile_rows, tile_rows * extra_per_row)
+    blocks = min(-(-rows // tile_rows), sms)
+    return ("wide", tile_rows, plan,
+            table_bytes(len(dims) - 1) + blocks * 4 * plan["slot_floats"])
+
+
 BWD_TILE_ROWS = 16  # csrc/fused_mlp_bwd.cu's tiles: 16 rows, or 32 where the call is large
 BWD_STAGE_ROWS = (64, 48, 32, 24, 16, 8)  # ... and kStageRows
+CHAIN_COLS = CONSUMER_WARPS * 8 * WARP_TILES  # ... and kChainCols: a pass's columns
+SLOT_SLACK = 256  # ... and kSlotSlack: floats past a slot's planes that dW's reads may touch
+MAX_SHARES = 4  # ... and kMaxShares
 
 
 def bwd_tile_plan(dims: Sequence[int], tile_rows: int = BWD_TILE_ROWS):
@@ -214,10 +300,11 @@ def bwd_tile_plan(dims: Sequence[int], tile_rows: int = BWD_TILE_ROWS):
     multiple of 16, plus 4; ``at[l]``: where they start, in floats;
     ``stage_floats`` and ``stages``: the ring that carries the recompute's
     weights; ``step[l]``: weight rows per chunk of recompute layer l;
-    ``smem``: bytes. Every layer's planes and at least ``MIN_STAGES``
-    stages of 8 rows of the widest hidden layer must fit in ``MAX_SMEM``
-    bytes."""
-    if not 1 <= len(dims) - 1 <= MAX_LAYERS or not 1 <= min(dims) <= max(dims) <= MAX_WIDTH:
+    ``smem``: bytes. Every width must be at most ``CHAIN_COLS`` (the
+    recompute and the chain deal a layer out in one pass), and every
+    layer's planes and at least ``MIN_STAGES`` stages of 8 rows of the
+    widest hidden layer must fit in ``MAX_SMEM`` bytes."""
+    if max(dims) > CHAIN_COLS:
         return None
     sa = [_up(d, 16) + 4 for d in dims]
     at = [2 * tile_rows * sum(sa[:l]) for l in range(len(dims))]
@@ -235,12 +322,69 @@ def bwd_tile_plan(dims: Sequence[int], tile_rows: int = BWD_TILE_ROWS):
     return None
 
 
+def bwd_wide_plan(dims: Sequence[int], tile_rows: int = BWD_TILE_ROWS):
+    """``plan_bwd_wide`` of ``csrc/fused_mlp_bwd.cu``: the backward's wide
+    path for tiles of ``tile_rows`` (16 or 32) rows. Every layer's planes
+    as ``bwd_tile_plan`` lays them out (``sa``, ``at``; ``plane_floats`` in
+    all), in shared memory where they fit beside a ring of MIN_STAGES
+    stages (``planes_smem``), else in the block's slot of the workspace
+    (``slot_floats``: the planes and ``SLOT_SLACK``); the ring's stages
+    hold whole weight rows of a recompute layer of at most ``CHAIN_COLS``
+    columns and column slabs ``CHAIN_COLS`` floats a row of a wider one;
+    ``step[l]``: weight rows per chunk of recompute layer l; ``offset[l]``:
+    where dW_l starts in a gradient set."""
+    sa = [_up(d, 16) + 4 for d in dims]
+    at = [2 * tile_rows * sum(sa[:l]) for l in range(len(dims))]
+    offset = [sum(a * b + b for a, b in zip(dims[:l], dims[1:l + 1]))
+              for l in range(len(dims) - 1)]
+    floats = 2 * tile_rows * sum(sa)
+    hidden = dims[1:-1]
+    stride = min(_up(max([4] + hidden), 4), CHAIN_COLS)
+    for planes_smem in (True, False):
+        fixed = BARRIER_BYTES + 4 * (floats * planes_smem + 8)
+        for rows in BWD_STAGE_ROWS:
+            stage_floats = rows * stride
+            if fixed + MIN_STAGES * 4 * stage_floats > MAX_SMEM:
+                continue
+            stages = min(MAX_STAGES, (MAX_SMEM - fixed) // (4 * stage_floats))
+            return dict(sa=sa, at=at, offset=offset, plane_floats=floats,
+                        stage_floats=stage_floats, stages=stages, planes_smem=planes_smem,
+                        slot_floats=0 if planes_smem else floats + SLOT_SLACK,
+                        step=[stage_floats // min(n, CHAIN_COLS) // 8 * 8 for n in hidden],
+                        smem=fixed + stages * 4 * stage_floats)
+    raise AssertionError("unreachable: three stages of 8 rows always fit")
+
+
+def bwd_route(rows: int, dims: Sequence[int], sms: int):
+    """The path ``fused_mlp_bwd`` takes for ``rows`` (> 0) rows on ``sms``
+    SMs, as ``(path, tile_rows, plan, scratch_bytes)``: ``"tile"`` with
+    32-row tiles once 16-row tiles would take more than two waves of blocks
+    and the stack's planes fit twice (``bwd_tile_plan``), else 16-row tiles
+    where they fit; else ``"wide"`` (``bwd_wide_plan``) at the tile height
+    the same rule picks, one slot a block (up to ``MAX_SHARES`` blocks
+    share a slice of tiles where the slices leave SMs idle)."""
+    big = rows > 2 * sms * BWD_TILE_ROWS
+    if len(dims) - 1 <= INLINE_LAYERS:
+        for tile_rows in ((32, 16) if big else (16,)):
+            plan = bwd_tile_plan(dims, tile_rows)
+            if plan is not None:
+                return "tile", tile_rows, plan, 0
+    tile_rows = 2 * BWD_TILE_ROWS if big else BWD_TILE_ROWS
+    plan = bwd_wide_plan(dims, tile_rows)
+    tiles = -(-rows // tile_rows)
+    per_block = -(-tiles // sms)
+    slices = -(-tiles // per_block)
+    shares = max(1, min(MAX_SHARES, sms // slices))
+    return ("wide", tile_rows, plan,
+            table_bytes(len(dims)) + slices * shares * 4 * plan["slot_floats"])
+
+
 def bwd_tile_rows(rows: int, dims: Sequence[int], sms: int) -> int:
-    """The tile height ``fused_mlp_bwd`` picks: 32 rows once 16-row tiles
-    would take more than two waves of blocks on ``sms`` SMs and the stack's
-    planes fit twice, else 16."""
-    big = rows > 2 * sms * BWD_TILE_ROWS and bwd_tile_plan(dims, 2 * BWD_TILE_ROWS) is not None
-    return 2 * BWD_TILE_ROWS if big else BWD_TILE_ROWS
+    """The tile height ``fused_mlp_bwd`` picks (``bwd_route``): 32 rows
+    once 16-row tiles would take more than two waves of blocks on ``sms``
+    SMs (on the shared-memory path where the stack's planes fit twice),
+    else 16."""
+    return bwd_route(rows, dims, sms)[1] if rows > 0 else BWD_TILE_ROWS
 
 
 def reference_backward(x: torch.Tensor, layers: Layers, g: torch.Tensor):
@@ -334,6 +478,7 @@ class FusedMlpKernel:
                 ctypes.POINTER(ctypes.c_void_p),
                 ctypes.POINTER(ctypes.c_void_p),
                 ctypes.c_int,
+                *WORKSPACE_ARGS,
                 ctypes.c_void_p,
             ]
             lib.fused_mlp_fwd.restype = ctypes.c_int
@@ -357,10 +502,10 @@ class FusedMlpKernel:
         # the library launches on the current device: make it the operands'
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.fused_mlp_fwd(
-                x.data_ptr(), y.data_ptr(), x.shape[0], n, c_dims, c_w, c_b, int(self.bf16),
-                stream
-            )
+            err = call_with_workspace(
+                lib.fused_mlp_fwd,
+                (x.data_ptr(), y.data_ptr(), x.shape[0], n, c_dims, c_w, c_b, int(self.bf16)),
+                x.device, stream)
         if err != 0:
             raise RuntimeError(
                 f"{self.name} launch failed with code {err} "
@@ -368,6 +513,26 @@ class FusedMlpKernel:
             )
         self.launches += 1
         return y
+
+
+# a kernel's workspace arguments: its pointer, its bytes, where the bytes it
+# needs go
+WORKSPACE_ARGS = (ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t))
+
+
+def call_with_workspace(fn, args, device, stream) -> int:
+    """``fn(*args, work, work_bytes, &needed, stream)``, a kernel's C entry
+    point: first without a workspace; where the kernel asks for one
+    (``NEED_WORKSPACE``: the wide path), again with one of the bytes it
+    asked for, allocated here on the current stream (the caching allocator
+    hands the block to later work on this stream only). Returns the
+    entry point's code."""
+    need = ctypes.c_size_t(0)
+    err = fn(*args, None, 0, ctypes.byref(need), stream)
+    if err == NEED_WORKSPACE:
+        work = torch.empty(need.value, dtype=torch.uint8, device=device)
+        err = fn(*args, work.data_ptr(), need.value, ctypes.byref(need), stream)
+    return err
 
 
 def _records_grad(x: torch.Tensor, layers: Layers) -> bool:
@@ -385,8 +550,8 @@ def _check_kernel_args(x: torch.Tensor, layers: Layers) -> None:
             f"x must be a contiguous 2-D float32 tensor, got {x.dtype} "
             f"{tuple(x.shape)} contiguous={x.is_contiguous()}"
         )
-    if not 1 <= len(layers) <= MAX_LAYERS:
-        raise ValueError(f"1 to {MAX_LAYERS} layers, got {len(layers)}")
+    if not layers:
+        raise ValueError("the stack has no layer")
     width = x.shape[1]
     for i, (w, b) in enumerate(layers):
         for t in (w, b):
@@ -400,9 +565,8 @@ def _check_kernel_args(x: torch.Tensor, layers: Layers) -> None:
                 f"chain from width {width}"
             )
         width = w.shape[1]
-    widths = [x.shape[1]] + [w.shape[1] for w, _ in layers]
-    if max(widths) > MAX_WIDTH:
-        raise ValueError(f"layer widths {widths} exceed {MAX_WIDTH}")
+    if min([x.shape[1]] + [w.shape[1] for w, _ in layers]) < 1:
+        raise ValueError("every layer must be at least 1 wide")
 
 
 fused_mlp_forward = FusedMlpKernel()
@@ -412,19 +576,25 @@ fused_mlp_forward_bf16 = FusedMlpKernel(bf16=True)
 class FusedMlpBwdKernel:
     """The CUDA backward kernel: built on first use, counted per launch.
 
-    It takes any row count (0 and ragged tiles included) and every stack
-    whose 16-row tile fits in a block's shared memory: the hi and lo
-    planes of all layers' inputs and of the output cotangent, plus a
-    weight ring of at least 3 stages of 8 rows of the widest hidden
-    layer, in 232,448 bytes (``bwd_tile_plan``). That covers the dynamics
-    (23->200->200->200->17), 256-wide (23->256->256->256->17), cost
-    (17->128->128->10) and humanoid-class (41->200->200->200->29) stacks,
-    23->512->512->17 and up to seven 200-wide hidden layers; it does not
-    cover, for example, six 256-wide or four 512-wide hidden layers, for
-    which the call raises: there is no other path."""
+    It takes any row count (0 and ragged tiles included) and any stack.
+    Where the stack has at most ``INLINE_LAYERS`` layers of at most
+    ``CHAIN_COLS`` columns and its 16-row tile fits in a block's shared
+    memory (the hi and lo planes of all layers' inputs and of the output
+    cotangent, plus a weight ring of at least 3 stages of 8 rows of the
+    widest hidden layer, in 232,448 bytes: ``bwd_tile_plan``) the planes
+    stay in shared memory: the dynamics (23->200->200->200->17), 256-wide
+    (23->256->256->256->17), cost (17->128->128->10) and humanoid-class
+    (41->200->200->200->29) stacks, 23->512->512->17 and up to seven
+    200-wide hidden layers. Any other stack (six 256-wide or three
+    512-wide hidden layers, 1024-wide ones, 32 layers) takes the wide path
+    (``bwd_wide_plan``): every layer's activations in a device workspace
+    of about rows x the sum of the widths, the recompute and the dx chain
+    in passes of ``CHAIN_COLS`` columns. Both paths sum dW and db over the
+    row tiles in a fixed order, without atomics."""
 
     source = "gan_mpc_tpu_torch/csrc/fused_mlp_bwd.cu"
     replaces = "gan_mpc_tpu/ops/fused_mlp.py:108"
+    name = "fused_mlp_bwd"
 
     def __init__(self):
         self.launches = 0
@@ -437,7 +607,8 @@ class FusedMlpBwdKernel:
             lib = load_library("fused_mlp_bwd")
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.fused_mlp_bwd.argtypes = [p] * 5 + [i, i, i, ctypes.POINTER(i),
-                                                    ctypes.POINTER(p), ctypes.POINTER(p), p]
+                                                    ctypes.POINTER(p), ctypes.POINTER(p),
+                                                    *WORKSPACE_ARGS, p]
             lib.fused_mlp_bwd.restype = i
             self._lib = lib
         return self._lib
@@ -470,16 +641,11 @@ class FusedMlpBwdKernel:
         # the library launches on the current device: make it the operands'
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.fused_mlp_bwd(
-                x.data_ptr(), g.data_ptr(), dx.data_ptr(), grads.data_ptr(), work.data_ptr(),
-                parts, rows, n, c_dims, c_w, c_b, stream,
-            )
-        if err == -1 and bwd_tile_plan(dims) is None:
-            raise RuntimeError(
-                f"fused_mlp_bwd does not take the stack {dims}: the planes of every layer's "
-                f"input for a {BWD_TILE_ROWS}-row tile and a weight ring of {MIN_STAGES} "
-                f"stages do not fit in a block's {MAX_SMEM} bytes of shared memory"
-            )
+            err = call_with_workspace(
+                lib.fused_mlp_bwd,
+                (x.data_ptr(), g.data_ptr(), dx.data_ptr(), grads.data_ptr(), work.data_ptr(),
+                 parts, rows, n, c_dims, c_w, c_b),
+                x.device, stream)
         if err != 0:
             raise RuntimeError(
                 f"fused_mlp_bwd launch failed with code {err} (-1: arguments refused; "

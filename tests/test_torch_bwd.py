@@ -172,14 +172,26 @@ def test_backward_plan_fits_and_keeps_the_loads_aligned(name, tile_rows):
 
 
 def test_backward_refuses_what_does_not_fit():
+    """The shared-memory plan still refuses what does not fit in a block
+    (and layers wider than one pass of the warps' columns); those stacks,
+    and any deeper than INLINE_LAYERS, take the wide path: every layer's
+    planes in the block's slot of a workspace."""
     assert bwd_tile_plan([23, 512, 512, 17]) is not None
     assert bwd_tile_plan([23] + [200] * 7 + [17]) is not None
     assert bwd_tile_plan([23] + [200] * 8 + [17]) is None  # the planes alone pass the limit
     assert bwd_tile_plan([23] + [256] * 6 + [17]) is None
     assert bwd_tile_plan([23, 512, 512, 512, 17]) is None
-    assert bwd_tile_plan([23, 520, 17]) is None  # wider than the kernels take
-    assert bwd_tile_plan([23] + [8] * 9 + [17]) is None  # more than MAX_LAYERS layers
+    assert bwd_tile_plan([23, 520, 17]) is None  # wider than one pass of the warps' columns
+    assert bwd_tile_plan([23] + [8] * 9 + [17]) is not None  # fits, but 10 layers deep
     assert bwd_tile_plan([3, 8]) is not None  # a single layer: no recompute, no ring use
+    for dims in ([23] + [200] * 8 + [17], [23] + [256] * 6 + [17], [23, 512, 512, 512, 17],
+                 [23, 520, 17], [23] + [8] * 9 + [17]):
+        path, tile_rows, plan, scratch = fm.bwd_route(128, dims, 132)
+        assert (path, tile_rows) == ("wide", 16)
+        # the planes stay in shared memory where they fit beside the ring
+        assert plan["planes_smem"] == (dims in ([23, 520, 17], [23] + [8] * 9 + [17]))
+        assert scratch >= fm.table_bytes(len(dims)) + 4 * plan["slot_floats"]
+    assert fm.bwd_route(128, [23, 512, 512, 17], 132)[:2] == ("tile", 16)
 
 
 @pytest.mark.parametrize("rows,name,sms,expected", [

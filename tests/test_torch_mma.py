@@ -133,7 +133,10 @@ def test_mirror_constants_match_the_cuda_source():
     assert (const("kMaxStages"), const("kMinStages")) == (fm.MAX_STAGES, fm.MIN_STAGES)
     assert const("kMaxSmem") == fm.MAX_SMEM
     assert const("kBarrierBytes") == fm.BARRIER_BYTES
-    assert fm.MAX_WIDTH == 16 * 8 * fm.WARP_TILES  # the 16-row tile's 16 column groups
+    # one pass of the warps' columns: the 16-row tile's 16 column groups, the
+    # 64-row tile's 8 (fused_mlp_fwd.cu and fused_ls_step.cu plan_wide calls)
+    assert fm.pass_cols(16) == 16 * 8 * fm.WARP_TILES
+    assert fm.pass_cols(64) == 8 * 8 * fm.WARP_TILES
 
 
 @pytest.mark.parametrize("width,padded", [(17, 24), (23, 24), (10, 16), (29, 32), (41, 48)])
@@ -189,6 +192,14 @@ def test_split_w0_is_two_spans_of_the_first_chunk(n, m):
 
 
 def test_tiles_the_kernels_refuse():
+    """The shared-memory tiles still refuse what they did; the kernels take
+    those stacks on the wide path, in passes of the tile's columns."""
     assert tile_plan([23, 512, 512, 17], 64) is None  # wider than the 64-row tile's 256
     assert tile_plan([23, 512, 512, 17], 16) is not None
     assert tile_plan([23, 520, 17], 16) is None
+    assert fm.fwd_route(8192, [23, 512, 512, 17], 132)[:2] == ("tile", 16)
+    for rows, tile_rows, passes in ((8192, 64, [(0, 256), (256, 256), (512, 8)]),
+                                    (512, 16, [(0, 512), (512, 8)])):
+        path, got_rows, plan, work = fm.fwd_route(rows, [23, 520, 17], 132)
+        assert (path, got_rows) == ("wide", tile_rows) and work > 0
+        assert fm.column_passes(520, plan["pass_cols"]) == passes
