@@ -416,13 +416,25 @@ Phases, in order; any failure raises and exits non-zero:
          rows, and the step (n = 17, m = 6, the same hidden widths) at
          512 x 16 and 512 x 1; ``G19_BWD``: 23->512^3->17, 23->256^6->17,
          23->200^8->17, 23->1024^3->17 and the 32-layer stack backward at
-         128, 512 and 8192 rows, as phase 2's ``check_backward``): each call
-         on the wide path (``fwd_route``, ``bwd_route``) and counting one
-         launch, the f32 instances within 1e-4 max(1, max|ref|), the bf16
-         ones within phase 16's ``BF16_TOL`` and ``BF16_FAR_SHARE``; the
-         worst case per stack printed; then kernel, plain and the stack's
-         cuBLAS chain in f32 and in TF32 (``linear_chain``, no gate) timed
-         at ``G19_TIMED_ROWS`` with their bounds;
+         128, 512 and 8192 rows, as phase 2's ``check_backward``; and
+         ``G19_BWD_BIG``, 23->4096^3->17 and 23->8192^4->17 at 8192 rows,
+         past what one partial gradient set an SM would hold, with the
+         f32 forward at 8192 rows and step at 512 x 16 on their widths):
+         each call on the wide path
+         (``fwd_route``, ``bwd_route``) and counting one launch (none at 0
+         rows, which launch nothing; the backward's walk and its dW kernel
+         one a chunk of ``BWD_CHUNK_ROWS`` rows, as the entry point reports
+         them), the f32 instances within 1e-4 max(1,
+         max|ref|), the bf16 ones within phase 16's ``BF16_TOL`` and
+         ``BF16_FAR_SHARE``; each backward's peak extra device memory
+         (``hold_backward_memory``: its gradient set, dx and one chunk's
+         workspace, and 23->1024^3->17 at 128 rows within ``G19_MEM_128``
+         besides the workspace); the worst case per stack printed; then
+         kernel, plain and the stack's cuBLAS chain in f32 and in TF32
+         (``linear_chain``, no gate) timed at ``G19_TIMED_ROWS`` with their
+         bounds, ``G19_BWD_BIG`` one launch a run, and the backward's dW
+         kernel alone (CUDA events around its launches, ``dw_kernel_ms``)
+         against the plain a^T g;
      (b) the flagship served with ``G19_SERVE_HIDDEN`` dynamics (cheetah_run,
          512 envs, H=5, 16 step sizes), fused_ls off and on: one plan of 8
          envs at 2 trips card against CPU (U atol 1e-3, as phase 4), then
@@ -442,10 +454,13 @@ Phases, in order; any failure raises and exits non-zero:
          launches 5
          forward and 5 backward a dynamics step, and
          ``mlp_calls_per_step`` over the reported trips for the cost step;
+         each backward one launch of the dW kernel (one chunk);
      then the script's total wall time.
 The last two lines are the kernels' JSON summary (the bf16 instances
-beside the f32 ones) and {"ok": true, "device": {...}}. Exits 1 without a
-CUDA device.
+beside the f32 ones, and the wide backward's dW kernel, which the
+backward's calls launch) and {"ok": true, "device": {...}}. Every launch
+count is of calls that launch a kernel on the device: a call over 0 rows
+counts none. Exits 1 without a CUDA device.
 """
 
 import contextlib
@@ -686,7 +701,9 @@ G13_CARTPOLE_STEPS = 100  # (a): cart-pole steps (smooth: no contact)
 G13_AIRBORNE_STEPS = 20  # (a): walker steps in the air, no contact switching on
 G13_EXPERT_ENVS, G13_EXPERT_STEPS = 16, 20  # (b): each scripted expert's check
 G13_GAN4_STEPS = 3  # (c): timed control steps of the gan/4 row, after 1 warmup step
-G13_SERVE_STEPS = 8  # (d): the cut episode of walker gan/0 and cartpole l2/0 (15 until phase 17)
+# (d): the cut episode of walker gan/0 and cartpole l2/0 (15 until phase 17, 8 until the
+# phase 19 (a) backwards of G19_BWD_BIG came: the script's time stays near 900 s)
+G13_SERVE_STEPS = 4
 # (e): the two configs that walker and cartpole unlock, from empty workdirs,
 # cut in the way of G12_CUTS (the rest is the config's own: widths, horizon,
 # the critic, the stores' 1000-step episodes through the reward gate, the
@@ -728,7 +745,8 @@ G14_WALK = "runs/trained_models/imitator/humanoid_walk/gan/0"  # 41->256^3->29, 
 G14_CHEETAH0 = "runs/trained_models/imitator/cheetah_run/gan/0"  # goal projection 2, H=10
 G14_CHECK_ENVS, G14_CHECK_ITERS = 2, 2  # (a): the card-against-CPU plans
 G14_LSTM_CONFIG = "configs/gan_cheetah.yaml"  # (a): its widths with dynamics.use: lstm
-G14_STAND_ENVS, G14_STAND_STEPS = 4, 2  # (b): humanoid_stand gan/0, after 1 warmup step
+# (b): humanoid_stand gan/0, after 1 warmup step (2 steps until G19_BWD_BIG came)
+G14_STAND_ENVS, G14_STAND_STEPS = 4, 1
 G14_SERVE_ENVS, G14_SERVE_STEPS = 16, 3  # (b): humanoid_walk gan/0 and cheetah gan/0
 # phase 15: training with ensemble and LSTM dynamics. (b) is
 # configs/humanoid_scale.yaml from an empty temporary workdir holding a copy
@@ -888,6 +906,14 @@ G19_BWD = [
     ("64^30", [23] + [64] * 30 + [17]),
 ]
 G19_BWD_ROWS = (128, 512, 8192)
+# (a): backwards past what one partial gradient set per SM could hold (17.8 GB
+# and 106.5 GB of them on 132 SMs): checked, memory held, timed once
+G19_BWD_BIG = [("4096^3", [23, 4096, 4096, 4096, 17], 8192),
+               ("8192^4", [23] + [8192] * 4 + [17], 8192)]
+G19_MEM_SLACK = 2**21  # (a): the caching allocator's rounding, at most
+# (a): 23->1024^3->17 at 128 rows, besides its workspace: about 8 partial sets of its
+# parameters, what the shared-memory path's rule would take at that row count (132 took 1.13 GB)
+G19_MEM_128 = 68.5e6
 G19_SHARE_ROWS = 512  # (a): the bf16 instances' share beyond 1e-4 is held from here on
 G19_TIMED_ROWS = {"fwd": (8192, 512), "ls": ((512, 16),), "bwd": (8192, 128)}
 G19_SERVE_HIDDEN = (1024, 1024, 1024)  # (b)
@@ -905,6 +931,12 @@ TF32_PEAK = 495e12
 F32_PRODUCT_RATE = TF32_PEAK / 3
 BF16_PEAK = 989e12  # dense bf16 on the tensor cores: the bound of the bf16 instances
 MEM_RATE = 3.35e12
+
+
+# phases 13-15 time the kernels at every new (stack, rows) pair: runs of 20
+# launches (21 until the phase 19 (a) backwards of G19_BWD_BIG came: the
+# script's time stays near 900 s)
+RECORDED_REPS = 7
 
 
 def device_ms(fn, launches=20, reps=21):
@@ -978,22 +1010,26 @@ def clear_of_kinks(rng, rows, layers, device, margin=1e-4):
     of its hidden pre-activations lies within ``margin`` of 0, and the
     number of redraws. At a relu kink the derivative jumps, so there two
     f32 forwards that round differently disagree on the mask, and dx and
-    dW move by a whole term; rounding moves a pre-activation by ~1e-6."""
+    dW move by a whole term; rounding moves a pre-activation by ~1e-6 (by
+    a few 1e-6 at 4096 columns). After the first pass only the redrawn
+    rows are looked at again: the others have not changed."""
     fin = layers[0][0].shape[0]
     draw = lambda n: torch.tensor(rng.standard_normal((n, fin)), dtype=torch.float32,
                                   device=device)
     x, redrawn = draw(rows), 0
+    todo = torch.arange(rows, device=device)
     while True:
-        h, near = x, torch.zeros(rows, dtype=torch.bool, device=device)
+        h = x[todo]
+        near = torch.zeros(h.shape[0], dtype=torch.bool, device=device)
         for w, b in layers[:-1]:
             z = h @ w + b
             near |= (z.abs() < margin).any(1)
             h = torch.relu(z)
-        bad = near.nonzero().flatten()
-        if bad.numel() == 0:
+        todo = todo[near]
+        if todo.numel() == 0:
             return x, redrawn
-        redrawn += bad.numel()
-        x[bad] = draw(bad.numel())
+        redrawn += todo.numel()
+        x[todo] = draw(todo.numel())
 
 
 def random_layers(widths, seed, device):
@@ -1036,12 +1072,16 @@ def trained_layers(device):
     return [(w.detach(), b.detach()) for w, b in model.requires_grad_(False).to(device).net.stack()]
 
 
-def check_backward(name, layers, rows, rng, dev):
+def check_backward(name, layers, rows, rng, dev, errs=None, big=False):
     """fused_mlp_bwd against reference_backward on rows clear of kinks:
     every output within 1e-4 max(1, max|ref|), a second call bitwise equal.
-    Returns the largest max|d|."""
+    Returns the largest max|d|; on the wide path its largest over dW and
+    db, the dW kernel's outputs, also goes to ``errs["fused_mlp_bwd_dw"]``.
+    With ``big`` (``G19_BWD_BIG``) the 3xTF32 model, whose per-tile products
+    would take tiles x the largest layer in memory (68.7 GB for 8192 x 8192
+    at 8192 rows), is not computed."""
     from gan_mpc_tpu_torch.ops.fused_mlp import (
-        bwd_tile_rows, fused_mlp_backward, reference_backward, reference_backward_3xtf32,
+        bwd_model_args, fused_mlp_backward, reference_backward, reference_backward_3xtf32,
     )
 
     widths = [layers[0][0].shape[0]] + [w.shape[1] for w, _ in layers]
@@ -1050,7 +1090,8 @@ def check_backward(name, layers, rows, rng, dev):
     g = torch.tensor(rng.standard_normal((rows, widths[-1])), dtype=torch.float32, device=dev)
     dx, grads = fused_mlp_backward(x, layers, g)
     rdx, rgrads = reference_backward(x, layers, g)
-    mdx, mgrads = reference_backward_3xtf32(x, layers, g, bwd_tile_rows(rows, widths, sms))
+    model = bwd_model_args(rows, widths, sms)
+    mdx, mgrads = (dx, grads) if big else reference_backward_3xtf32(x, layers, g, **model)
     torch.cuda.synchronize()
     flat = lambda d, gr: [d] + [t for pair in gr for t in pair]
     names = ["dx"] + [f"{kind}{l}" for l in range(len(layers)) for kind in ("dW", "db")]
@@ -1063,13 +1104,16 @@ def check_backward(name, layers, rows, rng, dev):
                              f"rows={rows} output {out}: max|d|={err:.3e} > {tol:.3e}")
         worst, worst_share = max(worst, err), max(worst_share, err / tol)
         to_model = max(to_model, (t - m).abs().max().item() / tol)
+        if errs is not None and model.get("chunk_rows") and out != "dx":
+            errs["fused_mlp_bwd_dw"] = max(errs.get("fused_mlp_bwd_dw", 0.0), err)
     # the cross-tile sums run in a fixed order: a second call gives the same bits
     again = fused_mlp_backward(x, layers, g)
     same = all(torch.equal(a, b) for a, b in zip(flat(*again), flat(dx, grads)))
     print(f"check fused_mlp_bwd {name} {widths} rows={rows} ({redrawn} rows redrawn "
           f"clear of relu kinks): max|d| over dx, {len(layers)} dW and db {worst:.3e}, "
-          f"at most {100 * worst_share:.1f}% of its output's bound (to the 3xTF32 model "
-          f"{100 * to_model:.1f}%); second call bitwise equal: {same}")
+          f"at most {100 * worst_share:.1f}% of its output's bound ("
+          + ("3xTF32 model not computed" if big else f"to the 3xTF32 model "
+             f"{100 * to_model:.1f}%") + f"); second call bitwise equal: {same}")
     if not same:
         raise SystemExit(f"fused_mlp_bwd is not deterministic: {name} rows={rows}")
     return worst
@@ -4192,7 +4236,8 @@ def scaled_tree(tree, s):
 def time_recorded(label, seen, keys, timed):
     """Time each MLP kernel and its plain version at the (stack, rows)
     pairs ``keys`` of ``seen`` (``shapes_recorded``) on the runs' own weights,
-    as phase 3 does, and add them to ``timed``."""
+    as phase 3 does but over ``RECORDED_REPS`` runs, and add them to
+    ``timed``."""
     from gan_mpc_tpu_torch.ops.fused_mlp import (
         fused_mlp_backward, fused_mlp_forward, reference_backward, reference_forward,
     )
@@ -4204,15 +4249,16 @@ def time_recorded(label, seen, keys, timed):
         layers = seen[(name, widths, rows)]
         x = torch.tensor(rng.standard_normal((rows, widths[0])), dtype=torch.float32,
                          device=layers[0][0].device)
+        ms = lambda fn: device_ms(fn, reps=RECORDED_REPS)  # noqa: E731
         if name == "fused_mlp_bwd":
             g = torch.tensor(rng.standard_normal((rows, widths[-1])), dtype=torch.float32,
                              device=x.device)
-            k = device_ms(lambda: fused_mlp_backward(x, layers, g))
-            p = device_ms(lambda: reference_backward(x, layers, g))
+            k = ms(lambda: fused_mlp_backward(x, layers, g))
+            p = ms(lambda: reference_backward(x, layers, g))
             b_ms, b_by = bwd_bound(rows, list(widths))
         else:
-            k = device_ms(lambda: fused_mlp_forward(x, layers))
-            p = device_ms(lambda: reference_forward(x, layers))
+            k = ms(lambda: fused_mlp_forward(x, layers))
+            p = ms(lambda: reference_forward(x, layers))
             b_ms, b_by = mlp_bound(rows, list(widths))
         timed[(name, f"{label} {list(widths)}", rows)] = (k, p, b_ms, b_by)
         print(f"time {name} {label} {list(widths)} rows={rows}: kernel {k:.4f} ms, plain "
@@ -4261,11 +4307,94 @@ def tf32_products():
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
+def layer_inputs_and_cotangents(x, layers, g):
+    """Plain torch: each layer's input rows a_l and the cotangent rows
+    g_{l+1} of its output, for the output cotangent ``g``: what the wide
+    backward's walk leaves for its dW kernel."""
+    acts, h = [x], x
+    for w, b in layers[:-1]:
+        h = torch.relu(h @ w + b)
+        acts.append(h)
+    cots = [g]
+    for l in range(len(layers) - 1, 0, -1):
+        cots.insert(0, torch.where(acts[l] > 0, cots[0] @ layers[l][0].T, 0.0))
+    return acts, cots
+
+
+def dw_bound(rows, widths):
+    """The dW kernel's function: dW_l = a_l^T g_{l+1} (the forward's
+    operations) and db_l; bytes: every a_l and g_{l+1} read once, dW and db
+    written once."""
+    nbytes = 4 * (rows * (sum(widths[:-1]) + sum(widths[1:])) + mlp_weight_floats(widths))
+    return bound(mlp_flops(rows, widths) + rows * sum(widths[1:]), nbytes)
+
+
+def dw_kernel_ms(fn, calls):
+    """Device ms a call of ``fn``, a wide backward, spends in its dW
+    kernel: the library's CUDA events around each dW launch
+    (``fused_mlp_bwd_time_dw``), summed over ``calls`` calls after one
+    warmup, per call. (torch.profiler late in the script keeps only some
+    of a trace's kernel events, at times none.)"""
+    import ctypes
+
+    from gan_mpc_tpu_torch.ops.fused_mlp import fused_mlp_backward
+
+    lib = fused_mlp_backward.load()
+    lib.fused_mlp_bwd_time_dw.argtypes = [ctypes.c_int]
+    lib.fused_mlp_bwd_dw_ms.restype = ctypes.c_double
+    fn()
+    torch.cuda.synchronize()
+    lib.fused_mlp_bwd_dw_ms()  # clears the total
+    lib.fused_mlp_bwd_time_dw(1)
+    try:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        lib.fused_mlp_bwd_time_dw(0)
+    return lib.fused_mlp_bwd_dw_ms() / calls
+
+
+def hold_backward_memory(stack, layers, rows, dev):
+    """The growth of the allocator's peak over one ``fused_mlp_bwd`` call
+    (phase 19 (a)): within the gradient set, dx and the wide path's
+    workspace (``bwd_route``: one chunk's planes) plus ``G19_MEM_SLACK``,
+    and for 23->1024^3->17 at 128 rows within ``G19_MEM_128`` besides the
+    workspace. Prints it beside the partial sets one per SM would take."""
+    from gan_mpc_tpu_torch.ops.fused_mlp import bwd_route, fused_mlp_backward
+
+    widths = [layers[0][0].shape[0]] + [w.shape[1] for w, _ in layers]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    x = torch.randn((rows, widths[0]), device=dev)
+    g = torch.randn((rows, widths[-1]), device=dev)
+    params = mlp_weight_floats(widths)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fused_mlp_backward(x, layers, g)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(dev) - base
+    del out
+    work = bwd_route(rows, widths, sms)[3]
+    limit = 4 * (params + x.numel()) + work + G19_MEM_SLACK
+    small = widths == [23, 1024, 1024, 1024, 17] and rows == 128
+    print(f"  backward {stack} rows={rows}: peak extra memory {grown / 1e6:.1f} MB (bound "
+          f"{limit / 1e6:.1f} MB: gradients {4 * params / 1e6:.1f}, dx, workspace "
+          f"{work / 1e6:.1f}" + (f"; {G19_MEM_128 / 1e6} MB besides the workspace" if small
+                                 else "") + f"); one partial set an SM would be "
+          f"{4 * params * sms / 1e9:.2f} GB")
+    if not (grown <= limit and (not small or grown - work <= G19_MEM_128)):
+        raise SystemExit(f"phase 19 (a): the {stack} backward at {rows} rows took "
+                         f"{grown / 1e6:.1f} MB more, beyond its bound")
+
+
 def wide_kernels_phase(instances, max_err, timed, dev):
     """Phase 19 (a): every kernel instance against its plain version at
-    ``G19_FWD`` / ``G19_LS`` / ``G19_BWD``, each call on the wide path and
-    counting one launch; the worst case per stack; then the times at
-    ``G19_TIMED_ROWS`` (the module's docstring).
+    ``G19_FWD`` / ``G19_LS`` / ``G19_BWD`` / ``G19_BWD_BIG``, each call on
+    the wide path and counting one launch (none at 0 rows; the backward's
+    walk and dW kernel one a chunk); each backward's peak extra memory;
+    the worst case per stack; then the times at ``G19_TIMED_ROWS`` (the
+    module's docstring).
 
     The bf16 instances: max|d| <= ``BF16_TOL`` max(1, max|ref|) at every
     shape, and the share of entries beyond 1e-4 within max(
@@ -4282,7 +4411,7 @@ def wide_kernels_phase(instances, max_err, timed, dev):
     lie beyond the share's bound on the same inputs."""
     from gan_mpc_tpu_torch.ops.fused_ls import reference_ls_step
     from gan_mpc_tpu_torch.ops.fused_mlp import (
-        bwd_route, fwd_route, reference_backward, reference_forward,
+        BWD_CHUNK_ROWS, bwd_route, fwd_route, reference_backward, reference_dw, reference_forward,
     )
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -4324,8 +4453,8 @@ def wide_kernels_phase(instances, max_err, timed, dev):
         before = kernel.launches
         out = fn()
         if kernel.launches != before + times:
-            raise SystemExit(f"{kernel.name} counted {kernel.launches - before} launches for "
-                             f"{times} calls")
+            raise SystemExit(f"{kernel.name} counted {kernel.launches - before} launches, "
+                             f"expected {times}")
         return out
 
     def on_wide_path(route, what):
@@ -4344,9 +4473,10 @@ def wide_kernels_phase(instances, max_err, timed, dev):
                              device=dev)
             if rows:
                 routes.append(f"{rows}: {on_wide_path(fwd_route(rows, widths, sms), stack)}")
-            unrounded = launched(f32, lambda: f32(x, layers))
+            # a call over 0 rows launches nothing and counts nothing
+            unrounded = launched(f32, lambda: f32(x, layers), int(rows > 0))
             hold(f32, stack, f"rows={rows}", (unrounded,), (reference_forward(x, layers),))
-            got = launched(bf16, lambda: bf16(x, layers))
+            got = launched(bf16, lambda: bf16(x, layers), int(rows > 0))
             with tensor_core_products():
                 plain = reference_forward(x, layers, True)
             hold(bf16, stack, f"rows={rows}", (got,), (reference_forward(x, layers, True),),
@@ -4365,16 +4495,34 @@ def wide_kernels_phase(instances, max_err, timed, dev):
         torch.cuda.synchronize()
         print(f"phase 19 (a) {stack} {widths[:3]}...{widths[-1]} ({len(widths) - 1} layers): "
               + "; ".join(routes))
-    for i, (stack, widths) in enumerate(G19_BWD):
-        layers = random_layers(widths, 1980 + i, dev)
-        for rows in G19_BWD_ROWS:
+    dw = instances["fused_mlp_bwd_dw"]
+    big = [(stack, widths, 1980 + len(G19_BWD) + i, (rows,), True)
+           for i, (stack, widths, rows) in enumerate(G19_BWD_BIG)]
+    for stack, widths, seed, row_counts, is_big in \
+            [(s, w, 1980 + i, G19_BWD_ROWS, False) for i, (s, w) in enumerate(G19_BWD)] + big:
+        layers = random_layers(widths, seed, dev)
+        for rows in row_counts:
             print(f"  backward {stack} rows={rows}: "
                   f"{on_wide_path(bwd_route(rows, widths, sms), stack)}")
-            # check_backward calls the kernel twice: the second call must give the same bits
-            err = launched(bwd, lambda: check_backward(stack, layers, rows, rng, dev), 2)
+            # check_backward calls the kernel twice: the second call must give the same bits;
+            # each call runs the walk and the dW kernel once a chunk
+            chunks = -(-rows // BWD_CHUNK_ROWS)
+            err = launched(dw, lambda: launched(bwd, lambda: check_backward(
+                stack, layers, rows, rng, dev, max_err, is_big), 2 * chunks), 2 * chunks)
             if err >= worst.get((bwd.name, stack), (-1.0,))[0]:
                 worst[(bwd.name, stack)] = (err, err, 0.0, f"rows={rows}", None)
             max_err[bwd.name] = max(max_err[bwd.name], err)
+            hold_backward_memory(stack, layers, rows, dev)
+            if is_big:  # the f32 forward and step there too: their contraction runs in segments
+                x = torch.tensor(rng.standard_normal((rows, widths[0])), dtype=torch.float32,
+                                 device=dev)
+                hold(f32, stack, f"rows={rows}", (launched(f32, lambda: f32(x, layers)),),
+                     (reference_forward(x, layers),))
+                args = ls_args(512, 16, 17, 6, 17, LS_WEIGHTS[3], seed, dev,
+                               hidden=widths[1:-1])
+                hold(ls32, stack, "512x16", launched(ls32, lambda: ls32(**args)),
+                     reference_ls_step(**args))
+                del x, args
     for (name, stack), (of_bound, err, far, shape, bound) in worst.items():
         print(f"phase 19 (a) worst {name} {stack}: max|d| {err:.3e} at {shape}"
               + ("" if name == bwd.name else f", {100 * of_bound:.1f}% of its bound")
@@ -4412,22 +4560,37 @@ def wide_kernels_phase(instances, max_err, timed, dev):
             print(f"time phase 19 fused_ls_step {stack} {lanes}x{alphas}: kernel {k32:.4f} ms "
                   f"(bound {b32:.5f} ms, {by32}, {100 * b32 / k32:.1f}%), bf16 instance "
                   f"{k16:.4f} ms, plain {p32:.4f} ms")
-    for i, (stack, widths) in enumerate(G19_BWD):
-        layers = random_layers(widths, 1980 + i, dev)
-        for rows in G19_TIMED_ROWS["bwd"]:
+    for stack, widths, seed, row_counts, one_run in \
+            [(s, w, 1980 + i, G19_TIMED_ROWS["bwd"], False) for i, (s, w) in enumerate(G19_BWD)] \
+            + big:
+        layers = random_layers(widths, seed, dev)
+        # G19_BWD_BIG's calls take up to a second: one launch a run, and no TF32 plain
+        many = not one_run
+        once = ms if many else (lambda fn: device_ms(fn, launches=1, reps=3))
+        for rows in row_counts:
             x = torch.tensor(rng.standard_normal((rows, widths[0])), dtype=torch.float32,
                              device=dev)
             g = torch.tensor(rng.standard_normal((rows, widths[-1])), dtype=torch.float32,
                              device=dev)
-            k = ms(lambda: bwd(x, layers, g))
-            p = ms(lambda: reference_backward(x, layers, g))
-            with tf32_products():
-                ptf = ms(lambda: reference_backward(x, layers, g))
+            k = once(lambda: bwd(x, layers, g))
+            p = once(lambda: reference_backward(x, layers, g))
+            ptf = None
+            if many:
+                with tf32_products():
+                    ptf = ms(lambda: reference_backward(x, layers, g))
             b_ms, b_by = bwd_bound(rows, widths)
             timed[(bwd.name, stack, rows)] = (k, p, b_ms, b_by)
+            # the dW kernel's share of the call, by CUDA events, against the plain a^T g
+            acts, cots = layer_inputs_and_cotangents(x, layers, g)
+            k_dw = dw_kernel_ms(lambda: bwd(x, layers, g), 5 if many else 1)
+            p_dw = once(lambda: reference_dw(acts, cots))
+            d_ms, d_by = dw_bound(rows, widths)
+            timed[(dw.name, stack, rows)] = (k_dw, p_dw, d_ms, d_by)
             print(f"time phase 19 fused_mlp_bwd {stack} rows={rows}: kernel {k:.4f} ms (bound "
                   f"{b_ms:.5f} ms, {b_by}, {100 * b_ms / k:.1f}%), plain (cuBLAS f32) {p:.4f} "
-                  f"ms, in TF32 {ptf:.4f} ms")
+                  f"ms" + ("" if ptf is None else f", in TF32 {ptf:.4f} ms")
+                  + f"; of the kernel's call the dW kernel {k_dw:.4f} ms (bound {d_ms:.5f} ms, "
+                  f"{d_by}, {100 * d_ms / k_dw:.1f}%), plain a^T g {p_dw:.4f} ms")
 
 
 def wide_serving_phase(kernels, card_line, dev):
@@ -4539,6 +4702,8 @@ def wide_training_phase(kernels, dev):
     from gan_mpc_tpu_torch.training.masking import masked_adam, policy_components
 
     cpu = torch.device("cpu")
+    dw = kernels["fused_mlp_bwd"].dw  # the wide backward's dW kernel, one launch a call here
+    counted = lambda: dict(count(kernels), fused_mlp_bwd_dw=dw.launches)  # noqa: E731
     out = {}
     for hidden in G19_TRAIN_HIDDEN:
         cfg = Config.from_yaml(G11_CONFIG).replace(
@@ -4566,7 +4731,7 @@ def wide_training_phase(kernels, dev):
             opt = masked_adam(policy_components(policy), dcfg.no_grads, dcfg.learning_rate)
             X, U, Y = windows = tuple(t.to(device) for t in clear)
             idx = torch.tensor(rows, device=device)
-            for k in kernels.values():
+            for k in [*kernels.values(), dw]:
                 k.launches = 0
             multistep_prediction_loss(model, X[idx[0]], U[idx[0]], Y[idx[0]],
                                       dcfg.discount_factor, teacher_forcing=False).mean().backward()
@@ -4575,10 +4740,10 @@ def wide_training_phase(kernels, dev):
             losses = [update_pass(model, opt, windows, row[None], dcfg.discount_factor,
                                   teacher_forcing=False).item() for row in idx]
             results.append((grads, losses, [p.detach().cpu() for p in model.parameters()],
-                            count(kernels)))
+                            counted()))
         (g_gpu, l_gpu, p_gpu, counts), (g_cpu, l_cpu, p_cpu, _) = results
         expected = {"fused_mlp_fwd": 4 * horizon, "fused_ls_step": 0,
-                    "fused_mlp_bwd": 4 * horizon}
+                    "fused_mlp_bwd": 4 * horizon, "fused_mlp_bwd_dw": 4 * horizon}
         d_grad = max((g_gpu[name] - ref).abs().max().item()
                      / (1e-4 * max(1.0, ref.abs().max().item())) for name, ref in g_cpu.items())
         d_loss = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
@@ -4588,7 +4753,7 @@ def wide_training_phase(kernels, dev):
               f"CPU: first-minibatch gradients at most {100 * d_grad:.1f}% of 1e-4 max(1, "
               f"max|ref|), max rel d loss {d_loss:.3e} (rtol 1e-4), max|d| params {d_par:.3e} "
               f"(atol {2 * 3 * lr:.0e}); launches {counts} (expected {expected}: {horizon} "
-              "forward and backward a step, 4 steps)")
+              "forward and backward a step, 4 steps, each backward one chunk)")
         if not (d_grad <= 1.0 and d_loss <= 1e-4 and d_par <= 2 * 3 * lr):
             raise SystemExit(f"{label}: the dynamics update pass on the card disagrees with the "
                              "CPU path")
@@ -4610,7 +4775,7 @@ def wide_training_phase(kernels, dev):
             for name in comps:
                 for p in policy_components(policy)[name]:
                     p.requires_grad_(True)
-            for k in kernels.values():
+            for k in [*kernels.values(), dw]:
                 k.launches = 0
             with solves_recorded() as trips, contextlib.ExitStack() as stack:
                 if draw is not None:
@@ -4618,7 +4783,7 @@ def wide_training_phase(kernels, dev):
                 loss, grads = policy.batched_loss_and_grad(hX.to(device), l2_imitation_loss,
                                                            (Yc.to(device),))
             return (loss.item(), {k: [g.cpu() for g in v] for k, v in grads.items()},
-                    count(kernels), list(trips))
+                    counted(), list(trips))
 
         rel = lambda g, ref: {k: max((a - b).abs().max().item()  # noqa: E731
                                      / max(b.abs().max().item(), 1e-30)
@@ -4635,6 +4800,7 @@ def wide_training_phase(kernels, dev):
         tol = {k: max(1e-3, 2 * v) for k, v in spread.items()}
         expected = dict(mlp_calls_per_step(horizon, sum(trips), steps=len(trips),
                                            materialize=False))
+        expected["fused_mlp_bwd_dw"] = expected["fused_mlp_bwd"]  # one chunk each
         fmt = lambda m: ", ".join(f"{k} {v:.2e}" for k, v in m.items())  # noqa: E731
         print(f"{label}: cost-trainer implicit gradient ({GRAD_CHECK['windows']} stable windows, "
               f"trips {trips}) GPU vs CPU: loss {l_gpu:.7g} vs {l_cpu:.7g} (rel {d_loss:.2e}, tol "
@@ -4691,6 +4857,8 @@ def main() -> int:
     for k in instances.values():
         k.load()
     print(f"build {', '.join(kernels)} (in parallel): {time.perf_counter() - t0:.2f} s")
+    # the wide backward's dW kernel, launched by fused_mlp_bwd's calls on the wide path (phase 19)
+    instances["fused_mlp_bwd_dw"] = fused_mlp_backward.dw
     for lib in libs:
         print(f"  {lib.name}")
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -5025,6 +5193,7 @@ def main() -> int:
 
     # 19. stacks of any depth and width: the kernels' wide path
     t19 = time.perf_counter()
+    max_err["fused_mlp_bwd_dw"] = 0.0
     with torch.no_grad():
         wide_kernels_phase(instances, max_err, timed, dev)
     launches.update(wide_serving_phase(kernels, card_line, dev))
@@ -5036,7 +5205,9 @@ def main() -> int:
     # kernel's
     lead = {"fused_mlp_fwd": ("dynamics", 8192), "fused_ls_step": ("line search", 8192),
             "fused_mlp_bwd": ("dynamics", 128), "fused_mlp_fwd_bf16": ("dynamics", 8192),
-            "fused_ls_step_bf16": ("line search", 8192)}
+            "fused_ls_step_bf16": ("line search", 8192),
+            # phase 19 (c)'s dynamics trainer at [512] * 3 calls the wide backward at 128 rows
+            "fused_mlp_bwd_dw": ("512^3", 128)}
     summary = []
     for name, k in instances.items():
         k_ms, p_ms, b_ms, b_by = timed[(name, *lead[name])]
@@ -5052,7 +5223,9 @@ def main() -> int:
             "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
-            "library_ms": None,  # no single PyTorch call computes this function
+            # no single PyTorch call computes this function (the dW kernel's: every
+            # layer's dW and db at once)
+            "library_ms": None,
             "dtype": "bfloat16" if getattr(k, "bf16", False) else "float32",
             "bound_rate_tflops": (BF16_PEAK if getattr(k, "bf16", False) else F32_PRODUCT_RATE)
             / 1e12,

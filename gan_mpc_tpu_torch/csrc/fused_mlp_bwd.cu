@@ -76,9 +76,10 @@
 //    concurrently, so here the sum is a deterministic two-pass reduction:
 //    there are at most as many slices as SMs, slice s is the sum of tiles
 //    s, s + slices, ... (kept by the block, or the up to four blocks, that
-//    walk them) in a part of a workspace, and a second kernel then adds
-//    the slices in order. No atomics, so every run gives the same bits.
-//    With one slice (a single tile) its blocks write the outputs directly.
+//    walk them) in a partial gradient set of the caller's `work`, and a
+//    second kernel then adds the slices in order. No atomics, so every run
+//    gives the same bits. With one slice (a single tile) its blocks write
+//    the outputs directly, and the caller passes no `work`.
 //  * The ragged last tile is masked: rows past `rows` load zeros for x
 //    and g, so they add nothing to dW and db, and their dx is not stored.
 //    Widths that are no multiple of 8 are padded with zeros in shared
@@ -92,19 +93,37 @@
 //    (41->200^3->29) stacks, 23->512->512->17 and up to seven 200-wide
 //    hidden layers.
 //  * Any other stack (three 512-wide or six 256-wide hidden layers, 1024
-//    wide, 32 layers) takes the wide path (fused_mlp_bwd_wide_kernel,
-//    plan_bwd_wide): the same walk, products and reduction, with every
-//    layer's planes laid out as above but in the block's slot of a device
-//    workspace (2 x tile rows x the sum of the padded widths floats, plus
-//    kSlotSlack for dW's reads past the last plane) unless they fit in
-//    shared memory beside the ring; the recompute and the dx chain in
-//    passes of kChainCols columns (the recompute's weights through the
-//    ring as column slabs, the forward's wide path); and the layers'
-//    widths, plane offsets and gradient offsets read from a table in
-//    device memory, so no constant bounds the depth. The workspace and
-//    the table are the caller's (fused_mlp_bwd returns -2 with the bytes
-//    it needs); the slices and their fixed-order sum stay as above, so the
-//    wide path too gives the same bits on every run.
+//    wide, 32 layers) takes the wide path. On it the partial sets above
+//    would be the SM count x the parameters (17.8 GB for 23->4096^3->17,
+//    more than the card holds for 23->8192^4->17), where the TPU kernel
+//    keeps one gradient set; so the wide path keeps one too, and takes dW
+//    as a product over rows instead of a sum of per-SM partials. Rows go in
+//    chunks of kChunkRows; per chunk two kernels run:
+//     - the walk (fused_mlp_bwd_wide_kernel, plan_bwd_wide): the recompute
+//       and the dx chain of the path above, in passes of kChainCols
+//       columns (the recompute's weights through the ring as column slabs,
+//       the forward's wide path), with each tile's planes at the tile's
+//       place in the chunk buffer of a device workspace: the layers' inputs
+//       a_0 .. a_{L-1} as above, and beside them the cotangents g_1 .. g_L
+//       of their outputs, which the chain writes there instead of over
+//       a_l. It takes no dW.
+//     - dW (fused_mlp_bwd_dw_kernel): dW_l = a_l^T g_{l+1}, tiled over
+//       dW's entries, kDwRows x kDwCols a block (the 23->1024^3->17 stack
+//       is 305 blocks at any row count, so every SM has work at 128 rows
+//       too), each block taking the product of each tile of the chunk
+//       with the products of dw_tiles (its fragments, split planes and
+//       three passes) and summing the tiles in order; db_l, a column sum
+//       of g_hi + g_lo, per tile and then over the tiles in order, by
+//       blocks of their own. The first chunk writes the gradient set, later
+//       chunks add to it: the TPU kernel's "first tile writes, later tiles
+//       add". Every entry has one owner, so the bits are the same on every
+//       run.
+//    The extra memory is then one chunk's planes (2 x 2 x kChunkRows x the
+//    sum of the padded widths floats, or the call's rows where fewer) and
+//    the layer table, whatever the row and the SM count. The layers'
+//    widths, plane offsets and gradient offsets are read from the table in
+//    device memory, so no constant bounds the depth. The workspace is the
+//    caller's (fused_mlp_bwd returns -2 with the bytes it needs).
 //
 // The launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() (or -1 for arguments it refuses).
@@ -112,6 +131,7 @@
 #include "mlp_tile_mma.cuh"
 
 #include <limits.h>
+#include <string.h>
 
 namespace {
 
@@ -119,7 +139,10 @@ constexpr int kSumThreads = 256;
 constexpr int kMaxShares = 4;  // thread blocks that share a tile's dW, at most
 constexpr int kStageRows[] = {64, 48, 32, 24, 16, 8};  // ring stage depths, deepest first
 constexpr int kChainCols = kConsumerWarps * 8 * kWarpTiles;  // a chain pass's columns
-constexpr int kSlotSlack = 256;  // floats past a slot's planes that dW's reads may touch
+constexpr int kChunkRows = 4096;  // the wide path's rows a chunk: its walk, then its dW
+constexpr int kDwRows = 64;       // entries of dW a dW block owns: 64 rows (of K) ...
+constexpr int kDwCols = 128;      // ... x 128 columns, as 2 x 4 warps of 32 x 32
+constexpr int kDwThreads = 8 * kWarp;
 
 // With -DBWD_CLOCKS the first consumer thread of block 0 stamps the SM's
 // clock after each phase of each of its tiles (scripts/diag_torch_bwd_phases.py
@@ -214,17 +237,17 @@ __device__ __forceinline__ void bwd_produce(const Ring& ring, const MlpArgs& mlp
 // than kInlineLayers, or whose planes and ring do not fit in shared
 // memory): the ring in shared memory, of the deepest 64-, 48-, ..., 8-row
 // stages (of the widest recompute pass, at most kChainCols floats a row) of
-// which kMinStages fit; every layer's planes, laid out as plan_bwd lays
-// them (LayerDesc sa and at; the output cotangent's in entry L), in shared
-// memory where they fit beside such a ring, else in the block's slot of the
-// workspace. Sets each layer's sa, at, offset and recompute step.
+// which kMinStages fit; each tile's planes in the chunk buffer, tile_floats
+// floats a tile: the inputs a_0 .. a_{L-1} laid out as plan_bwd lays them
+// (LayerDesc sa and at), then the cotangents g_1 .. g_L, g_l at layer l's
+// at + gshift with its stride (entry L of the table: the output
+// cotangent's). Sets each layer's sa, at, offset and recompute step.
 struct WideBwdPlan {
   int stage_floats;
   int stages;
-  int planes_smem;     // 1: the planes in shared memory; 0: in the block's slot
-  int plane_floats;    // all layers' planes
-  size_t slot_floats;  // the block's slot: the planes and kSlotSlack, where not in shared memory
-  size_t smem;         // bytes
+  int gshift;          // where g_l starts, less where a_l does
+  size_t tile_floats;  // a tile's planes: the inputs, then the cotangents
+  size_t smem;         // bytes: the barriers and the ring
 };
 
 inline void plan_bwd_wide(LayerDesc* t, int L, int tile_rows, WideBwdPlan* p) {
@@ -240,22 +263,19 @@ inline void plan_bwd_wide(LayerDesc* t, int L, int tile_rows, WideBwdPlan* p) {
     }
     if (l > 0 && l < L) widest_out = max(widest_out, d);
   }
-  p->plane_floats = floats;
+  // the inputs fill [0, at[L]); g_1 follows them, g_l at at[l] + gshift
+  p->gshift = t[L].at - t[1].at;
+  p->tile_floats = (size_t)floats + p->gshift;
   const int stride = min((widest_out + 3) & ~3, kChainCols);
-  for (int place = 0; place < 2; ++place) {
-    p->planes_smem = place == 0;
-    const size_t fixed =
-        kBarrierBytes + ((p->planes_smem ? (size_t)floats : 0) + 8) * sizeof(float);
-    for (int rows : kStageRows) {
-      p->stage_floats = rows * stride;
-      const size_t stage = p->stage_floats * sizeof(float);
-      if (fixed + kMinStages * stage > kMaxSmem) continue;
-      p->stages = (int)min((size_t)kMaxStages, (kMaxSmem - fixed) / stage);
-      p->smem = fixed + p->stages * stage;
-      p->slot_floats = p->planes_smem ? 0 : (size_t)floats + kSlotSlack;
-      for (int l = 0; l + 1 < L; ++l) t[l].step = (p->stage_floats / min(t[l].N, kChainCols)) & ~7;
-      return;
-    }
+  const size_t fixed = kBarrierBytes + 8 * sizeof(float);
+  for (int rows : kStageRows) {
+    p->stage_floats = rows * stride;
+    const size_t stage = p->stage_floats * sizeof(float);
+    if (fixed + kMinStages * stage > kMaxSmem) continue;
+    p->stages = (int)min((size_t)kMaxStages, (kMaxSmem - fixed) / stage);
+    p->smem = fixed + p->stages * stage;
+    for (int l = 0; l + 1 < L; ++l) t[l].step = (p->stage_floats / min(t[l].N, kChainCols)) & ~7;
+    return;
   }
 }
 
@@ -441,8 +461,10 @@ __device__ __forceinline__ float4 load_w4(const float* __restrict__ W, int row, 
 // One step of the dx chain for a warp that owns T 8-column tiles of the
 // result from column `base` on, that is the weight rows base .. base +
 // 8 T of W (K, N): out = g W^T. With dx the rows go to device memory
-// unmasked (the first layer); else out * (a > 0) overwrites a's planes,
-// columns past K as zeros. Accumulator j holds rows g, g + 8 and columns
+// unmasked (the first layer); else out * (a > 0) goes to the planes o_hi,
+// o_lo of a's layout (a's own on the shared-memory path, which overwrites
+// them; the wide path's cotangent planes beside them), columns past K as
+// zeros. Accumulator j holds rows g, g + 8 and columns
 // base + 8 j + 2 t, + 1: four neighbouring floats of a plane.
 //
 // The B fragment of W^T is W as it lies: B[k][n] = W[n][k], the lane's
@@ -455,12 +477,21 @@ __device__ __forceinline__ float4 load_w4(const float* __restrict__ W, int row, 
 // k-step is one 16-byte load of g's planes, (g, c), (g + 8, c), (g,
 // c + 1), (g + 8, c + 1). No weight of the chain passes through shared
 // memory.
-template <int MT, int T>
+//
+// kSegments (the wide path): the contraction runs in segments of
+// kChainCols columns of W, each summed in the accumulators from zero and
+// then added to the segments before it, in order. A tensor-core
+// accumulator that takes a whole 8192-column contraction (1024 k-steps of
+// three products) rounds far enough from the f32 plain version to leave
+// 1e-4 of its scale; a stack of at most kChainCols columns a layer, every
+// shared-memory stack among them, has one segment and the same arithmetic
+// as without it.
+template <int MT, int T, bool kSegments>
 __device__ __forceinline__ void chain_tiles(const float* __restrict__ g_hi,
-                                            const float* __restrict__ g_lo, int sg, float* a_hi,
-                                            float* a_lo, int sa, const float* __restrict__ W,
-                                            int K, int N, int base, float* __restrict__ dx,
-                                            int row0, int rows) {
+                                            const float* __restrict__ g_lo, int sg,
+                                            const float* a_hi, float* o_hi, float* o_lo, int sa,
+                                            const float* __restrict__ W, int K, int N, int base,
+                                            float* __restrict__ dx, int row0, int rows) {
   // rounds of 16 columns whose weights are in registers at once: the fewer
   // tiles a warp has, the less work there is between a load and its use
   constexpr int D = MT * T == 1 ? 4 : MT * T == 2 ? 2 : 1;
@@ -468,6 +499,7 @@ __device__ __forceinline__ void chain_tiles(const float* __restrict__ g_hi,
   const int g = lane / 4, t = lane % 4;
   const bool vec = aligned16(W) && N % 4 == 0;
   float acc[MT][T][4];
+  float done[kSegments ? MT : 1][kSegments ? T : 1][4];  // the segments before this one
   float4 w[D][T];
 #pragma unroll
   for (int j = 0; j < T; ++j) {
@@ -526,6 +558,34 @@ __device__ __forceinline__ void chain_tiles(const float* __restrict__ g_hi,
         w[d][j] = load_w4(W, base + 8 * j + g, n + 16 * D + 4 * t, K, N, vec);
       }
     }
+    if constexpr (kSegments) {
+      const int next = n0 + 16 * D;
+      if (next % kChainCols == 0 && next < N) {  // a segment ends: keep it, start the next
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+#pragma unroll
+          for (int j = 0; j < T; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              done[i][j][e] = next == kChainCols ? acc[i][j][e] : done[i][j][e] + acc[i][j][e];
+              acc[i][j][e] = 0.f;
+            }
+          }
+        }
+      }
+    }
+  }
+  if constexpr (kSegments) {
+    if (N > kChainCols) {  // the segments before, then the last
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = done[i][j][e] + acc[i][j][e];
+        }
+      }
+    }
   }
   if (dx != nullptr) {
 #pragma unroll
@@ -567,8 +627,8 @@ __device__ __forceinline__ void chain_tiles(const float* __restrict__ g_hi,
         hi[e] = __uint_as_float(vh);
         lo[e] = __uint_as_float(vl);
       }
-      *reinterpret_cast<float4*>(a_hi + at) = make_float4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<float4*>(a_lo + at) = make_float4(lo[0], lo[1], lo[2], lo[3]);
+      *reinterpret_cast<float4*>(o_hi + at) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<float4*>(o_lo + at) = make_float4(lo[0], lo[1], lo[2], lo[3]);
     }
   }
   consumer_sync();
@@ -578,19 +638,21 @@ __device__ __forceinline__ void chain_tiles(const float* __restrict__ g_hi,
 // c0 on (at most kChainCols), for the 16 consumer warps: the result's
 // 8-column tiles are dealt to them in runs, as a layer's are in
 // MLP_CONSUME_LAYER (a warp without tiles only joins the two barriers).
-template <int MT>
+template <int MT, bool kSegments = false>
 __device__ __forceinline__ void chain_layer(const float* __restrict__ g_hi,
-                                            const float* __restrict__ g_lo, int sg, float* a_hi,
-                                            float* a_lo, int sa, const float* __restrict__ W,
-                                            int K, int N, int c0, int cols,
-                                            float* __restrict__ dx, int row0, int rows) {
+                                            const float* __restrict__ g_lo, int sg,
+                                            const float* a_hi, float* o_hi, float* o_lo, int sa,
+                                            const float* __restrict__ W, int K, int N, int c0,
+                                            int cols, float* __restrict__ dx, int row0,
+                                            int rows) {
   const int wn = threadIdx.x / kWarp;
   const int tiles = (cols + 7) / 8;
   const int tb = (tiles + kConsumerWarps - 1) / kConsumerWarps;
   const int base = c0 + wn * tb * 8;
   const int mine = max(0, min(tb, tiles - wn * tb));
 #define CHAIN(T) \
-  chain_tiles<MT, T>(g_hi, g_lo, sg, a_hi, a_lo, sa, W, K, N, base, dx, row0, rows)
+  chain_tiles<MT, T, kSegments>(g_hi, g_lo, sg, a_hi, o_hi, o_lo, sa, W, K, N, base, dx, row0, \
+                                rows)
   switch (mine) {
     case 0:
       if (dx == nullptr) {
@@ -697,35 +759,36 @@ fused_mlp_bwd_kernel(BwdArgs a, MlpArgs mlp, BwdPlan plan, int n_tiles) {
                first, share, a.shares);
       BWD_STAMP();
       if (l == 0 && share != 0) break;  // dx is the slice's first block's
-      chain_layer<MT>(g_hi, g_lo, plan.sa[l + 1], a_hi, a_lo, plan.sa[l], mlp.w[l], K, N, 0, K,
-                      l == 0 ? a.dx : nullptr, row0, a.rows);
+      chain_layer<MT>(g_hi, g_lo, plan.sa[l + 1], a_hi, a_hi, a_lo, plan.sa[l], mlp.w[l], K, N, 0,
+                      K, l == 0 ? a.dx : nullptr, row0, a.rows);
       BWD_STAMP();
     }
   }
 }
 
-// The wide path's kernel: fused_mlp_bwd_kernel's walk with the layers from
-// a table, each recompute layer and chain step in passes of kChainCols
-// columns, and the planes in the block's slot of the workspace unless the
-// plan put them in shared memory.
+// The wide path's walk over tiles tile0 .. tile0 + n_tiles - 1, one chunk:
+// fused_mlp_bwd_kernel's recompute and dx chain with the layers from a
+// table, each recompute layer and chain step in passes of kChainCols
+// columns, and the planes of the chunk's tile i at chunk + i tile_floats,
+// where fused_mlp_bwd_dw_kernel reads them: a_l at the layer's at, g_l
+// (the cotangent of layer l - 1's output) at its at + gshift.
 template <int MT>
 __global__ void __launch_bounds__(kBlockThreads, 1)
-fused_mlp_bwd_wide_kernel(BwdArgs a, MlpTable mlp, WideBwdPlan plan, int n_tiles, float* slots) {
+fused_mlp_bwd_wide_kernel(BwdArgs a, MlpTable mlp, WideBwdPlan plan, int tile0, int n_tiles,
+                          float* chunk) {
   constexpr int TM = 16 * MT;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* f = reinterpret_cast<float*>(smem + kBarrierBytes);
-  float* planes = opaque(plan.planes_smem ? f : slots + blockIdx.x * plan.slot_floats);
   const int L = mlp.n_layers;
   Ring ring;
   ring.full = reinterpret_cast<uint64_t*>(smem);
   ring.empty = ring.full + kMaxStages;
-  ring.buf = f + (plan.planes_smem ? plan.plane_floats : 0);
+  ring.buf = reinterpret_cast<float*>(smem + kBarrierBytes);
   ring.stage_floats = plan.stage_floats;
   ring.stages = plan.stages;
   if (threadIdx.x >= kConsumers) {
     producer_start(ring);
     ProducerPos pp;
-    for (int tile = blockIdx.x / a.shares; tile < n_tiles; tile += gridDim.x / a.shares) {
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       for (int l = 0; l + 1 < L; ++l) {
         const LayerDesc d = mlp.layer[l];
         produce_layer_wide<false>(ring, pp, d, nullptr, d.K, kChainCols);
@@ -734,23 +797,17 @@ fused_mlp_bwd_wide_kernel(BwdArgs a, MlpTable mlp, WideBwdPlan plan, int n_tiles
     return;
   }
 
-  const int slice = blockIdx.x / a.shares, share = blockIdx.x % a.shares;
-  float* part = a.part + (size_t)slice * a.stride;
   RingPos pos;
-  // the planes' pad columns stay zero from here on: nothing writes them
-  for (int i = threadIdx.x * 4; i < plan.plane_floats; i += kConsumers * 4) {
-    *reinterpret_cast<float4*>(planes + i) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  consumer_sync();
-  for (int tile = slice; tile < n_tiles; tile += gridDim.x / a.shares) {
-    const int row0 = tile * TM;
-    const bool first = tile == slice;
-    if (!first) consumer_sync();  // the last tile's readers of these planes are done
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = (tile0 + tile) * TM;
+    // the tile's planes; their pad columns are zero (the caller cleared
+    // the buffer) and nothing writes them
+    float* planes = opaque(chunk + (size_t)tile * plan.tile_floats);
     const LayerDesc in = mlp.layer[0], out = mlp.layer[L];
+    float* g_in = planes + out.at + plan.gshift;
     load_rows(planes + in.at, planes + in.at + TM * in.sa, in.sa, TM, a.x, in.K, row0, a.rows);
-    load_rows(planes + out.at, planes + out.at + TM * out.sa, out.sa, TM, a.g,
-              mlp.layer[L - 1].N, row0, a.rows);
-    if (first) {
+    load_rows(g_in, g_in + TM * out.sa, out.sa, TM, a.g, mlp.layer[L - 1].N, row0, a.rows);
+    if (tile == (int)blockIdx.x) {
       consumers_start();
     } else {
       consumer_sync();
@@ -770,24 +827,250 @@ fused_mlp_bwd_wide_kernel(BwdArgs a, MlpTable mlp, WideBwdPlan plan, int n_tiles
       const bool last = false;
       for (int c0 = 0; c0 < N; c0 += kChainCols) {
         const int cols = min(kChainCols, N - c0);
-        MLP_CONSUME_COLS(MT, 1, false, true, false, d.step, d.b, cols, S, c0, N);
+        MLP_CONSUME_COLS(MT, 1, false, kOutSegments, false, d.step, d.b, cols, S, c0, N);
       }
     }
 
-    // backward: layer l + 1's planes hold g_{l+1}, the cotangent of layer
-    // l's output (l = L - 1: the planes of the kernel's input g)
+    // backward: g_l = (g_{l+1} W_l^T) * (a_l > 0) into g_l's planes; dx for l = 0
     for (int l = L - 1; l >= 0; --l) {
       const LayerDesc d = mlp.layer[l], e = mlp.layer[l + 1];
-      float* a_hi = planes + d.at;
-      float* a_lo = a_hi + TM * d.sa;
-      const float* g_hi = planes + e.at;
+      const float* a_hi = planes + d.at;
+      const float* g_hi = planes + e.at + plan.gshift;
       const float* g_lo = g_hi + TM * e.sa;
-      dw_tiles<MT>(a_hi, a_lo, d.sa, g_hi, g_lo, e.sa, d.K, d.N, part + d.offset, first, share,
-                   a.shares);
-      if (l == 0 && share != 0) break;  // dx is the slice's first block's
+      float* o_hi = l > 0 ? planes + d.at + plan.gshift : nullptr;
+      float* o_lo = l > 0 ? o_hi + TM * d.sa : nullptr;
       for (int c0 = 0; c0 < d.K; c0 += kChainCols) {
-        chain_layer<MT>(g_hi, g_lo, e.sa, a_hi, a_lo, d.sa, d.w, d.K, d.N, c0,
-                        min(kChainCols, d.K - c0), l == 0 ? a.dx : nullptr, row0, a.rows);
+        chain_layer<MT, true>(g_hi, g_lo, e.sa, a_hi, o_hi, o_lo, d.sa, d.w, d.K, d.N, c0,
+                              min(kChainCols, d.K - c0), l == 0 ? a.dx : nullptr, row0,
+                              a.rows);
+      }
+    }
+  }
+}
+
+// What the wide path's dW kernel reads: the table (K, N, at, sa, offset of
+// each layer; entry L places the output cotangent's planes), where each
+// layer's blocks start (n_layers + 1 entries, the last the total), and the
+// chunk's n_tiles tiles of planes.
+struct DwArgs {
+  const LayerDesc* layer;
+  const int* first_block;
+  const float* chunk;
+  size_t tile_floats;
+  int gshift;
+  int n_tiles;
+  float* grads;  // the gradient set: dW_0, db_0, dW_1, ...
+  int first;     // the first chunk writes the set, later chunks add to it
+};
+
+// db_l of the chunk: the column sums of g_{l+1}'s hi + lo planes, for the
+// kDwCols columns from c0 on, a thread a column: each tile's rows summed in
+// order, then the tiles' sums in order (as dW's, below). The next tile's
+// values are loaded while this tile's are summed.
+template <int MT>
+__device__ __forceinline__ void db_cols(const DwArgs& a, const float* g_hi, int sg, int N,
+                                        int c0, float* db) {
+  constexpr int TM = 16 * MT;
+  const int c = c0 + threadIdx.x;
+  if (threadIdx.x >= kDwCols || c >= N) return;
+  float v[2][TM];
+  auto load = [&](float (&dst)[TM], int tile) {
+    const float* hi = g_hi + tile * a.tile_floats;
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const int at = act_index(r, c, sg);
+      dst[r] = __ldg(hi + at) + __ldg(hi + TM * sg + at);
+    }
+  };
+  float s = 0.f;
+  load(v[0], 0);
+  for (int tile = 0; tile < a.n_tiles; tile += 2) {
+    if (tile + 1 < a.n_tiles) load(v[1], tile + 1);
+    float part = 0.f;
+#pragma unroll
+    for (int r = 0; r < TM; ++r) part += v[0][r];
+    s += part;
+    if (tile + 1 >= a.n_tiles) break;
+    if (tile + 2 < a.n_tiles) load(v[0], tile + 2);
+    part = 0.f;
+#pragma unroll
+    for (int r = 0; r < TM; ++r) part += v[1][r];
+    s += part;
+  }
+  db[c] = a.first ? s : db[c] + s;
+}
+
+// One k-step's fragments of a dW warp (fused_mlp_bwd_dw_kernel): a's two
+// 16-row blocks of dW, hi and lo, and g's four 8-column tiles.
+struct DwFrags {
+  uint32_t ah[2][4], al[2][4], bh[kWarpTiles][2], bl[kWarpTiles][2];
+};
+
+// The fragments of k-step s of the tile whose planes a (stride sa) and g
+// (stride sg) point at the lane's first entries, hi then TM * stride on
+// lo; zeros for blocks and tiles past the layer.
+template <int MT>
+__device__ __forceinline__ void dw_load(DwFrags& f, const float* a, const float* b, int sa,
+                                        int sg, int s, const bool (&m_live)[2],
+                                        const bool (&n_live)[kWarpTiles]) {
+  constexpr int TM = 16 * MT;
+  const float2 zero = make_float2(0.f, 0.f);
+  const auto ld = [&](bool live, const float* p) {
+    return live ? __ldg(reinterpret_cast<const float2*>(p)) : zero;
+  };
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float* p = a + s * 8 * sa + 32 * i;
+    const float2 h0 = ld(m_live[i], p), h1 = ld(m_live[i], p + 16);
+    const float2 l0 = ld(m_live[i], p + TM * sa), l1 = ld(m_live[i], p + TM * sa + 16);
+    f.ah[i][0] = __float_as_uint(h0.x), f.ah[i][2] = __float_as_uint(h0.y);
+    f.ah[i][1] = __float_as_uint(h1.x), f.ah[i][3] = __float_as_uint(h1.y);
+    f.al[i][0] = __float_as_uint(l0.x), f.al[i][2] = __float_as_uint(l0.y);
+    f.al[i][1] = __float_as_uint(l1.x), f.al[i][3] = __float_as_uint(l1.y);
+  }
+#pragma unroll
+  for (int j = 0; j < kWarpTiles; ++j) {
+    const float* p = b + s * 8 * sg + 16 * j;
+    const float2 h = ld(n_live[j], p), lo = ld(n_live[j], p + TM * sg);
+    f.bh[j][0] = __float_as_uint(h.x), f.bh[j][1] = __float_as_uint(h.y);
+    f.bl[j][0] = __float_as_uint(lo.x), f.bl[j][1] = __float_as_uint(lo.y);
+  }
+}
+
+// The k-step's three products, small terms first; consecutive products go
+// to different accumulators.
+__device__ __forceinline__ void dw_products(float (&part)[2][kWarpTiles][4], const DwFrags& f) {
+#pragma unroll
+  for (int j = 0; j < kWarpTiles; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) mma_tf32(part[i][j], f.al[i], f.bh[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kWarpTiles; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) mma_tf32(part[i][j], f.ah[i], f.bl[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kWarpTiles; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) mma_tf32(part[i][j], f.ah[i], f.bh[j]);
+  }
+}
+
+// The wide path's dW and db of one chunk (the module's header): a block
+// owns kDwRows x kDwCols entries of one layer's dW, as 2 x 4 warps of
+// 32 x 32 (two 16-row blocks of dW and four 8-column tiles each), or
+// kDwCols columns of its db. A warp takes each tile's product in
+// accumulators of their own, its k-steps in order, with dw_tiles's
+// fragments (A is a read transposed, B is g, a k-step contracts over rows
+// 4 s + t and 4 s + t + 8 of the tile, a row pair of the planes) and its
+// three products, small terms first, and adds it to the chunk's sums, the
+// tiles in order: one tensor-core accumulator over a whole chunk's rows
+// loses more to rounding than tile-sized partial sums (the per-SM partials
+// this replaces were those). The loads run two k-steps ahead of the
+// products (three sets of fragments in turn): one warp's step-by-step loads
+// waited out a memory latency per k-step. Then the warp writes or adds its
+// entries. The planes are read-only here: loads go through the read-only
+// cache.
+template <int MT>
+__global__ void __launch_bounds__(kDwThreads)
+fused_mlp_bwd_dw_kernel(DwArgs a) {
+  constexpr int TM = 16 * MT;
+  int l = 0;
+  while ((int)blockIdx.x >= a.first_block[l + 1]) ++l;
+  const LayerDesc d = a.layer[l];
+  const int K = d.K, N = d.N, sa = d.sa, sg = a.layer[l + 1].sa;
+  const int nb = (N + kDwCols - 1) / kDwCols, mb = (K + kDwRows - 1) / kDwRows;
+  const int job = blockIdx.x - a.first_block[l];
+  const float* g_hi = a.chunk + a.layer[l + 1].at + a.gshift;  // the first tile's g_{l+1}
+  float* dw = a.grads + d.offset;
+  if (job >= mb * nb) {
+    db_cols<MT>(a, g_hi, sg, N, (job - mb * nb) * kDwCols, dw + (size_t)K * N);
+    return;
+  }
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const int m0 = job / nb * kDwRows + warp / 4 * 32;             // the warp's first row of dW
+  const int n0 = (job % nb * kDwCols + warp % 4 * 32) / 8;       // ... and 8-column tile
+  const int n_tiles = (N + 7) / 8;
+  if (m0 >= K || n0 >= n_tiles) return;
+  // a's columns past K up to the 16-row block's end and g's past N up to the
+  // tile's are the planes' zero pad; blocks and tiles past those are not read
+  const bool m_live[2] = {true, m0 + 16 < K};
+  bool n_live[kWarpTiles];
+#pragma unroll
+  for (int j = 0; j < kWarpTiles; ++j) n_live[j] = n0 + j < n_tiles;
+  float acc[2][kWarpTiles][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < kWarpTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+  }
+  // the lane's fragments in a tile's planes at k-step 0: a at row pair t,
+  // columns m0 + g (+ 8, + 16, + 24); g at row pair t, column 8 n0 + g
+  const float* a_at = a.chunk + d.at + t * 2 * sa + 2 * (m0 + g);
+  const float* g_at = g_hi + t * 2 * sg + 2 * (n0 * 8 + g);
+  float part[2][kWarpTiles][4];
+  // the chunk's k-steps q = 2 MT tile + s in order, the loads two steps
+  // ahead of the products (three sets of fragments, taken in turn)
+  const int steps = a.n_tiles * 2 * MT;
+  const auto load = [&](DwFrags& f, int q) {
+    if (q >= steps) return;
+    const size_t tile = q / (2 * MT);
+    dw_load<MT>(f, a_at + tile * a.tile_floats, g_at + tile * a.tile_floats, sa, sg,
+                q % (2 * MT), m_live, n_live);
+  };
+  const auto step = [&](const DwFrags& f, int q) {
+    if (q % (2 * MT) == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < kWarpTiles; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+        }
+      }
+    }
+    dw_products(part, f);
+    if (q % (2 * MT) == 2 * MT - 1) {  // the tile's product joins the chunk's sums
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < kWarpTiles; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+        }
+      }
+    }
+  };
+  DwFrags f0, f1, f2;
+  load(f0, 0);
+  load(f1, 1);
+  for (int q = 0; q < steps; q += 3) {
+    load(f2, q + 2);
+    step(f0, q);
+    if (q + 1 >= steps) break;
+    load(f0, q + 3);
+    step(f1, q + 1);
+    if (q + 2 >= steps) break;
+    load(f1, q + 4);
+    step(f2, q + 2);
+  }
+  // accumulator (i, j) holds rows m0 + 16 i + g (+ 8), columns 8 (n0 + j) + 2 t (+ 1)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < kWarpTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = m0 + 16 * i + g + 8 * (e / 2), c = 8 * (n0 + j) + 2 * t + e % 2;
+        if (r < K && c < N) {
+          float* p = dw + (size_t)r * N + c;
+          *p = a.first ? acc[i][j][e] : *p + acc[i][j][e];
+        }
       }
     }
   }
@@ -836,31 +1119,92 @@ cudaError_t launch(BwdArgs a, const MlpArgs& mlp, const BwdPlan& plan, float* gr
   return cudaGetLastError();
 }
 
-// Launch the wide path, its layer table and the blocks' slots in `scratch`
-// (wide_workspace). Sets *slices as launch does.
+// The dW kernel's device time while fused_mlp_bwd_time_dw is on: the
+// total since fused_mlp_bwd_dw_ms last read it.
+bool dw_timing = false;
+double dw_ms = 0.0;
+
+// Records ev[1] after the dW launch that ev[0] precedes, waits for it and
+// adds the time between them to dw_ms.
+cudaError_t add_dw_time(cudaEvent_t* ev, cudaStream_t stream) {
+  cudaError_t e = cudaEventRecord(ev[1], stream);
+  if (e == cudaSuccess) e = cudaEventSynchronize(ev[1]);
+  float ms = 0.0f;
+  if (e == cudaSuccess) e = cudaEventElapsedTime(&ms, ev[0], ev[1]);
+  dw_ms += ms;
+  return e;
+}
+
+// Launch the wide path over the rows of `a`, chunk by chunk: the walk, then
+// the dW kernel (timed while dw_timing is on), each launch counted in launched[0] (the walk) and
+// launched[1] (dW). The workspace `scratch` holds the layer table and each
+// layer's first dW block at its head, then the chunk buffer; where
+// scratch_bytes is less than that, nothing is launched and -2 returned with
+// the bytes in *scratch_needed.
 template <int MT>
 int launch_wide(BwdArgs a, int n_layers, const int* dims, const float* const* weights,
-                const float* const* biases, float* grads, float* work, int work_parts,
-                void* scratch, size_t scratch_bytes, size_t* scratch_needed, int device, int sms,
-                cudaStream_t stream, int* slices) {
-  std::vector<LayerDesc> table = layer_table(n_layers, dims, weights, biases, 1);
+                const float* const* biases, float* grads, void* scratch, size_t scratch_bytes,
+                size_t* scratch_needed, int* launched, int device, int sms,
+                cudaStream_t stream) {
+  constexpr int TM = 16 * MT;
+  const int L = n_layers;
+  std::vector<LayerDesc> table = layer_table(L, dims, weights, biases, 1);
   WideBwdPlan plan;
-  plan_bwd_wide(table.data(), n_layers, 16 * MT, &plan);
-  int tiles;
-  grid<MT>(a.rows, sms, &tiles, slices, &a.shares);
-  if (*slices > 1 && (work == nullptr || work_parts < *slices)) return -1;
-  a.part = *slices > 1 ? work : grads;
-  float* slots = nullptr;
-  const int err = wide_workspace(table, (size_t)*slices * a.shares, plan.slot_floats, scratch,
-                                 scratch_bytes, scratch_needed, stream, &slots);
-  if (err != 0) return err;
+  plan_bwd_wide(table.data(), L, TM, &plan);
+  const int tiles = (a.rows + TM - 1) / TM;
+  const int chunk_tiles = min(tiles, kChunkRows / TM);
+  std::vector<int> first_block(L + 1);
+  int blocks = 0;
+  for (int l = 0; l < L; ++l) {
+    first_block[l] = blocks;
+    blocks += (dims[l + 1] + kDwCols - 1) / kDwCols * ((dims[l] + kDwRows - 1) / kDwRows + 1);
+  }
+  first_block[L] = blocks;
+  const size_t descs = table.size() * sizeof(LayerDesc);
+  const size_t head = (descs + first_block.size() * sizeof(int) + 255) & ~(size_t)255;
+  const size_t buffer = (size_t)chunk_tiles * plan.tile_floats * sizeof(float);
+  if (scratch_bytes < head + buffer) {
+    *scratch_needed = head + buffer;
+    return -2;
+  }
+  // one copy of the head, from pageable memory: staged before the call returns
+  std::vector<unsigned char> host(descs + first_block.size() * sizeof(int));
+  memcpy(host.data(), table.data(), descs);
+  memcpy(host.data() + descs, first_block.data(), first_block.size() * sizeof(int));
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  float* chunk = reinterpret_cast<float*>(base + head);
+  cudaError_t e = cudaMemcpyAsync(base, host.data(), host.size(), cudaMemcpyHostToDevice, stream);
+  if (e == cudaSuccess) e = cudaMemsetAsync(chunk, 0, buffer, stream);  // the planes' pads
   static bool done[kMaxDevices];
-  const cudaError_t e = allow_max_smem(fused_mlp_bwd_wide_kernel<MT>, device, done);
+  if (e == cudaSuccess) e = allow_max_smem(fused_mlp_bwd_wide_kernel<MT>, device, done);
   if (e != cudaSuccess) return (int)e;
-  const MlpTable mlp{n_layers, static_cast<const LayerDesc*>(scratch), nullptr, dims[0]};
-  fused_mlp_bwd_wide_kernel<MT><<<*slices * a.shares, kBlockThreads, plan.smem, stream>>>(
-      a, mlp, plan, tiles, slots);
-  return (int)cudaGetLastError();
+  const LayerDesc* layers = reinterpret_cast<const LayerDesc*>(base);
+  const MlpTable mlp{L, layers, nullptr, dims[0]};
+  DwArgs dw{layers, reinterpret_cast<const int*>(base + descs), chunk, plan.tile_floats,
+            plan.gshift, 0, grads, 1};
+  cudaEvent_t ev[2] = {nullptr, nullptr};
+  if (dw_timing) {
+    e = cudaEventCreate(&ev[0]);
+    if (e == cudaSuccess) e = cudaEventCreate(&ev[1]);
+  }
+  for (int tile0 = 0; e == cudaSuccess && tile0 < tiles; tile0 += chunk_tiles) {
+    const int n = min(chunk_tiles, tiles - tile0);
+    fused_mlp_bwd_wide_kernel<MT><<<min(n, sms), kBlockThreads, plan.smem, stream>>>(
+        a, mlp, plan, tile0, n, chunk);
+    dw.n_tiles = n;
+    dw.first = tile0 == 0;
+    if (dw_timing) e = cudaEventRecord(ev[0], stream);
+    if (e != cudaSuccess) break;
+    fused_mlp_bwd_dw_kernel<MT><<<blocks, kDwThreads, 0, stream>>>(dw);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) break;
+    ++launched[0];
+    ++launched[1];
+    if (dw_timing) e = add_dw_time(ev, stream);
+  }
+  for (cudaEvent_t t : ev)
+    if (t != nullptr) cudaEventDestroy(t);
+  return (int)e;
 }
 
 }  // namespace
@@ -870,20 +1214,26 @@ extern "C" {
 // x (rows, dims[0]), g (rows, dims[n_layers]) -> dx (rows, dims[0]) and
 // grads, one flat set dW_0 (dims[0], dims[1]), db_0 (dims[1]), dW_1, ...
 // Weights[l] (dims[l], dims[l+1]) and biases[l] (dims[l+1]) as in the
-// forward: any depth and widths of at least 1. `work` holds work_parts
-// gradient sets, each padded to a multiple of 4 floats, one per slice of a
-// launch over several tiles; there are at most as many slices as SMs, so
-// work_parts = the device's SM count always suffices. A stack that takes
-// the wide path needs a scratch workspace too: where scratch_bytes is less
-// than it takes, nothing is launched and the call returns -2 with the
-// bytes in *scratch_needed. All pointers are device pointers to contiguous
-// f32. Returns 0 on a successful launch, a cudaError_t value if a launch
-// failed, or -1 for arguments it refuses (no stack, a gradient set past
-// 2^31 floats, or a workspace too small for the launch).
+// forward: any depth and widths of at least 1. On the shared-memory path
+// `work` holds work_parts gradient sets, each padded to a multiple of 4
+// floats, one per slice of a launch over several tiles (grid's slices: at
+// most the SM count; none needed for one slice, and none on the wide path).
+// A stack that takes the wide path needs a scratch workspace instead:
+// where scratch_bytes is less than it takes, nothing is launched and the
+// call returns -2 with the bytes in *scratch_needed. launched (host
+// memory, two ints) receives the launches the call made: [0] the walk
+// kernel's (one on the shared-memory path, one a chunk on the wide path;
+// the slices' sum is not counted), [1] the wide path's dW kernel's (one a
+// chunk); a call over 0 rows only zeroes grads and launches neither. The
+// other pointers are device pointers to contiguous f32. Returns 0 on a
+// successful launch, a cudaError_t value if a launch failed, or -1 for
+// arguments it refuses (no stack, a gradient set past 2^31 floats, or
+// fewer sets in `work` than the launch's slices).
 int fused_mlp_bwd(const float* x, const float* g, float* dx, float* grads, float* work,
                   int work_parts, int rows, int n_layers, const int* dims,
-                  const float* const* weights, const float* const* biases, void* scratch,
-                  size_t scratch_bytes, size_t* scratch_needed, void* stream) {
+                  const float* const* weights, const float* const* biases, int* launched,
+                  void* scratch, size_t scratch_bytes, size_t* scratch_needed, void* stream) {
+  launched[0] = launched[1] = 0;
   if (rows < 0) return -1;
   const int stride = stack_width(n_layers, dims);
   if (stride < 0 || rows > INT_MAX / stride) return -1;
@@ -929,17 +1279,31 @@ int fused_mlp_bwd(const float* x, const float* g, float* dx, float* grads, float
       e = launch<1>(a, mlp, plan, grads, work, work_parts, device, sms, s, &slices);
     }
     if (inline_path) err = e == cudaErrorInvalidValue ? -1 : (int)e;
+    if (inline_path && err == 0) launched[0] = 1;
   }
   if (!inline_path) {
-    err = big ? launch_wide<2>(a, n_layers, dims, weights, biases, grads, work, work_parts,
-                               scratch, scratch_bytes, scratch_needed, device, sms, s, &slices)
-              : launch_wide<1>(a, n_layers, dims, weights, biases, grads, work, work_parts,
-                               scratch, scratch_bytes, scratch_needed, device, sms, s, &slices);
+    slices = 1;  // one gradient set: nothing to sum after the launch
+    err = big ? launch_wide<2>(a, n_layers, dims, weights, biases, grads, scratch, scratch_bytes,
+                               scratch_needed, launched, device, sms, s)
+              : launch_wide<1>(a, n_layers, dims, weights, biases, grads, scratch, scratch_bytes,
+                               scratch_needed, launched, device, sms, s);
   }
   if (err != 0 || slices == 1) return err;
   sum_parts_kernel<<<(a.total + kSumThreads - 1) / kSumThreads, kSumThreads, 0, s>>>(
       work, slices, a.stride, a.total, grads);
   return (int)cudaGetLastError();
+}
+
+// Timing of the wide path's dW kernel (chip_smoke.py, phase 19): while on,
+// each dW launch is bracketed by CUDA events and waited for, and its
+// device time added to a total, which fused_mlp_bwd_dw_ms returns and
+// clears. Off, as it starts, nothing is recorded or waited for.
+void fused_mlp_bwd_time_dw(int on) { dw_timing = on != 0; }
+
+double fused_mlp_bwd_dw_ms() {
+  const double total = dw_ms;
+  dw_ms = 0.0;
+  return total;
 }
 
 #ifdef BWD_CLOCKS

@@ -133,6 +133,8 @@ constexpr int kMaxStages = 4;
 constexpr int kMinStages = 3;
 constexpr size_t kMaxSmem = 232448;                 // a Hopper block's dynamic shared memory
 constexpr size_t kBarrierBytes = 128;               // 2 * kMaxStages mbarriers, padded
+constexpr int kOutSegments = 2;   // layer_tiles' kOut on the wide path (forward and recompute)
+constexpr int kSegmentRows = 512;  // ... whose contraction runs in segments of these rows of K
 
 // Raise a kernel's dynamic shared-memory limit to the block's maximum, once
 // per device (`done`: the instance's flags): the attribute call costs host
@@ -615,8 +617,9 @@ struct RingPos {
 
 // What mlp_consume hands a layer: the output and the residual; and, for a
 // caller that keeps every layer's input (kOut: the backward kernel's
-// recompute), the planes a hidden layer's output goes to and their row
-// stride, where the forward kernels overwrite the input planes.
+// recompute, the wide path's two pairs of planes), the planes a hidden
+// layer's output goes to and their row stride, where the forward kernels
+// overwrite the input planes.
 struct TileIo {
   int sa;
   float* __restrict__ y;
@@ -640,7 +643,18 @@ struct TileIo {
 // overwrites the tile once every warp has read its inputs (with kOut it
 // goes to io's planes instead), and is whole before any warp reads it;
 // with kBf16 it is rounded to bfloat16 into the hi plane alone.
-template <int MT, int WM, int T, bool kVec, bool kLs, bool kOut, bool kBf16>
+//
+// kOut == kOutSegments (the wide path: the forward kernels' passes and the
+// backward's recompute) also takes the contraction over K in segments:
+// where a chunk ends past a multiple of kSegmentRows rows of K, the
+// accumulators so far are added to the segments before them and start
+// again from zero, and the segments are added in order before the bias.
+// Over 8192 rows of K one tensor-core accumulator takes 1024 k-steps of
+// three products and, on 23->8192^4->17, rounds further from the f32 plain
+// version than 1e-4 of its scale, where the plain version lies well within
+// it of float64 (scripts/diag_torch_wide_accuracy.py); a layer of at most
+// kSegmentRows rows has one segment, and the same arithmetic as without.
+template <int MT, int WM, int T, bool kVec, bool kLs, int kOut, bool kBf16>
 __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, const TileIo& io,
                                             int K, int N, int S, int c0, int ld, int step,
                                             int base, const float* __restrict__ bias,
@@ -667,6 +681,9 @@ __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, cons
   }
 
   const int a_at = act_index(wm * MT * 16 + g, t, io.sa);
+  constexpr bool kSeg = kOut == kOutSegments && T > 0;
+  float done[kSeg ? MT : 1][kSeg ? TT : 1][4];  // the segments before this one
+  bool folded = false;
   for (int k0 = 0; k0 < K; k0 += step) {
     const int n = min(step, K - k0);
     mbar_wait(ring.full + pos.s, pos.phase);
@@ -675,11 +692,39 @@ __device__ __forceinline__ void layer_tiles(const Tile& tile, RingPos& pos, cons
       chunk_products<MT, T, kVec, kBf16>(acc, tile.hi + a_at + 2 * k0, tile.lo + a_at + 2 * k0,
                                          io.sa, w, S, (n + 7) & ~7);
     }
+    if constexpr (kSeg) {
+      if (k0 + step < K && (k0 + step) / kSegmentRows != k0 / kSegmentRows) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+#pragma unroll
+          for (int j = 0; j < TT; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              done[i][j][e] = folded ? done[i][j][e] + acc[i][j][e] : acc[i][j][e];
+              acc[i][j][e] = 0.f;
+            }
+          }
+        }
+        folded = true;
+      }
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(ring.empty + pos.s);
     if (++pos.s == ring.stages) {
       pos.s = 0;
       pos.phase ^= 1;
+    }
+  }
+  if constexpr (kSeg) {
+    if (folded) {  // the segments before, then the last
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int j = 0; j < TT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = done[i][j][e] + acc[i][j][e];
+        }
+      }
     }
   }
 
@@ -826,7 +871,7 @@ __device__ __forceinline__ void mlp_consume(const Tile& tile, const MlpArgs& arg
 // A stack deeper than kInlineLayers, or one the path above does not take (a
 // layer wider than one pass of the warps' columns, or planes that do not
 // fit beside the ring in a block's shared memory), runs through the same
-// products, fragments, epilogue and ring, with three differences.
+// products, fragments, epilogue and ring, with four differences.
 //  * Passes. A layer wider than P = 32 * WN columns (512 on the 16-row
 //    tile, 256 on the 64-row tile) is computed in passes of P columns, each
 //    a run of layer_tiles over all K rows. The ring then carries column
@@ -845,11 +890,15 @@ __device__ __forceinline__ void mlp_consume(const Tile& tile, const MlpArgs& arg
 //    planes' pointer is made opaque to the compiler, so every access is a
 //    generic load or store and none goes through the read-only cache, which
 //    does not see what the block itself wrote.
+//  * Segments. The contraction over a layer's K rows is summed in
+//    segments of kSegmentRows rows, added in order (layer_tiles,
+//    kOutSegments): a layer of at most 512 rows has one.
 // A block walks row tiles gridDim.x apart, at most one block an SM, so the
 // workspace holds as many slots as blocks; its producer warp streams the
 // weights again for each tile. The layers come from a table in device
 // memory (MlpTable), any number of them. The arithmetic is the path
-// above's: the same products in the same k order, epilogue and rounding.
+// above's: the same products in the same k order, epilogue and rounding,
+// the segments' sums aside.
 
 struct WidePlan {
   int sa;              // the planes' row stride, floats: = 4 (mod 8)
@@ -1055,7 +1104,7 @@ __device__ __forceinline__ void wide_consume(const WideTile& t, RingPos& pos, co
     const int S = min(N, plan.pass_cols);
     for (int c0 = 0; c0 < N; c0 += plan.pass_cols) {
       const int cols = min(plan.pass_cols, N - c0);
-      MLP_CONSUME_COLS(MT, WM, kLs, true, kBf16, d.step, d.b, cols, S, c0, N);
+      MLP_CONSUME_COLS(MT, WM, kLs, kOutSegments, kBf16, d.step, d.b, cols, S, c0, N);
     }
     float* h = tile.hi;
     tile.hi = o_hi;

@@ -85,7 +85,9 @@ def reference_ls_step(x3, Xref, Uref, alphaBA, k, K, goal, goal_u, wvec,
 
 class FusedLsKernel:
     """One instance of the CUDA step kernel, f32 or ``bf16``: built on
-    first use, counted per launch."""
+    first use. ``launches`` counts the calls that launch the kernel on the
+    device: a call over 0 rows (B * A = 0) launches nothing and counts
+    nothing."""
 
     source = "gan_mpc_tpu_torch/csrc/fused_ls_step.cu"
     replaces = "gan_mpc_tpu/ops/fused_ls.py:118"
@@ -142,7 +144,8 @@ class FusedLsKernel:
                 f"{self.name} launch failed with code {err} "
                 f"(B={B}, A={A}, n={n}, m={m}, dims={dims})"
             )
-        self.launches += 1
+        if B * A:
+            self.launches += 1
         return nx, u, cost
 
 

@@ -48,6 +48,7 @@ takes. The wrappers allocate the wide path's workspace with
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Iterable, List, Sequence, Tuple
 
 import torch
@@ -285,8 +286,8 @@ def fwd_route(rows: int, dims: Sequence[int], sms: int, extra_per_row: int = 0):
 BWD_TILE_ROWS = 16  # csrc/fused_mlp_bwd.cu's tiles: 16 rows, or 32 where the call is large
 BWD_STAGE_ROWS = (64, 48, 32, 24, 16, 8)  # ... and kStageRows
 CHAIN_COLS = CONSUMER_WARPS * 8 * WARP_TILES  # ... and kChainCols: a pass's columns
-SLOT_SLACK = 256  # ... and kSlotSlack: floats past a slot's planes that dW's reads may touch
-MAX_SHARES = 4  # ... and kMaxShares
+BWD_CHUNK_ROWS = 4096  # ... and kChunkRows: the wide path's rows a chunk
+DW_ROWS, DW_COLS = 64, 128  # ... and kDwRows, kDwCols: the entries of dW a dW block owns
 
 
 def bwd_tile_plan(dims: Sequence[int], tile_rows: int = BWD_TILE_ROWS):
@@ -324,35 +325,65 @@ def bwd_tile_plan(dims: Sequence[int], tile_rows: int = BWD_TILE_ROWS):
 
 def bwd_wide_plan(dims: Sequence[int], tile_rows: int = BWD_TILE_ROWS):
     """``plan_bwd_wide`` of ``csrc/fused_mlp_bwd.cu``: the backward's wide
-    path for tiles of ``tile_rows`` (16 or 32) rows. Every layer's planes
-    as ``bwd_tile_plan`` lays them out (``sa``, ``at``; ``plane_floats`` in
-    all), in shared memory where they fit beside a ring of MIN_STAGES
-    stages (``planes_smem``), else in the block's slot of the workspace
-    (``slot_floats``: the planes and ``SLOT_SLACK``); the ring's stages
-    hold whole weight rows of a recompute layer of at most ``CHAIN_COLS``
-    columns and column slabs ``CHAIN_COLS`` floats a row of a wider one;
-    ``step[l]``: weight rows per chunk of recompute layer l; ``offset[l]``:
-    where dW_l starts in a gradient set."""
+    path for tiles of ``tile_rows`` (16 or 32) rows. A tile's planes lie in
+    the chunk buffer of the workspace, ``tile_floats`` floats a tile: the
+    inputs a_0 .. a_{L-1} as ``bwd_tile_plan`` lays them out (``sa``,
+    ``at``), then the cotangents g_1 .. g_L of the layers' outputs, g_l at
+    ``at[l] + gshift`` with layer l's stride (the chain writes them beside
+    the inputs, which dW reads after the walk). The ring's stages in shared
+    memory hold whole weight rows of a recompute layer of at most
+    ``CHAIN_COLS`` columns and column slabs ``CHAIN_COLS`` floats a row of a
+    wider one; ``step[l]``: weight rows per chunk of recompute layer l;
+    ``offset[l]``: where dW_l starts in a gradient set; ``smem``: bytes."""
+    L = len(dims) - 1
     sa = [_up(d, 16) + 4 for d in dims]
     at = [2 * tile_rows * sum(sa[:l]) for l in range(len(dims))]
-    offset = [sum(a * b + b for a, b in zip(dims[:l], dims[1:l + 1]))
-              for l in range(len(dims) - 1)]
-    floats = 2 * tile_rows * sum(sa)
+    offset = [sum(a * b + b for a, b in zip(dims[:l], dims[1:l + 1])) for l in range(L)]
+    gshift = at[L] - at[1]
     hidden = dims[1:-1]
     stride = min(_up(max([4] + hidden), 4), CHAIN_COLS)
-    for planes_smem in (True, False):
-        fixed = BARRIER_BYTES + 4 * (floats * planes_smem + 8)
-        for rows in BWD_STAGE_ROWS:
-            stage_floats = rows * stride
-            if fixed + MIN_STAGES * 4 * stage_floats > MAX_SMEM:
-                continue
-            stages = min(MAX_STAGES, (MAX_SMEM - fixed) // (4 * stage_floats))
-            return dict(sa=sa, at=at, offset=offset, plane_floats=floats,
-                        stage_floats=stage_floats, stages=stages, planes_smem=planes_smem,
-                        slot_floats=0 if planes_smem else floats + SLOT_SLACK,
-                        step=[stage_floats // min(n, CHAIN_COLS) // 8 * 8 for n in hidden],
-                        smem=fixed + stages * 4 * stage_floats)
+    fixed = BARRIER_BYTES + 4 * 8
+    for rows in BWD_STAGE_ROWS:
+        stage_floats = rows * stride
+        if fixed + MIN_STAGES * 4 * stage_floats > MAX_SMEM:
+            continue
+        stages = min(MAX_STAGES, (MAX_SMEM - fixed) // (4 * stage_floats))
+        return dict(sa=sa, at=at, offset=offset, gshift=gshift,
+                    tile_floats=at[L] + 2 * tile_rows * sa[L] + gshift,
+                    stage_floats=stage_floats, stages=stages,
+                    step=[stage_floats // min(n, CHAIN_COLS) // 8 * 8 for n in hidden],
+                    smem=fixed + stages * 4 * stage_floats)
     raise AssertionError("unreachable: three stages of 8 rows always fit")
+
+
+def bwd_dw_blocks(dims: Sequence[int]) -> List[int]:
+    """Where each layer's blocks of the wide path's dW kernel start, and
+    their total last: per layer one block per ``DW_ROWS`` x ``DW_COLS``
+    entries of dW and one per ``DW_COLS`` columns of db."""
+    starts = [0]
+    for k, n in zip(dims[:-1], dims[1:]):
+        starts.append(starts[-1] + -(-n // DW_COLS) * (-(-k // DW_ROWS) + 1))
+    return starts
+
+
+def bwd_wide_bytes(rows: int, dims: Sequence[int], tile_rows: int) -> int:
+    """The wide path's workspace for ``rows`` (> 0) rows: the layer table
+    and ``bwd_dw_blocks`` at its head, then one chunk's tiles of planes
+    (``BWD_CHUNK_ROWS`` rows, or the call's tiles where fewer)."""
+    entries = len(dims)
+    head = _up(entries * (LAYER_DESC_BYTES + 4), 256)
+    chunk_tiles = min(-(-rows // tile_rows), BWD_CHUNK_ROWS // tile_rows)
+    return head + chunk_tiles * 4 * bwd_wide_plan(dims, tile_rows)["tile_floats"]
+
+
+def bwd_slices(rows: int, tile_rows: int, sms: int) -> int:
+    """``grid`` of ``csrc/fused_mlp_bwd.cu``: the slices of a shared-memory
+    launch over ``rows`` (> 0) rows in tiles of ``tile_rows`` on ``sms``
+    SMs. At most one block an SM and as few slices as that takes; slice s
+    sums the tiles s, s + slices, ... into a gradient set of its own."""
+    tiles = -(-rows // tile_rows)
+    per_block = -(-tiles // sms)
+    return -(-tiles // per_block)
 
 
 def bwd_route(rows: int, dims: Sequence[int], sms: int):
@@ -361,8 +392,7 @@ def bwd_route(rows: int, dims: Sequence[int], sms: int):
     32-row tiles once 16-row tiles would take more than two waves of blocks
     and the stack's planes fit twice (``bwd_tile_plan``), else 16-row tiles
     where they fit; else ``"wide"`` (``bwd_wide_plan``) at the tile height
-    the same rule picks, one slot a block (up to ``MAX_SHARES`` blocks
-    share a slice of tiles where the slices leave SMs idle)."""
+    the same rule picks, with the workspace of ``bwd_wide_bytes``."""
     big = rows > 2 * sms * BWD_TILE_ROWS
     if len(dims) - 1 <= INLINE_LAYERS:
         for tile_rows in ((32, 16) if big else (16,)):
@@ -370,13 +400,21 @@ def bwd_route(rows: int, dims: Sequence[int], sms: int):
             if plan is not None:
                 return "tile", tile_rows, plan, 0
     tile_rows = 2 * BWD_TILE_ROWS if big else BWD_TILE_ROWS
-    plan = bwd_wide_plan(dims, tile_rows)
-    tiles = -(-rows // tile_rows)
-    per_block = -(-tiles // sms)
-    slices = -(-tiles // per_block)
-    shares = max(1, min(MAX_SHARES, sms // slices))
-    return ("wide", tile_rows, plan,
-            table_bytes(len(dims)) + slices * shares * 4 * plan["slot_floats"])
+    return "wide", tile_rows, bwd_wide_plan(dims, tile_rows), bwd_wide_bytes(rows, dims, tile_rows)
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_partial_sets(rows: int, dims: Tuple[int, ...], sms: int) -> int:
+    """The partial gradient sets a backward call over ``rows`` rows needs
+    beside its output: the shared-memory launch's slices where there is
+    more than one (the slices are summed in order into the output), else
+    none (one slice writes the output; the wide path adds its chunks into
+    the output itself)."""
+    if rows <= 0:
+        return 0
+    path, tile_rows, _, _ = bwd_route(rows, list(dims), sms)
+    slices = bwd_slices(rows, tile_rows, sms)
+    return slices if path == "tile" and slices > 1 else 0
 
 
 def bwd_tile_rows(rows: int, dims: Sequence[int], sms: int) -> int:
@@ -385,6 +423,16 @@ def bwd_tile_rows(rows: int, dims: Sequence[int], sms: int) -> int:
     SMs (on the shared-memory path where the stack's planes fit twice),
     else 16."""
     return bwd_route(rows, dims, sms)[1] if rows > 0 else BWD_TILE_ROWS
+
+
+def bwd_model_args(rows: int, dims: Sequence[int], sms: int) -> dict:
+    """The keyword arguments of ``reference_backward_3xtf32`` that model
+    the call ``fused_mlp_bwd`` makes: its tile height, and on the wide path
+    its chunks."""
+    if rows <= 0:
+        return dict(tile_rows=BWD_TILE_ROWS)
+    path, tile_rows, _, _ = bwd_route(rows, dims, sms)
+    return dict(tile_rows=tile_rows, chunk_rows=BWD_CHUNK_ROWS if path == "wide" else None)
 
 
 def reference_backward(x: torch.Tensor, layers: Layers, g: torch.Tensor):
@@ -404,6 +452,14 @@ def reference_backward(x: torch.Tensor, layers: Layers, g: torch.Tensor):
     return g, grads
 
 
+def reference_dw(acts: Sequence[torch.Tensor], cotangents: Sequence[torch.Tensor]):
+    """The wide path's dW kernel's function in plain torch: per layer
+    ``dW_l = a_l^T g_{l+1}`` and ``db_l`` the column sums of ``g_{l+1}``,
+    from each layer's input rows ``a_l`` and its output's cotangent rows
+    ``g_{l+1}``. Returns [(dW, db), ...]."""
+    return [(a.T @ g, g.sum(0)) for a, g in zip(acts, cotangents)]
+
+
 def _split(t: torch.Tensor):
     hi = tf32_round(t)
     return hi, tf32_round(t - hi)
@@ -416,7 +472,7 @@ def _product_3xtf32(a, b):
 
 
 def reference_backward_3xtf32(x: torch.Tensor, layers: Layers, g: torch.Tensor,
-                              tile_rows: int = BWD_TILE_ROWS):
+                              tile_rows: int = BWD_TILE_ROWS, chunk_rows: int = None):
     """The backward kernel's arithmetic in plain torch. Every operand is
     split into ``hi = tf32(v)`` and ``lo = tf32(v - hi)`` and every product
     taken as ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` in float32: the
@@ -424,17 +480,25 @@ def reference_backward_3xtf32(x: torch.Tensor, layers: Layers, g: torch.Tensor,
     their two parts), the chain ``g W^T`` masked where the activation's hi
     part is positive, and ``dW = a^T g``, which like ``db`` (a sum of
     ``g_hi + g_lo``) is taken per tile of ``tile_rows`` rows (rows past the
-    last are zeros) and then summed over the tiles in order. Returns
-    (dx, [(dW, db), ...]) as ``reference_backward``."""
+    last are zeros) and then summed over the tiles in order. With
+    ``chunk_rows`` (the wide path: ``BWD_CHUNK_ROWS``, ``bwd_model_args``)
+    the tiles are summed in order within each chunk of that many rows and
+    the chunks' sums then in order, as the wide path's dW kernel adds each
+    chunk to the gradient set. Returns (dx, [(dW, db), ...]) as
+    ``reference_backward``."""
     rows = x.shape[0]
     tiles = max(1, -(-rows // tile_rows))
+    per_chunk = tiles if chunk_rows is None else chunk_rows // tile_rows
     pad = lambda t: torch.cat([t, t.new_zeros((tiles * tile_rows - rows, t.shape[1]))])
     by_tile = lambda t: t.view(tiles, tile_rows, t.shape[1])
 
-    def in_order(parts):  # (tiles, ...) summed from the first tile on
-        total = parts[0]
-        for part in parts[1:]:
-            total = total + part
+    def in_order(parts):  # (tiles, ...): each chunk's tiles in order, then the chunks
+        total = None
+        for c0 in range(0, tiles, per_chunk):
+            chunk = parts[c0]
+            for part in parts[c0 + 1:c0 + per_chunk]:
+                chunk = chunk + part
+            total = chunk if total is None else total + chunk
         return total
 
     weights = [_split(w) for w, _ in layers]
@@ -456,7 +520,8 @@ def reference_backward_3xtf32(x: torch.Tensor, layers: Layers, g: torch.Tensor,
 
 class FusedMlpKernel:
     """One instance of the CUDA forward kernel, f32 or ``bf16``: built on
-    first use, counted per launch."""
+    first use. ``launches`` counts the calls that launch the kernel on the
+    device: a call over 0 rows launches nothing and counts nothing."""
 
     source = "gan_mpc_tpu_torch/csrc/fused_mlp_fwd.cu"
     replaces = "gan_mpc_tpu/ops/fused_mlp.py:91"
@@ -511,7 +576,8 @@ class FusedMlpKernel:
                 f"{self.name} launch failed with code {err} "
                 f"(rows={x.shape[0]}, dims={dims})"
             )
-        self.launches += 1
+        if x.shape[0]:
+            self.launches += 1
         return y
 
 
@@ -573,8 +639,24 @@ fused_mlp_forward = FusedMlpKernel()
 fused_mlp_forward_bf16 = FusedMlpKernel(bf16=True)
 
 
+class LaunchCount:
+    """A kernel that another wrapper's call launches, beside that
+    wrapper's own: its name, source and the TPU kernel it stands for, and
+    its launches on the device."""
+
+    def __init__(self, name: str, source: str, replaces: str):
+        self.name, self.source, self.replaces = name, source, replaces
+        self.launches = 0
+
+
 class FusedMlpBwdKernel:
-    """The CUDA backward kernel: built on first use, counted per launch.
+    """The CUDA backward kernel: built on first use. ``launches`` counts
+    the launches of its walk kernel on the device, ``dw.launches`` those of
+    the wide path's dW kernel, each as the entry point reports them: the
+    walk once on the shared-memory path (the slices' sum after it is not
+    counted) and once a chunk of ``BWD_CHUNK_ROWS`` rows on the wide path,
+    the dW kernel once a chunk there; a call over 0 rows only zeroes the
+    gradients and counts nothing.
 
     It takes any row count (0 and ragged tiles included) and any stack.
     Where the stack has at most ``INLINE_LAYERS`` layers of at most
@@ -587,10 +669,22 @@ class FusedMlpBwdKernel:
     (41->200->200->200->29) stacks, 23->512->512->17 and up to seven
     200-wide hidden layers. Any other stack (six 256-wide or three
     512-wide hidden layers, 1024-wide ones, 32 layers) takes the wide path
-    (``bwd_wide_plan``): every layer's activations in a device workspace
-    of about rows x the sum of the widths, the recompute and the dx chain
-    in passes of ``CHAIN_COLS`` columns. Both paths sum dW and db over the
-    row tiles in a fixed order, without atomics."""
+    (``bwd_wide_plan``): every layer's activations and cotangents in a
+    device workspace of about 4 x a chunk's rows x the sum of the widths
+    (``bwd_wide_bytes``), the recompute and the dx chain in passes of
+    ``CHAIN_COLS`` columns.
+
+    Both paths sum dW and db over the rows in a fixed order, without
+    atomics, so every run gives the same bits. The shared-memory path sums
+    its tiles in slices, at most one an SM, each into a partial gradient
+    set, then the slices in order: the wrapper allocates the launch's
+    slices (``bwd_partial_sets``), none where one slice writes the output.
+    The wide path keeps the reference's one gradient set: its walk writes
+    every layer's input and output cotangent for a chunk of
+    ``BWD_CHUNK_ROWS`` rows into the workspace, and a second kernel takes
+    dW and db of the chunk as products over its rows, the first chunk
+    writing the output and later ones adding to it. Its extra memory is one
+    chunk's planes, whatever the row count and the SM count."""
 
     source = "gan_mpc_tpu_torch/csrc/fused_mlp_bwd.cu"
     replaces = "gan_mpc_tpu/ops/fused_mlp.py:108"
@@ -598,6 +692,8 @@ class FusedMlpBwdKernel:
 
     def __init__(self):
         self.launches = 0
+        self.dw = LaunchCount("fused_mlp_bwd_dw", self.source,
+                              "gan_mpc_tpu/ops/fused_mlp.py:133")
         self._lib = None
 
     def load(self) -> ctypes.CDLL:
@@ -608,7 +704,7 @@ class FusedMlpBwdKernel:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.fused_mlp_bwd.argtypes = [p] * 5 + [i, i, i, ctypes.POINTER(i),
                                                     ctypes.POINTER(p), ctypes.POINTER(p),
-                                                    *WORKSPACE_ARGS, p]
+                                                    ctypes.POINTER(i), *WORKSPACE_ARGS, p]
             lib.fused_mlp_bwd.restype = i
             self._lib = lib
         return self._lib
@@ -631,27 +727,31 @@ class FusedMlpBwdKernel:
         sizes = [a * b + b for a, b in zip(dims[:-1], dims[1:])]
         grads = torch.empty(sum(sizes), device=x.device, dtype=x.dtype)
         # one partial gradient set (padded to 4 floats) per slice of the
-        # launch, at most one per SM; the caching allocator hands the same
-        # block back on later calls
-        parts = torch.cuda.get_device_properties(x.device).multi_processor_count
-        work = torch.empty((parts, _up(sum(sizes), 4)), device=x.device, dtype=x.dtype)
+        # launch where it has more than one
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        parts = bwd_partial_sets(rows, tuple(dims), sms)
+        work = torch.empty((parts, _up(sum(sizes), 4)), device=x.device, dtype=x.dtype) \
+            if parts else None
         dx = torch.empty_like(x)
         c_w = (ctypes.c_void_p * n)(*[w.data_ptr() for w, _ in layers])
         c_b = (ctypes.c_void_p * n)(*[b.data_ptr() for _, b in layers])
+        launched = (ctypes.c_int * 2)()  # the walk's launches, the dW kernel's
         # the library launches on the current device: make it the operands'
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = call_with_workspace(
                 lib.fused_mlp_bwd,
-                (x.data_ptr(), g.data_ptr(), dx.data_ptr(), grads.data_ptr(), work.data_ptr(),
-                 parts, rows, n, c_dims, c_w, c_b),
+                (x.data_ptr(), g.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+                 None if work is None else work.data_ptr(), parts, rows, n, c_dims, c_w, c_b,
+                 launched),
                 x.device, stream)
         if err != 0:
             raise RuntimeError(
                 f"fused_mlp_bwd launch failed with code {err} (-1: arguments refused; "
                 f"rows={rows}, dims={dims})"
             )
-        self.launches += 1
+        self.launches += launched[0]
+        self.dw.launches += launched[1]
         out = []
         for (a, b), chunk in zip(zip(dims[:-1], dims[1:]), torch.split(grads, sizes)):
             out.append((chunk[: a * b].view(a, b), chunk[a * b:]))

@@ -24,8 +24,9 @@ and gather it), and the forward scans either through the separate
 callbacks or through the fused step ``ls_step`` (``fused_ls``).
 ``compute_dtype`` is read where the problem is built (``MPCPolicy``), which
 passes it to the dynamics' callbacks and the fused step; the solver's own
-arithmetic is f32 at both. What stays refused is data parallelism over
-devices (ROADMAP Queue 1, item 9(b)).
+arithmetic is f32 at both. Nothing is refused: data parallelism over
+devices runs around the solver (``parallel/``: each rank solves its rows
+of a batch with this function).
 
 A problem marked ``per_instance`` is solved as the JAX package's
 ``vmap(ilqr)`` solves it (``tests/test_batch_ilqr.py`` holds that equal
@@ -308,7 +309,9 @@ def mlp_calls_per_solve(horizon: int, trips: int, fused: bool = False,
     torch.) With ``bf16`` (``compute_dtype="bfloat16"`` on the batch-native
     path) the forward scans' dynamics launch the kernels' bf16 instances,
     ``fused_mlp_fwd_bf16`` or ``fused_ls_step_bf16``, and the terminal cost
-    stays on the f32 ``fused_mlp_fwd``.
+    stays on the f32 ``fused_mlp_fwd``. The counts are of launches that
+    reach the device (the wrappers' ``launches``), so they hold for solves
+    of at least one row: a solve over 0 rows launches nothing.
     """
     steps = horizon * (solves + (1 if materialize else 2) * trips)
     terminal = solves + trips

@@ -4,6 +4,7 @@
     python3 scripts/time_torch_kernels.py                 # this tree
     python3 scripts/time_torch_kernels.py --check         # errors first
     python3 scripts/time_torch_kernels.py --trees runs/parent . . runs/parent
+    python3 scripts/time_torch_kernels.py --bwd --trees runs/parent . . runs/parent
 
 Times of different processes on different cards do not compare, so two
 versions are timed in turns on one card: ``--trees`` starts one process
@@ -21,9 +22,20 @@ version. With ``--check`` it first prints every shape's max|d| against the
 plain version without stopping at a disagreement (for the bf16 instances
 also the share of entries beyond 1e-4, which phase 16 holds to 2%), which
 is the quick look after a kernel was edited.
+
+With ``--bwd`` it times the backward kernel alone: at every backward
+shape of PERF.md's kernel table (``BWD_SHAPES``: the committed stacks, on
+random weights) with a digest of its outputs, so that trees can be held
+bitwise equal; then at phase 19's wide shapes (``G19_BWD`` at
+``G19_TIMED_ROWS``, one launch a run at ``G19_BWD_BIG``) with the growth of
+the allocator's peak over one call. A call a tree cannot make (the
+partial sets, one per SM, of an older tree at 23->8192^4->17) is recorded
+with its error. With ``--trees`` the parent process then prints, per shape,
+each tree's times and whether the digests agree.
 """
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -31,6 +43,64 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the backward's rows of PERF.md's kernel table: (name, widths, rows)
+BWD_SHAPES = [
+    ("dynamics", [23, 200, 200, 200, 17], 128), ("dynamics", [23, 200, 200, 200, 17], 512),
+    ("dynamics", [23, 200, 200, 200, 17], 8192), ("cost", [17, 128, 128, 10], 128),
+    ("gan/9 dynamics", [4, 200, 200, 200, 3], 128), ("gan/4", [23, 256, 256, 256, 17], 128),
+    ("walker", [6, 200, 200, 200, 5], 128), ("member", [41, 256, 256, 256, 29], 2),
+    ("member", [41, 256, 256, 256, 29], 16), ("member", [41, 256, 256, 256, 29], 128),
+    ("LSTM head", [64, 128, 128, 17], 2), ("LSTM head", [64, 128, 128, 17], 128),
+]
+
+
+def bwd_times(cs, dev, draw):
+    """``--bwd``: the backward's rows, as the module's docstring says."""
+    import torch
+
+    from gan_mpc_tpu_torch.ops.fused_mlp import fused_mlp_backward, reference_backward
+
+    flat = lambda out: [out[0]] + [t for pair in out[1] for t in pair]  # noqa: E731
+    rows_out = []
+    for i, (name, widths, rows) in enumerate(BWD_SHAPES):
+        layers = cs.random_layers(widths, 2100 + i, dev)
+        x, g = draw(rows, widths[0]), draw(rows, widths[-1])
+        got = flat(fused_mlp_backward(x, layers, g))
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in got)).hexdigest()
+        rows_out.append({
+            "kernel": "fused_mlp_bwd", "shape": f"{name} {widths}", "rows": rows,
+            "digest": digest[:16],
+            "ms": cs.device_ms(lambda: fused_mlp_backward(x, layers, g)),
+            "plain_ms": cs.device_ms(lambda: reference_backward(x, layers, g))})
+    wide = [(s, w, r, False) for s, w in cs.G19_BWD for r in cs.G19_TIMED_ROWS["bwd"]]
+    wide += [(s, w, r, True) for s, w, r in cs.G19_BWD_BIG]
+    for i, (name, widths, rows, big) in enumerate(wide):
+        layers = cs.random_layers(widths, 2200 + i, dev)
+        x, g = draw(rows, widths[0]), draw(rows, widths[-1])
+        row = {"kernel": "fused_mlp_bwd", "shape": f"wide {name}", "rows": rows}
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            got = flat(fused_mlp_backward(x, layers, g))
+            torch.cuda.synchronize()
+            row["peak_extra_mb"] = (torch.cuda.max_memory_allocated() - base) / 1e6
+            row["digest"] = hashlib.sha256(
+                b"".join(t.cpu().numpy().tobytes() for t in got)).hexdigest()[:16]
+            del got
+            timed = (lambda fn: cs.device_ms(fn, launches=1, reps=3)) if big else \
+                (lambda fn: cs.device_ms(fn, launches=5, reps=5))
+            row["ms"] = timed(lambda: fused_mlp_backward(x, layers, g))
+            row["plain_ms"] = timed(lambda: reference_backward(x, layers, g))
+        except (RuntimeError, torch.OutOfMemoryError) as e:
+            row["error"] = str(e).splitlines()[0][:160]
+        torch.cuda.empty_cache()
+        rows_out.append(row)
+        print(json.dumps(row), flush=True)
+    return rows_out
+
 
 # beyond chip_smoke.py's shapes: odd widths on the 64-row tile, and the
 # widest stack the kernels take (16-row tiles at any row count)
@@ -71,7 +141,7 @@ def bf16_cases(cs, dev):
                    lambda x=x, layers=layers: reference_forward(x, layers, True))
 
 
-def one_tree(check: bool) -> int:
+def one_tree(check: bool, bwd: bool = False) -> int:
     sys.path.insert(0, os.getcwd())
     import numpy as np
     import torch
@@ -95,6 +165,11 @@ def one_tree(check: bool) -> int:
     draw = lambda rows, width: torch.tensor(rng.standard_normal((rows, width)),
                                             dtype=torch.float32, device=dev)
     out = {"tree": os.getcwd(), "card": card(), "times": []}
+    if bwd:
+        with torch.no_grad():
+            out["times"] = bwd_times(cs, dev, draw)
+        print(json.dumps(out), flush=True)
+        return 0
     with torch.no_grad():
         if check:
             for i, (name, widths, rows) in enumerate(list(cs.CHECKS) + EXTRA_CHECKS):
@@ -172,15 +247,35 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check", action="store_true",
                     help="print each shape's error against the plain version first")
+    ap.add_argument("--bwd", action="store_true",
+                    help="the backward alone: PERF.md's shapes with digests, phase 19's wide ones")
     ap.add_argument("--trees", nargs="+", help="run one process per tree, in this order")
     args = ap.parse_args()
     if not args.trees:
-        return one_tree(args.check)
+        return one_tree(args.check, args.bwd)
     script = os.path.abspath(__file__)
-    worst = 0
+    worst, results = 0, []
     for tree in args.trees:
-        cmd = [sys.executable, script] + (["--check"] if args.check else [])
-        worst = max(worst, subprocess.run(cmd, cwd=tree).returncode)
+        cmd = [sys.executable, script] + (["--check"] if args.check else []) \
+            + (["--bwd"] if args.bwd else [])
+        proc = subprocess.run(cmd, cwd=tree, capture_output=True, text=True)
+        print(proc.stdout, end="", flush=True)
+        print(proc.stderr[-4000:], end="", file=sys.stderr, flush=True)
+        worst = max(worst, proc.returncode)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"tree"')]
+        results.append(json.loads(lines[-1]) if lines else {"tree": tree, "times": []})
+    # per shape: each tree's times, in the order run, and whether the digests agree
+    keys = {(t["kernel"], t["shape"], t["rows"]): None for r in results for t in r["times"]}
+    for key in keys:
+        runs = [next((t for t in r["times"] if (t["kernel"], t["shape"], t["rows"]) == key), {})
+                for r in results]
+        digests = {t.get("digest") for t in runs if t.get("digest")}
+        print(json.dumps({"kernel": key[0], "shape": key[1], "rows": key[2],
+                          "trees": args.trees, "ms": [t.get("ms") for t in runs],
+                          "plain_ms": [t.get("plain_ms") for t in runs],
+                          "peak_extra_mb": [t.get("peak_extra_mb") for t in runs],
+                          "errors": [t.get("error") for t in runs],
+                          "digests_equal": len(digests) == 1 if digests else None}), flush=True)
     return worst
 
 

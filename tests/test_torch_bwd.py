@@ -175,7 +175,8 @@ def test_backward_refuses_what_does_not_fit():
     """The shared-memory plan still refuses what does not fit in a block
     (and layers wider than one pass of the warps' columns); those stacks,
     and any deeper than INLINE_LAYERS, take the wide path: every layer's
-    planes in the block's slot of a workspace."""
+    planes, the inputs' and the cotangents', in a chunk buffer of the
+    workspace, for all the call's tiles up to a chunk."""
     assert bwd_tile_plan([23, 512, 512, 17]) is not None
     assert bwd_tile_plan([23] + [200] * 7 + [17]) is not None
     assert bwd_tile_plan([23] + [200] * 8 + [17]) is None  # the planes alone pass the limit
@@ -188,9 +189,7 @@ def test_backward_refuses_what_does_not_fit():
                  [23, 520, 17], [23] + [8] * 9 + [17]):
         path, tile_rows, plan, scratch = fm.bwd_route(128, dims, 132)
         assert (path, tile_rows) == ("wide", 16)
-        # the planes stay in shared memory where they fit beside the ring
-        assert plan["planes_smem"] == (dims in ([23, 520, 17], [23] + [8] * 9 + [17]))
-        assert scratch >= fm.table_bytes(len(dims)) + 4 * plan["slot_floats"]
+        assert scratch >= fm.table_bytes(len(dims)) + 8 * 4 * plan["tile_floats"]  # 8 tiles
     assert fm.bwd_route(128, [23, 512, 512, 17], 132)[:2] == ("tile", 16)
 
 

@@ -21,7 +21,7 @@ not hold them, the layers read from a table in device memory). Here:
      ``params.from_jax_params`` / ``dynamics_from_jax_params``:
      ``mlp_apply``'s value and ``FusedMlpFunction``'s VJP (its kernels
      replaced by the plain forward and by the backward kernel's arithmetic
-     model, ``reference_backward_3xtf32`` at the wide path's tile height)
+     model, ``reference_backward_3xtf32`` as the wide path takes the call)
      against JAX's ``fused_mlp`` at 23->1024->1024->17 and a 12-layer
      stack; ``fused_ls_step`` with a [512] * 4 stack against JAX's; one
      ``plan_batch`` of a 4-env configs/gan_cheetah.yaml policy with
@@ -56,6 +56,7 @@ from gan_mpc_tpu_torch.ops import fused_mlp as fm
 from gan_mpc_tpu_torch.ops.fused_ls import fused_ls_step, split_w0
 from gan_mpc_tpu_torch.ops.fused_mlp import (
     FusedMlpFunction,
+    bwd_model_args,
     bwd_route,
     bwd_tile_plan,
     column_passes,
@@ -116,13 +117,16 @@ def test_phase_19_stacks_get_a_wide_plan(kind, name, dims, rows, extra):
         cols = fm.CHAIN_COLS
         assert plan["sa"] == [_up(d, 16) + 4 for d in dims]
         assert plan["at"] == [2 * tile_rows * sum(plan["sa"][:l]) for l in range(len(dims))]
-        assert plan["plane_floats"] == 2 * tile_rows * sum(plan["sa"])
+        # the inputs' planes, then the cotangents' (g_1 .. g_L) in one tile
+        assert plan["tile_floats"] == 2 * tile_rows * (sum(plan["sa"]) + sum(plan["sa"][1:-1]))
         assert plan["offset"][0] == 0 and all(
             b - a == k * n + n for a, b, k, n in zip(plan["offset"], plan["offset"][1:],
                                                     dims, dims[1:]))
-        fixed = fm.BARRIER_BYTES + 4 * (plan["plane_floats"] * plan["planes_smem"] + 8)
-        assert plan["slot_floats"] == (0 if plan["planes_smem"]
-                                       else plan["plane_floats"] + fm.SLOT_SLACK)
+        fixed = fm.BARRIER_BYTES + 4 * 8  # the ring alone: the planes live in the workspace
+        chunk_tiles = min(-(-rows // tile_rows), fm.BWD_CHUNK_ROWS // tile_rows)
+        assert scratch == _up(len(dims) * (fm.LAYER_DESC_BYTES + 4), 256) \
+            + chunk_tiles * 4 * plan["tile_floats"]
+        slot = plan["tile_floats"]
         recompute = dims[1:-1]
         assert len(plan["step"]) == len(recompute)
         chained = dims[:-1]  # the chain's result columns: every layer's input
@@ -140,9 +144,10 @@ def test_phase_19_stacks_get_a_wide_plan(kind, name, dims, rows, extra):
         chained = []
         blocks = min(-(-rows // tile_rows), SMS)
         assert work == fm.table_bytes(len(dims) - 1) + blocks * 4 * plan["slot_floats"]
+        slot = plan["slot_floats"]
     assert path == "wide"
     assert tile_rows == ((64 if kind != "bwd" else 32) if rows > 2 * SMS * 16 else 16)
-    assert plan["slot_floats"] % 4 == 0  # every slot starts 16-byte aligned
+    assert slot % 4 == 0  # every slot, and every tile of the chunk, starts 16-byte aligned
     assert plan["smem"] == fixed + plan["stages"] * 4 * plan["stage_floats"] <= fm.MAX_SMEM
     assert fm.MIN_STAGES <= plan["stages"] <= fm.MAX_STAGES
     assert plan["stage_floats"] % 4 == 0 and plan["stage_floats"] <= 64 * cols
@@ -272,8 +277,8 @@ def test_mirror_constants_match_the_cuda_sources():
     bwd = (CSRC / "fused_mlp_bwd.cu").read_text()
     assert const(tile, "kInlineLayers") == fm.INLINE_LAYERS
     assert "kMaxLayers" not in tile and "kMaxWidth" not in tile
-    assert const(bwd, "kSlotSlack") == fm.SLOT_SLACK
-    assert const(bwd, "kMaxShares") == fm.MAX_SHARES
+    assert "kSlotSlack" not in bwd  # the wide backward's planes are a chunk's, read in bounds
+    assert const(bwd, "kChunkRows") == fm.BWD_CHUNK_ROWS
     assert "constexpr int kChainCols = kConsumerWarps * 8 * kWarpTiles;" in bwd
     # LayerDesc: two pointers and six ints, 40 bytes
     desc = re.search(r"struct LayerDesc \{(.*?)\};", tile, re.S).group(1)
@@ -285,7 +290,10 @@ def test_mirror_constants_match_the_cuda_sources():
     assert "return -2;" in helper and fm.NEED_WORKSPACE == -2
     for name in ("fused_mlp_fwd.cu", "fused_ls_step.cu", "fused_mlp_bwd.cu"):
         src = (CSRC / name).read_text()
-        assert "wide_workspace(" in src and "n_layers <= kInlineLayers" in src
+        assert "n_layers <= kInlineLayers" in src
+        # the backward's wide workspace has a head of its own (launch_wide), the same -2
+        assert ("wide_workspace(" in src) == (name != "fused_mlp_bwd.cu")
+    assert "return -2;" in re.search(r"int launch_wide\(.*?\n\}", bwd, re.S).group(0)
     for name in ("fused_mlp_fwd.cu", "fused_ls_step.cu"):
         assert "8 * kWarpTiles * kConsumerWarps / WM" in (CSRC / name).read_text()  # pass_cols
 
@@ -325,7 +333,8 @@ def test_mlp_apply_and_fused_vjp_match_jax(name, monkeypatch):
     model at the tile height the wide path takes: dx and every dW, db
     against ``jax.vjp`` of ``fused_mlp`` within 1e-4 max(1, max|ref|), the
     bound ``chip_smoke.py`` holds the kernel to (each product drops its lo
-    x lo term, dW sums 64 rows)."""
+    x lo term, dW sums 64 rows, in one product over the wide path's chunk:
+    ``bwd_model_args``)."""
     widths = WIDE_STACKS[name]
     layers = _layers(widths, 31)
     rng = np.random.default_rng(32)
@@ -349,7 +358,7 @@ def test_mlp_apply_and_fused_vjp_match_jax(name, monkeypatch):
 
     def backward(x, layers, g):
         calls["backward"] += 1
-        return reference_backward_3xtf32(x, layers, g, route[1])
+        return reference_backward_3xtf32(x, layers, g, **bwd_model_args(64, widths, SMS))
 
     monkeypatch.setattr(fm, "fused_mlp_forward", forward)
     monkeypatch.setattr(fm, "fused_mlp_backward", backward)

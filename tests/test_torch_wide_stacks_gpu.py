@@ -1,13 +1,20 @@
 """The kernels on stacks of any depth and width, on the card.
 
 Every stack of ``chip_smoke.py``'s phase 19 (a) through each kernel
-instance against its plain version, with one launch counted per call:
+instance against its plain version, with one launch counted per call
+(none at 0 rows, which launch nothing; the backward's walk and dW kernel
+one a chunk of ``BWD_CHUNK_ROWS`` rows):
 the forward at f32 and bf16 and the line-search step at f32 and bf16
 (n = 17, m = 6, the same hidden widths), the backward on rows clear of
 relu kinks, a second call bitwise equal. Bounds as phase 19 (a): the f32
 instances 1e-4 max(1, max|ref|); the bf16 instances max|d| <= 1e-2 max(1,
 max|ref|), and from 512 rows on a share of entries beyond 1e-4 within
 max(2%, twice that of the same function on the tensor cores by cuBLAS).
+The wide backward's memory: one call's growth of the allocator's peak
+within its gradient set, dx and one chunk's workspace (23->1024^3->17 at
+128 rows within 68.5 MB besides its workspace, 23->4096^3->17 at 8192
+rows), 23->8192^4->17 at 8192 rows against the plain version (and its
+forward and step), and two calls over two chunks bitwise equal.
 
 These tests import no JAX, so they run on a host with a card alone:
 
@@ -25,7 +32,9 @@ import chip_smoke as cs
 from gan_mpc_tpu_torch import pin_fp32
 from gan_mpc_tpu_torch.ops.fused_ls import fused_ls_kernel, fused_ls_kernel_bf16, reference_ls_step
 from gan_mpc_tpu_torch.ops.fused_mlp import (
+    BWD_CHUNK_ROWS,
     bwd_route,
+    bwd_wide_bytes,
     fused_mlp_backward,
     fused_mlp_forward,
     fused_mlp_forward_bf16,
@@ -51,11 +60,11 @@ def _share(a, b):
     return ((a - b).abs() > 1e-4).float().mean().item() if b.numel() else 0.0
 
 
-def _launched(kernel, fn):
+def _launched(kernel, fn, times=1):
     before = kernel.launches
     out = fn()
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert kernel.launches == before + times
     return out
 
 
@@ -82,9 +91,10 @@ def test_wide_forward_matches_plain_and_counts_a_launch(dev, name, dims, rows):
         assert fwd_route(rows, dims, torch.cuda.get_device_properties(dev).multi_processor_count
                          )[0] == "wide"
     with torch.no_grad():
-        got = _launched(fused_mlp_forward, lambda: fused_mlp_forward(x, layers))
+        got = _launched(fused_mlp_forward, lambda: fused_mlp_forward(x, layers), rows > 0)
         _hold((got,), (reference_forward(x, layers),))
-        got = _launched(fused_mlp_forward_bf16, lambda: fused_mlp_forward_bf16(x, layers))
+        got = _launched(fused_mlp_forward_bf16, lambda: fused_mlp_forward_bf16(x, layers),
+                        rows > 0)
         with cs.tensor_core_products():
             plain = reference_forward(x, layers, True)
         _hold((got,), (reference_forward(x, layers, True),), True, (plain,), rows)
@@ -114,7 +124,95 @@ def test_wide_backward_matches_plain_and_counts_a_launch(dev, name, dims, rows):
     x, _ = cs.clear_of_kinks(rng, rows, layers, dev)
     g = torch.tensor(rng.standard_normal((rows, dims[-1])), dtype=torch.float32, device=dev)
     flat = lambda d, grads: [d] + [t for pair in grads for t in pair]  # noqa: E731
-    got = flat(*_launched(fused_mlp_backward, lambda: fused_mlp_backward(x, layers, g)))
+    chunks = -(-rows // BWD_CHUNK_ROWS)
+    got = flat(*_launched(fused_mlp_backward.dw, lambda: _launched(
+        fused_mlp_backward, lambda: fused_mlp_backward(x, layers, g), chunks), chunks))
     _hold(got, flat(*reference_backward(x, layers, g)))
     again = flat(*fused_mlp_backward(x, layers, g))
     assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def _grown(fn):
+    """``fn()`` and the growth of the allocator's peak over what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims,rows", [([23, 1024, 1024, 1024, 17], 128),
+                                       ([23, 4096, 4096, 4096, 17], 8192)])
+def test_wide_backward_keeps_one_gradient_set(dev, dims, rows):
+    """The growth over one call: the gradient set, dx and the wide path's
+    workspace (one chunk's planes), with 2 MiB for the allocator's
+    rounding; not the SM count x the parameters (1.13 GB and 17.8 GB
+    before). 23->1024^3->17 at 128 rows: within 68.5 MB besides its
+    workspace."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    route = bwd_route(rows, dims, sms)
+    assert route[0] == "wide"
+    layers = cs.random_layers(dims, 9, dev)
+    rng = np.random.default_rng(rows)
+    x = torch.tensor(rng.standard_normal((rows, dims[0])), dtype=torch.float32, device=dev)
+    g = torch.tensor(rng.standard_normal((rows, dims[-1])), dtype=torch.float32, device=dev)
+    params = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    _, grown = _grown(lambda: fused_mlp_backward(x, layers, g))
+    assert grown <= 4 * (params + x.numel()) + bwd_wide_bytes(rows, dims, route[1]) + 2**21
+    if rows == 128:
+        assert grown - route[3] <= 68.5e6
+
+
+@pytest.mark.gpu
+def test_widest_backward_matches_plain(dev):
+    """23->8192^4->17 at 8192 rows, past what 132 partial sets would hold
+    (106.5 GB): within 1e-4 max(1, max|ref|) of the plain version on rows
+    clear of relu kinks (32,768 hidden units a row: most rows are
+    redrawn); two chunks, each one walk and one dW launch."""
+    dims = [23] + [8192] * 4 + [17]
+    layers = cs.random_layers(dims, 10, dev)
+    rng = np.random.default_rng(8192)
+    x, _ = cs.clear_of_kinks(rng, 8192, layers, dev)
+    g = torch.tensor(rng.standard_normal((8192, dims[-1])), dtype=torch.float32, device=dev)
+    flat = lambda d, grads: [d] + [t for pair in grads for t in pair]  # noqa: E731
+    got = flat(*_launched(fused_mlp_backward.dw, lambda: _launched(
+        fused_mlp_backward, lambda: fused_mlp_backward(x, layers, g), 2), 2))
+    _hold(got, flat(*reference_backward(x, layers, g)))
+
+
+@pytest.mark.gpu
+def test_widest_forward_and_step_match_plain(dev):
+    """23->8192^4->17: the f32 forward at 8192 rows and the step at 512 x
+    16 within 1e-4 max(1, max|ref|) of the plain versions (the wide path
+    sums each contraction in segments of 512 rows of K; one accumulator
+    over 8192 rows lay 1.77-1.79 times that bound off the forward's plain
+    version)."""
+    dims = [23] + [8192] * 4 + [17]
+    layers = cs.random_layers(dims, 12, dev)
+    x = torch.tensor(np.random.default_rng(12).standard_normal((8192, dims[0])),
+                     dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        got = _launched(fused_mlp_forward, lambda: fused_mlp_forward(x, layers))
+        _hold((got,), (reference_forward(x, layers),))
+        args = cs.ls_args(512, 16, 17, 6, 17, cs.LS_WEIGHTS[3], 12, dev, hidden=dims[1:-1])
+        _hold(_launched(fused_ls_kernel, lambda: fused_ls_kernel(**args)),
+              reference_ls_step(**args))
+
+
+@pytest.mark.gpu
+def test_wide_backward_bits_repeat_over_chunks(dev):
+    """23->1024^3->17 at 8192 rows runs two chunks (the second adds to the
+    first's sums): two calls give the same bits."""
+    dims = [23, 1024, 1024, 1024, 17]
+    layers = cs.random_layers(dims, 11, dev)
+    rng = np.random.default_rng(11)
+    x = torch.tensor(rng.standard_normal((8192, dims[0])), dtype=torch.float32, device=dev)
+    g = torch.tensor(rng.standard_normal((8192, dims[-1])), dtype=torch.float32, device=dev)
+    first = _launched(fused_mlp_backward.dw, lambda: _launched(
+        fused_mlp_backward, lambda: fused_mlp_backward(x, layers, g), 2), 2)
+    again = fused_mlp_backward(x, layers, g)
+    flat = lambda d, grads: [d] + [t for pair in grads for t in pair]  # noqa: E731
+    assert all(torch.equal(a, b) for a, b in zip(flat(*first), flat(*again)))
