@@ -405,10 +405,11 @@ Phases, in order; any failure raises and exits non-zero:
      (d) where the host has two or more cards, (b)'s mesh epoch over NCCL
          across up to four of them, held as in (b); else a line saying so.
      Then the MLP kernels at phase 18's new (stack, rows) pairs.
- 19. stacks of any depth and width (the kernels' wide path: passes of
-     512 or 256 columns, activations in a device workspace where shared
-     memory does not hold them, the layers read from a table in device
-     memory):
+ 19. stacks of any depth and width (the kernels' wide path: the forward
+     and the step on clusters of blocks that share each row tile, every
+     activation in the blocks' shared memory; the backward in passes of 512
+     or 256 columns over a device workspace; the layers read from a table in
+     device memory):
      (a) every kernel instance against its plain version on stacks the
          shared-memory tile does not take (``G19_FWD``: 23->1024^3->17,
          23->2048^2->17, 23->4096->17, 23->1000->777->17, 23->200^8->17,
@@ -419,9 +420,14 @@ Phases, in order; any failure raises and exits non-zero:
          128, 512 and 8192 rows, as phase 2's ``check_backward``; and
          ``G19_BWD_BIG``, 23->4096^3->17 and 23->8192^4->17 at 8192 rows,
          past what one partial gradient set an SM would hold, with the
-         f32 forward at 8192 rows and step at 512 x 16 on their widths):
+         f32 forward at 8192 rows and step at 512 x 16 on their widths;
+         ``G19_FAR``, 23->24576->17, whose activations stream through a
+         workspace, and a 70-layer stack, whose table's tail lies in one,
+         the forward at f32 and bf16 and the f32 step at ``G19_FAR_ROWS``):
          each call on the wide path
-         (``fwd_route``, ``bwd_route``) and counting one launch (none at 0
+         (``fwd_route``, ``bwd_route``; each forward and step call's cluster
+         launch printed and held to the mirror's plan, ``wide_launch``) and
+         counting one launch (none at 0
          rows, which launch nothing; the backward's walk and its dW kernel
          one a chunk of ``BWD_CHUNK_ROWS`` rows, as the entry point reports
          them), the f32 instances within 1e-4 max(1,
@@ -898,6 +904,13 @@ G19_FWD = [
 ]
 G19_FWD_ROWS = (0, 1, 37, 512, 8192)
 G19_LS = ((512, 16), (512, 1))  # lanes x step sizes; n = 17, m = 6: G19_FWD's stacks
+# (a): the forward's and the step's routes that take a workspace, at G19_FAR_ROWS
+# rows (the step 1 alpha a lane): a hidden layer too wide for a cluster of 16's
+# shared memory (its activations stream through device memory), and a stack
+# deeper than the table the launch's parameters hold (its further layers in the
+# workspace's head)
+G19_FAR = [("24576 streamed", [23, 24576, 17]), ("70 layers", [23] + [32] * 69 + [17])]
+G19_FAR_ROWS = 37
 G19_BWD = [
     ("512^3", [23, 512, 512, 512, 17]),
     ("256^6", [23] + [256] * 6 + [17]),
@@ -4390,7 +4403,7 @@ def hold_backward_memory(stack, layers, rows, dev):
 
 def wide_kernels_phase(instances, max_err, timed, dev):
     """Phase 19 (a): every kernel instance against its plain version at
-    ``G19_FWD`` / ``G19_LS`` / ``G19_BWD`` / ``G19_BWD_BIG``, each call on
+    ``G19_FWD`` / ``G19_LS`` / ``G19_BWD`` / ``G19_BWD_BIG`` / ``G19_FAR``, each call on
     the wide path and counting one launch (none at 0 rows; the backward's
     walk and dW kernel one a chunk); each backward's peak extra memory;
     the worst case per stack; then the times at ``G19_TIMED_ROWS`` (the
@@ -4462,6 +4475,20 @@ def wide_kernels_phase(instances, max_err, timed, dev):
             raise SystemExit(f"phase 19 (a): {what} takes the {route[0]} path, not the wide one")
         return f"wide path, {route[1]}-row tiles, workspace {route[3] / 2**20:.1f} MiB"
 
+    def cluster_launch(kernel, route, what):
+        """The forward's or the step's last launch against the mirror's
+        plan: the tile height, the cluster (a card that cannot place a
+        size gets a smaller one) and whether the activations stream
+        through a workspace; one cluster launch."""
+        got = kernel.wide_launch()
+        if route[0] != "wide" or got["tile_rows"] != route[1] or got["cluster"] > route[3] \
+                or bool(got["streamed"]) != route[2]["streamed"]:
+            raise SystemExit(f"phase 19 (a): {what} launched {got}, the mirror plans {route[:2]} "
+                             f"on clusters of {route[3]}, streamed={route[2]['streamed']}")
+        return (f"{got['tile_rows']}-row tiles, clusters of {got['cluster']} (planned "
+                f"{route[3]}) x {got['clusters']}, {got['smem']} B of shared memory a block"
+                + (", activations streamed" if got["streamed"] else ""))
+
     f32, bf16 = instances["fused_mlp_fwd"], instances["fused_mlp_fwd_bf16"]
     ls32, ls16 = instances["fused_ls_step"], instances["fused_ls_step_bf16"]
     bwd = instances["fused_mlp_bwd"]
@@ -4471,10 +4498,11 @@ def wide_kernels_phase(instances, max_err, timed, dev):
         for rows in G19_FWD_ROWS:
             x = torch.tensor(rng.standard_normal((rows, widths[0])), dtype=torch.float32,
                              device=dev)
-            if rows:
-                routes.append(f"{rows}: {on_wide_path(fwd_route(rows, widths, sms), stack)}")
             # a call over 0 rows launches nothing and counts nothing
             unrounded = launched(f32, lambda: f32(x, layers), int(rows > 0))
+            if rows:
+                routes.append(f"{rows}: " + cluster_launch(f32, fwd_route(rows, widths, sms),
+                                                           stack))
             hold(f32, stack, f"rows={rows}", (unrounded,), (reference_forward(x, layers),))
             got = launched(bf16, lambda: bf16(x, layers), int(rows > 0))
             with tensor_core_products():
@@ -4484,8 +4512,9 @@ def wide_kernels_phase(instances, max_err, timed, dev):
         for lanes, alphas in G19_LS:
             args = ls_args(lanes, alphas, 17, 6, 17, LS_WEIGHTS[3], 1950 + i, dev,
                            hidden=widths[1:-1])
-            on_wide_path(fwd_route(lanes * alphas, widths, sms, 23), f"the step on {stack}")
             unrounded = launched(ls32, lambda: ls32(**args))
+            routes.append(f"step {lanes}x{alphas}: " + cluster_launch(
+                ls32, fwd_route(lanes * alphas, widths, sms, 23), f"the step on {stack}"))
             hold(ls32, stack, f"{lanes}x{alphas}", unrounded, reference_ls_step(**args))
             got = launched(ls16, lambda: ls16(**args))
             with tensor_core_products():
@@ -4494,6 +4523,26 @@ def wide_kernels_phase(instances, max_err, timed, dev):
                  plain, unrounded, lanes * alphas)
         torch.cuda.synchronize()
         print(f"phase 19 (a) {stack} {widths[:3]}...{widths[-1]} ({len(widths) - 1} layers): "
+              + "; ".join(routes))
+    for i, (stack, widths) in enumerate(G19_FAR):
+        layers = random_layers(widths, 1970 + i, dev)
+        rows = G19_FAR_ROWS
+        x = torch.tensor(rng.standard_normal((rows, widths[0])), dtype=torch.float32, device=dev)
+        unrounded = launched(f32, lambda: f32(x, layers))
+        routes = [cluster_launch(f32, fwd_route(rows, widths, sms), stack)]
+        hold(f32, stack, f"rows={rows}", (unrounded,), (reference_forward(x, layers),))
+        got = launched(bf16, lambda: bf16(x, layers))
+        with tensor_core_products():
+            plain = reference_forward(x, layers, True)
+        hold(bf16, stack, f"rows={rows}", (got,), (reference_forward(x, layers, True),),
+             (plain,), (unrounded,), rows)
+        args = ls_args(rows, 1, 17, 6, 17, LS_WEIGHTS[3], 1975 + i, dev, hidden=widths[1:-1])
+        hold(ls32, stack, f"{rows}x1", launched(ls32, lambda: ls32(**args)),
+             reference_ls_step(**args))
+        routes.append("step: " + cluster_launch(ls32, fwd_route(rows, widths, sms, 23),
+                                                 f"the step on {stack}"))
+        torch.cuda.synchronize()
+        print(f"phase 19 (a) {stack} ({len(widths) - 1} layers) at {rows} rows: "
               + "; ".join(routes))
     dw = instances["fused_mlp_bwd_dw"]
     big = [(stack, widths, 1980 + len(G19_BWD) + i, (rows,), True)

@@ -39,17 +39,19 @@
 //  * Any other stack (deeper than kInlineLayers, a layer wider than the
 //    tile's warps take in one pass, or activations that do not fit in
 //    shared memory: 23->1024^3->17, 23->4096->17, 32 layers of 64) runs
-//    through the wide path of mlp_tile_mma.cuh: the same products in
-//    passes of 512 (16-row tile) or 256 (64-row tile) columns, separate
-//    input and output planes, those planes in a device workspace where
-//    they do not fit in shared memory, and the layers read from a table in
-//    device memory. One block an SM walks the row tiles. Such a stack takes
-//    the 64-row tile where the others would, else the 16-row tile.
+//    through the wide path of mlp_tile_mma.cuh: a cluster of blocks to a
+//    row tile, each block a slice of every layer's columns in passes of 512
+//    (16-row tile) or 256 (64-row tile), hidden outputs in the blocks'
+//    shared memory and read across the cluster as the producer warps stage
+//    them beside the weights (past the widths a cluster of 16 holds, in
+//    a device workspace), the layers in the launch's parameters. One
+//    launch of clusters that walk the row tiles. Such a stack takes the
+//    64-row tile where the others would and a cluster of at most 8 holds
+//    it, else the 16-row tile.
 //
-// The launch uses the caller's stream and allocates nothing: the wide path
-// asks the caller for its workspace (fused_mlp_fwd's return value -2) and
-// copies the layer table into it. It returns cudaGetLastError() (or -1 for
-// arguments it refuses).
+// The launch uses the caller's stream, allocates nothing and returns
+// cudaGetLastError() (or -1 for arguments it refuses, -2 where the wide
+// path asks for a workspace).
 
 #include "mlp_tile_mma.cuh"
 
@@ -82,43 +84,39 @@ fused_mlp_fwd_kernel(const float* __restrict__ x, float* __restrict__ y, int row
   mlp_consume<MT, WM, false, kBf16>(tile, args, plan, y, row0, rows, nullptr, 0);
 }
 
-// The wide path's kernel: the row tiles blockIdx.x, + gridDim.x, ...; the
-// block's slot of the workspace holds what plan.planes_smem and
-// plan.extra_smem leave out of shared memory.
+// The wide path's kernel: a cluster of plan.cluster blocks a row tile, the
+// clusters' tiles cluster_index(), + cluster_count(), ... (mlp_tile_mma.cuh,
+// "The wide path of the forward kernels").
 template <int MT, int WM, bool kBf16>
-__global__ void __launch_bounds__(kBlockThreads, 1)
+__global__ void __launch_bounds__(kWideThreads, 1)
 fused_mlp_fwd_wide_kernel(const float* __restrict__ x, float* __restrict__ y, int rows,
-                          WidePlan plan, MlpTable args, float* slots) {
+                          WidePlan plan, const __grid_constant__ WideTable table) {
   constexpr int TM = 16 * MT * WM;
   extern __shared__ __align__(128) unsigned char smem[];
-  const WideTile t = carve_wide(smem, plan, TM, slots + blockIdx.x * plan.slot_floats);
+  const WideTile w = carve_wide(smem, plan, TM, table.acts);
+  const int rank = cluster_rank();
   const int tiles = (rows + TM - 1) / TM;
+  const int fin = table.layer[0].K;
+  int h = 0;  // hidden outputs so far: the buffer of the next is h & 1
   if (threadIdx.x >= kConsumers) {
-    producer_start(t.in.ring);
-    ProducerPos pp;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      wide_produce<false>(t.in.ring, pp, args, plan.pass_cols);
+    wide_producers_start(w.ring);
+    int q = 0;
+    for (int tile = cluster_index(); tile < tiles; tile += cluster_count()) {
+      const int row0 = tile * TM;
+      const ActSource x0{x + (size_t)row0 * fin, fin, rows - row0, fin, 0, nullptr, 0, fin};
+      wide_produce<TM, false, kBf16>(w.ring, q, plan, table, x0, w.buf, h, rank);
     }
+    wide_finish(plan.cluster, false);
     return;
   }
+  wide_consumers_start();
   RingPos pos;
-  const int fin = args.layer[0].K, fin8 = (fin + 7) & ~7;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int row0 = tile * TM;
-    if (tile != (int)blockIdx.x) consumer_sync();  // the last tile's readers are done
-    for (int idx = threadIdx.x; idx < TM * fin8; idx += kConsumers) {
-      const int r = idx / fin8, k = idx - r * fin8;
-      const int g = row0 + r;
-      store_act<kBf16>(t.in, act_index(r, k, plan.sa),
-                       g < rows && k < fin ? x[(size_t)g * fin + k] : 0.f);
-    }
-    if (tile == (int)blockIdx.x) {
-      consumers_start();
-    } else {
-      consumer_sync();
-    }
-    wide_consume<MT, WM, false, kBf16>(t, pos, args, plan, y, row0, rows, nullptr, 0);
+  bool pending = false;
+  for (int tile = cluster_index(); tile < tiles; tile += cluster_count()) {
+    wide_consume<MT, WM, false, kBf16>(w.ring, pos, plan, table, w.buf, h, pending, rank, y,
+                                       tile * TM, rows, nullptr, 0);
   }
+  wide_finish(plan.cluster, pending);
 }
 
 template <int MT, int WM, bool kBf16>
@@ -134,33 +132,44 @@ cudaError_t launch(const float* x, float* y, int rows, const TilePlan& plan, con
   return cudaGetLastError();
 }
 
-// The wide path, its layer table and slots in `work` (wide_workspace).
+// The wide path at 16 * MT * WM rows a tile, on clusters of at most `most`
+// blocks (`most` == kMaxCluster: streamed where none holds the stack):
+// kNoPlan where no cluster size fits and is placed (the caller tries the
+// other tile height), kNeedWorkspace with the bytes in *needed, else 0 or
+// a cudaError_t value.
 template <int MT, int WM, bool kBf16>
 int launch_wide(const float* x, float* y, int rows, int n_layers, const int* dims,
                 const float* const* weights, const float* const* biases, int device, int sms,
-                void* work, size_t work_bytes, size_t* work_needed, cudaStream_t stream) {
+                int most, void* work, size_t work_bytes, size_t* needed, cudaStream_t stream) {
   constexpr int TM = 16 * MT * WM;
-  std::vector<LayerDesc> table = layer_table(n_layers, dims, weights, biases, 0);
-  WidePlan plan;
-  plan_wide(table.data(), n_layers, TM, 8 * kWarpTiles * kConsumerWarps / WM, 0, &plan);
-  const int blocks = min((rows + TM - 1) / TM, sms);
-  float* slots = nullptr;
-  const int err = wide_workspace(table, blocks, plan.slot_floats, work, work_bytes, work_needed,
-                                 stream, &slots);
-  if (err != 0) return err;
+  const auto kernel = fused_mlp_fwd_wide_kernel<MT, WM, kBf16>;
   static bool done[kMaxDevices];
-  const cudaError_t e = allow_max_smem(fused_mlp_fwd_wide_kernel<MT, WM, kBf16>, device, done);
+  static int placed[kMaxDevices][5];
+  cudaError_t e = allow_wide(kernel, device, done);
   if (e != cudaSuccess) return (int)e;
-  const MlpTable args{n_layers, static_cast<const LayerDesc*>(work), nullptr, dims[0]};
-  fused_mlp_fwd_wide_kernel<MT, WM, kBf16><<<blocks, kBlockThreads, plan.smem, stream>>>(
-      x, y, rows, plan, args, slots);
-  return (int)cudaGetLastError();
+  std::vector<WideLayer> layers(n_layers);
+  for (int l = 0; l < n_layers; ++l) {
+    layers[l] = WideLayer{weights[l], biases[l], dims[l], dims[l + 1], 0, 0};
+  }
+  WidePlan plan;
+  int clusters = 0;
+  e = plan_launch(kernel, device, placed, layers, TM, false, (rows + TM - 1) / TM, sms, most,
+                  most == kMaxCluster, &plan, &clusters);
+  if (e != cudaSuccess) return (int)e;
+  if (clusters == 0) return kNoPlan;
+  WideTable table;
+  const int err = wide_table(layers, plan, TM, clusters, nullptr, dims[0], work, work_bytes,
+                             needed, stream, &table);
+  if (err != 0) return err;
+  e = launch_clusters(kernel, TM, plan, clusters, stream, x, y, rows, plan, table);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return (int)e;
 }
 
 template <bool kBf16>
 int dispatch(const float* x, float* y, int rows, int n_layers, const int* dims,
              const float* const* weights, const float* const* biases, void* work,
-             size_t work_bytes, size_t* work_needed, cudaStream_t s) {
+             size_t work_bytes, size_t* needed, cudaStream_t s) {
   int device = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess) e = sm_count(device, &sms);
@@ -168,7 +177,8 @@ int dispatch(const float* x, float* y, int rows, int n_layers, const int* dims,
   // 64-row tiles once 16-row tiles would take more than two waves of
   // blocks (where the tile fits and no layer is wider than its warps'
   // 256 columns), else 16-row tiles; a stack neither takes goes the wide
-  // path, at the tile height the same rule picks
+  // path: at the tile height the same rule picks on clusters of at most 8,
+  // else on 16-row tiles and clusters of up to 16
   const bool big = rows > 2 * sms * 16;
   if (n_layers <= kInlineLayers) {
     MlpArgs args;
@@ -181,10 +191,16 @@ int dispatch(const float* x, float* y, int rows, int n_layers, const int* dims,
       return (int)launch<1, 1, kBf16>(x, y, rows, plan, args, device, s);
     }
   }
-  return big ? launch_wide<2, 2, kBf16>(x, y, rows, n_layers, dims, weights, biases, device, sms,
-                                        work, work_bytes, work_needed, s)
-             : launch_wide<1, 1, kBf16>(x, y, rows, n_layers, dims, weights, biases, device, sms,
-                                        work, work_bytes, work_needed, s);
+  int err = kNoPlan;
+  if (big) {
+    err = launch_wide<2, 2, kBf16>(x, y, rows, n_layers, dims, weights, biases, device, sms,
+                                   kPortableCluster, work, work_bytes, needed, s);
+  }
+  if (err == kNoPlan) {
+    err = launch_wide<1, 1, kBf16>(x, y, rows, n_layers, dims, weights, biases, device, sms,
+                                   kMaxCluster, work, work_bytes, needed, s);
+  }
+  return err == kNoPlan ? -1 : err;
 }
 
 }  // namespace
@@ -194,14 +210,17 @@ extern "C" {
 // x (rows, dims[0]) -> y (rows, dims[n_layers]); weights[l] (dims[l],
 // dims[l+1]) and biases[l] (dims[l+1]) are device pointers, all f32 and
 // contiguous; bf16 != 0 runs the bfloat16 instance. Any depth and widths
-// of at least 1. A stack that takes the wide path needs a workspace of
-// device memory: where work_bytes is less than it takes, nothing is
-// launched and the call returns -2 with the bytes in *work_needed (call
-// again with that much). Returns 0 on a successful launch, a cudaError_t
-// value if the launch failed, or -1 for arguments that describe no stack.
+// of at least 1. A stack deeper than kTableLayers, or one with a hidden
+// layer too wide for a cluster of 16 to hold (about 18,000 columns: its
+// activations stream through device memory), needs a workspace: called
+// with fewer bytes than that, the call returns -2 with the bytes in
+// *work_needed and launches nothing. Returns 0 on a successful launch, a
+// cudaError_t value if the launch failed, or -1 for arguments it refuses
+// (no stack).
 int fused_mlp_fwd(const float* x, float* y, int rows, int n_layers, const int* dims,
-                  const float* const* weights, const float* const* biases, int bf16, void* work,
-                  size_t work_bytes, size_t* work_needed, void* stream) {
+                  const float* const* weights, const float* const* biases, int bf16,
+                  void* work, size_t work_bytes, size_t* work_needed, void* stream) {
+  *work_needed = 0;
   if (rows < 0 || stack_width(n_layers, dims) < 0) return -1;
   if (rows == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -209,6 +228,13 @@ int fused_mlp_fwd(const float* x, float* y, int rows, int n_layers, const int* d
                                work_needed, s)
               : dispatch<false>(x, y, rows, n_layers, dims, weights, biases, work, work_bytes,
                                 work_needed, s);
+}
+
+// The last wide-path launch this library made, into out[5]: the tile's
+// rows, the blocks of a cluster, the clusters, the shared memory of a block
+// in bytes, 1 for a streamed plan (zeros before the first).
+void fused_mlp_fwd_wide_launch(int* out) {
+  for (int i = 0; i < 5; ++i) out[i] = last_wide[i];
 }
 
 }  // extern "C"

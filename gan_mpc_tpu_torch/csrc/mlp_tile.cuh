@@ -6,10 +6,12 @@
 // A stack reaches a kernel in one of two forms. Up to kInlineLayers
 // layers it travels in the launch's parameters (MlpArgs), and the kernels
 // keep its activations in shared memory: every committed stack takes that
-// path. A deeper or wider one travels as a table of LayerDesc in device
-// memory (MlpTable), which the launching function copies into the head of
-// the caller's workspace; the wide kernels then walk any number of layers
-// of any width (mlp_tile_mma.cuh, "The wide path").
+// path. A deeper or wider one travels as a table, and the wide kernels
+// walk any number of layers of any width: the forward kernels' table
+// (WideTable, mlp_tile_mma.cuh) in the launch's parameters up to
+// kTableLayers layers, the further ones at the head of the caller's
+// workspace; the backward's (LayerDesc, MlpTable) is copied into the head
+// of the caller's workspace at each launch (fused_mlp_bwd.cu).
 //
 // Everything here sits in an anonymous namespace: each kernel source
 // builds into a library of its own.
@@ -117,12 +119,6 @@ inline std::vector<LayerDesc> layer_table(int n_layers, const int* dims,
     t[l].N = dims[l + 1];
   }
   return t;
-}
-
-// Bytes of a table's place at the head of a workspace: padded to 256, so
-// that what follows it is aligned for any access.
-inline size_t table_bytes(size_t entries) {
-  return (entries * sizeof(LayerDesc) + 255) & ~(size_t)255;
 }
 
 }  // namespace

@@ -118,7 +118,10 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+
+#include <cstring>
 
 #include "mlp_tile.cuh"
 
@@ -133,7 +136,7 @@ constexpr int kMaxStages = 4;
 constexpr int kMinStages = 3;
 constexpr size_t kMaxSmem = 232448;                 // a Hopper block's dynamic shared memory
 constexpr size_t kBarrierBytes = 128;               // 2 * kMaxStages mbarriers, padded
-constexpr int kOutSegments = 2;   // layer_tiles' kOut on the wide path (forward and recompute)
+constexpr int kOutSegments = 2;   // layer_tiles' kOut on the backward's wide recompute
 constexpr int kSegmentRows = 512;  // ... whose contraction runs in segments of these rows of K
 
 // Raise a kernel's dynamic shared-memory limit to the block's maximum, once
@@ -252,6 +255,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "}\n"
         : "=r"(done)
         : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// mbar_wait for the wide path, whose producer warp issues many copies a
+// stage: the waiting thread is suspended until the phase completes (or the
+// hint's time passes) instead of spinning, which would take the issue slots
+// and shared-memory pipe that the producer's copies need.
+__device__ __forceinline__ void mbar_wait_suspend(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity), "r"(0x989680u)
         : "memory");
   } while (!done);
 }
@@ -469,24 +492,25 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 // layer's column base + n * T + j, so that a lane's T values of one
 // weight row are neighbours and come with one load where the row length
 // keeps them aligned (kVec: N % 4 == 0). w points at row t, column
-// base + g * T of the k-step.
+// base + g * T of the k-step, and row t + 4 lies `half` floats on (4 N for
+// rows of length N).
 template <int T, bool kVec>
-__device__ __forceinline__ void load_b(float (&b)[T][2], const float* __restrict__ w, int N) {
+__device__ __forceinline__ void load_b(float (&b)[T][2], const float* __restrict__ w, int half) {
   if constexpr (kVec && T == 4) {
     const float4 r0 = *reinterpret_cast<const float4*>(w);
-    const float4 r1 = *reinterpret_cast<const float4*>(w + 4 * N);
+    const float4 r1 = *reinterpret_cast<const float4*>(w + half);
     b[0][0] = r0.x, b[1][0] = r0.y, b[2][0] = r0.z, b[3][0] = r0.w;
     b[0][1] = r1.x, b[1][1] = r1.y, b[2][1] = r1.z, b[3][1] = r1.w;
   } else if constexpr (kVec && T == 2) {
     const float2 r0 = *reinterpret_cast<const float2*>(w);
-    const float2 r1 = *reinterpret_cast<const float2*>(w + 4 * N);
+    const float2 r1 = *reinterpret_cast<const float2*>(w + half);
     b[0][0] = r0.x, b[1][0] = r0.y;
     b[0][1] = r1.x, b[1][1] = r1.y;
   } else {
 #pragma unroll
     for (int j = 0; j < T; ++j) {
       b[j][0] = w[j];
-      b[j][1] = w[4 * N + j];
+      b[j][1] = w[half + j];
     }
   }
 }
@@ -499,7 +523,7 @@ __device__ __forceinline__ void load_b(float (&b)[T][2], const float* __restrict
 template <int MT, int T, bool kVec, bool kFull>
 __device__ __forceinline__ void bf16_products(float (&acc)[MT][T][4],
                                               const float* __restrict__ a_hi, int sa,
-                                              const float* __restrict__ w, int N) {
+                                              const float* __restrict__ w, int half, int step8) {
   uint32_t ah[MT][4], bh[T][2];
   float b0[T][2], b1[T][2];
 #pragma unroll
@@ -514,8 +538,8 @@ __device__ __forceinline__ void bf16_products(float (&acc)[MT][T][4],
     ah[i][0] = pack_bf16_exact(h0.x, h2.x), ah[i][1] = pack_bf16_exact(h0.y, h2.y);
     ah[i][2] = pack_bf16_exact(h1.x, h3.x), ah[i][3] = pack_bf16_exact(h1.y, h3.y);
   }
-  load_b<T, kVec>(b0, w, N);
-  if constexpr (kFull) load_b<T, kVec>(b1, w + 8 * N, N);
+  load_b<T, kVec>(b0, w, half);
+  if constexpr (kFull) load_b<T, kVec>(b1, w + step8, half);
 #pragma unroll
   for (int j = 0; j < T; ++j) {
     bh[j][0] = pack_bf16(b0[j][0], kFull ? b1[j][0] : 0.f);
@@ -530,18 +554,21 @@ __device__ __forceinline__ void bf16_products(float (&acc)[MT][T][4],
 
 // One chunk's products for a warp that owns T 8-column tiles: acc[i][j] +=
 // a (MT 16-row blocks; the fragment's first pair at a_hi / a_lo, 2 * sa
-// floats per row pair) times B (load_b's layout, `rows` weight rows of
-// length N). T is a template argument so that the loop has no branch:
+// floats per row pair) times B (load_b's layout: `rows` weight rows, the
+// lane's row t + 4 `half` floats after row t, each k-step's rows `step8`
+// after the last's; 4 N and 8 N for rows of length N, chunk_products).
+// T is a template argument so that the loop has no branch:
 // the loads of a k-step then issue together and ahead of the products that
 // need them, where a test per tile would make each tile wait for its own
 // loads in turn. With kBf16 the a_hi plane holds bfloat16 values, B is
 // rounded to bfloat16 and each pair of k-steps is one bf16 product
 // (bf16_products).
 template <int MT, int T, bool kVec, bool kBf16>
-__device__ __forceinline__ void chunk_products(float (&acc)[MT][T][4],
-                                               const float* __restrict__ a_hi,
-                                               const float* __restrict__ a_lo, int sa,
-                                               const float* __restrict__ w, int N, int rows) {
+__device__ __forceinline__ void chunk_products_at(float (&acc)[MT][T][4],
+                                                  const float* __restrict__ a_hi,
+                                                  const float* __restrict__ a_lo, int sa,
+                                                  const float* __restrict__ w, int half,
+                                                  int step8, int rows) {
   if constexpr (kBf16) {
     // the 16-row tile's loop unrolled twice, the 64-row tile's not: each
     // the faster on the card (PERF.md, section 6)
@@ -549,19 +576,19 @@ __device__ __forceinline__ void chunk_products(float (&acc)[MT][T][4],
     if constexpr (MT == 1) {
 #pragma unroll 2
       for (; k + 16 <= rows; k += 16) {
-        bf16_products<MT, T, kVec, true>(acc, a_hi, sa, w, N);
+        bf16_products<MT, T, kVec, true>(acc, a_hi, sa, w, half, step8);
         a_hi += 32;
-        w += 16 * N;
+        w += 2 * step8;
       }
     } else {
 #pragma unroll 1
       for (; k + 16 <= rows; k += 16) {
-        bf16_products<MT, T, kVec, true>(acc, a_hi, sa, w, N);
+        bf16_products<MT, T, kVec, true>(acc, a_hi, sa, w, half, step8);
         a_hi += 32;
-        w += 16 * N;
+        w += 2 * step8;
       }
     }
-    if (k < rows) bf16_products<MT, T, kVec, false>(acc, a_hi, sa, w, N);
+    if (k < rows) bf16_products<MT, T, kVec, false>(acc, a_hi, sa, w, half, step8);
     return;
   }
 #pragma unroll 2
@@ -580,10 +607,10 @@ __device__ __forceinline__ void chunk_products(float (&acc)[MT][T][4],
       al[i][2] = __float_as_uint(l1.x), al[i][3] = __float_as_uint(l1.y);
     }
     float b[T][2];
-    load_b<T, kVec>(b, w, N);
+    load_b<T, kVec>(b, w, half);
     a_hi += 16;
     a_lo += 16;
-    w += 8 * N;
+    w += step8;
 #pragma unroll
     for (int j = 0; j < T; ++j) {
       split_tf32(b[j][0], bh[j][0], bl[j][0]);
@@ -609,6 +636,15 @@ __device__ __forceinline__ void chunk_products(float (&acc)[MT][T][4],
   }
 }
 
+// chunk_products_at for weight rows of length N.
+template <int MT, int T, bool kVec, bool kBf16>
+__device__ __forceinline__ void chunk_products(float (&acc)[MT][T][4],
+                                               const float* __restrict__ a_hi,
+                                               const float* __restrict__ a_lo, int sa,
+                                               const float* __restrict__ w, int N, int rows) {
+  chunk_products_at<MT, T, kVec, kBf16>(acc, a_hi, a_lo, sa, w, 4 * N, 8 * N, rows);
+}
+
 // Where a consumer warp stands in the ring.
 struct RingPos {
   int s = 0;
@@ -617,7 +653,7 @@ struct RingPos {
 
 // What mlp_consume hands a layer: the output and the residual; and, for a
 // caller that keeps every layer's input (kOut: the backward kernel's
-// recompute, the wide path's two pairs of planes), the planes a hidden
+// recompute, on its wide path two pairs of planes), the planes a hidden
 // layer's output goes to and their row stride, where the forward kernels
 // overwrite the input planes.
 struct TileIo {
@@ -644,8 +680,9 @@ struct TileIo {
 // goes to io's planes instead), and is whole before any warp reads it;
 // with kBf16 it is rounded to bfloat16 into the hi plane alone.
 //
-// kOut == kOutSegments (the wide path: the forward kernels' passes and the
-// backward's recompute) also takes the contraction over K in segments:
+// kOut == kOutSegments (the backward's wide recompute; the forward kernels'
+// wide path has its own loop, wide_tiles) also takes the contraction over
+// K in segments:
 // where a chunk ends past a multiple of kSegmentRows rows of K, the
 // accumulators so far are added to the segments before them and start
 // again from zero, and the segments are added in order before the bias.
@@ -866,158 +903,13 @@ __device__ __forceinline__ void mlp_consume(const Tile& tile, const MlpArgs& arg
 }
 
 // ---------------------------------------------------------------------------
-// The wide path: stacks of any depth and width.
-//
-// A stack deeper than kInlineLayers, or one the path above does not take (a
-// layer wider than one pass of the warps' columns, or planes that do not
-// fit beside the ring in a block's shared memory), runs through the same
-// products, fragments, epilogue and ring, with four differences.
-//  * Passes. A layer wider than P = 32 * WN columns (512 on the 16-row
-//    tile, 256 on the 64-row tile) is computed in passes of P columns, each
-//    a run of layer_tiles over all K rows. The ring then carries column
-//    slabs: a chunk of weight rows [k0, k0 + n) x columns [c0, c0 + P) is n
-//    spans of one row each, laid P floats apart in the stage (a bulk copy
-//    a row). A layer of at most P columns keeps whole rows, one span a
-//    chunk, as above.
-//  * Two pairs of planes. A pass writes its columns while later passes
-//    still read the whole input, so a layer's output goes to a second pair
-//    of planes (kOut), and the pairs swap at every layer.
-//  * Where the planes live. Both pairs (and the line-search step's f32
-//    input rows) sit in shared memory where they fit beside a ring of
-//    kMinStages stages; else in the block's slot of a device workspace that
-//    the caller allocates (the TPU kernel kept its whole tile in VMEM,
-//    megabytes; here a slot is read by one SM, mostly from L1 and L2). The
-//    planes' pointer is made opaque to the compiler, so every access is a
-//    generic load or store and none goes through the read-only cache, which
-//    does not see what the block itself wrote.
-//  * Segments. The contraction over a layer's K rows is summed in
-//    segments of kSegmentRows rows, added in order (layer_tiles,
-//    kOutSegments): a layer of at most 512 rows has one.
-// A block walks row tiles gridDim.x apart, at most one block an SM, so the
-// workspace holds as many slots as blocks; its producer warp streams the
-// weights again for each tile. The layers come from a table in device
-// memory (MlpTable), any number of them. The arithmetic is the path
-// above's: the same products in the same k order, epilogue and rounding,
-// the segments' sums aside.
-
-struct WidePlan {
-  int sa;              // the planes' row stride, floats: = 4 (mod 8)
-  int pass_cols;       // P
-  int extra_floats;    // the caller's own buffer
-  int stage_floats;    // floats per ring stage
-  int stages;
-  int planes_smem;     // 1: both pairs of planes in shared memory; 0: in the block's slot
-  int extra_smem;      // the same for the caller's buffer
-  size_t slot_floats;  // the block's slot of the workspace
-  size_t smem;         // bytes
-};
-
-// Lay out a stack (layers[l].K, .N) for the wide path at tile_rows rows
-// and pass_cols columns a pass, and set each layer's step. Places tried in
-// order: the planes and the caller's buffer in shared memory, the buffer
-// alone, neither; at each, the deepest ring of 64-, 32-, 16- or 8-row
-// stages (of the widest pass) of which kMinStages fit. The last place
-// always fits: a ring of 3 stages of 8 rows of 512 floats is 48 KB.
-inline void plan_wide(LayerDesc* layers, int n_layers, int tile_rows, int pass_cols,
-                      int extra_floats, WidePlan* p) {
-  int widest = layers[0].K, widest_out = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    widest = max(widest, layers[l].N);
-    widest_out = max(widest_out, layers[l].N);
-  }
-  p->sa = ((widest + 7) & ~7) + 4;
-  p->pass_cols = pass_cols;
-  p->extra_floats = (extra_floats + 3) & ~3;
-  const int stride = min((widest_out + 3) & ~3, pass_cols);
-  const size_t planes = 4ull * tile_rows * p->sa;
-  for (int place = 0; place < 3; ++place) {
-    p->planes_smem = place == 0;
-    p->extra_smem = place < 2;
-    const size_t fixed =
-        kBarrierBytes + ((p->planes_smem ? planes : 0) + (p->extra_smem ? p->extra_floats : 0) + 8) *
-                            sizeof(float);
-    for (int rows = 64; rows >= 8; rows /= 2) {
-      p->stage_floats = rows * stride;
-      const size_t stage = p->stage_floats * sizeof(float);
-      if (fixed + kMinStages * stage > kMaxSmem) continue;
-      p->stages = (int)min((size_t)kMaxStages, (kMaxSmem - fixed) / stage);
-      p->smem = fixed + p->stages * stage;
-      p->slot_floats = (p->planes_smem ? 0 : planes) + (p->extra_smem ? 0 : p->extra_floats);
-      for (int l = 0; l < n_layers; ++l) {
-        layers[l].step = (p->stage_floats / min(layers[l].N, pass_cols)) & ~7;
-      }
-      return;
-    }
-  }
-}
-
-// The wide path's workspace: the layer table at its head, then `blocks`
-// slots of `slot_floats`. Where `work_bytes` is less than that, sets
-// *work_needed and returns -2, launching nothing; else copies the table in
-// on `stream` (from pageable memory: staged before the call returns) and
-// returns 0 with the first slot in *slots, or a cudaError_t value.
-inline int wide_workspace(const std::vector<LayerDesc>& table, size_t blocks, size_t slot_floats,
-                          void* work, size_t work_bytes, size_t* work_needed,
-                          cudaStream_t stream, float** slots) {
-  const size_t head = table_bytes(table.size());
-  const size_t need = head + blocks * slot_floats * sizeof(float);
-  if (work_bytes < need) {
-    *work_needed = need;
-    return -2;
-  }
-  *slots = reinterpret_cast<float*>(static_cast<unsigned char*>(work) + head);
-  return (int)cudaMemcpyAsync(work, table.data(), table.size() * sizeof(LayerDesc),
-                              cudaMemcpyHostToDevice, stream);
-}
+// Column slabs: the backward's wide walk (fused_mlp_bwd.cu) streams a layer
+// wider than one pass of the warps' columns through the ring pass by pass.
 
 // The generic pointer p, of which the compiler knows nothing more.
 __device__ __forceinline__ float* opaque(float* p) {
   asm volatile("" : "+l"(p));
   return p;
-}
-
-// A wide-path block's tile: the layer's input planes (in.hi, in.lo), the
-// caller's buffer and the ring, and the output planes.
-struct WideTile {
-  Tile in;
-  float* o_hi;
-  float* o_lo;
-};
-
-// Shared memory: [mbarriers][planes, if there][buffer, if there][ring + 8];
-// the block's slot of the workspace: [planes, if there][buffer, if there].
-__device__ __forceinline__ WideTile carve_wide(unsigned char* smem, const WidePlan& p,
-                                               int tile_rows, float* slot) {
-  WideTile t;
-  t.in.ring.full = reinterpret_cast<uint64_t*>(smem);
-  t.in.ring.empty = t.in.ring.full + kMaxStages;
-  float* f = reinterpret_cast<float*>(smem + kBarrierBytes);
-  const size_t plane = (size_t)tile_rows * p.sa;
-  float* planes;
-  if (p.planes_smem) {
-    planes = f;
-    f += 4 * plane;
-  } else {
-    planes = slot;
-    slot += 4 * plane;
-  }
-  float* extra;
-  if (p.extra_smem) {
-    extra = f;
-    f += p.extra_floats;
-  } else {
-    extra = slot;
-  }
-  planes = opaque(planes);
-  t.in.hi = planes;
-  t.in.lo = planes + plane;
-  t.o_hi = planes + 2 * plane;
-  t.o_lo = planes + 3 * plane;
-  t.in.extra = opaque(extra);
-  t.in.ring.buf = f;
-  t.in.ring.stage_floats = p.stage_floats;
-  t.in.ring.stages = p.stages;
-  return t;
 }
 
 // Weight rows [k0, k0 + n) x columns [c0, c0 + cols) of a row-major (K, N)
@@ -1038,9 +930,9 @@ __device__ __forceinline__ uint32_t copy_chunk_slab(float* dst, const float* __r
   return bytes;
 }
 
-// One layer into the ring in the order the wide consumers read it: a layer
-// of at most pass_cols columns as produce_rows streams it, a wider one pass
-// by pass, each chunk a column slab pass_cols floats a row (the last
+// One layer into the ring in the order the backward's recompute reads it: a
+// layer of at most pass_cols columns as produce_rows streams it, a wider one
+// pass by pass, each chunk a column slab pass_cols floats a row (the last
 // pass's narrower slab too; its rows' tails are never read into an output).
 template <bool kLs>
 __device__ __forceinline__ void produce_layer_wide(const Ring& ring, ProducerPos& pp,
@@ -1071,48 +963,1109 @@ __device__ __forceinline__ void produce_layer_wide(const Ring& ring, ProducerPos
   }
 }
 
-// The producer warp of a wide-path forward, for one row tile: every
-// layer's weights in the order wide_consume reads them.
-template <bool kLs>
-__device__ __forceinline__ void wide_produce(const Ring& ring, ProducerPos& pp,
-                                             const MlpTable& args, int pass_cols) {
-  for (int l = 0; l < args.n_layers; ++l) {
-    const LayerDesc d = args.layer[l];
-    produce_layer_wide<kLs>(ring, pp, d, kLs && l == 0 ? args.w0_tail : nullptr,
-                            kLs && l == 0 ? args.split : d.K, pass_cols);
+// ---------------------------------------------------------------------------
+// The wide path of the forward kernels (fused_mlp_fwd.cu, fused_ls_step.cu):
+// stacks of any depth and width, a cluster of blocks to a row tile.
+//
+// A stack deeper than kInlineLayers, or one the path above does not take (a
+// layer wider than one pass of the warps' columns, or planes that do not fit
+// beside the ring in a block's shared memory), runs through the same
+// products, fragments and epilogue arithmetic, laid out otherwise:
+//  * A cluster of C blocks (1, 2, 4, 8, or 16 with the non-portable size)
+//    owns a row tile. Every layer's output columns are dealt to the C
+//    blocks in runs of whole 8-column tiles (WideLayer.cols a block: block
+//    r owns [r cols, (r + 1) cols), a last block may own fewer or none), and
+//    each block computes its columns over all K, in passes of at most
+//    P = 32 * WN columns (512 on the 16-row tile, 256 on the 64-row tile).
+//    Each weight element of a row tile is read by one block of the cluster.
+//  * A hidden layer's output stays in the shared memory of the block that
+//    computed it: its columns as f32 rows, relu'd (sb floats a row), in one
+//    of two buffers that alternate layer by layer. No activation of the
+//    forward or the step touches device memory up to the widths a cluster
+//    of 16 holds (streamed plans, below, past them): a layer of 8192
+//    columns on a cluster of 8 is 1024 columns a block.
+//  * The ring carries both operands. A stage holds a chunk of `step` rows
+//    of K: the weight rows [k0, k0 + step) of the block's pass, then the
+//    layer input's columns [k0, k0 + step) of the tile's rows, split into a
+//    hi and a lo plane (act_index's layout at row stride step + 4). Four
+//    producer warps, one an SM sub-partition, fill four stages at once (a
+//    chunk a warp, in turn): each reads the input columns from the block
+//    that owns them, through distributed shared memory (ld.shared::cluster
+//    at mapa'd addresses; the first layer's rows from x in device memory,
+//    the step's [x, u] from x3 and u there), and splits them
+//    (with kBf16 rounds them to bfloat16) as it stores them: the same parts
+//    the path above splits in its epilogue, so the products see the same
+//    bits. Consumers then load every fragment from local shared memory; a
+//    fragment read across the cluster would cost an SM-to-SM trip for each
+//    of the 16 warps that share the tile's rows.
+//  * Weights come without the producer copying floats (wide_mode): a layer
+//    that one pass covers (N <= P: the 17-wide last layers, 200, 64) as
+//    whole rows, the chunk one contiguous bulk copy, whatever N's
+//    alignment (its rows lie N floats apart in the stage, as on the path
+//    above); a wider layer with N % 4 == 0 by TMA, a 2-D tensor map a
+//    layer and one box of 32 columns x step rows a lane, swizzled by 128
+//    bytes so that fragment loads meet no bank conflict (rows past K and
+//    columns past N arrive as zeros); a wider layer with N % 4 != 0 (777)
+//    or unaligned weights, whose rows TMA cannot address, a bulk copy a
+//    row, each row placed at its 16-byte phase so that only its up to 3
+//    ragged floats go by 4-byte cp.async (the step's first layer, whose rows
+//    come from two tensors, by 4-byte cp.async from every lane where one
+//    pass does not cover it). Per-row copies cost a warp about a hundred
+//    clocks each
+//    (clock readings: PERF.md section 6), per-lane cp.async of a
+//    whole slab more, which is why the two wide kinds differ. A stage is
+//    full after the bulk and TMA bytes, each lane's small copies
+//    (cp.async.mbarrier.arrive.noinc) and the producer's stores
+//    (kWideFullArrivals).
+//  * Layers meet at the cluster barrier (barrier.cluster.arrive / wait, all
+//    threads of the cluster; a named barrier of the block on a cluster of
+//    one): the consumers arrive once they have written a hidden layer's
+//    columns (the step's block 0 also once it has written u), and wait only
+//    before their next arrival; the producers arrive and wait before they
+//    stage a layer that reads them. Two buffers suffice: a block writes a
+//    buffer again only after every producer has passed the barrier of the
+//    layer after the one that read it last. A last round keeps every
+//    block's shared memory alive until no peer reads it.
+//  * Segments. The contraction over a layer's K rows is summed in segments
+//    of kSegmentRows rows, added in order: steps are powers of two of at
+//    most kSegmentRows, so the segments end at multiples of it.
+//  * A cluster walks row tiles, clusters apart; its blocks' rings run
+//    across tiles. The launcher picks C: the smallest size whose slices and
+//    ring fit, raised to fill the SMs with one wave of clusters (up to 8)
+//    while some layer deals a block more 8-column tiles than it has column
+//    groups, and halved while cudaOccupancyMaxActiveClusters says the card
+//    cannot place it.
+//  * A layer too wide for any cluster's shared memory (its slices' two
+//    buffers beside the ring on 16 blocks: past about 18,000 columns)
+//    streams instead: the plan is `streamed`, each cluster's two buffers
+//    (whole rows of the widest hidden layer) lie in a device workspace the
+//    caller provides, the consumers store their columns there and the
+//    producers stage them back from L2 (ld.global.cg: a peer on another SM
+//    wrote them) after the same barriers. Every other stack keeps its
+//    activations on chip and takes no workspace.
+//  * The table (WideTable: each layer's WideLayer and, for kRowsBoxes
+//    layers, its tensor map) travels in the launch's parameters
+//    (__grid_constant__) for the first kTableLayers layers; the launch
+//    copies nothing and can be captured in a CUDA graph. A deeper stack's
+//    further layers lie at the workspace's head, copied in at each launch
+//    from pageable memory (the stream syncs first, and capture refuses it).
+
+constexpr int kPortableCluster = 8;  // the cluster size every Hopper part places
+constexpr int kMaxCluster = 16;      // ... and the most, with the non-portable attribute
+// a wide stage is full after the bulk bytes' arrival, each lane's small copies, the stores
+constexpr int kWideFullArrivals = kWarp + 2;
+constexpr int kWideProducers = 4;  // producer warps of a wide-path block, one an SM sub-partition
+static_assert(kWideProducers <= kMaxStages, "the wide ring has a stage a producer warp");
+constexpr int kWideThreads = kConsumers + kWideProducers * kWarp;
+constexpr int kNoPlan = -3;  // a wide launcher's answer where no cluster size fits and is placed
+constexpr int kNeedWorkspace = -2;  // ... where it needs a workspace (the bytes in *needed)
+constexpr int kTableLayers = 64;    // layers whose table travels in the launch's parameters
+
+// One layer of a wide-path stack as the forward kernels read it: 32 bytes.
+struct WideLayer {
+  const float* w;  // (K, N) row-major
+  const float* b;  // (N)
+  int K, N;
+  int step;  // rows of K a chunk of the ring: a power of two, at most kSegmentRows
+  int cols;  // the output columns a block of the cluster owns: whole tiles of 8
+};
+
+// A stack as a wide kernel's __grid_constant__ parameter (about 10 KB):
+// layer l < kTableLayers's entry and tensor map here, a deeper layer's at
+// far_layer / far_map [l - kTableLayers] (the workspace's head).
+struct WideTable {
+  CUtensorMap map[kTableLayers];  // layer l's weights (kRowsBoxes layers; zeros else)
+  WideLayer layer[kTableLayers];
+  const WideLayer* far_layer;
+  const CUtensorMap* far_map;
+  float* acts;  // a streamed plan's buffers: cluster i's two at acts + 2 i tile_rows sb
+  const float* w0_tail;  // as in MlpArgs
+  int split;
+  int n_layers;
+};
+
+struct WidePlan {
+  int cluster;       // C
+  int pass_cols;     // P
+  int sb;            // the activation buffers' row stride, floats; 0: no hidden layer
+  int stage_floats;  // floats per ring stage
+  int stages;
+  int streamed;      // 1: the buffers lie in device memory (whole rows), else a block's slices
+  size_t smem;       // bytes
+};
+
+__device__ __forceinline__ const WideLayer& wide_layer(const WideTable& t, int l) {
+  return l < kTableLayers ? t.layer[l] : t.far_layer[l - kTableLayers];
+}
+
+__device__ __forceinline__ const CUtensorMap* wide_map(const WideTable& t, int l) {
+  return l < kTableLayers ? t.map + l : t.far_map + (l - kTableLayers);
+}
+
+// How a layer's weight rows reach a stage (the header's weights).
+constexpr int kRowsWhole = 0, kRowsBoxes = 1, kRowsEach = 2;
+constexpr int kBoxCols = 32;       // a TMA box's columns: 128 bytes, the swizzle's span
+constexpr int kMaxBoxRows = 256;   // ... and the most rows a box takes
+
+// The mode of layer d at P columns a pass; split_first: the step's first
+// layer, whose rows come from two tensors. TMA takes 16-byte aligned
+// weights only: a view that is not goes row by row.
+__host__ __device__ __forceinline__ int wide_mode(const WideLayer& d, int pass_cols,
+                                                  bool split_first) {
+  if (d.N <= pass_cols) return kRowsWhole;
+  const bool aligned = (reinterpret_cast<uintptr_t>(d.w) & 15) == 0;
+  return d.N % 4 == 0 && aligned && !split_first ? kRowsBoxes : kRowsEach;
+}
+
+// Floats a weight row takes in a stage for a pass pw wide: whole rows of N;
+// boxes of 32 columns; or rows each at their phase (up to 3 floats in),
+// 8 (mod 32) floats apart for conflict-free fragment loads.
+__host__ __device__ __forceinline__ int wide_row_floats(int mode, int pw, int N) {
+  if (mode == kRowsWhole) return N;
+  if (mode == kRowsBoxes) return (pw + kBoxCols - 1) / kBoxCols * kBoxCols;
+  return ((pw + 3 + 23) & ~31) + 8;
+}
+
+// Lay out a stack (layers[l].K, .N) for a cluster of `cluster` blocks on
+// tile_rows rows, and set each layer's cols and step. Shared memory: the two
+// buffers of the widest hidden layer's slice (none where `streamed`: the
+// buffers, whole rows of the widest hidden layer, lie in device memory),
+// and a ring of kWideProducers stages (one a producer warp: a warp's first
+// chunk of a layer then never waits for a stage of that layer, which the
+// layer's barrier holds back), each the deepest of 64, 32, 16 or 8 weight
+// rows of the widest pass with their input planes that fits. False where
+// none does (never where `streamed`).
+inline bool plan_wide(WideLayer* layers, int n_layers, int tile_rows, int pass_cols, int cluster,
+                      bool split_first, bool streamed, WidePlan* p) {
+  int slice = 0, hidden = 0, widest = 8;
+  for (int l = 0; l < n_layers; ++l) {
+    const int tiles = (layers[l].N + 7) / 8;
+    layers[l].cols = 8 * ((tiles + cluster - 1) / cluster);
+    if (l < n_layers - 1) {
+      slice = max(slice, layers[l].cols);
+      hidden = max(hidden, layers[l].N);
+    }
+    const int mode = wide_mode(layers[l], pass_cols, split_first && l == 0);
+    widest = max(widest, wide_row_floats(mode, min(layers[l].cols, pass_cols), layers[l].N));
+  }
+  p->cluster = cluster;
+  p->pass_cols = pass_cols;
+  p->streamed = streamed ? 1 : 0;
+  p->sb = streamed ? (hidden + 3) & ~3 : slice > 0 ? slice + 4 : 0;
+  // the ring starts at a multiple of 1024 bytes (TMA's swizzled boxes): up
+  // to 1024 bytes lie before it
+  const size_t fixed =
+      kBarrierBytes + 1024 + (2ull * tile_rows * (streamed ? 0 : p->sb) + 8) * sizeof(float);
+  for (int rows = 64; rows >= 8; rows /= 2) {
+    p->stage_floats = (rows * widest + 2 * tile_rows * (rows + 4) + 255) & ~255;
+    const size_t stage = p->stage_floats * sizeof(float);
+    if (fixed + kWideProducers * stage > kMaxSmem) continue;
+    p->stages = kWideProducers;
+    p->smem = fixed + p->stages * stage;
+    for (int l = 0; l < n_layers; ++l) {
+      const int mode = wide_mode(layers[l], pass_cols, split_first && l == 0);
+      const int wf = wide_row_floats(mode, min(layers[l].cols, pass_cols), layers[l].N);
+      int s = mode == kRowsBoxes ? kMaxBoxRows : kSegmentRows;
+      while (s * wf + 2 * tile_rows * (s + 4) > p->stage_floats) s /= 2;
+      layers[l].step = s;
+    }
+    return true;
+  }
+  return false;
+}
+
+// Clusters of `cluster` blocks of `kernel` that the card holds at once at a
+// block's whole shared memory (0: it cannot place one), read once per
+// device and size into placed[device][log2 cluster] (0: not read yet).
+template <typename Kernel>
+cudaError_t clusters_placed(Kernel kernel, int device, int cluster, int (*placed)[5], int* n) {
+  int slot = 0;
+  while ((1 << slot) < cluster) ++slot;
+  if (device < kMaxDevices && placed[device][slot] != 0) {
+    *n = max(0, placed[device][slot]);
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = kMaxSmem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+  if (e != cudaSuccess) {  // a size the card refuses is one it cannot place
+    cudaGetLastError();
+    *n = 0;
+  }
+  if (device < kMaxDevices) placed[device][slot] = *n > 0 ? *n : -1;
+  return cudaSuccess;
+}
+
+// Plan a wide-path launch of `kernel` at tile_rows rows over `tiles` row
+// tiles (the module's header: the cluster size). Sets *clusters to the
+// clusters to launch, or 0 where no size up to `most` fits and is placed;
+// with may_stream a stack whose slices no such cluster holds streams.
+template <typename Kernel>
+cudaError_t plan_launch(Kernel kernel, int device, int (*placed)[5], std::vector<WideLayer>& layers,
+                        int tile_rows, bool split_first, int tiles, int sms, int most,
+                        bool may_stream, WidePlan* plan, int* clusters) {
+  *clusters = 0;
+  const int n_layers = (int)layers.size();
+  const int pass_cols = 8 * kWarpTiles * kConsumerWarps / (tile_rows == 64 ? 2 : 1);
+  bool streamed = false;
+  int fit = 1;
+  while (fit <= most && !plan_wide(layers.data(), n_layers, tile_rows, pass_cols, fit,
+                                   split_first, false, plan)) {
+    fit *= 2;
+  }
+  if (fit > most) {
+    if (!may_stream) return cudaSuccess;
+    streamed = true;
+    fit = 1;
+  }
+  // more blocks a tile while a wave of clusters still fits the SMs, and
+  // while some layer deals a block more 8-column tiles than it has column
+  // groups (past that a block's warps hold one tile each: more blocks add
+  // barriers, not speed)
+  const int groups = kConsumerWarps / (tile_rows == 64 ? 2 : 1);
+  int widest = 1;
+  for (const WideLayer& d : layers) widest = max(widest, (d.N + 7) / 8);
+  int want = 1;
+  while (want < kPortableCluster && (size_t)tiles * want * 2 <= (size_t)sms &&
+         (widest + want - 1) / want > groups) {
+    want *= 2;
+  }
+  for (int c = max(fit, want); c >= fit; c /= 2) {
+    int n = 0;
+    const cudaError_t e = clusters_placed(kernel, device, c, placed, &n);
+    if (e != cudaSuccess) return e;
+    if (n > 0) {
+      plan_wide(layers.data(), n_layers, tile_rows, pass_cols, c, split_first, streamed, plan);
+      *clusters = min(tiles, n);
+      return cudaSuccess;
+    }
+  }
+  return cudaSuccess;
+}
+
+// Let `kernel` take a block's whole shared memory and clusters of 16, once
+// per device.
+template <typename Kernel>
+cudaError_t allow_wide(Kernel kernel, int device, bool* done) {
+  if (device < kMaxDevices && done[device]) return cudaSuccess;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (e == cudaSuccess && device < kMaxDevices) done[device] = true;
+  return e;
+}
+
+// The last wide-path launch of the library: tile rows, blocks a cluster,
+// clusters, shared memory a block (bytes), a streamed plan (1) or not.
+int last_wide[5];
+
+// Launch a wide-path kernel as `clusters` clusters of plan.cluster blocks
+// (and note it in last_wide).
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), int tile_rows, const WidePlan& plan,
+                            int clusters, cudaStream_t stream, Args... args) {
+  last_wide[0] = tile_rows;
+  last_wide[1] = plan.cluster;
+  last_wide[2] = clusters;
+  last_wide[3] = (int)plan.smem;
+  last_wide[4] = plan.streamed;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = plan.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(clusters * plan.cluster);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = plan.smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
+// libcuda), once.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      cudaGetLastError();
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The table of a stack for a wide launch of `clusters` clusters into *t,
+// the kernels' parameter: the layers, and a tensor map a kRowsBoxes layer
+// (its (K, N) weights in boxes of 32 columns x step rows, swizzled by 128
+// bytes). A stack deeper than kTableLayers, or a streamed plan, needs a
+// workspace: the further layers' entries, then their maps, then the
+// clusters' buffers. Where `work` holds fewer bytes than that the answer is
+// kNeedWorkspace, the bytes in *needed; else the further layers are copied
+// to its head on `stream`. -1 where a map cannot be made.
+inline int wide_table(const std::vector<WideLayer>& layers, const WidePlan& plan, int tile_rows,
+                      int clusters, const float* w0_tail, int split, void* work,
+                      size_t work_bytes, size_t* needed, cudaStream_t stream, WideTable* t) {
+  const int n = (int)layers.size();
+  const int far = max(0, n - kTableLayers);
+  const size_t far_head = ((size_t)far * sizeof(WideLayer) + 127) & ~(size_t)127;
+  const size_t far_bytes = (far_head + (size_t)far * sizeof(CUtensorMap) + 255) & ~(size_t)255;
+  const size_t acts =
+      plan.streamed ? (size_t)clusters * 2 * tile_rows * plan.sb * sizeof(float) : 0;
+  *needed = far_bytes + acts;
+  if (*needed > 0 && (work == nullptr || work_bytes < *needed)) return kNeedWorkspace;
+  std::vector<unsigned char> host(far_bytes, 0);
+  memset(t, 0, sizeof(WideTable));
+  for (int l = 0; l < n; ++l) {
+    const WideLayer& d = layers[l];
+    CUtensorMap* map = t->map + l;
+    if (l < kTableLayers) {
+      t->layer[l] = d;
+    } else {
+      memcpy(host.data() + (l - kTableLayers) * sizeof(WideLayer), &d, sizeof(WideLayer));
+      map = reinterpret_cast<CUtensorMap*>(host.data() + far_head) + (l - kTableLayers);
+    }
+    if (wide_mode(d, plan.pass_cols, w0_tail != nullptr && l == 0) != kRowsBoxes) continue;
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return -1;
+    const cuuint64_t dims[2] = {(cuuint64_t)d.N, (cuuint64_t)d.K};
+    const cuuint64_t strides[1] = {(cuuint64_t)d.N * sizeof(float)};
+    const cuuint32_t box[2] = {kBoxCols, (cuuint32_t)d.step};
+    const cuuint32_t unit[2] = {1, 1};
+    if (encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(d.w), dims, strides,
+               box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+      return -1;
+    }
+  }
+  unsigned char* base = static_cast<unsigned char*>(work);
+  if (far > 0) {
+    t->far_layer = reinterpret_cast<const WideLayer*>(base);
+    t->far_map = reinterpret_cast<const CUtensorMap*>(base + far_head);
+  }
+  if (plan.streamed) t->acts = reinterpret_cast<float*>(base + far_bytes);
+  t->w0_tail = w0_tail;
+  t->split = split;
+  t->n_layers = n;
+  if (far > 0) {
+    return (int)cudaMemcpyAsync(work, host.data(), far_bytes, cudaMemcpyHostToDevice, stream);
+  }
+  return 0;
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return (int)r;
+}
+
+// The cluster barrier, split: arrive (release) and wait (acquire), by every
+// thread of the cluster in turn.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// p, in this block's shared memory, in block `rank` of the cluster: a
+// shared::cluster address.
+__device__ __forceinline__ uint32_t cluster_map(const float* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+
+// A block's shared memory on the wide path: [mbarriers][buffer 0][buffer
+// 1][ring + 8], the ring 1024-byte aligned; a streamed plan's buffers are
+// its cluster's pair at `acts` (device memory).
+struct WideTile {
+  Ring ring;
+  float* buf[2];  // tile_rows x sb each: hidden outputs, this block's columns (streamed: all)
+};
+
+__device__ __forceinline__ WideTile carve_wide(unsigned char* smem, const WidePlan& p,
+                                               int tile_rows, float* acts) {
+  WideTile t;
+  t.ring.full = reinterpret_cast<uint64_t*>(smem);
+  t.ring.empty = t.ring.full + kMaxStages;
+  float* f = reinterpret_cast<float*>(smem + kBarrierBytes);
+  float* pair = p.streamed ? acts + (size_t)cluster_index() * 2 * tile_rows * p.sb : f;
+  t.buf[0] = pair;
+  t.buf[1] = pair + (size_t)tile_rows * p.sb;
+  // the ring from smem itself, so that the compiler knows its loads and
+  // stores for shared ones (through `pair`, a generic pointer, it would not)
+  float* ring = f + (p.streamed ? 0 : 2 * (size_t)tile_rows * p.sb);
+  t.ring.buf = ring + ((1024u - (smem_addr(ring) & 1023u)) & 1023u) / 4;  // 1024-byte aligned
+  t.ring.stage_floats = p.stage_floats;
+  t.ring.stages = p.stages;
+  return t;
+}
+
+// Where a layer's input comes from, for the producer warps' staging: rows
+// of `ld` floats from p (x in device memory, `valid` of them, later rows
+// zeros; the step's columns from `split` on from p2, rows of ld2: its u
+// beside x3; with l2 a streamed buffer, read from L2), or with owner > 0 a
+// hidden layer's output, `owner` columns in each block's buffer (p: this
+// block's), column c in block c / owner. Columns from K on are zeros.
+struct ActSource {
+  const float* p;
+  int ld;
+  int valid;
+  int K;
+  int owner;
+  const float* p2;
+  int ld2;
+  int split;
+  bool l2 = false;
+};
+
+// Columns c .. c + 3 (c < K) of row r of a source whose row r starts at
+// base + r * ld (a generic address; with l2 in device memory, read by
+// ld.global.cg), or with `remote` at the shared::cluster address at + 4 r
+// ld: one 16-byte load where `vec`.
+__device__ __forceinline__ float4 load_act4(const float* base, uint32_t at, bool remote, bool l2,
+                                            int ld, int r, int valid, int c, int K, bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (r >= valid) return v;
+  if (remote) {
+    const uint32_t q = at + 4u * r * ld;
+    if (vec) return ld_cluster4(q);
+    v.x = ld_cluster(q);
+    if (c + 1 < K) v.y = ld_cluster(q + 4);
+    if (c + 2 < K) v.z = ld_cluster(q + 8);
+    if (c + 3 < K) v.w = ld_cluster(q + 12);
+    return v;
+  }
+  const float* q = base + (size_t)r * ld;
+  if (l2) {
+    if (vec) return __ldcg(reinterpret_cast<const float4*>(q));
+    v.x = __ldcg(q);
+    if (c + 1 < K) v.y = __ldcg(q + 1);
+    if (c + 2 < K) v.z = __ldcg(q + 2);
+    if (c + 3 < K) v.w = __ldcg(q + 3);
+    return v;
+  }
+  if (vec) return *reinterpret_cast<const float4*>(q);
+  v.x = q[0];
+  if (c + 1 < K) v.y = q[1];
+  if (c + 2 < K) v.z = q[2];
+  if (c + 3 < K) v.w = q[3];
+  return v;
+}
+
+// Rows r and r + 8 of four columns (v[0], v[1]) into a stage's planes at
+// `at` (act_index's layout: the two rows interleaved), split into TF32
+// parts, with kBf16 rounded to bfloat16 into hi alone.
+template <bool kBf16>
+__device__ __forceinline__ void store_pair(float* hi, float* lo, int at, const float4 (&v)[2]) {
+  const float in[8] = {v[0].x, v[1].x, v[0].y, v[1].y, v[0].z, v[1].z, v[0].w, v[1].w};
+  float h[8], l[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    uint32_t vh, vl = 0u;
+    if constexpr (kBf16) {
+      vh = round_bf16(in[e]);
+    } else {
+      split_tf32(in[e], vh, vl);
+    }
+    h[e] = __uint_as_float(vh);
+    l[e] = __uint_as_float(vl);
+  }
+  *reinterpret_cast<float4*>(hi + at) = make_float4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<float4*>(hi + at + 4) = make_float4(h[4], h[5], h[6], h[7]);
+  if constexpr (!kBf16) {
+    *reinterpret_cast<float4*>(lo + at) = make_float4(l[0], l[1], l[2], l[3]);
+    *reinterpret_cast<float4*>(lo + at + 4) = make_float4(l[4], l[5], l[6], l[7]);
   }
 }
 
-// The consumer warps of a wide-path forward, for one row tile whose input
-// rows are in t.in's planes (as mlp_consume takes them): each layer pass by
-// pass into the other pair of planes, which then becomes the input; the
-// last layer's rows to y as in mlp_consume. `pos` carries over from tile to
-// tile, as the producer's ring does.
+// Columns [k0, k0 + n8) of a layer's input for the tile's rows into a
+// stage's hi and lo planes (act_index's layout at row stride sa), split
+// into TF32 parts, with kBf16 rounded to bfloat16 into hi alone. A lane
+// keeps one group of four columns (its source found once: the owning
+// block's buffer, or the rows) and takes every lpg-th pair of rows (r, r +
+// 8) of it, kBatch pairs' loads in flight together. A hidden output (all
+// rows there, K % 4 == 0: every group whole or past K) takes a path without
+// tests; the first layer's rows the general one.
+template <int TM, bool kBf16>
+__device__ __forceinline__ void stage_acts(float* hi, int sa, const ActSource& s, int k0, int n8,
+                                           int lane) {
+  constexpr int kPairs = TM / 2, kBatch = 4;
+  float* lo = hi + TM * sa;
+  const int groups = n8 / 4;
+  const int lpg = groups >= kWarp ? 1 : kWarp / groups;  // lanes a column group
+  const bool plain = s.valid >= TM && s.K % 4 == 0 && (s.ld & 3) == 0 && s.p2 == nullptr;
+  for (int gq = lane / lpg; gq < groups; gq += kWarp / lpg) {
+    const int c = k0 + 4 * gq;
+    const bool remote = s.owner > 0, inside = c < s.K;
+    const float* base = s.p + (remote ? c % s.owner : c);
+    const uint32_t at = remote && inside ? cluster_map(base, c / s.owner) : 0u;
+    if (plain) {
+      const uint32_t row_bytes = 4u * s.ld;
+      for (int pr0 = lane % lpg; pr0 < kPairs; pr0 += kBatch * lpg) {
+        float4 v[kBatch][2];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          const int pr = pr0 + b * lpg;
+          const int r = (pr >> 3) * 16 + (pr & 7);  // the pair's rows r, r + 8
+          v[b][0] = v[b][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (pr < kPairs && inside) {
+            if (remote) {
+              v[b][0] = ld_cluster4(at + row_bytes * r);
+              v[b][1] = ld_cluster4(at + row_bytes * (r + 8));
+            } else if (s.l2) {
+              v[b][0] = __ldcg(reinterpret_cast<const float4*>(base + (size_t)r * s.ld));
+              v[b][1] = __ldcg(reinterpret_cast<const float4*>(base + (size_t)(r + 8) * s.ld));
+            } else {
+              v[b][0] = *reinterpret_cast<const float4*>(base + (size_t)r * s.ld);
+              v[b][1] = *reinterpret_cast<const float4*>(base + (size_t)(r + 8) * s.ld);
+            }
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          const int pr = pr0 + b * lpg;
+          if (pr < kPairs) store_pair<kBf16>(hi, lo, pr * 2 * sa + 8 * gq, v[b]);
+        }
+      }
+      continue;
+    }
+    const bool vec = c + 4 <= s.K && (s.ld & 3) == 0 && aligned16(base) && c + 4 <= s.split;
+    for (int pr = lane % lpg; pr < kPairs; pr += lpg) {
+      const int r = (pr >> 3) * 16 + (pr & 7);
+      float4 v[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+      if (inside && s.p2 != nullptr) {  // the step's [x, u]: float by float
+        for (int h = 0; h < 2; ++h) {
+          const int rr = r + 8 * h;
+          if (rr >= s.valid) continue;
+          float e[4];
+          for (int q = 0; q < 4; ++q) {
+            const int cc = c + q;
+            e[q] = cc >= s.K ? 0.f
+                   : cc < s.split ? s.p[(size_t)rr * s.ld + cc]
+                                  : s.p2[(size_t)rr * s.ld2 + cc - s.split];
+          }
+          v[h] = make_float4(e[0], e[1], e[2], e[3]);
+        }
+      } else if (inside) {
+        v[0] = load_act4(base, at, remote, s.l2, s.ld, r, s.valid, c, s.K, vec);
+        v[1] = load_act4(base, at, remote, s.l2, s.ld, r + 8, s.valid, c, s.K, vec);
+      }
+      store_pair<kBf16>(hi, lo, pr * 2 * sa + 8 * gq, v);
+    }
+  }
+}
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_addr(dst)), "l"(src),
+                 "n"(kBytes)
+                 : "memory");
+  }
+}
+
+// The lane's cp.async copies so far arrive on `bar` once they have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// One TMA box of a 2-D tensor map: columns [c, c + 32) x rows [r, r + its
+// box rows) into dst (1024-byte aligned), counted on `bar`.
+__device__ __forceinline__ void tma_box(float* dst, const CUtensorMap* map, int c, int r,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(c), "r"(r), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `count` floats from src to dst by 4-byte cp.async, every lane a share.
+__device__ __forceinline__ void copy_floats(float* dst, const float* src, int count, int lane) {
+  for (int e = lane; e < count; e += kWarp) cp_async<4>(dst + e, src + e);
+}
+
+// Where row t of every k-step of a kRowsEach layer lies in its stage row:
+// its 16-byte phase (rows t + 4 s share it, chunks start at multiples of 8
+// rows), or 0 for the step's first layer, whose rows are copied float by
+// float.
+__device__ __forceinline__ int wide_shift(const WideLayer& d, bool split_first, int t) {
+  return split_first ? 0 : (int)((reinterpret_cast<uintptr_t>(d.w) / 4 + (size_t)t * d.N) & 3);
+}
+
+// Weight rows [k0, k0 + n) of layer d into a stage's weight part, for the
+// pass of pw columns from c0 (the header's weights; wide_mode `mode`, wf
+// floats a row; with kLs the first layer's rows from `split` on come from
+// Wtail), by the producer warp. Lane 0 arrives on `full` with the bulk and
+// TMA bytes before any copy is issued; every lane's small copies arrive on
+// it (cp_async_arrive, by the caller) once landed.
+template <bool kLs>
+__device__ __forceinline__ void stage_weights(float* dst, const WideLayer& d,
+                                              const CUtensorMap* map, int mode, int wf,
+                                              const float* __restrict__ Wtail, int split, int k0,
+                                              int n, int c0, int pw, uint64_t* full, int lane) {
+  const int N = d.N;
+  const auto row = [&](int k) {
+    return kLs && k >= split ? Wtail + (size_t)(k - split) * N : d.w + (size_t)k * N;
+  };
+  if (mode == kRowsBoxes) {
+    const int boxes = (pw + kBoxCols - 1) / kBoxCols;
+    if (lane == 0) mbar_arrive_expect_tx(full, boxes * kBoxCols * d.step * 4u);
+    __syncwarp();
+    for (int b = lane; b < boxes; b += kWarp) {
+      tma_box(dst + b * kBoxCols * d.step, map, c0 + b * kBoxCols, k0, full);
+    }
+    return;
+  }
+  if (mode == kRowsWhole) {
+    // one span of whole rows, two where the rows cross `split`
+    const int head = kLs ? max(0, min(n, split - k0)) : n;
+    const float* src[2] = {row(k0), row(k0 + head)};
+    float* to[2] = {dst, dst + (size_t)head * N};
+    const int count[2] = {head * N, (n - head) * N};
+    int bulk[2];
+    for (int i = 0; i < 2; ++i) {
+      bulk[i] = count[i] > 0 && aligned16(src[i]) && aligned16(to[i]) ? count[i] & ~3 : 0;
+    }
+    if (lane == 0) mbar_arrive_expect_tx(full, (bulk[0] + bulk[1]) * 4u);
+    __syncwarp();
+    for (int i = 0; i < 2; ++i) {
+      if (bulk[i] > 0 && lane == 0) bulk_copy(to[i], src[i], bulk[i] * 4u, full);
+      copy_floats(to[i] + bulk[i], src[i] + bulk[i], count[i] - bulk[i], lane);
+    }
+    return;
+  }
+  // kRowsEach: a lane's rows, each a bulk copy of its aligned interior at its
+  // phase; the step's first layer float by float
+  const bool split_first = kLs && Wtail != nullptr;
+  uint32_t bytes = 0;
+  if (!split_first) {
+    for (int r = lane; r < n; r += kWarp) {
+      const int o = (int)((reinterpret_cast<uintptr_t>(row(k0 + r) + c0) / 4) & 3);
+      const int head = min(pw, (4 - o) & 3);
+      bytes += (uint32_t)(pw - head) / 4 * 16;
+    }
+  }
+  bytes = __reduce_add_sync(0xffffffffu, bytes);
+  if (lane == 0) mbar_arrive_expect_tx(full, bytes);
+  __syncwarp();
+  if (split_first) {
+    for (int r = 0; r < n; ++r) copy_floats(dst + r * wf, row(k0 + r) + c0, pw, lane);
+    return;
+  }
+  for (int r = lane; r < n; r += kWarp) {
+    const float* src = row(k0 + r) + c0;
+    const int o = (int)((reinterpret_cast<uintptr_t>(src) / 4) & 3);
+    const int head = min(pw, (4 - o) & 3), body = (pw - head) / 4 * 4;
+    float* to = dst + r * wf + o;
+    for (int e = 0; e < head; ++e) cp_async<4>(to + e, src + e);
+    if (body > 0) bulk_copy(to + head, src + head, body * 4u, full);
+    for (int e = head + body; e < pw; ++e) cp_async<4>(to + e, src + e);
+  }
+}
+
+// A layer's columns of a hidden output are written (the consumers' side,
+// after their stores) and may be read (the producers' side, before their
+// loads). A cluster of one block meets at a named barrier of the block; a
+// larger one at the cluster barrier, which the consumers arrive at and wait
+// on only before their next arrival (`pending`).
+__device__ __forceinline__ void hidden_written(int cluster, bool& pending) {
+  if (cluster == 1) {
+    asm volatile("bar.arrive 4, %0;" ::"n"(kWideThreads) : "memory");
+    return;
+  }
+  if (pending) cluster_wait();
+  cluster_arrive();
+  pending = true;
+}
+
+__device__ __forceinline__ void hidden_ready(int cluster) {
+  if (cluster == 1) {
+    asm volatile("bar.sync 4, %0;" ::"n"(kWideThreads) : "memory");
+    return;
+  }
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The wide path's start: producer warp 0 sets up the ring's barriers (a
+// stage is full after kWideFullArrivals, from the one producer warp that
+// fills it; empty after one arrival per consumer warp), the producer warps
+// meet, tell the consumers without waiting for them, and go on to fill
+// stages; the consumers meet them here (wide_consumers_start).
+__device__ __forceinline__ void wide_producers_start(const Ring& ring) {
+  if (threadIdx.x == kConsumers) {
+    for (int s = 0; s < ring.stages; ++s) {
+      mbar_init(ring.full + s, kWideFullArrivals);
+      mbar_init(ring.empty + s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  asm volatile("bar.sync 5, %0;" ::"n"(kWideProducers * kWarp) : "memory");
+  asm volatile("bar.arrive 2, %0;" ::"n"(kWideThreads) : "memory");
+}
+
+__device__ __forceinline__ void wide_consumers_start() {
+  asm volatile("bar.sync 2, %0;" ::"n"(kWideThreads) : "memory");
+}
+
+// The producer warps of a wide-path kernel for one row tile: every layer's
+// passes over the block's columns, chunk by chunk, each stage the chunk's
+// weight rows and the layer input's columns. Chunk q (counted over the
+// block's whole walk, `q`) is producer warp q % kWideProducers's, in stage
+// q % stages: the four warps, one an SM sub-partition, fill four stages at
+// once, so that one chunk's loads from the peers fly while the others'
+// do. A layer that reads a hidden output (buffer h & 1, then ++h) waits
+// for it after the warp's first chunk's weights are on their way. x0: the
+// first layer's input.
+template <int TM, bool kLs, bool kBf16>
+__device__ __forceinline__ void wide_produce(const Ring& ring, int& q, const WidePlan& plan,
+                                             const WideTable& t, const ActSource& x0,
+                                             float* const (&buf)[2], int& h, int rank) {
+  const int lane = threadIdx.x % kWarp;
+  const int me = (threadIdx.x - kConsumers) / kWarp;
+  for (int l = 0; l < t.n_layers; ++l) {
+    const WideLayer d = wide_layer(t, l);
+    ActSource src = x0;
+    bool ready = l == 0 && !kLs;  // the step's first layer waits for u
+    if (l > 0) {
+      // a cluster of one reads its own buffer as plain shared memory, a
+      // streamed plan its cluster's whole rows in device memory
+      const bool whole = plan.streamed || plan.cluster == 1;
+      src = ActSource{buf[h & 1], plan.sb, TM, d.K, whole ? 0 : wide_layer(t, l - 1).cols,
+                      nullptr, 0, d.K, plan.streamed != 0};
+      ++h;
+    }
+    const float* tail = kLs && l == 0 ? t.w0_tail : nullptr;
+    const int split = kLs && l == 0 ? t.split : d.K;
+    const int mode = wide_mode(d, plan.pass_cols, kLs && l == 0);
+    const int cb = rank * d.cols, ce = min(d.N, cb + d.cols);
+    const int sa = d.step + 4;
+    for (int c0 = cb; c0 < ce; c0 += plan.pass_cols) {
+      const int pw = min(plan.pass_cols, ce - c0), wf = wide_row_floats(mode, pw, d.N);
+      const int a_at = d.step * wf;  // the stage's input planes, after its weight rows
+      for (int k0 = 0; k0 < d.K; k0 += d.step) {
+        const int chunk = q++;
+        if (chunk % kWideProducers != me) continue;
+        const int s = chunk % ring.stages;
+        const int n = min(d.step, d.K - k0), n8 = (n + 7) & ~7;
+        float* st = ring.buf + (size_t)s * ring.stage_floats;
+        // passes at once on the stage's first round
+        mbar_wait_suspend(ring.empty + s, ((chunk / ring.stages) & 1) ^ 1);
+        stage_weights<kLs>(st, d, wide_map(t, l), mode, wf, tail, split, k0, n, c0, pw,
+                           ring.full + s, lane);
+        cp_async_arrive(ring.full + s);
+        // zero weight rows up to the k-step (TMA fills rows past K with
+        // zeros itself): the input's pad columns are zeros too, and 0 x
+        // (whatever the stage held) could be a NaN
+        if (mode != kRowsBoxes) {
+          for (int e = lane; e < (n8 - n) * wf; e += kWarp) st[n * wf + e] = 0.f;
+        }
+        if (!ready) {
+          hidden_ready(plan.cluster);
+          ready = true;
+        }
+        stage_acts<TM, kBf16>(st + a_at, sa, src, k0, n8, lane);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(ring.full + s);
+      }
+    }
+    if (!ready) hidden_ready(plan.cluster);  // the warp filled no chunk of this layer
+  }
+}
+
+// Where a wide pass's outputs go: the last layer's rows to y (ld floats a
+// row from column c0; rows past `rows` are not stored), with kLs plus
+// resid[r * resid_stride + c]; a hidden layer's, relu'd, to this block's
+// buffer act (sb floats a row, from the pass's column).
+struct WideOut {
+  float* y;
+  int ld;
+  int row0, rows;
+  const float* resid;
+  int resid_stride;
+  float* act;
+  int sb;
+  bool streamed;  // act lies in device memory, else in shared memory
+};
+
+// A hidden output into the buffer at p: by st.shared where the buffer is
+// this block's shared memory (a generic store would cost an address
+// translation), else a plain store.
+__device__ __forceinline__ void store_act(float* p, float v, bool streamed) {
+  if (streamed) {
+    *p = v;
+  } else {
+    asm volatile("st.shared.f32 [%0], %1;" ::"r"(smem_addr(p)), "f"(v));
+  }
+}
+
+// Where a lane's B fragments lie in a stage (wide_b): row t's first at
+// `at`, row t + 4's `half` floats on, the next k-step's `step8` on; the
+// input planes from a_at.
+struct WideB {
+  int at, half, step8, a_at;
+};
+
+// WideB for lane (g, t) of a warp whose first column is `cs` in the pass (pw
+// columns from c0 of a layer in `mode`, wf floats a stage row).
+__device__ __forceinline__ WideB wide_b(const WideLayer& d, int mode, bool split_first, int wf,
+                                        int c0, int cs, int t) {
+  WideB w;
+  w.a_at = d.step * wf;
+  if (mode == kRowsWhole) {  // whole rows: the pass's columns from c0
+    w.at = t * d.N + c0 + cs;
+    w.half = 4 * d.N;
+    w.step8 = 8 * d.N;
+  } else if (mode == kRowsBoxes) {  // box cs / 32; 16-byte chunks swizzled by the row mod 8
+    const int ch = (cs % kBoxCols) / 4;
+    w.at = cs / kBoxCols * kBoxCols * d.step + t * kBoxCols + 4 * (ch ^ t) + cs % 4;
+    w.half = 4 * kBoxCols + 4 * ((ch ^ (t + 4)) - (ch ^ t));
+    w.step8 = 8 * kBoxCols;
+  } else {  // rows at their phase
+    w.at = t * wf + wide_shift(d, split_first, t) + cs;
+    w.half = 4 * wf;
+    w.step8 = 8 * wf;
+  }
+  return w;
+}
+
+// One pass of a layer for a warp that owns T 8-column tiles from column
+// `base` of the pass on (T == 0: the warp only keeps the ring's pace): the
+// chunks' products as they land, from the stage's planes and weight rows,
+// the segments added in order, then the epilogue. The pass covers pw
+// columns from c0 (of the layer; the bias is read from bias + c0).
+template <int MT, int WM, int T, bool kVec, bool kLs, bool kBf16>
+__device__ __forceinline__ void wide_tiles(const Ring& ring, RingPos& pos, const WideOut& o, int K,
+                                           int step, int pw, const WideB& wb, int c0, int base,
+                                           const float* __restrict__ bias, bool last) {
+  constexpr int TM = 16 * MT * WM;
+  constexpr int TT = T > 0 ? T : 1;
+  const int lane = threadIdx.x % kWarp;
+  const int wm = threadIdx.x / kWarp % WM;
+  const int g = lane / 4, t = lane % 4;  // the fragment's row (column of B) and k pair
+  const int col = base + 2 * t * T;      // the lane's first output column
+  float acc[MT][TT][4], b[TT][2];
+#pragma unroll
+  for (int j = 0; j < TT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = col + e * T + j;
+      b[j][e] = T > 0 && c < pw ? __ldg(bias + c0 + c) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+  }
+
+  const int sa = step + 4;
+  const int a_at = wb.a_at + act_index(wm * MT * 16 + g, t, sa);
+  const int w_at = wb.at;
+  float done[T > 0 ? MT : 1][TT][4];  // the segments before this one
+  bool folded = false;
+  for (int k0 = 0; k0 < K; k0 += step) {
+    const int n = min(step, K - k0);
+    mbar_wait_suspend(ring.full + pos.s, pos.phase);
+    if constexpr (T > 0) {
+      const float* st = ring.buf + (size_t)pos.s * ring.stage_floats;
+      chunk_products_at<MT, T, kVec, kBf16>(acc, st + a_at, st + TM * sa + a_at, sa, st + w_at,
+                                            wb.half, wb.step8, (n + 7) & ~7);
+      if (k0 + step < K && (k0 + step) % kSegmentRows == 0) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+#pragma unroll
+          for (int j = 0; j < TT; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              done[i][j][e] = folded ? done[i][j][e] + acc[i][j][e] : acc[i][j][e];
+              acc[i][j][e] = 0.f;
+            }
+          }
+        }
+        folded = true;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ring.empty + pos.s);
+    if (++pos.s == ring.stages) {
+      pos.s = 0;
+      pos.phase ^= 1;
+    }
+  }
+  if constexpr (T > 0) {
+    if (folded) {  // the segments before, then the last
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int j = 0; j < TT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = done[i][j][e] + acc[i][j][e];
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (wm * MT + i) * 16 + g + 8 * h;
+        if (last && o.row0 + r >= o.rows) continue;
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = col + e * T + j;
+            if (c >= pw) continue;
+            const float v = acc[i][j][2 * h + e] + b[j][e];
+            if (last) {
+              o.y[(size_t)(o.row0 + r) * o.ld + c0 + c] =
+                  kLs ? v + o.resid[r * o.resid_stride + c0 + c] : v;
+            } else {
+              store_act(o.act + r * o.sb + c, fmaxf(v, 0.f), o.streamed);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// One pass for the consumer warps, WM row groups x WN column groups: the
+// pass's 8-column tiles dealt to the column groups in runs of ceil(tiles /
+// WN), as MLP_CONSUME_COLS deals them (runs of 3 as runs of 4 where the
+// weights come in 32-column boxes: a run then never spans two boxes); B
+// fragments by vector loads unless a stage row's columns lie unaligned
+// (whole rows with N % 4 != 0, or rows at their phase). Expands where
+// ring, pos, o, d, mode, split_first, wf, pw, c0 and last are in scope.
+#define WIDE_CONSUME_PASS(MT, WM, kLs, kBf16)                                                   \
+  do {                                                                                         \
+    constexpr int WN = kConsumerWarps / (WM);                                                  \
+    const int wn = threadIdx.x / kWarp / (WM);                                                 \
+    const int tiles = (pw + 7) / 8;                                                            \
+    int tb = (tiles + WN - 1) / WN;                                                            \
+    if (mode == kRowsBoxes && tb == 3) tb = 4;                                                 \
+    const int base = wn * tb * 8;                                                              \
+    const int mine = max(0, min(tb, tiles - wn * tb));                                         \
+    const WideB wb = wide_b(d, mode, split_first, wf, c0, base + threadIdx.x % kWarp / 4 * mine, \
+                            threadIdx.x % 4);                                                  \
+    const bool vec = mode == kRowsBoxes || (mode == kRowsWhole && d.N % 4 == 0) ||             \
+                     (mode == kRowsEach && split_first);                                       \
+    if (vec) {                                                                                 \
+      switch (mine) {                                                                          \
+        case 0: WIDE_TILES(MT, WM, 0, true, kLs, kBf16); break;                                \
+        case 1: WIDE_TILES(MT, WM, 1, true, kLs, kBf16); break;                                \
+        case 2: WIDE_TILES(MT, WM, 2, true, kLs, kBf16); break;                                \
+        case 3: WIDE_TILES(MT, WM, 3, true, kLs, kBf16); break;                                \
+        default: WIDE_TILES(MT, WM, kWarpTiles, true, kLs, kBf16); break;                      \
+      }                                                                                        \
+    } else {                                                                                   \
+      switch (mine) {                                                                          \
+        case 0: WIDE_TILES(MT, WM, 0, false, kLs, kBf16); break;                               \
+        case 1: WIDE_TILES(MT, WM, 1, false, kLs, kBf16); break;                               \
+        case 2: WIDE_TILES(MT, WM, 2, false, kLs, kBf16); break;                               \
+        case 3: WIDE_TILES(MT, WM, 3, false, kLs, kBf16); break;                               \
+        default: WIDE_TILES(MT, WM, kWarpTiles, false, kLs, kBf16); break;                     \
+      }                                                                                        \
+    }                                                                                          \
+  } while (0)
+#define WIDE_TILES(MT, WM, T, V, kLs, kBf16) \
+  wide_tiles<MT, WM, T, V, kLs, kBf16>(ring, pos, o, d.K, d.step, pw, wb, c0, base, d.b, last)
+
+// The consumer warps of a wide-path kernel for one row tile: each layer's
+// passes over the block's columns; a hidden layer's output to buffer h & 1
+// (then ++h), and the producers told once it is written (hidden_written;
+// `pending`: a cluster barrier arrival not yet waited on); the last layer's
+// rows to y as in mlp_consume.
 template <int MT, int WM, bool kLs, bool kBf16>
-__device__ __forceinline__ void wide_consume(const WideTile& t, RingPos& pos, const MlpTable& args,
-                                             const WidePlan& plan, float* __restrict__ y,
+__device__ __forceinline__ void wide_consume(const Ring& ring, RingPos& pos, const WidePlan& plan,
+                                             const WideTable& t, float* const (&buf)[2], int& h,
+                                             bool& pending, int rank, float* __restrict__ y,
                                              int row0, int rows, const float* resid,
                                              int resid_stride) {
-  Tile tile = t.in;
-  float* o_hi = t.o_hi;
-  float* o_lo = t.o_lo;
-  for (int l = 0; l < args.n_layers; ++l) {
-    const LayerDesc d = args.layer[l];
-    const int K = d.K, N = d.N;
-    const bool last = l == args.n_layers - 1;
-    const TileIo io{plan.sa, y, row0, rows, resid, resid_stride, o_hi, o_lo, plan.sa};
-    const int S = min(N, plan.pass_cols);
-    for (int c0 = 0; c0 < N; c0 += plan.pass_cols) {
-      const int cols = min(plan.pass_cols, N - c0);
-      MLP_CONSUME_COLS(MT, WM, kLs, kOutSegments, kBf16, d.step, d.b, cols, S, c0, N);
+  for (int l = 0; l < t.n_layers; ++l) {
+    const WideLayer d = wide_layer(t, l);
+    const bool last = l == t.n_layers - 1;
+    const bool split_first = kLs && l == 0;
+    const int mode = wide_mode(d, plan.pass_cols, split_first);
+    const int cb = rank * d.cols, ce = min(d.N, cb + d.cols);
+    for (int c0 = cb; c0 < ce; c0 += plan.pass_cols) {
+      const int pw = min(plan.pass_cols, ce - c0), wf = wide_row_floats(mode, pw, d.N);
+      float* act = buf[h & 1] + (plan.streamed ? c0 : c0 - cb);  // the pass's first column
+      const WideOut o{y, d.N, row0, rows, resid, resid_stride, act, plan.sb, plan.streamed != 0};
+      WIDE_CONSUME_PASS(MT, WM, kLs, kBf16);
     }
-    float* h = tile.hi;
-    tile.hi = o_hi;
-    o_hi = h;
-    h = tile.lo;
-    tile.lo = o_lo;
-    o_lo = h;
+    if (!last) {
+      hidden_written(plan.cluster, pending);
+      ++h;
+    }
   }
+}
+
+// The cluster's last round: no block leaves while a peer may read its
+// shared memory. `pending` as in wide_consume (false for the producer).
+__device__ __forceinline__ void wide_finish(int cluster, bool pending) {
+  if (cluster == 1) return;
+  if (pending) cluster_wait();
+  cluster_arrive();
+  cluster_wait();
 }
 
 }  // namespace

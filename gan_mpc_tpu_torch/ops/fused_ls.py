@@ -41,7 +41,13 @@ from typing import Sequence, Tuple
 import torch
 
 from gan_mpc_tpu_torch.models.cost import pseudo_huber
-from gan_mpc_tpu_torch.ops.fused_mlp import WORKSPACE_ARGS, Layers, bf16_mm, call_with_workspace
+from gan_mpc_tpu_torch.ops.fused_mlp import (
+    WORKSPACE_ARGS,
+    Layers,
+    bf16_mm,
+    call_with_workspace,
+    last_wide_launch,
+)
 
 
 def split_w0(layers: Layers, n: int) -> list:
@@ -110,8 +116,14 @@ class FusedLsKernel:
                                       *WORKSPACE_ARGS, p]
             )
             lib.fused_ls_step.restype = i
+            lib.fused_ls_step_wide_launch.argtypes = [ctypes.POINTER(i)]
             self._lib = lib
         return self._lib
+
+    def wide_launch(self) -> dict:
+        """The library's last wide-path launch (``ops.fused_mlp.
+        last_wide_launch``; both instances share it)."""
+        return last_wide_launch(self.load().fused_ls_step_wide_launch)
 
     def __call__(self, x3, Xref, Uref, alphaBA, k, K, goal, goal_u, wvec, layers,
                  *, gs: int, action_goal_squared: bool, ag_scale: float):
@@ -133,12 +145,10 @@ class FusedLsKernel:
         # the library launches on the current device: make it the operands'
         with torch.cuda.device(x3.device):
             stream = torch.cuda.current_stream(x3.device).cuda_stream
-            err = call_with_workspace(
-                lib.fused_ls_step,
-                (*[t.data_ptr() for t in inputs], nx.data_ptr(), u.data_ptr(), cost.data_ptr(),
-                 B, A, n, m, gs, int(action_goal_squared), float(ag_scale),
-                 len(ws), c_dims, c_w, w0u.data_ptr(), c_b, int(self.bf16)),
-                x3.device, stream)
+            err = call_with_workspace(lib.fused_ls_step, (
+                *[t.data_ptr() for t in inputs], nx.data_ptr(), u.data_ptr(), cost.data_ptr(),
+                B, A, n, m, gs, int(action_goal_squared), float(ag_scale),
+                len(ws), c_dims, c_w, w0u.data_ptr(), c_b, int(self.bf16)), x3.device, stream)
         if err != 0:
             raise RuntimeError(
                 f"{self.name} launch failed with code {err} "

@@ -36,13 +36,15 @@ what the kernels rely on. Nothing on a successful launch calls them.
 The kernels take any stack: any depth, any widths, any row count. The
 committed stacks (at most ``INLINE_LAYERS`` layers, each layer one pass of
 the warps' columns, activations in shared memory) take the path the
-mirrors above describe; any other stack takes the kernels' wide path
-(``wide_plan``, ``bwd_wide_plan``, ``column_passes``): layers in passes of
-512 or 256 columns, activations in a device workspace where they do not
-fit in shared memory, the layers read from a table in device memory.
-``fwd_route`` and ``bwd_route`` say which path and tile height a call
-takes. The wrappers allocate the wide path's workspace with
-``torch.empty`` when the kernel asks for it.
+mirrors above describe; any other stack takes the kernels' wide path. The
+forward and the step run it on thread-block clusters (``wide_cluster``,
+``wide_plan``, ``block_passes``): each block a slice of every layer's
+columns, every activation in the blocks' shared memory, the layers read
+from a table that stays in device memory. The backward walks layers in
+passes of 512 or 256 columns over a device workspace (``bwd_wide_plan``,
+``column_passes``), which its wrapper allocates with ``torch.empty`` when
+the kernel asks for it. ``fwd_route`` and ``bwd_route`` say which path,
+tile height and cluster a call takes.
 """
 
 from __future__ import annotations
@@ -144,8 +146,14 @@ MAX_STAGES, MIN_STAGES = 4, 3
 MAX_SMEM = 232448
 BARRIER_BYTES = 128
 INLINE_LAYERS = 8  # csrc/mlp_tile.cuh's kInlineLayers: the depth a launch's parameters carry
-LAYER_DESC_BYTES = 40  # sizeof(LayerDesc): two pointers and six ints
-NEED_WORKSPACE = -2  # the kernels' return value: call again with the workspace they ask for
+LAYER_DESC_BYTES = 40  # sizeof(LayerDesc), the backward's table: two pointers and six ints
+WIDE_LAYER_BYTES = 32  # sizeof(WideLayer), the forward kernels' table: two pointers and four ints
+SEGMENT_ROWS = 512  # kSegmentRows: the wide path sums each contraction in segments of these rows
+PORTABLE_CLUSTER, MAX_CLUSTER = 8, 16  # kPortableCluster, kMaxCluster: blocks a cluster
+WIDE_PRODUCERS = 4  # kWideProducers: a wide-path block's producer warps, and its ring's stages
+TENSOR_MAP_BYTES = 128  # sizeof(CUtensorMap)
+TABLE_LAYERS = 64  # kTableLayers: a wide stack's layers whose table travels in the launch's parameters
+NEED_WORKSPACE = -2  # the backward's return value: call again with the workspace it asks for
 
 
 def _up(n: int, m: int) -> int:
@@ -223,64 +231,164 @@ def column_passes(n: int, cols: int):
     return [(c0, min(cols, n - c0)) for c0 in range(0, n, cols)]
 
 
-def wide_plan(dims: Sequence[int], tile_rows: int, extra_floats: int = 0):
-    """``plan_wide`` of ``csrc/mlp_tile_mma.cuh``: how a wide-path block
-    of ``tile_rows`` (64 or 16) rows lays the stack ``dims`` out.
+ROWS_WHOLE, ROWS_BOXES, ROWS_EACH = 0, 1, 2  # kRowsWhole, kRowsBoxes, kRowsEach
+BOX_COLS, MAX_BOX_ROWS = 32, 256  # kBoxCols, kMaxBoxRows: a TMA box's columns, its most rows
 
-    ``sa``: the planes' row stride; ``pass_cols``: columns a pass; the
-    ring (``stage_floats``, ``stages``) holds whole weight rows of a layer
-    of at most ``pass_cols`` columns and column slabs ``pass_cols`` floats
-    a row of a wider one; ``step[l]``: weight rows per chunk of layer l;
-    ``planes_smem`` / ``extra_smem``: whether the two pairs of planes and
-    the caller's buffer (the step's f32 input rows) sit in shared memory,
-    else in the block's slot of the workspace, of ``slot_floats`` floats;
-    ``smem``: bytes. The places are tried in that order, each with the
-    deepest ring of 64-, 32-, 16- or 8-row stages of which MIN_STAGES fit;
-    the last always fits."""
-    cols = pass_cols(tile_rows)
-    sa = _up(max(dims), 8) + 4
-    extra = _up(extra_floats, 4)
-    stride = min(_up(max(dims[1:]), 4), cols)
-    planes = 4 * tile_rows * sa
-    for planes_smem, extra_smem in ((True, True), (False, True), (False, False)):
-        fixed = BARRIER_BYTES + 4 * (planes * planes_smem + extra * extra_smem + 8)
-        for rows in (64, 32, 16, 8):
-            stage_floats = rows * stride
-            if fixed + MIN_STAGES * 4 * stage_floats > MAX_SMEM:
+
+def wide_mode(n: int, pass_width: int, split_first: bool = False) -> int:
+    """``wide_mode`` of ``csrc/mlp_tile_mma.cuh``: how the wide path's
+    producer brings a layer ``n`` wide into the ring. ROWS_WHOLE where one
+    pass covers the layer (whole rows, a chunk one bulk copy); else
+    ROWS_BOXES (TMA boxes of BOX_COLS columns) where ``n % 4 == 0`` and the
+    rows come from one tensor (16-byte aligned, as every parameter is; the
+    kernels send a view that is not row by row); else ROWS_EACH (a bulk
+    copy a row at its 16-byte phase; the step's first layer,
+    ``split_first``, float by float)."""
+    if n <= pass_width:
+        return ROWS_WHOLE
+    return ROWS_BOXES if n % 4 == 0 and not split_first else ROWS_EACH
+
+
+def wide_row_floats(mode: int, pw: int, n: int) -> int:
+    """``wide_row_floats``: floats a weight row takes in a stage for a pass
+    ``pw`` wide of a layer ``n`` wide: whole rows of ``n``; boxes of
+    BOX_COLS; rows at their phase, up to 3 floats in, at a stride of 8 (mod
+    32) floats."""
+    if mode == ROWS_WHOLE:
+        return n
+    if mode == ROWS_BOXES:
+        return _up(pw, BOX_COLS)
+    return ((pw + 3 + 23) & ~31) + 8
+
+
+def wide_plan(dims: Sequence[int], tile_rows: int, cluster: int = 1, split_first: bool = False,
+              streamed: bool = False):
+    """``plan_wide`` of ``csrc/mlp_tile_mma.cuh``: how each block of a
+    cluster of ``cluster`` blocks lays the stack ``dims`` out on the wide
+    path at ``tile_rows`` (64 or 16) rows, or None where it does not fit
+    (``split_first``: the step's stack, whose first layer's rows come from
+    two tensors; ``streamed``: the two buffers, whole rows of the widest
+    hidden layer at a stride of ``sb``, lie in device memory, and the plan
+    always fits).
+
+    ``cols[l]``: the output columns of layer l a block owns (block r:
+    ``[r cols, (r + 1) cols)``, whole 8-column tiles; ``block_passes``);
+    ``mode[l]``: ``wide_mode``; ``pass_cols``: columns a pass; ``sb``: the
+    row stride of the two buffers that hold a block's columns of a hidden
+    layer's output (0 without a hidden layer; streamed, the widest hidden
+    layer rounded up to 4); ``stage_floats`` (a
+    multiple of 256: stages start 1024-byte aligned) and ``stages``: the
+    ring, whose stages hold a chunk's weight rows and input planes;
+    ``step[l]``: rows of K a chunk of layer l, the largest power of two up
+    to ``SEGMENT_ROWS`` (MAX_BOX_ROWS for boxes) whose weight rows and
+    planes fit a stage; ``smem``: bytes. The ring has WIDE_PRODUCERS stages, one a producer
+    warp, each the deepest of 64, 32, 16 or 8 rows (at the widest weight
+    row) that fits beside the buffers and 1024 bytes of alignment."""
+    pc = pass_cols(tile_rows)
+    cols = [8 * -(-(-(-n // 8)) // cluster) for n in dims[1:]]
+    modes = [wide_mode(n, pc, split_first and l == 0) for l, n in enumerate(dims[1:])]
+    floats = [wide_row_floats(m, min(c, pc), n) for m, c, n in zip(modes, cols, dims[1:])]
+    slice_ = max(cols[:-1], default=0)
+    sb = slice_ + 4 if slice_ else 0
+    if streamed:
+        sb = _up(max(dims[1:-1], default=0), 4)
+    widest = max([8] + floats)
+    fixed = BARRIER_BYTES + 1024 + 4 * (2 * tile_rows * (0 if streamed else sb) + 8)
+    for rows in (64, 32, 16, 8):
+        stage_floats = _up(rows * widest + 2 * tile_rows * (rows + 4), 256)
+        stages = WIDE_PRODUCERS
+        if fixed + stages * 4 * stage_floats > MAX_SMEM:
+            continue
+        step = []
+        for m, wf in zip(modes, floats):
+            s = MAX_BOX_ROWS if m == ROWS_BOXES else SEGMENT_ROWS
+            while s * wf + 2 * tile_rows * (s + 4) > stage_floats:
+                s //= 2
+            step.append(s)
+        return dict(cluster=cluster, cols=cols, mode=modes, pass_cols=pc, sb=sb,
+                    stage_floats=stage_floats, stages=stages, step=step,
+                    smem=fixed + stages * 4 * stage_floats, streamed=streamed)
+    return None
+
+
+def block_passes(n: int, cols: int, rank: int, pass_width: int):
+    """``(c0, width)`` of the passes block ``rank`` of a cluster makes over
+    a layer's ``n`` columns when each block owns ``cols`` of them (the
+    wide path's consumers and producer): none where its run starts past
+    ``n``."""
+    start, stop = rank * cols, min(n, (rank + 1) * cols)
+    return [(c0, min(pass_width, stop - c0)) for c0 in range(start, stop, pass_width)]
+
+
+def wide_cluster(rows: int, dims: Sequence[int], sms: int, extra_per_row: int = 0):
+    """The wide path's launch for ``rows`` (> 0) rows on ``sms`` SMs, as
+    ``(tile_rows, plan)`` (``plan["cluster"]``: blocks a cluster), or None
+    where no cluster holds the stack: ``plan_launch`` of
+    ``csrc/mlp_tile_mma.cuh`` on a card that places every size
+    (``extra_per_row`` > 0: the step's stack, whose first layer's rows come
+    from two tensors). The 64-row tile where 16-row tiles would take more
+    than two waves and a cluster of at most PORTABLE_CLUSTER holds it, else
+    the 16-row tile on up to MAX_CLUSTER, else a streamed plan on the
+    16-row tile (``plan["streamed"]``: no cluster's shared memory holds
+    the slices); the smallest size that fits (1 streamed), raised up to
+    PORTABLE_CLUSTER while one wave of clusters still fits the SMs and some
+    layer deals a block more 8-column tiles than it has column groups. (The
+    launcher halves a size the card cannot place.) Never None: no width is
+    refused."""
+    big = rows > 2 * sms * 16
+    for tile_rows, most in ((64, PORTABLE_CLUSTER),) * big + ((16, MAX_CLUSTER),):
+        split = extra_per_row > 0
+        streamed, fit = False, 1
+        while fit <= most and wide_plan(dims, tile_rows, fit, split) is None:
+            fit *= 2
+        if fit > most:
+            if most != MAX_CLUSTER:
                 continue
-            stages = min(MAX_STAGES, (MAX_SMEM - fixed) // (4 * stage_floats))
-            return dict(sa=sa, pass_cols=cols, extra_floats=extra, stage_floats=stage_floats,
-                        stages=stages, planes_smem=planes_smem, extra_smem=extra_smem,
-                        slot_floats=planes * (not planes_smem) + extra * (not extra_smem),
-                        step=[stage_floats // min(n, cols) // 8 * 8 for n in dims[1:]],
-                        smem=fixed + stages * 4 * stage_floats)
-    raise AssertionError("unreachable: three stages of 8 rows always fit")
+            streamed, fit = True, 1
+        tiles, want = -(-rows // tile_rows), 1
+        groups = CONSUMER_WARPS // {64: 2, 16: 1}[tile_rows]
+        widest = max(-(-n // 8) for n in dims[1:])
+        while (want < PORTABLE_CLUSTER and tiles * want * 2 <= sms
+               and -(-widest // want) > groups):
+            want *= 2
+        return tile_rows, wide_plan(dims, tile_rows, max(fit, want), split, streamed)
 
 
 def table_bytes(entries: int) -> int:
-    """Bytes of the layer table at the head of a wide-path workspace."""
+    """Bytes of a table of ``entries`` LayerDescs padded to 256: what the
+    backward's layers take at the head of its wide workspace
+    (``bwd_wide_bytes`` adds the dW blocks' starts beside them)."""
     return _up(entries * LAYER_DESC_BYTES, 256)
+
+
+def fwd_workspace_bytes(dims: Sequence[int], tile_rows: int, plan: dict, clusters: int) -> int:
+    """Bytes of the workspace a wide forward or step of ``clusters``
+    clusters asks for (``wide_table``): the layers past TABLE_LAYERS (their
+    WideLayers padded to 128, a tensor map each, padded to 256), then a
+    streamed plan's two buffers a cluster; 0 for every stack of at most
+    TABLE_LAYERS layers whose slices a cluster holds."""
+    far = max(0, len(dims) - 1 - TABLE_LAYERS)
+    head = _up(_up(far * WIDE_LAYER_BYTES, 128) + far * TENSOR_MAP_BYTES, 256)
+    acts = clusters * 2 * tile_rows * plan["sb"] * 4 if plan["streamed"] else 0
+    return head + acts
 
 
 def fwd_route(rows: int, dims: Sequence[int], sms: int, extra_per_row: int = 0):
     """The path ``fused_mlp_fwd`` (and, with ``extra_per_row = n + m``,
     ``fused_ls_step``) takes for ``rows`` rows on ``sms`` SMs, as
-    ``(path, tile_rows, plan, workspace_bytes)``: ``"tile"`` with the
-    64-row tile once 16-row tiles would take more than two waves and
-    ``tile_plan`` takes the stack there, else the 16-row tile where it
-    takes it; else ``"wide"`` (``wide_plan``) at the tile height the same
-    rule picks, with one slot a block and a block an SM at most."""
+    ``(path, tile_rows, plan, cluster)``: ``"tile"`` with the 64-row tile
+    once 16-row tiles would take more than two waves and ``tile_plan``
+    takes the stack there, else the 16-row tile where it takes it (no
+    cluster: 0); else ``"wide"`` (``wide_cluster``) with its plan and its
+    cluster's blocks."""
     big = rows > 2 * sms * 16
     if len(dims) - 1 <= INLINE_LAYERS:
         for tile_rows in ((64, 16) if big else (16,)):
             plan = tile_plan(dims, tile_rows, tile_rows * extra_per_row)
             if plan is not None:
                 return "tile", tile_rows, plan, 0
-    tile_rows = 64 if big else 16
-    plan = wide_plan(dims, tile_rows, tile_rows * extra_per_row)
-    blocks = min(-(-rows // tile_rows), sms)
-    return ("wide", tile_rows, plan,
-            table_bytes(len(dims) - 1) + blocks * 4 * plan["slot_floats"])
+    tile_rows, plan = wide_cluster(max(rows, 1), dims, sms, extra_per_row)
+    return "wide", tile_rows, plan, plan["cluster"]
 
 
 BWD_TILE_ROWS = 16  # csrc/fused_mlp_bwd.cu's tiles: 16 rows, or 32 where the call is large
@@ -547,8 +655,16 @@ class FusedMlpKernel:
                 ctypes.c_void_p,
             ]
             lib.fused_mlp_fwd.restype = ctypes.c_int
+            lib.fused_mlp_fwd_wide_launch.argtypes = [ctypes.POINTER(ctypes.c_int)]
             self._lib = lib
         return self._lib
+
+    def wide_launch(self) -> dict:
+        """The library's last wide-path launch (both instances share it):
+        the tile's rows, the blocks a cluster, the clusters, a block's
+        shared memory in bytes, and 1 for a streamed plan; zeros before the
+        first."""
+        return last_wide_launch(self.load().fused_mlp_fwd_wide_launch)
 
     def __call__(self, x: torch.Tensor, layers: Layers) -> torch.Tensor:
         _check_kernel_args(x, layers)
@@ -568,17 +684,24 @@ class FusedMlpKernel:
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = call_with_workspace(
-                lib.fused_mlp_fwd,
-                (x.data_ptr(), y.data_ptr(), x.shape[0], n, c_dims, c_w, c_b, int(self.bf16)),
-                x.device, stream)
+                lib.fused_mlp_fwd, (x.data_ptr(), y.data_ptr(), x.shape[0], n, c_dims, c_w, c_b,
+                                    int(self.bf16)), x.device, stream)
         if err != 0:
             raise RuntimeError(
-                f"{self.name} launch failed with code {err} "
-                f"(rows={x.shape[0]}, dims={dims})"
+                f"{self.name} launch failed with code {err} (-1: arguments refused; "
+                f"rows={x.shape[0]}, dims={dims})"
             )
         if x.shape[0]:
             self.launches += 1
         return y
+
+
+def last_wide_launch(entry) -> dict:
+    """What a library's ``*_wide_launch`` entry point reports (its last
+    wide-path launch), by name."""
+    out = (ctypes.c_int * 5)()
+    entry(out)
+    return dict(zip(("tile_rows", "cluster", "clusters", "smem", "streamed"), out))
 
 
 # a kernel's workspace arguments: its pointer, its bytes, where the bytes it
@@ -589,10 +712,11 @@ WORKSPACE_ARGS = (ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_size
 def call_with_workspace(fn, args, device, stream) -> int:
     """``fn(*args, work, work_bytes, &needed, stream)``, a kernel's C entry
     point: first without a workspace; where the kernel asks for one
-    (``NEED_WORKSPACE``: the wide path), again with one of the bytes it
-    asked for, allocated here on the current stream (the caching allocator
-    hands the block to later work on this stream only). Returns the
-    entry point's code."""
+    (``NEED_WORKSPACE``: the backward's wide path; the forward's and the
+    step's past TABLE_LAYERS layers or for a streamed plan), again with one
+    of the bytes it asked for, allocated here on the current stream (the
+    caching allocator hands the block to later work on this stream only).
+    Returns the entry point's code."""
     need = ctypes.c_size_t(0)
     err = fn(*args, None, 0, ctypes.byref(need), stream)
     if err == NEED_WORKSPACE:

@@ -5,6 +5,7 @@
     python3 scripts/time_torch_kernels.py --check         # errors first
     python3 scripts/time_torch_kernels.py --trees runs/parent . . runs/parent
     python3 scripts/time_torch_kernels.py --bwd --trees runs/parent . . runs/parent
+    python3 scripts/time_torch_kernels.py --wide --trees runs/parent . . runs/parent
 
 Times of different processes on different cards do not compare, so two
 versions are timed in turns on one card: ``--trees`` starts one process
@@ -13,7 +14,9 @@ per tree in the given order (each builds its own kernels from its own
 unpacked under the gitignored ``runs/``, then this tree twice, then the
 parent again. Each process prints one JSON line: the card, and per kernel
 and shape the kernel's and the plain version's time (CUDA events, median
-of 21 runs of 20 back-to-back launches, as ``chip_smoke.py`` phase 3).
+of 21 runs of 20 back-to-back launches, as ``chip_smoke.py`` phase 3),
+with a digest of the forward kernels' outputs (bitwise equal across trees
+where the digests agree).
 The shapes and helpers come from the ``chip_smoke.py`` beside this
 script, so every tree is timed at the same shapes; the kernels from the
 tree the process runs in. The bf16 instances are timed at phase 16 (a)'s
@@ -22,6 +25,13 @@ version. With ``--check`` it first prints every shape's max|d| against the
 plain version without stopping at a disagreement (for the bf16 instances
 also the share of entries beyond 1e-4, which phase 16 holds to 2%), which
 is the quick look after a kernel was edited.
+
+With ``--wide`` it times the forward kernels' wide path alone: the f32
+and bf16 forward at every ``G19_FWD`` stack at ``G19_TIMED_ROWS["fwd"]``
+and the f32 and bf16 step at ``G19_TIMED_ROWS["ls"]``, each with a digest
+of its outputs (so that trees can be held bitwise equal) and the plain
+version's time; beside the forwards the cuBLAS chain in f32
+(``linear_chain``, which the port never calls).
 
 With ``--bwd`` it times the backward kernel alone: at every backward
 shape of PERF.md's kernel table (``BWD_SHAPES``: the committed stacks, on
@@ -102,6 +112,57 @@ def bwd_times(cs, dev, draw):
     return rows_out
 
 
+def digest(out) -> str:
+    """A short hash of a kernel call's outputs (one tensor or a tuple), so
+    that trees can be held bitwise equal."""
+    import torch
+
+    out = out if isinstance(out, tuple) else (out,)
+    torch.cuda.synchronize()
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in out)).hexdigest()[:16]
+
+
+def wide_times(cs, dev, draw):
+    """``--wide``: the forward kernels' wide path, as the module's
+    docstring says."""
+    import torch
+
+    from gan_mpc_tpu_torch.ops.fused_ls import (
+        fused_ls_kernel, fused_ls_kernel_bf16, reference_ls_step,
+    )
+    from gan_mpc_tpu_torch.ops.fused_mlp import (
+        fused_mlp_forward, fused_mlp_forward_bf16, reference_forward,
+    )
+
+    ms = lambda fn: cs.device_ms(fn, launches=5, reps=5)  # noqa: E731
+    rows_out = []
+    for i, (name, widths) in enumerate(cs.G19_FWD):
+        layers = cs.random_layers(widths, 2300 + i, dev)
+        lt = [(w.T.contiguous(), b) for w, b in layers]
+        for rows in cs.G19_TIMED_ROWS["fwd"]:
+            x = draw(rows, widths[0])
+            for kernel, bf16 in ((fused_mlp_forward, False), (fused_mlp_forward_bf16, True)):
+                row = {"kernel": kernel.name, "shape": f"wide {name}", "rows": rows,
+                       "digest": digest(kernel(x, layers)),
+                       "ms": ms(lambda: kernel(x, layers)),
+                       "plain_ms": ms(lambda: reference_forward(x, layers, bf16))}
+                if not bf16:
+                    row["cublas_f32_ms"] = ms(lambda: cs.linear_chain(x, lt))
+                rows_out.append(row)
+                print(json.dumps(row), flush=True)
+        for lanes, alphas in cs.G19_TIMED_ROWS["ls"]:
+            args = cs.ls_args(lanes, alphas, 17, 6, 17, cs.LS_WEIGHTS[0], 2350 + i, dev,
+                              hidden=widths[1:-1])
+            for kernel, bf16 in ((fused_ls_kernel, False), (fused_ls_kernel_bf16, True)):
+                row = {"kernel": kernel.name, "shape": f"wide {name}", "rows": lanes * alphas,
+                       "digest": digest(kernel(**args)),
+                       "ms": ms(lambda: kernel(**args)),
+                       "plain_ms": ms(lambda: reference_ls_step(**args, bf16=bf16))}
+                rows_out.append(row)
+                print(json.dumps(row), flush=True)
+    return rows_out
+
+
 # beyond chip_smoke.py's shapes: odd widths on the 64-row tile, and the
 # widest stack the kernels take (16-row tiles at any row count)
 EXTRA_CHECKS = [
@@ -141,7 +202,7 @@ def bf16_cases(cs, dev):
                    lambda x=x, layers=layers: reference_forward(x, layers, True))
 
 
-def one_tree(check: bool, bwd: bool = False) -> int:
+def one_tree(check: bool, bwd: bool = False, wide: bool = False) -> int:
     sys.path.insert(0, os.getcwd())
     import numpy as np
     import torch
@@ -165,9 +226,9 @@ def one_tree(check: bool, bwd: bool = False) -> int:
     draw = lambda rows, width: torch.tensor(rng.standard_normal((rows, width)),
                                             dtype=torch.float32, device=dev)
     out = {"tree": os.getcwd(), "card": card(), "times": []}
-    if bwd:
+    if bwd or wide:
         with torch.no_grad():
-            out["times"] = bwd_times(cs, dev, draw)
+            out["times"] = (bwd_times if bwd else wide_times)(cs, dev, draw)
         print(json.dumps(out), flush=True)
         return 0
     with torch.no_grad():
@@ -220,12 +281,14 @@ def one_tree(check: bool, bwd: bool = False) -> int:
             x = draw(rows, widths[0])
             out["times"].append({
                 "kernel": "fused_mlp_fwd", "shape": name, "rows": rows,
+                "digest": digest(fused_mlp_forward(x, layers)),
                 "ms": cs.device_ms(lambda: fused_mlp_forward(x, layers)),
                 "plain_ms": cs.device_ms(lambda: reference_forward(x, layers))})
         for i, (name, lanes, alphas, n, m, gs) in enumerate(cs.LS_TIMED):
             args = cs.ls_args(lanes, alphas, n, m, gs, cs.LS_WEIGHTS[0], 900 + i, dev)
             out["times"].append({
                 "kernel": "fused_ls_step", "shape": name, "rows": lanes * alphas,
+                "digest": digest(fused_ls_kernel(**args)),
                 "ms": cs.device_ms(lambda: fused_ls_kernel(**args)),
                 "plain_ms": cs.device_ms(lambda: reference_ls_step(**args))})
         for i, (name, widths, rows) in enumerate(cs.BWD_TIMED):
@@ -237,7 +300,7 @@ def one_tree(check: bool, bwd: bool = False) -> int:
                 "plain_ms": cs.device_ms(lambda: reference_backward(x, layers, g))})
         for kernel, shape, rows, run, plain in bf16_cases(cs, dev):
             out["times"].append({
-                "kernel": kernel.name, "shape": shape, "rows": rows,
+                "kernel": kernel.name, "shape": shape, "rows": rows, "digest": digest(run(kernel)),
                 "ms": cs.device_ms(lambda: run(kernel)), "plain_ms": cs.device_ms(plain)})
     print(json.dumps(out), flush=True)
     return 0
@@ -249,15 +312,17 @@ def main() -> int:
                     help="print each shape's error against the plain version first")
     ap.add_argument("--bwd", action="store_true",
                     help="the backward alone: PERF.md's shapes with digests, phase 19's wide ones")
+    ap.add_argument("--wide", action="store_true",
+                    help="the forward kernels' wide path alone, phase 19's shapes with digests")
     ap.add_argument("--trees", nargs="+", help="run one process per tree, in this order")
     args = ap.parse_args()
     if not args.trees:
-        return one_tree(args.check, args.bwd)
+        return one_tree(args.check, args.bwd, args.wide)
     script = os.path.abspath(__file__)
     worst, results = 0, []
     for tree in args.trees:
         cmd = [sys.executable, script] + (["--check"] if args.check else []) \
-            + (["--bwd"] if args.bwd else [])
+            + (["--bwd"] if args.bwd else []) + (["--wide"] if args.wide else [])
         proc = subprocess.run(cmd, cwd=tree, capture_output=True, text=True)
         print(proc.stdout, end="", flush=True)
         print(proc.stderr[-4000:], end="", file=sys.stderr, flush=True)
@@ -273,6 +338,7 @@ def main() -> int:
         print(json.dumps({"kernel": key[0], "shape": key[1], "rows": key[2],
                           "trees": args.trees, "ms": [t.get("ms") for t in runs],
                           "plain_ms": [t.get("plain_ms") for t in runs],
+                          "cublas_f32_ms": [t.get("cublas_f32_ms") for t in runs],
                           "peak_extra_mb": [t.get("peak_extra_mb") for t in runs],
                           "errors": [t.get("error") for t in runs],
                           "digests_equal": len(digests) == 1 if digests else None}), flush=True)

@@ -134,7 +134,7 @@ def test_mirror_constants_match_the_cuda_source():
     assert const("kMaxSmem") == fm.MAX_SMEM
     assert const("kBarrierBytes") == fm.BARRIER_BYTES
     # one pass of the warps' columns: the 16-row tile's 16 column groups, the
-    # 64-row tile's 8 (fused_mlp_fwd.cu and fused_ls_step.cu plan_wide calls)
+    # 64-row tile's 8 (plan_launch's pass_cols)
     assert fm.pass_cols(16) == 16 * 8 * fm.WARP_TILES
     assert fm.pass_cols(64) == 8 * 8 * fm.WARP_TILES
 
@@ -193,13 +193,16 @@ def test_split_w0_is_two_spans_of_the_first_chunk(n, m):
 
 def test_tiles_the_kernels_refuse():
     """The shared-memory tiles still refuse what they did; the kernels take
-    those stacks on the wide path, in passes of the tile's columns."""
+    those stacks on the wide path, a cluster of blocks a row tile, each
+    block's columns in passes of the tile's columns."""
     assert tile_plan([23, 512, 512, 17], 64) is None  # wider than the 64-row tile's 256
     assert tile_plan([23, 512, 512, 17], 16) is not None
     assert tile_plan([23, 520, 17], 16) is None
     assert fm.fwd_route(8192, [23, 512, 512, 17], 132)[:2] == ("tile", 16)
-    for rows, tile_rows, passes in ((8192, 64, [(0, 256), (256, 256), (512, 8)]),
-                                    (512, 16, [(0, 512), (512, 8)])):
-        path, got_rows, plan, work = fm.fwd_route(rows, [23, 520, 17], 132)
-        assert (path, got_rows) == ("wide", tile_rows) and work > 0
-        assert fm.column_passes(520, plan["pass_cols"]) == passes
+    for rows, tile_rows, cluster, passes in (
+            (8192, 64, 2, [[(0, 256), (256, 8)], [(264, 256)]]),
+            (512, 16, 4, [[(0, 136)], [(136, 136)], [(272, 136)], [(408, 112)]])):
+        path, got_rows, plan, got_cluster = fm.fwd_route(rows, [23, 520, 17], 132)
+        assert (path, got_rows, got_cluster) == ("wide", tile_rows, cluster)
+        assert [fm.block_passes(520, plan["cols"][0], r, plan["pass_cols"])
+                for r in range(cluster)] == passes

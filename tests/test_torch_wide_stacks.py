@@ -3,15 +3,19 @@
 On the card every stack runs through the hand-written kernels: the
 committed ones (at most ``INLINE_LAYERS`` layers, each layer one pass of
 the warps' columns, activations in shared memory) on the path they took
-before, any other on the kernels' wide path (layers in passes of 512 or
-256 columns, activations in a device workspace where shared memory does
-not hold them, the layers read from a table in device memory). Here:
+before, any other on the kernels' wide path (the forward and the step: a
+cluster of blocks a row tile, each a slice of every layer's columns,
+activations in the blocks' shared memory; the backward: passes of 512 or
+256 columns over a device workspace; the layers read from a table in
+device memory). Here:
 
   1. the Python mirrors of the kernels' planners give a plan for every
      stack of ``chip_smoke.py``'s phase 19 (a), at every row count it
      uses, and each plan keeps what the kernels rely on (shared memory
-     within a block's, whole k-steps a chunk, passes that cover the
-     columns once, aligned slots);
+     within a block's, whole k-steps a chunk, blocks' column runs and
+     passes that cover the columns once, chunks that end at every segment);
+     the forward's cluster picker at its edges (a ragged last block, one
+     with no columns, the non-portable size);
   2. every committed stack keeps today's plan on the shared-memory path
      (forward at 64 and 16 rows, the step, the backward at 16 and 32),
      pinned as literals, and the routes still pick that path;
@@ -108,10 +112,18 @@ CASES = _stack_cases()
                          ids=[f"{k}-{n}-{r}" for k, n, _, r, _ in CASES])
 def test_phase_19_stacks_get_a_wide_plan(kind, name, dims, rows, extra):
     """Each of phase 19 (a)'s calls takes the wide path with a plan that
-    keeps the kernels' rules: shared memory within a block's, at least
-    MIN_STAGES ring stages, chunks of whole k-steps of 8 that fit a stage
-    at the layer's row stride, passes that cover each layer once and deal
-    at most WARP_TILES tiles to a warp, 16-byte aligned slots."""
+    keeps the kernels' rules. The backward: shared memory within a block's,
+    at least MIN_STAGES ring stages, chunks of whole k-steps of 8 that fit
+    a stage at the layer's row stride, passes that cover each layer once
+    and deal at most WARP_TILES tiles to a warp, 16-byte aligned tiles of
+    its workspace. The forward and the step: a cluster (1, 2, 4, 8, or 16
+    on 16-row tiles) whose blocks' column runs cover every layer once in
+    passes of whole 8-column tiles, shared memory within a block's (the two
+    buffers of the widest hidden slice and WIDE_PRODUCERS stages of
+    1024-byte multiples: the step's input rows stay in device memory), chunks of a power of two rows of K that
+    end at every multiple of SEGMENT_ROWS and whose weight rows and input
+    planes fit a stage, and no workspace (no stream, a table the launch's
+    parameters hold)."""
     if kind == "bwd":
         path, tile_rows, plan, scratch = bwd_route(rows, dims, SMS)
         cols = fm.CHAIN_COLS
@@ -126,42 +138,132 @@ def test_phase_19_stacks_get_a_wide_plan(kind, name, dims, rows, extra):
         chunk_tiles = min(-(-rows // tile_rows), fm.BWD_CHUNK_ROWS // tile_rows)
         assert scratch == _up(len(dims) * (fm.LAYER_DESC_BYTES + 4), 256) \
             + chunk_tiles * 4 * plan["tile_floats"]
-        slot = plan["tile_floats"]
-        recompute = dims[1:-1]
-        assert len(plan["step"]) == len(recompute)
-        chained = dims[:-1]  # the chain's result columns: every layer's input
-    else:
-        path, tile_rows, plan, work = fwd_route(rows, dims, SMS, extra)
-        cols = pass_cols(tile_rows)
-        assert plan["pass_cols"] == cols
-        assert plan["sa"] == _up(max(dims), 8) + 4 and plan["sa"] % 8 == 4
-        planes = 4 * tile_rows * plan["sa"]
-        fixed = fm.BARRIER_BYTES + 4 * (planes * plan["planes_smem"]
-                                        + plan["extra_floats"] * plan["extra_smem"] + 8)
-        assert plan["extra_floats"] == _up(tile_rows * extra, 4)
-        recompute = dims[1:]
-        assert len(plan["step"]) == len(recompute)
-        chained = []
-        blocks = min(-(-rows // tile_rows), SMS)
-        assert work == fm.table_bytes(len(dims) - 1) + blocks * 4 * plan["slot_floats"]
-        slot = plan["slot_floats"]
-    assert path == "wide"
-    assert tile_rows == ((64 if kind != "bwd" else 32) if rows > 2 * SMS * 16 else 16)
-    assert slot % 4 == 0  # every slot, and every tile of the chunk, starts 16-byte aligned
-    assert plan["smem"] == fixed + plan["stages"] * 4 * plan["stage_floats"] <= fm.MAX_SMEM
-    assert fm.MIN_STAGES <= plan["stages"] <= fm.MAX_STAGES
-    assert plan["stage_floats"] % 4 == 0 and plan["stage_floats"] <= 64 * cols
-    for n, step in zip(recompute, plan["step"]):
-        # a chunk holds whole rows of a layer of at most `cols` columns, or
-        # column slabs `cols` floats a row of a wider one, with its zero rows
-        assert step % 8 == 0 and step >= 8 and step * min(n, cols) <= plan["stage_floats"]
-    groups = fm.CONSUMER_WARPS // {64: 2, 32: 1, 16: 1}[tile_rows]
-    for n in list(recompute) + chained:
-        passes = column_passes(n, cols)
-        assert [c for c0, w in passes for c in range(c0, c0 + w)] == list(range(n))
+        assert plan["tile_floats"] % 4 == 0  # every tile of the chunk starts 16-byte aligned
+        assert tile_rows == (32 if rows > 2 * SMS * 16 else 16)
+        assert plan["smem"] == fixed + plan["stages"] * 4 * plan["stage_floats"] <= fm.MAX_SMEM
+        assert fm.MIN_STAGES <= plan["stages"] <= fm.MAX_STAGES
+        assert plan["stage_floats"] % 4 == 0 and plan["stage_floats"] <= 64 * cols
+        for n, step in zip(dims[1:-1], plan["step"]):
+            assert step % 8 == 0 and step >= 8 and step * min(n, cols) <= plan["stage_floats"]
+        for n in dims[1:-1] + dims[:-1]:
+            passes = column_passes(n, cols)
+            assert [c for c0, w in passes for c in range(c0, c0 + w)] == list(range(n))
+            for _, w in passes:
+                assert all(t <= fm.WARP_TILES for _, t in column_runs(w, fm.CONSUMER_WARPS))
+        return
+    path, tile_rows, plan, cluster = fwd_route(rows, dims, SMS, extra)
+    assert path == "wide" and cluster == plan["cluster"] in (1, 2, 4, 8, 16)
+    assert not plan["streamed"] and len(dims) - 1 <= fm.TABLE_LAYERS
+    assert fm.fwd_workspace_bytes(dims, tile_rows, plan, -(-rows // tile_rows)) == 0
+    big = rows > 2 * SMS * 16
+    at_64 = [c for c in (1, 2, 4, 8) if fm.wide_plan(dims, 64, c, extra > 0)]
+    assert tile_rows == (64 if big and at_64 else 16)
+    assert cluster <= (fm.PORTABLE_CLUSTER if tile_rows == 64 else fm.MAX_CLUSTER)
+    cols = pass_cols(tile_rows)
+    assert plan["pass_cols"] == cols
+    for n, c in zip(dims[1:], plan["cols"]):
+        assert c == 8 * -(-(-(-n // 8)) // cluster)
+        passes = [p for r in range(cluster) for p in fm.block_passes(n, c, r, cols)]
+        assert [i for c0, w in passes for i in range(c0, c0 + w)] == list(range(n))
         assert all(c0 % 8 == 0 and w <= cols for c0, w in passes)
         for _, w in passes:
-            assert all(t <= fm.WARP_TILES for _, t in column_runs(w, groups))
+            assert all(t <= fm.WARP_TILES for _, t in column_runs(w, fm.CONSUMER_WARPS
+                                                                   // {64: 2, 16: 1}[tile_rows]))
+    hidden = plan["cols"][:-1]
+    assert plan["sb"] == (max(hidden) + 4 if hidden else 0) and plan["sb"] % 8 in (0, 4)
+    assert plan["stages"] == fm.WIDE_PRODUCERS and plan["stage_floats"] % 256 == 0
+    fixed = fm.BARRIER_BYTES + 1024 + 4 * (2 * tile_rows * plan["sb"] + 8)
+    assert plan["smem"] == fixed + plan["stages"] * 4 * plan["stage_floats"] <= fm.MAX_SMEM
+    for l, (n, c, mode, step) in enumerate(zip(dims[1:], plan["cols"], plan["mode"],
+                                               plan["step"])):
+        assert mode == fm.wide_mode(n, cols, extra > 0 and l == 0)
+        assert step >= 8 and step & (step - 1) == 0 and fm.SEGMENT_ROWS % step == 0
+        assert step <= (fm.MAX_BOX_ROWS if mode == fm.ROWS_BOXES else fm.SEGMENT_ROWS)
+        wf = fm.wide_row_floats(mode, min(c, cols), n)
+        assert step * wf + 2 * tile_rows * (step + 4) <= plan["stage_floats"]
+
+
+@pytest.mark.parametrize("rows,dims,extra,want", [
+    (512, [23, 1024, 1024, 1024, 17], 0, (16, 4)),    # one wave: 32 tiles x 4 blocks
+    (8192, [23, 1024, 1024, 1024, 17], 0, (64, 4)),   # the smallest that fits
+    (8192, [23, 2048, 2048, 17], 23, (64, 8)),
+    (8192, [23, 4096, 17], 0, (16, 4)),               # 64-row tiles would need 16 blocks
+    (1, [23, 4096, 17], 0, (16, 8)),                  # raised to the portable most
+    (37, [23] + [200] * 8 + [17], 0, (16, 2)),        # a block's warps hold a tile each from 2
+    (512, [23] + [64] * 30 + [17], 0, (16, 1)),
+    (8192, [23] + [8192] * 4 + [17], 0, (16, 8)),
+    (300, [23, 16384, 17], 0, (16, 16)),              # only the non-portable size holds it
+    (512, [23, 520, 17], 0, (16, 4)),                 # a ragged last block
+])
+def test_cluster_picker(rows, dims, extra, want):
+    """``wide_cluster``, the mirror of ``plan_launch``: the smallest cluster
+    whose slices fit, raised to fill the SMs with one wave of clusters (to
+    PORTABLE_CLUSTER, while some layer deals a block more tiles than it has
+    column groups); the 64-row tile only on portable clusters."""
+    tile_rows, plan = fm.wide_cluster(rows, dims, SMS, extra)
+    assert (tile_rows, plan["cluster"]) == want
+    assert plan == fm.wide_plan(dims, tile_rows, want[1], extra > 0)
+    smaller = want[1] // 2
+    tiles = -(-rows // tile_rows)
+    if smaller and fm.wide_plan(dims, tile_rows, smaller, extra > 0):
+        assert tiles * want[1] <= SMS  # raised only while a wave still fits
+
+
+def _first_streamed_width():
+    """The narrowest single hidden layer (in whole tiles of 8) whose slices
+    no cluster of MAX_CLUSTER holds on the 16-row tile."""
+    n = 8
+    while fm.wide_plan([23, n, 17], 16, fm.MAX_CLUSTER) is not None:
+        n += 8
+    return n
+
+
+def test_streamed_plans():
+    """Past the widths a cluster of 16 holds, the forward and the step
+    stream their activations: the 16-row tile, a plan whose two buffers
+    (whole rows of the widest hidden layer, rounded up to 4) take no shared
+    memory, the cluster picked as for any stack from 1, and a workspace of
+    those buffers a cluster. The first such width lies between 18,432 (a
+    cluster of 16 holds it) and 20,000."""
+    first = _first_streamed_width()
+    assert 18432 < first <= 20000
+    held = fwd_route(300, [23, first - 8, 17], SMS)
+    assert held[2]["cluster"] == fm.MAX_CLUSTER and not held[2]["streamed"]
+    for rows, dims, extra, want in ((300, [23, first, 17], 0, (16, 4)),
+                                    (8192, [23, 24576, 17], 0, (16, 1)),
+                                    (37, [23, 24576, 24576, 17], 23, (16, 8)),
+                                    (1, [23, 1000, 30000, 17], 0, (16, 8))):
+        path, tile_rows, plan, cluster = fwd_route(rows, dims, SMS, extra)
+        assert (path, tile_rows, cluster) == ("wide", *want) and plan["streamed"]
+        assert plan == fm.wide_plan(dims, 16, cluster, extra > 0, True)
+        assert plan["sb"] == _up(max(dims[1:-1]), 4)
+        fixed = fm.BARRIER_BYTES + 1024 + 4 * 8  # the ring alone
+        assert plan["smem"] == fixed + plan["stages"] * 4 * plan["stage_floats"] <= fm.MAX_SMEM
+        clusters = min(-(-rows // 16), SMS // cluster)
+        assert fm.fwd_workspace_bytes(dims, 16, plan, clusters) == \
+            clusters * 2 * 16 * plan["sb"] * 4
+
+
+def test_deep_tables_take_a_workspace_head():
+    """A stack of at most TABLE_LAYERS layers travels in the launch's
+    parameters; each further layer's WideLayer and tensor map go to the
+    workspace's head (the WideLayers padded to 128, the whole to 256)."""
+    for layers, want in ((fm.TABLE_LAYERS, 0), (fm.TABLE_LAYERS + 1, 256),
+                         (70, _up(6 * 32, 128) + 6 * 128), (200, _up(136 * 32, 128) + 136 * 128)):
+        dims = [23] + [32] * (layers - 1) + [17]
+        _, tile_rows, plan, _ = fwd_route(37, dims, SMS)
+        assert not plan["streamed"]
+        assert fm.fwd_workspace_bytes(dims, tile_rows, plan, 3) == _up(want, 256)
+
+
+def test_ragged_clusters():
+    """A cluster whose last block owns fewer columns, or none: the blocks'
+    runs still cover each layer once (17 columns on 4 blocks: 8, 8, 1, none;
+    520 on 4: three of 136 and one of 112)."""
+    for n, cluster, runs in ((17, 4, [8, 8, 1, 0]), (520, 4, [136, 136, 136, 112])):
+        cols = 8 * -(-(-(-n // 8)) // cluster)
+        got = [sum(w for _, w in fm.block_passes(n, cols, r, 512)) for r in range(cluster)]
+        assert got == runs and sum(got) == n
 
 
 # Today's plans of the committed stacks (dynamics, cost, gan/4's 256-wide
@@ -259,14 +361,16 @@ def test_committed_stacks_keep_their_plans(key):
 
 def test_depth_and_width_are_not_capped():
     """No constant refuses a stack: 64 and 100 layers, a 16384-wide layer,
-    a 1-wide one, all get plans on the wide path."""
+    20000- and 24576-wide ones (which stream), a 1-wide one, all get plans
+    on the wide path."""
     for dims in ([23] + [64] * 63 + [17], [23] + [32] * 99 + [17], [23, 16384, 17],
-                 [1, 1, 1], [5000, 3]):
+                 [23, 20000, 17], [23, 24576, 17], [1, 1, 1], [5000, 3]):
         for rows in (1, 8192):
             assert fwd_route(rows, dims, SMS)[0] in ("tile", "wide")
             assert fwd_route(rows, dims, SMS, dims[0])[2] is not None
             assert bwd_route(rows, dims, SMS)[2] is not None
     assert fwd_route(8192, [23] + [64] * 63 + [17], SMS)[0] == "wide"
+    assert fwd_route(1, [23, 24576, 17], SMS)[2]["streamed"]
     assert bwd_route(128, [23, 16384, 17], SMS)[0] == "wide"
     assert not hasattr(fm, "MAX_WIDTH") and not hasattr(fm, "MAX_LAYERS")
 
@@ -275,27 +379,57 @@ def test_mirror_constants_match_the_cuda_sources():
     const = lambda src, name: int(re.search(rf"constexpr \w+ {name} = (\d+);", src).group(1))
     tile = (CSRC / "mlp_tile.cuh").read_text()
     bwd = (CSRC / "fused_mlp_bwd.cu").read_text()
+    mma = (CSRC / "mlp_tile_mma.cuh").read_text()
     assert const(tile, "kInlineLayers") == fm.INLINE_LAYERS
     assert "kMaxLayers" not in tile and "kMaxWidth" not in tile
     assert "kSlotSlack" not in bwd  # the wide backward's planes are a chunk's, read in bounds
     assert const(bwd, "kChunkRows") == fm.BWD_CHUNK_ROWS
     assert "constexpr int kChainCols = kConsumerWarps * 8 * kWarpTiles;" in bwd
-    # LayerDesc: two pointers and six ints, 40 bytes
+    # LayerDesc (the backward's table): two pointers and six ints, 40 bytes
     desc = re.search(r"struct LayerDesc \{(.*?)\};", tile, re.S).group(1)
     assert len(re.findall(r"const float\* \w+;", desc)) == 2
     assert sum(len(re.findall(r"\w+", m)) for m in re.findall(r"int ([\w, ]+);", desc)) == 6
     assert 8 * 2 + 4 * 6 == fm.LAYER_DESC_BYTES
-    mma = (CSRC / "mlp_tile_mma.cuh").read_text()
-    helper = re.search(r"inline int wide_workspace\(.*?\n\}", mma, re.S).group(0)
-    assert "return -2;" in helper and fm.NEED_WORKSPACE == -2
+    # WideLayer (the forward kernels' table): two pointers and four ints, 32 bytes
+    desc = re.search(r"struct WideLayer \{(.*?)\};", mma, re.S).group(1)
+    assert len(re.findall(r"const float\* \w+;", desc)) == 2
+    assert sum(len(re.findall(r"\w+", m)) for m in re.findall(r"int ([\w, ]+);", desc)) == 4
+    assert 8 * 2 + 4 * 4 == fm.WIDE_LAYER_BYTES
+    assert const(mma, "kSegmentRows") == fm.SEGMENT_ROWS
+    assert const(mma, "kPortableCluster") == fm.PORTABLE_CLUSTER
+    assert const(mma, "kMaxCluster") == fm.MAX_CLUSTER
+    assert const(mma, "kWideProducers") == fm.WIDE_PRODUCERS
+    assert const(mma, "kBoxCols") == fm.BOX_COLS and const(mma, "kMaxBoxRows") == fm.MAX_BOX_ROWS
+    modes = re.search(r"constexpr int kRowsWhole = (\d), kRowsBoxes = (\d), kRowsEach = (\d);",
+                      mma).groups()
+    assert tuple(map(int, modes)) == (fm.ROWS_WHOLE, fm.ROWS_BOXES, fm.ROWS_EACH)
+    assert "return ((pw + 3 + 23) & ~31) + 8;" in mma  # wide_row_floats, rows at their phase
+    # the forward's table: kTableLayers layers in the launch's parameters, the
+    # further ones' WideLayers padded to 128 and their maps at the workspace's
+    # head, padded to 256, then a streamed plan's buffers (four bytes a float)
+    assert const(mma, "kTableLayers") == fm.TABLE_LAYERS
+    assert "const int far = max(0, n - kTableLayers);" in mma
+    assert "((size_t)far * sizeof(WideLayer) + 127) & ~(size_t)127" in mma
+    assert "(far_head + (size_t)far * sizeof(CUtensorMap) + 255) & ~(size_t)255" in mma
+    assert "(size_t)clusters * 2 * tile_rows * plan.sb * sizeof(float)" in mma
+    assert "p->sb = streamed ? (hidden + 3) & ~3 : slice > 0 ? slice + 4 : 0;" in mma
+    assert "resident_copy" not in mma + tile and "WIDE_CLOCKS" not in mma
+    # every kernel asks for its workspace with -2: the backward's walk, the
+    # forward's and the step's streamed plans and deep tables
+    assert fm.NEED_WORKSPACE == -2 and "constexpr int kNeedWorkspace = -2;" in mma
     for name in ("fused_mlp_fwd.cu", "fused_ls_step.cu", "fused_mlp_bwd.cu"):
         src = (CSRC / name).read_text()
         assert "n_layers <= kInlineLayers" in src
-        # the backward's wide workspace has a head of its own (launch_wide), the same -2
-        assert ("wide_workspace(" in src) == (name != "fused_mlp_bwd.cu")
+        assert ("return -2;" in src) == (name == "fused_mlp_bwd.cu")
+        assert ("launch_clusters(kernel, TM, plan, clusters, stream" in src) == \
+            (name != "fused_mlp_bwd.cu")
+        if name != "fused_mlp_bwd.cu":  # the table travels as a __grid_constant__ parameter
+            assert "const __grid_constant__ WideTable table" in src
+            assert "most == kMaxCluster, &plan, &clusters" in src  # streamed on the 16-row tile
     assert "return -2;" in re.search(r"int launch_wide\(.*?\n\}", bwd, re.S).group(0)
-    for name in ("fused_mlp_fwd.cu", "fused_ls_step.cu"):
-        assert "8 * kWarpTiles * kConsumerWarps / WM" in (CSRC / name).read_text()  # pass_cols
+    # pass_cols: the warps' columns on the 16-row tile's 16 column groups, the 64-row tile's 8
+    assert "8 * kWarpTiles * kConsumerWarps / (tile_rows == 64 ? 2 : 1)" in mma
+
 
 
 def _layers(widths, seed):

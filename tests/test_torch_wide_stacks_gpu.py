@@ -14,7 +14,12 @@ The wide backward's memory: one call's growth of the allocator's peak
 within its gradient set, dx and one chunk's workspace (23->1024^3->17 at
 128 rows within 68.5 MB besides its workspace, 23->4096^3->17 at 8192
 rows), 23->8192^4->17 at 8192 rows against the plain version (and its
-forward and step), and two calls over two chunks bitwise equal.
+forward and step), and two calls over two chunks bitwise equal. The
+forward's and the step's cluster launches at the picker's edges (ragged
+tiles and blocks, a block without columns, the non-portable size, one
+block, activations streamed through a workspace, a table past the launch's
+parameters) against the mirror's plan, and a wide forward and step
+captured in a CUDA graph, replayed bitwise equal to eager calls.
 
 These tests import no JAX, so they run on a host with a card alone:
 
@@ -98,6 +103,88 @@ def test_wide_forward_matches_plain_and_counts_a_launch(dev, name, dims, rows):
         with cs.tensor_core_products():
             plain = reference_forward(x, layers, True)
         _hold((got,), (reference_forward(x, layers, True),), True, (plain,), rows)
+
+
+# the cluster picker's edges: a ragged last tile (37 rows, 8190 rows on
+# 64-row tiles), a cluster whose last block owns fewer columns (520 on 4
+# blocks) or none (a 17-wide last layer on 4 and 8 blocks), the non-portable
+# size (16384 columns), a cluster of one (32 layers of 64), weights one
+# float off 16-byte alignment (no TMA: a bulk copy a row at its phase); and
+# the routes that take a workspace: hidden layers too wide for a cluster of
+# 16 (their activations stream through device memory: 24576 columns, and
+# 30000 beside 1000 at one row) and a stack deeper than the table the
+# launch's parameters hold (70 layers)
+CLUSTER_CASES = [
+    ("1024-1024 37 rows", [23, 1024, 1024, 17], 37, 0),
+    ("520 ragged blocks", [23, 520, 17], 512, 0),
+    ("1024^3 8190 rows", [23, 1024, 1024, 1024, 17], 8190, 0),
+    ("16384", [23, 16384, 17], 300, 0),
+    ("64^30 one block", [23] + [64] * 30 + [17], 100, 0),
+    ("1024-1024 unaligned", [23, 1024, 1024, 17], 512, 1),
+    ("24576 streamed", [23, 24576, 17], 512, 0),
+    ("1000-30000 streamed 1 row", [23, 1000, 30000, 17], 1, 0),
+    ("70 layers", [23] + [32] * 69 + [17], 37, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dims,rows,offset", CLUSTER_CASES,
+                         ids=[c[0] for c in CLUSTER_CASES])
+def test_wide_launch_takes_the_planned_cluster(dev, name, dims, rows, offset):
+    """The forward and the step launch the cluster the mirror plans
+    (``fwd_route``: its tile height and size, on an H100 that places every
+    size, and whether the activations stream), one launch a call, and match
+    their plain versions (1e-4 max(1, max|ref|))."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    layers = cs.offset_layers(cs.random_layers(dims, 13, dev), offset)
+    x = torch.tensor(np.random.default_rng(13).standard_normal((rows, dims[0])),
+                     dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        got = _launched(fused_mlp_forward, lambda: fused_mlp_forward(x, layers))
+        _hold((got,), (reference_forward(x, layers),))
+        _, tile_rows, plan, cluster = fwd_route(rows, dims, sms)
+        launch = fused_mlp_forward.wide_launch()
+        assert (launch["tile_rows"], launch["cluster"]) == (tile_rows, cluster)
+        assert launch["streamed"] == plan["streamed"]
+        # the mirror plans aligned weights: unaligned ones go row by row, in wider stage rows
+        assert launch["smem"] == plan["smem"] or offset
+        assert launch["clusters"] == min(-(-rows // tile_rows), launch["clusters"]) >= 1
+        if dims[-1] == 17:  # a dynamics stack for n = 17, m = 6
+            args = cs.ls_args(rows, 1, 17, 6, 17, cs.LS_WEIGHTS[3], 13, dev, offset,
+                              hidden=dims[1:-1])
+            _hold(_launched(fused_ls_kernel, lambda: fused_ls_kernel(**args)),
+                  reference_ls_step(**args))
+            _, tile_rows, plan, cluster = fwd_route(rows, dims, sms, dims[0])
+            launch = fused_ls_kernel.wide_launch()
+            assert (launch["tile_rows"], launch["cluster"]) == (tile_rows, cluster)
+            assert launch["streamed"] == plan["streamed"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [[23, 1024, 1024, 1024, 17], [23, 24576, 17]],
+                         ids=["1024^3", "24576 streamed"])
+def test_captured_wide_forward_and_step_replay_bitwise(dev, dims):
+    """The wide forward and step launch nothing but the kernel (their
+    table travels in the launch's parameters; a streamed plan's workspace
+    comes from the graph's pool): each is captured in a CUDA graph, and the
+    replays give the eager outputs bitwise (512 rows and 512 x 16)."""
+    layers = cs.random_layers(dims, 14, dev)
+    x = torch.tensor(np.random.default_rng(14).standard_normal((512, dims[0])),
+                     dtype=torch.float32, device=dev)
+    args = cs.ls_args(512, 16, 17, 6, 17, cs.LS_WEIGHTS[3], 14, dev, hidden=dims[1:-1])
+    with torch.no_grad():
+        eager_y = fused_mlp_forward(x, layers)
+        eager_step = fused_ls_kernel(**args)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = fused_mlp_forward(x, layers)
+            step = fused_ls_kernel(**args)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(y, eager_y)
+            assert all(torch.equal(a, b) for a, b in zip(step, eager_step))
 
 
 @pytest.mark.gpu
